@@ -1,0 +1,126 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded with
+``ctypes``. The build runs the first time a CUDA tensor reaches a kernel,
+never at import; it lands in ``build/kernels/`` at the root of the
+checkout, keyed on a hash of the sources and flags, so an unchanged tree
+reuses its library and an edited one rebuilds.
+
+Each kernel wrapper counts its launches in ``LAUNCHES`` (one per launch,
+nowhere else) so a run can show that its main path went through the
+kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    # Float chains (the sampler's weights) round op by op, as the plain
+    # torch versions and XLA's separate ops do.
+    "--fmad=false",
+    "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+LAUNCHES = {"harris_score_i32": 0, "smoothed_intensity": 0}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cands.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libbrisk_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless a library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.brisk_harris_score_i32.argtypes = [vp, vp, ci, ci, ci, vp]
+            lib.brisk_harris_score_i32.restype = ci
+            lib.brisk_smoothed_intensity.argtypes = [
+                vp, ci, ci,                # integral, cols, frame_rows
+                vp, vp,                    # key_x, key_y
+                vp, vp, vp, vp, vp,        # pat_x, pat_y, sigma, scaling, scaling2
+                vp, vp, ci, ci, vp,        # row_base, out, K, P, stream
+            ]
+            lib.brisk_smoothed_intensity.restype = ci
+            lib.brisk_error_string.argtypes = [ci]
+            lib.brisk_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        msg = library().brisk_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({msg})")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,366 @@
+"""BRISK v2 scale-space detection, Harris path (port of ``detect/scale_space.py``).
+
+Mirrors ``ScaleSpaceFeatureDetector<HarrisScoreCalculator>``
+(scale-space-feature-detector.h:62-136, scale-space-layer-inl.h:60-428)
+over a batch of frames ``(B, H, W)``:
+
+* pyramid: layer 0 = input, layer 1 = two-thirds sample, layer i >= 2 =
+  half-sample of layer i-2;
+* Harris scores per layer (kernel K1 on the card);
+* 2-D maxima, then the 3-D checks against the neighbour layers: the
+  reference's bilinear ScoreAbove/ScoreBelow at affine-mapped coordinates
+  are exact rationals, so ``center * D^2`` is compared with the
+  integer-weighted bilinear sum in int64 (the JAX package splits the same
+  sum into two int32 words because the TPU has no int64; the result is
+  bit-equal);
+* score-descending candidates per layer (a stable sort: ties go to the
+  lower flat index, as ``lax.top_k``);
+* greedy uniformity, accepted-prefix compaction, sub-pixel refinement and
+  coordinate un-mapping ``x = scale*((x+dx)+offset)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ethzasl_brisk_tpu_torch.core.keypoints import KeyPoints
+from ethzasl_brisk_tpu_torch.detect.subpixel import subpixel2d
+from ethzasl_brisk_tpu_torch.detect.uniformity import bucket_keypoints, enforce_uniformity
+from ethzasl_brisk_tpu_torch.kernels.downsample import halfsample8, twothirdsample8
+from ethzasl_brisk_tpu_torch.kernels.harris import harris_score_i32_fused
+from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
+
+INT32_MIN = -(2**31)
+INT32_MAX = 2**31 - 1
+
+Mark = Callable[[str], None]
+
+
+def _no_mark(name: str) -> None:
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerGeometry:
+    """Static geometry of one pyramid layer."""
+
+    index: int
+    is_octave: bool
+    scale: float
+    offset: float
+
+    # Exact-rational affine map u -> (A*u + B) / D into the neighbour layer
+    # (scale-space-layer-inl.h:143-156).
+    @property
+    def above_map(self) -> tuple[int, int, int]:
+        return (4, -1, 6) if self.is_octave else (6, -1, 8)
+
+    @property
+    def below_map(self) -> tuple[int, int, int]:
+        return (12, 2, 9) if self.is_octave else (24, 3, 16)
+
+
+def layer_geometry(index: int) -> LayerGeometry:
+    is_octave = index % 2 == 0
+    scale = float(2 ** (index // 2)) * (1.0 if is_octave else 1.5)
+    return LayerGeometry(index, is_octave, scale, scale * 0.5 - 0.5)
+
+
+def build_pyramid(imgs: torch.Tensor, n_layers: int) -> list[torch.Tensor]:
+    """Layer images: [img, 2/3(img), 1/2(img), 1/2(layer1), ...]."""
+    layers = [imgs]
+    if n_layers > 1:
+        layers.append(twothirdsample8(imgs))
+    for i in range(2, n_layers):
+        layers.append(halfsample8(layers[i - 2]))
+    return layers
+
+
+def _axis_terms(n: int, limit: int, a: int, b: int, d: int):
+    """C-truncated source indices, fraction numerators and validity of the
+    map (a*u + b) / d over u in [0, n) (exact integer math)."""
+    val = a * np.arange(n, dtype=np.int64) + b
+    i0 = np.where(val >= 0, val // d, -((-val) // d))
+    frac = val - i0 * d
+    ok = (i0 + 1 < limit) & (i0 >= 0)
+    return i0, frac, ok
+
+
+def warp_scores(
+    src: torch.Tensor, affine: tuple[int, int, int], dst_shape: tuple[int, int]
+) -> torch.Tensor:
+    """D^2-scaled bilinear sample of a neighbour layer's scores, int64.
+
+    W = D^2 * Score(u, v) with u = (A*x+B)/D, v = (A*y+B)/D, exactly; 0
+    where the reference's bilinear returns 0 (harris-score-calculator.h:
+    57-74: truncated u_int, zero if u_int+1 >= cols, v_int+1 >= rows or
+    either is negative; u in (-1, 0) truncates to 0 and extrapolates).
+    """
+    a, b, d = affine
+    rows, cols = src.shape[-2:]
+    h, w = dst_shape
+    dev = src.device
+    u0, fu, oku = _axis_terms(w, cols, a, b, d)
+    v0, fv, okv = _axis_terms(h, rows, a, b, d)
+
+    def idx(i):
+        return torch.as_tensor(np.clip(i, 0, None), device=dev)
+
+    s = src.to(torch.int64)
+    r0 = s.index_select(-2, idx(np.minimum(v0, rows - 1)))
+    r1 = s.index_select(-2, idx(np.minimum(v0 + 1, rows - 1)))
+    cu0 = idx(np.minimum(u0, cols - 1))
+    cu1 = idx(np.minimum(u0 + 1, cols - 1))
+    p00, p01 = r0.index_select(-1, cu0), r0.index_select(-1, cu1)
+    p10, p11 = r1.index_select(-1, cu0), r1.index_select(-1, cu1)
+    fu_t = torch.as_tensor(fu, device=dev)[None, :]
+    fv_t = torch.as_tensor(fv, device=dev)[:, None]
+    out = (d - fv_t) * ((d - fu_t) * p00 + fu_t * p01) + fv_t * (
+        (d - fu_t) * p10 + fu_t * p11
+    )
+    valid = torch.as_tensor(okv[:, None] & oku[None, :], device=dev)
+    return torch.where(valid, out, torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _max3x3_zero_fill(x: torch.Tensor) -> torch.Tensor:
+    """3x3 neighbourhood maximum, reading 0 outside the image."""
+    h, w = x.shape[-2:]
+    p = F.pad(x, (1, 1, 1, 1), value=0)
+    out = x
+    for dy in range(3):
+        for dx in range(3):
+            out = torch.maximum(out, p[..., dy : dy + h, dx : dx + w])
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectorConfig:
+    """Mirrors the ScaleSpaceFeatureDetector ctor arguments
+    (scale-space-feature-detector.h:69-77) plus the static capacities.
+
+    ``max_candidates`` and ``refine_capacity`` may be per-layer tuples;
+    overflow drops the lowest-priority entries, which
+    :class:`DetectDiagnostics` reports.
+    """
+
+    octaves: int = 0
+    uniformity_radius: float = 30.0
+    absolute_threshold: float = 0.0
+    max_num_kpt: int = 2**31 - 1
+    max_candidates: "int | tuple" = 4096
+    max_keypoints: int = 4096
+    refine_capacity: "int | tuple | None" = None
+    uniformity_block: int = 256
+
+    @property
+    def n_layers(self) -> int:
+        return max(self.octaves * 2, 1)
+
+    def layer_cap(self, i: int) -> int:
+        mc = self.max_candidates
+        return mc[i] if isinstance(mc, tuple) else mc
+
+    def refine_cap(self, i: int) -> "int | None":
+        rc = self.refine_capacity
+        if rc is None:
+            return None
+        return rc[i] if isinstance(rc, tuple) else rc
+
+
+def layer_score_masks(
+    pyramid: list[torch.Tensor], config: DetectorConfig, mark: Mark = _no_mark
+) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """Per-layer (scores, candidate masks), each (B, h, w), for a pyramid."""
+    n_layers = len(pyramid)
+    geoms = [layer_geometry(i) for i in range(n_layers)]
+    scores = [harris_score_i32_fused(im) for im in pyramid]
+    mark("harris")
+    thr = int(config.absolute_threshold)
+    masks = []
+    for i in range(n_layers):
+        sc = scores[i]
+        h, w = sc.shape[-2:]
+        mask = maxima2d_mask(sc, thr)
+        center = sc.to(torch.int64)
+        if i + 1 < n_layers:
+            # Above: the truncated one_over_scale_above == 1
+            # (scale-space-layer-inl.h:225), so the reference probes the 9
+            # points (x+-1, y+-1) of the warped map; out-of-image probes
+            # read 0.
+            a, b, d = geoms[i].above_map
+            warped = warp_scores(scores[i + 1], (a, b, d), (h, w))
+            mask &= center * (d * d) >= _max3x3_zero_fill(warped)
+        if i > 0:
+            # Below: one_over_scale_below truncates to 0 -> one probe.
+            a, b, d = geoms[i].below_map
+            mask &= center * (d * d) >= warp_scores(scores[i - 1], (a, b, d), (h, w))
+        masks.append(mask)
+    mark("masks")
+    return scores, masks
+
+
+class DetectDiagnostics(NamedTuple):
+    """Exactness certificate for the static capacities, per frame.
+
+    ``ok`` holds when no per-layer candidate cap and no refine cap
+    truncated on that frame. Fields have a leading batch axis.
+    """
+
+    ok: torch.Tensor               # (B,) bool
+    cand_counts: torch.Tensor      # (B, L) int32: 2d/3d maxima per layer
+    cand_caps: torch.Tensor        # (L,) int32
+    accepted_counts: torch.Tensor  # (B, L) int32: uniformity-accepted
+    refine_caps: torch.Tensor      # (L,) int32 (INT32_MAX = uncapped)
+
+
+def _layer_candidates(sc: torch.Tensor, mask: torch.Tensor, cap: int):
+    """Score-descending candidates of one layer: (xs, ys, scores, valid),
+    each (B, k); ties go to the lower flat index."""
+    bsz, h, w = sc.shape
+    k = min(cap, h * w)
+    masked = torch.where(mask, sc, torch.full_like(sc, INT32_MIN)).reshape(bsz, -1)
+    top_scores, top_idx = torch.sort(masked, dim=1, descending=True, stable=True)
+    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    ys = torch.div(top_idx, w, rounding_mode="floor").to(torch.int32)
+    xs = (top_idx % w).to(torch.int32)
+    valid = torch.gather(mask.reshape(bsz, -1), 1, top_idx)
+    return xs, ys, top_scores, valid
+
+
+def _layer_accept(cand, config: DetectorConfig) -> torch.Tensor:
+    xs, ys, top_scores, valid = cand
+    cap = min(config.max_num_kpt, xs.shape[1])
+    if config.uniformity_radius > 0.0:
+        return enforce_uniformity(
+            xs, ys, top_scores, valid,
+            radius=float(config.uniformity_radius),
+            max_num_kpt=cap,
+            block=config.uniformity_block,
+        )
+    return bucket_keypoints(valid, cap)
+
+
+def compact_accepted(xs, ys, top_scores, valid, accept, config, cap=None):
+    """Compact accepted candidates to a min(max_num_kpt, k, cap) prefix,
+    keeping their score order (a stable partition)."""
+    k = xs.shape[1]
+    cap = min(k, config.max_num_kpt, k if cap is None else cap)
+    cols = (xs, ys, top_scores, valid, accept)
+    if cap < k:
+        order = torch.sort((~accept).to(torch.uint8), dim=1, stable=True).indices[:, :cap]
+        cols = tuple(torch.gather(c, 1, order) for c in cols)
+    return cols
+
+
+def _score_patches(sc: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """(B, C, 3, 3) patches, patch[a, b] = Score(x+b-1, y+a-1), clipped at
+    the border (scale-space-layer-inl.h:394-402)."""
+    bsz, h, w = sc.shape
+    flat = sc.reshape(bsz, -1)
+    rows = []
+    for dy in (-1, 0, 1):
+        yy = torch.clamp(ys + dy, 0, h - 1).to(torch.int64)
+        taps = [
+            torch.gather(flat, 1, yy * w + torch.clamp(xs + dx, 0, w - 1))
+            for dx in (-1, 0, 1)
+        ]
+        rows.append(torch.stack(taps, dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
+def _refine_keypoints_fused(scores, compacted, geoms) -> KeyPoints:
+    """Sub-pixel refine + packing of every layer in one pass.
+
+    One subpixel fit runs over all layers' slots, packed layer-major; the
+    JAX package's fused and per-layer tails give this same output.
+    """
+    patches, cols = [], []
+    for sc, (xs, ys, top_scores, _, accept), g in zip(scores, compacted, geoms):
+        patches.append(_score_patches(sc, xs, ys))
+        ones = torch.ones(xs.shape, dtype=torch.float32, device=xs.device)
+        cols.append(dict(
+            x=xs, y=ys, scale=ones * g.scale, offset=ones * g.offset,
+            size=ones * (g.scale * 12.0), octave=torch.full_like(xs, g.index // 2),
+            response=top_scores.to(torch.float32), valid=accept,
+        ))
+    cat = {name: torch.cat([c[name] for c in cols], dim=1) for name in cols[0]}
+    delta_x, delta_y, _ = subpixel2d(torch.cat(patches, dim=1).to(torch.float32))
+    # KeyPointX = _scale * ((x + delta_x) + _offset) (scale-space-layer-inl.h:405).
+    fx = cat["scale"] * ((cat["x"].to(torch.float32) + delta_x) + cat["offset"])
+    fy = cat["scale"] * ((cat["y"].to(torch.float32) + delta_y) + cat["offset"])
+    return KeyPoints(
+        x=fx,
+        y=fy,
+        size=cat["size"],
+        angle=torch.full_like(fx, -1.0),
+        response=cat["response"],
+        octave=cat["octave"],
+        valid=cat["valid"],
+    )
+
+
+def detect_keypoints(
+    imgs: torch.Tensor,
+    config: DetectorConfig,
+    with_diagnostics: bool = False,
+    mark: Mark = _no_mark,
+):
+    """Scale-space detection on a batch of uint8 frames (B, H, W).
+
+    Returns KeyPoints with (B, C) fields, C the sum of the per-layer
+    compacted capacities, and with ``with_diagnostics`` a
+    :class:`DetectDiagnostics`. ``mark(stage)`` is called after each stage
+    (the per-stage timers hook in there).
+    """
+    n_layers = config.n_layers
+    pyramid = build_pyramid(imgs, n_layers)
+    mark("pyramid")
+    scores, masks = layer_score_masks(pyramid, config, mark)
+    cands = [
+        _layer_candidates(scores[i], masks[i], config.layer_cap(i)) for i in range(n_layers)
+    ]
+    mark("candidates")
+    accepts = [_layer_accept(c, config) for c in cands]
+    mark("uniformity")
+
+    diag = None
+    if with_diagnostics:
+        dev = imgs.device
+        # Candidate-cap overflow is value-neutral when uniformity is off and
+        # the cap covers the output budget (both keep score-order prefixes).
+        eff_kpt = min(config.max_num_kpt, config.max_keypoints)
+        caps = torch.tensor(
+            [
+                INT32_MAX
+                if config.uniformity_radius == 0.0 and config.layer_cap(i) >= eff_kpt
+                else min(config.layer_cap(i), scores[i][0].numel())
+                for i in range(n_layers)
+            ],
+            dtype=torch.int32, device=dev,
+        )
+        counts = torch.stack([m.sum(dim=(1, 2), dtype=torch.int32) for m in masks], dim=1)
+        acc_counts = torch.stack([a.sum(dim=1, dtype=torch.int32) for a in accepts], dim=1)
+        rcaps = torch.tensor(
+            [INT32_MAX if config.refine_cap(i) is None else config.refine_cap(i)
+             for i in range(n_layers)],
+            dtype=torch.int32, device=dev,
+        )
+        diag = DetectDiagnostics(
+            ok=(counts <= caps).all(dim=1) & (acc_counts <= rcaps).all(dim=1),
+            cand_counts=counts,
+            cand_caps=caps,
+            accepted_counts=acc_counts,
+            refine_caps=rcaps,
+        )
+
+    compacted = [
+        compact_accepted(*cands[i], accepts[i], config, cap=config.refine_cap(i))
+        for i in range(n_layers)
+    ]
+    kps = _refine_keypoints_fused(scores, compacted, [layer_geometry(i) for i in range(n_layers)])
+    mark("refine")
+    return (kps, diag) if with_diagnostics else kps

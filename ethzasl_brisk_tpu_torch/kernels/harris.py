@@ -1,0 +1,104 @@
+"""Harris corner scores with the reference's exact integer fixed-point math.
+
+Port of ``kernels/harris.py`` (the plain ``harris_score_i32``) and
+``kernels/pallas_harris.py`` (the fused TPU kernel, here the CUDA kernel
+in ``csrc/harris.cu``). Reference: ``brisk/src/harris-scores.cc:53-279``:
+
+  1. Scharr gradients x8: dx = (10*(L-R) + 3*(UL-UR) + 3*(LL-LR)) << 3;
+  2. products (a*b) >> 16;
+  3. 3x3 binomial smoothing (4c + 2*edge + corner) >> 4;
+  4. score = sxx*syy - sxy^2 - (((sxx+syy) >> 1)^2 >> 2), int32.
+
+Gradients live on rows/cols [1, n-2], scores on [2, n-3], zero elsewhere.
+torch's ``>>`` on int32 is an arithmetic shift, as in C.
+
+``harris_score_i32_fused`` is what the pipeline calls: a CUDA tensor goes
+through the kernel (or raises), a CPU tensor through the plain version.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ethzasl_brisk_tpu_torch import _kernels
+
+
+def _shift(p: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[..., i, j] = p[..., i+dy, j+dx], zero outside."""
+    h, w = p.shape[-2:]
+    padded = F.pad(p, (1, 1, 1, 1))
+    return padded[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+
+
+def _border_mask(h: int, w: int, b: int, device) -> torch.Tensor:
+    m = torch.zeros((h, w), dtype=torch.bool, device=device)
+    m[b : h - b, b : w - b] = True
+    return m
+
+
+def _smooth3x3_shift4(v: torch.Tensor) -> torch.Tensor:
+    s = (
+        4 * v
+        + 2 * (_shift(v, -1, 0) + _shift(v, 1, 0) + _shift(v, 0, -1) + _shift(v, 0, 1))
+        + _shift(v, -1, -1) + _shift(v, -1, 1) + _shift(v, 1, -1) + _shift(v, 1, 1)
+    )
+    return s >> 4
+
+
+def harris_score_i32(img: torch.Tensor) -> torch.Tensor:
+    """Plain version: uint8 (..., H, W) -> int32 (..., H, W) Harris scores."""
+    h, w = img.shape[-2:]
+    p = img.to(torch.int32)
+    n = {
+        (dy, dx): _shift(p, dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+    }
+    dx = (
+        10 * (n[(0, -1)] - n[(0, 1)])
+        + 3 * (n[(-1, -1)] - n[(-1, 1)])
+        + 3 * (n[(1, -1)] - n[(1, 1)])
+    ) << 3
+    dy = (
+        10 * (n[(-1, 0)] - n[(1, 0)])
+        + 3 * (n[(-1, -1)] - n[(1, -1)])
+        + 3 * (n[(-1, 1)] - n[(1, 1)])
+    ) << 3
+    interior = _border_mask(h, w, 1, img.device)
+    zero = torch.zeros((), dtype=torch.int32, device=img.device)
+    dx = torch.where(interior, dx, zero)
+    dy = torch.where(interior, dy, zero)
+
+    sxx = _smooth3x3_shift4((dx * dx) >> 16)
+    syy = _smooth3x3_shift4((dy * dy) >> 16)
+    sxy = _smooth3x3_shift4((dx * dy) >> 16)
+    trace_half = (sxx + syy) >> 1
+    score = sxx * syy - sxy * sxy - ((trace_half * trace_half) >> 2)
+    return torch.where(_border_mask(h, w, 2, img.device), score, zero)
+
+
+def harris_score_i32_cuda(imgs: torch.Tensor) -> torch.Tensor:
+    """Kernel K1: uint8 (B, H, W) CUDA tensor -> int32 (B, H, W) scores."""
+    if imgs.device.type != "cuda":
+        raise ValueError(f"harris_score_i32_cuda needs a CUDA tensor, got {imgs.device}")
+    if imgs.dtype != torch.uint8 or imgs.dim() != 3 or not imgs.is_contiguous():
+        raise ValueError(
+            f"expected contiguous uint8 (B, H, W), got {imgs.dtype} {tuple(imgs.shape)}"
+        )
+    b, h, w = imgs.shape
+    out = torch.empty((b, h, w), dtype=torch.int32, device=imgs.device)
+    if out.numel() == 0:
+        return out
+    lib = _kernels.library()
+    err = lib.brisk_harris_score_i32(
+        imgs.data_ptr(), out.data_ptr(), b, h, w, _kernels.stream_ptr(imgs.device)
+    )
+    _kernels.check(err, "harris_score_i32_cuda")
+    _kernels.LAUNCHES["harris_score_i32"] += 1
+    return out
+
+
+def harris_score_i32_fused(imgs: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) uint8 -> int32 scores: the CUDA kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if imgs.device.type == "cpu":
+        return harris_score_i32(imgs)
+    return harris_score_i32_cuda(imgs.contiguous())
