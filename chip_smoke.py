@@ -2,20 +2,35 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``ethzasl_brisk_tpu_torch/csrc``,
-checks each against its plain torch version at the main path's shapes,
-drives ``FramePipeline.step`` with the benchmark configuration on 16 VGA
-frames (launch counters must show both kernels), compares a GPU step with
-the plain CPU step, and times the step at batch 16 and 128. Any failed
-check raises; the last line is a JSON object with ``"ok": true``. Needs
-one CUDA card; without one it exits non-zero and prints no result.
+Builds the hand-written CUDA kernels (K1 Harris, K2 sampler, K3 Harris +
+2-D maxima) from ``ethzasl_brisk_tpu_torch/csrc`` and checks each against
+its plain torch version at the main path's shapes. Then it drives three
+paths, each with the launch counters set to 0 just before it and read
+just after:
+
+* the main path, ``FramePipeline.step`` with the benchmark configuration
+  on 16 VGA frames (K1 4 launches, K2 2), compared with the plain CPU step;
+* the fused path, the same step with ``fused_mask=True`` (K3 4, K1 0,
+  K2 2), bit-equal to the main path;
+* the README quick start: two VGA frames written and read back as PGM,
+  ``BriskFeature(octaves=0, ..., fused_mask=True).detect_and_compute`` on
+  each and ``radius_match_best`` (K3 once per image), compared with the
+  same calls on the CPU.
+
+Both steps are timed at batch 16 and 128 with per-stage CUDA events, in
+turns (default, fused, fused, default), and each kernel against its plain
+version. Any failed check raises; the last line is a JSON object with
+``"ok": true``. Needs one CUDA card; without one it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -38,6 +53,11 @@ BENCH_CONFIG = dict(
 )
 N_ROT = 1024
 SENTINEL = 385
+# The README's Harris quick start (README.md "Quick start"), with the
+# fused mask; its candidate cap is certified on the frames before use.
+QUICK_CONFIG = dict(octaves=0, uniformity_radius=30.0, absolute_threshold=20.0,
+                    fused_mask=True)
+QUICK_RADIUS = 90
 
 
 def card_line() -> str:
@@ -83,6 +103,15 @@ def capture_sampler_inputs(feature, frames):
     return calls
 
 
+def assert_same_step(a, b, what: str) -> None:
+    """Two FramePipeline.step outputs bit for bit."""
+    for name, x, y in zip(("x", "y", "size", "angle", "response", "octave", "valid"),
+                          a[0].fields(), b[0].fields()):
+        assert torch.equal(x, y), f"{what}: keypoint {name}"
+    for name, x, y in zip(("descriptors", "match_idx", "match_dist"), a[1:4], b[1:4]):
+        assert torch.equal(x, y), f"{what}: {name}"
+
+
 def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
     ai = a.cpu().contiguous().view(torch.int32).to(torch.int64)
     bi = b.cpu().contiguous().view(torch.int32).to(torch.int64)
@@ -94,6 +123,79 @@ def theta_of(angle: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     raw = N_ROT * angle / 360.0 + 0.5
     t = torch.trunc(raw).to(torch.int64)
     return torch.remainder(t, N_ROT), raw
+
+
+def quick_start(dev: torch.device) -> dict:
+    """The README's Harris quick start on the card, held against the same
+    calls on the CPU. Returns the path's kernel launches."""
+    from ethzasl_brisk_tpu_torch import BriskFeature, _kernels
+    from ethzasl_brisk_tpu_torch.core.image_io import read_pgm, write_pgm
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+    from ethzasl_brisk_tpu_torch.match.matcher import radius_match_best
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"img{i}.pgm") for i in range(2)]
+        for path, frame in zip(paths, bench_frames(2)):
+            write_pgm(path, frame)
+        imgs = [torch.from_numpy(read_pgm(path)) for path in paths]
+    gpu_imgs = [im.to(dev) for im in imgs]
+
+    # Certify the candidate cap first: the default 4096 truncates here.
+    probe = BriskFeature(**QUICK_CONFIG).to(dev)
+    counts = [int(probe.detect_with_diagnostics(im)[1].cand_counts.max()) for im in gpu_imgs]
+    cap = -(-max(counts) * 11 // 10 // 1024) * 1024
+    feature = BriskFeature(**QUICK_CONFIG, max_candidates=cap).to(dev)
+    for im in gpu_imgs:
+        assert bool(feature.detect_with_diagnostics(im)[1].ok), "quick start cap"
+
+    def run(f, images):
+        out = [f.detect_and_compute(im) for im in images]
+        match = radius_match_best(out[1][1], out[0][1], out[1][0].valid, out[0][0].valid,
+                                  QUICK_RADIUS)
+        return out, match
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    out, match = run(feature, gpu_imgs)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    assert launches["harris_score_mask"] == 2, launches
+    assert launches["harris_score_i32"] == 0, launches
+    assert launches["smoothed_intensity"] == 4, launches
+
+    ref, ref_match = run(BriskFeature(**QUICK_CONFIG, max_candidates=cap), imgs)
+    flips, gap, n_valid = 0, 0, []
+    for (kg, dg), (kc, dc) in zip(out, ref):
+        assert kg.x.dim() == 1 and dg.shape == (kg.capacity, 12), "unbatched outputs"
+        assert torch.equal(kg.valid.cpu(), kc.valid), "quick start valid"
+        for name in ("size", "response", "octave"):
+            assert torch.equal(getattr(kg, name).cpu(), getattr(kc, name)), name
+        gap = max(gap, ulp_gap(kg.x, kc.x), ulp_gap(kg.y, kc.y))
+        th_g, _ = theta_of(kg.angle.cpu())
+        th_c, raw_c = theta_of(kc.angle)
+        agree = (th_g == th_c) | ~kc.valid
+        flips += int((~agree).sum())
+        edge = (raw_c - torch.round(raw_c)).abs() < 1e-3
+        assert bool(edge[~agree].all()), "theta flip away from a bin edge"
+        assert torch.equal(dg.cpu()[agree], dc[agree]), "descriptors where theta agrees"
+        assert bool(torch.isfinite(kg.x).all())
+        n_valid.append(int(kc.valid.sum()))
+    assert gap <= 1, gap
+    assert min(n_valid) > 0
+    if flips == 0:
+        for g, c in zip(match, ref_match):
+            assert torch.equal(g.cpu(), c), "quick start matches"
+    ms = cuda_time(lambda: feature.detect_and_compute(gpu_imgs[0]), reps=5, warmup=1)
+    print(
+        f"[quick start] 2 VGA PGM images: candidates {counts} -> certified cap {cap}; "
+        f"valid keypoints {n_valid}; launches {launches}; GPU vs CPU: valid bitwise, x/y "
+        f"within {gap} ULP, {flips} theta bin-edge flips, descriptors bitwise where theta "
+        f"agrees, matches {'bitwise' if flips == 0 else 'not compared'} "
+        f"({int(match[2].sum())} under radius {QUICK_RADIUS}); detect_and_compute "
+        f"{ms:.3f} ms per image (median of 5)",
+        flush=True,
+    )
+    return launches
 
 
 def main() -> int:
@@ -108,7 +210,13 @@ def main() -> int:
     )
     from ethzasl_brisk_tpu_torch.detect import scale_space
     from ethzasl_brisk_tpu_torch.frames import bench_frames
-    from ethzasl_brisk_tpu_torch.kernels.harris import harris_score_i32, harris_score_i32_cuda
+    from ethzasl_brisk_tpu_torch.kernels.harris import (
+        harris_score_i32,
+        harris_score_i32_cuda,
+        harris_score_mask_cuda,
+        harris_score_mask_i32,
+    )
+    from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -136,6 +244,21 @@ def main() -> int:
         assert torch.equal(got, ref), f"K1 differs on layer {tuple(layer.shape)}"
     print(f"[K1] bitwise equal to plain on layers {[tuple(p.shape) for p in pyramid]}",
           flush=True)
+
+    # ---- K3 against its plain version on the same layers, threshold 20.
+    thr = int(BENCH_CONFIG["absolute_threshold"])
+    k3_err = 0
+    for layer in pyramid:
+        got_sc, got_mask = harris_score_mask_cuda(layer, thr)
+        ref_sc, ref_mask = harris_score_mask_i32(layer, thr)
+        torch.cuda.synchronize()
+        k3_err = max(k3_err, int((got_sc.to(torch.int64) - ref_sc).abs().max()),
+                     int((got_mask != ref_mask).sum()))
+        assert torch.equal(got_sc, ref_sc), f"K3 scores differ on layer {tuple(layer.shape)}"
+        assert torch.equal(got_mask, ref_mask), f"K3 mask differs on layer {tuple(layer.shape)}"
+        assert int(got_mask.view(torch.uint8).max()) == 1, "K3 mask bytes"
+    print(f"[K3] scores and mask bitwise equal to plain at thr {thr} on layers "
+          f"{[tuple(p.shape) for p in pyramid]}", flush=True)
 
     # ---- K2 against its plain version on both describe phases.
     k2_calls = capture_sampler_inputs(feature, frames16)
@@ -180,6 +303,21 @@ def main() -> int:
         f"valid keypoints/frame min {int(per_frame.min())} max {int(per_frame.max())}",
         flush=True,
     )
+
+    # ---- The fused path (K3 for scores and 2-D maxima), counted.
+    fused_feature = BriskFeature(**BENCH_CONFIG, fused_mask=True).to(dev)
+    fused_pipe = FramePipeline(fused_feature)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    fused_out = fused_pipe.step(frames16)
+    torch.cuda.synchronize()
+    fused_launches = dict(_kernels.LAUNCHES)
+    assert fused_launches["harris_score_mask"] == 4, fused_launches
+    assert fused_launches["harris_score_i32"] == 0, fused_launches
+    assert fused_launches["smoothed_intensity"] == 2, fused_launches
+    assert_same_step(fused_out, (kps, desc, midx, mdist), "fused vs default step")
+    print(f"[fused path] step B={b}: launches {fused_launches}; keypoints, descriptors "
+          f"and matches bitwise equal to the default step", flush=True)
 
     # ---- GPU step against the plain CPU step on the first 4 frames.
     f4 = frames16[:4]
@@ -227,11 +365,14 @@ def main() -> int:
         flush=True,
     )
 
+    # ---- The README quick start, through PGM files, counted.
+    quick_start(dev)
+
     # ---- Timing.
     stage_names = ["pyramid", "harris", "masks", "candidates", "uniformity", "refine",
                    "describe", "match"]
 
-    def timed_steps(frames, reps=10, warmup=3):
+    def timed_steps(pipe, frames, reps=10, warmup=3):
         for _ in range(warmup):
             pipe.step(frames)
         torch.cuda.synchronize()
@@ -255,35 +396,40 @@ def main() -> int:
             totals.append(start.elapsed_time(marks[-1][1]))
         return statistics.median(totals), {n: statistics.median(t) for n, t in stages.items()}
 
-    results = {}
     for batch in (16, 128):
         frames = torch.from_numpy(bench_frames(batch)).to(dev)
-        torch.cuda.reset_peak_memory_stats()
-        ms, stages = timed_steps(frames)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        results[batch] = ms
-        stage_txt = ", ".join(f"{n} {t:.3f}" for n, t in stages.items())
-        print(
-            f"[timing] step B={batch}: median {ms:.3f} ms of 10 (3 warm-up), "
-            f"{batch / ms * 1e3:.1f} frames/s; stages ms: {stage_txt}; "
-            f"uniformity share {stages['uniformity'] / ms:.1%}; peak mem {peak:.2f} GiB "
-            f"[{kind}; {card}]",
-            flush=True,
-        )
+        # In turns (default, fused, fused, default), so the two compare in one call.
+        for label, p in (("step", pipe), ("fused step", fused_pipe),
+                         ("fused step", fused_pipe), ("step", pipe)):
+            torch.cuda.reset_peak_memory_stats()
+            ms, stages = timed_steps(p, frames)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            stage_txt = ", ".join(f"{n} {t:.3f}" for n, t in stages.items())
+            print(
+                f"[timing] {label} B={batch}: median {ms:.3f} ms of 10 (3 warm-up), "
+                f"{batch / ms * 1e3:.1f} frames/s; stages ms: {stage_txt}; "
+                f"uniformity share {stages['uniformity'] / ms:.1%}; peak mem {peak:.2f} GiB "
+                f"[{kind}; {card}]",
+                flush=True,
+            )
         pyr = scale_space.build_pyramid(frames, 4)
         calls = capture_sampler_inputs(feature, frames)
         k1_ms = cuda_time(lambda: [harris_score_i32_cuda(p) for p in pyr])
         k1_plain = cuda_time(lambda: [harris_score_i32(p) for p in pyr])
         k2_ms = cuda_time(lambda: [smoothed_intensity_cuda(*a) for a in calls])
         k2_plain = cuda_time(lambda: [smoothed_intensity(*a) for a in calls])
+        k3_ms = cuda_time(lambda: [harris_score_mask_cuda(p, thr) for p in pyr])
+        k3_plain = cuda_time(lambda: [harris_score_mask_i32(p, thr) for p in pyr])
+        k1_nms = cuda_time(lambda: [maxima2d_mask(harris_score_i32_cuda(p), thr) for p in pyr])
         print(
-            f"[timing] kernels B={batch}, per step (K1: 4 layers; K2: 2 phases, "
+            f"[timing] kernels B={batch}, per step (K1, K3: 4 layers; K2: 2 phases, "
             f"K={calls[0][3].shape[0]}): K1 {k1_ms:.3f} ms vs plain {k1_plain:.3f} ms; "
-            f"K2 {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms [{kind}; {card}]",
+            f"K2 {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms; K3 {k3_ms:.3f} ms vs plain "
+            f"{k3_plain:.3f} ms vs K1 + maxima2d_mask {k1_nms:.3f} ms [{kind}; {card}]",
             flush=True,
         )
         if batch == 16:
-            kernel_ms = dict(k1=(k1_ms, k1_plain), k2=(k2_ms, k2_plain))
+            kernel_ms = dict(k1=(k1_ms, k1_plain), k2=(k2_ms, k2_plain), k3=(k3_ms, k3_plain))
         del frames, pyr, calls
         torch.cuda.empty_cache()
 
@@ -301,6 +447,13 @@ def main() -> int:
             replaces="ethzasl_brisk_tpu/describe/pallas_sampler.py:46",
             launches=launches["smoothed_intensity"], max_abs_err=k2_err,
             ms=kernel_ms["k2"][0], plain_ms=kernel_ms["k2"][1],
+        ),
+        dict(
+            name="harris_score_mask", route="cuda",
+            source="ethzasl_brisk_tpu_torch/csrc/harris_mask.cu",
+            replaces="ethzasl_brisk_tpu/kernels/pallas_harris.py:177",
+            launches=fused_launches["harris_score_mask"], max_abs_err=k3_err,
+            ms=kernel_ms["k3"][0], plain_ms=kernel_ms["k3"][1],
         ),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,11 +3,18 @@
 Mirrors the JAX package module by module (``core/``, ``kernels/``,
 ``detect/``, ``describe/``, ``match/``, ``parallel/``, ``pipeline.py``).
 The JAX package stays the reference; this package imports neither it nor
-JAX. Its two TPU kernels on the main path are hand-written CUDA here
-(``csrc/``), built with ``nvcc`` the first time a CUDA tensor reaches them.
+JAX. Its TPU kernels are hand-written CUDA here (``csrc/``), built with
+``nvcc`` the first time a CUDA tensor reaches them.
+
+Quick start (one image; a CUDA image runs the kernels)::
+
+    img = torch.from_numpy(read_pgm("img1.pgm"))
+    feature = BriskFeature(octaves=0, uniformity_radius=30.0,
+                           absolute_threshold=20.0, fused_mask=True)
+    keypoints, descriptors = feature.detect_and_compute(img)
 """
 from ethzasl_brisk_tpu_torch.core.keypoints import KeyPoints
 from ethzasl_brisk_tpu_torch.parallel.frames import FramePipeline
-from ethzasl_brisk_tpu_torch.pipeline import BriskFeature
+from ethzasl_brisk_tpu_torch.pipeline import BriskFeature, HarrisFeatureDetector
 
-__all__ = ["BriskFeature", "FramePipeline", "KeyPoints"]
+__all__ = ["BriskFeature", "FramePipeline", "HarrisFeatureDetector", "KeyPoints"]

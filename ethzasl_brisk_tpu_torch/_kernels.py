@@ -26,17 +26,18 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH,
     "-std=c++17", "-O3",
     # Float chains (the sampler's weights) round op by op, as the plain
     # torch versions and XLA's separate ops do.
     "--fmad=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"harris_score_i32": 0, "smoothed_intensity": 0}
+LAUNCHES = {"harris_score_i32": 0, "harris_score_mask": 0, "smoothed_intensity": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -74,22 +75,49 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libbrisk_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Run commands concurrently: (return code, stdout + stderr) of each."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    results = []
+    for p in procs:
+        text, _ = p.communicate()
+        results.append((p.returncode, text))
+    return results
+
+
 def build() -> pathlib.Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists.
+
+    One ``nvcc -c`` per source, all started together, then one link.
+    """
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    nvcc = _nvcc()
+    cus = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in cus]
+    try:
+        results = _run_all(
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(cus, objs)]
         )
-    os.replace(tmp, out)
+        if all(rc == 0 for rc, _ in results):
+            results += _run_all(
+                [[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]]
+            )
+        log = "\n".join(text for _, text in results)
+        out.with_suffix(".log").write_text(log)
+        if any(rc != 0 for rc, _ in results):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 
@@ -102,6 +130,8 @@ def library() -> ctypes.CDLL:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.brisk_harris_score_i32.argtypes = [vp, vp, ci, ci, ci, vp]
             lib.brisk_harris_score_i32.restype = ci
+            lib.brisk_harris_score_mask.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+            lib.brisk_harris_score_mask.restype = ci
             lib.brisk_smoothed_intensity.argtypes = [
                 vp, ci, ci,                # integral, cols, frame_rows
                 vp, vp,                    # key_x, key_y

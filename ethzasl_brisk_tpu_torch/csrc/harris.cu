@@ -7,6 +7,7 @@
 //   * products (a*b) >> 16;
 //   * 3x3 binomial smoothing (4c + 2*edges + corners) >> 4;
 //   * score = sxx*syy - sxy^2 - (((sxx+syy) >> 1)^2 >> 2) on [2, n-3].
+// The arithmetic (and its int32 range argument) is in harris.cuh.
 //
 // Design: one block per (frame, 32-row tile, 64-column tile). The block
 // stages the (32+4) x (64+4) uint8 tile with its 2-pixel halo in shared
@@ -16,16 +17,13 @@
 // here; the TPU kernel's divisibility rule and 128-lane padding are Mosaic
 // constraints and have no counterpart.
 //
-// Ranges: |dx|, |dy| <= 8 * 16 * 255 = 32640, so dx*dx <= 1,065,369,600 <
-// 2^31 and every product, sum and score stays inside int32 (|s..| <= 16256,
-// |score| < 2^30): no signed overflow can occur. Right shifts of negative
-// values are arithmetic under nvcc, as in the reference and in torch.
-//
 // Bound: bytes. 1 byte in and 4 bytes out per pixel, ~60 integer ops per
 // pixel; the halo re-reads 12% of the input from L2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "harris.cuh"
 
 namespace {
 
@@ -61,16 +59,7 @@ __global__ void __launch_bounds__(256) harris_tile_kernel(
     const int y = r0 - 1 + ty, x = c0 - 1 + tx;
     int xx = 0, yy = 0, xy = 0;
     if (y >= 1 && y <= H - 2 && x >= 1 && x <= W - 2) {
-      const int py = ty + 1, px = tx + 1;
-      const int dx = (10 * (pix[py][px - 1] - pix[py][px + 1]) +
-                      3 * (pix[py - 1][px - 1] - pix[py - 1][px + 1]) +
-                      3 * (pix[py + 1][px - 1] - pix[py + 1][px + 1])) * 8;
-      const int dy = (10 * (pix[py - 1][px] - pix[py + 1][px]) +
-                      3 * (pix[py - 1][px - 1] - pix[py + 1][px - 1]) +
-                      3 * (pix[py - 1][px + 1] - pix[py + 1][px + 1])) * 8;
-      xx = (dx * dx) >> 16;
-      yy = (dy * dy) >> 16;
-      xy = (dx * dy) >> 16;
+      brisk_harris::products<TW + 4>(pix, ty + 1, tx + 1, xx, yy, xy);
     }
     pxx[ty][tx] = xx;
     pyy[ty][tx] = yy;
@@ -84,18 +73,7 @@ __global__ void __launch_bounds__(256) harris_tile_kernel(
     if (y >= H || x >= W) continue;
     int score = 0;
     if (y >= 2 && y <= H - 3 && x >= 2 && x <= W - 3) {
-      const int qy = ty + 1, qx = tx + 1;
-#define SMOOTH(p)                                                          \
-  ((4 * p[qy][qx] +                                                        \
-    2 * (p[qy - 1][qx] + p[qy + 1][qx] + p[qy][qx - 1] + p[qy][qx + 1]) + \
-    p[qy - 1][qx - 1] + p[qy - 1][qx + 1] + p[qy + 1][qx - 1] +           \
-    p[qy + 1][qx + 1]) >> 4)
-      const int sxx = SMOOTH(pxx);
-      const int syy = SMOOTH(pyy);
-      const int sxy = SMOOTH(pxy);
-#undef SMOOTH
-      const int trace_half = (sxx + syy) >> 1;
-      score = sxx * syy - sxy * sxy - ((trace_half * trace_half) >> 2);
+      score = brisk_harris::score<TW + 2>(pxx, pyy, pxy, ty + 1, tx + 1);
     }
     dst[(size_t)y * W + x] = score;
   }

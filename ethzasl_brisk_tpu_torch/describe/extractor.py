@@ -7,6 +7,12 @@ the size list (RoiPredicate, :532-536), smoothed-intensity sampling
 (:714-740), and 384 short-pair comparisons packed LSB-first into 12
 words (:538-564). The words are the JAX package's uint32 descriptors
 stored as int32 bit patterns.
+
+Entry points: :class:`BriskExtractor` (one image or a batch, every slot),
+``extract_descriptors`` (one image), ``extract_descriptors_batch`` (a
+batch, every slot) and ``extract_descriptors_compact`` (a batch over a
+budget of describable keypoints, what ``FramePipeline`` runs). Only the
+v2 pattern is ported; uint8 images only.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
 from ethzasl_brisk_tpu_torch.core.keypoints import KeyPoints
 from ethzasl_brisk_tpu_torch.core.pattern import (
@@ -22,6 +29,7 @@ from ethzasl_brisk_tpu_torch.core.pattern import (
     SCALERANGE,
     SCALES,
     BriskPattern,
+    brisk_v2_pattern,
 )
 from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity_fused
 from ethzasl_brisk_tpu_torch.kernels.integral import integral_image_i32
@@ -85,26 +93,39 @@ def pattern_from_numpy(arrays: dict) -> DevicePattern:
     return DevicePattern(**out)
 
 
-def scale_index(size: torch.Tensor) -> torch.Tensor:
-    """Keypoint size -> pattern scale index (scale-invariant, :629)."""
-    log2 = float(np.float32(0.693147180559945))
-    lb_scalerange = float(np.float32(np.log(SCALERANGE) / np.float32(log2)))
-    basic_size06 = float(np.float32(BASIC_SIZE * 0.6))
-    coef = float(np.float32(SCALES) / np.float32(lb_scalerange))
-    val = coef * (torch.log(size / basic_size06) / log2) + 0.5
+def scale_index(size: torch.Tensor, scale_invariant: bool = True) -> torch.Tensor:
+    """Keypoint size -> pattern scale index (:629-658); without scale
+    invariance every keypoint takes the index of size 1.45 * BASIC_SIZE."""
+    log2 = np.float32(0.693147180559945)
+    lb_scalerange = np.float32(np.log(SCALERANGE) / log2)
+    basic_size06 = np.float32(BASIC_SIZE * 0.6)
+    if not scale_invariant:
+        basic = max(int(
+            np.float32(SCALES) / lb_scalerange
+            * (np.log(np.float32(1.45 * BASIC_SIZE) / basic_size06) / log2)
+            + 0.5
+        ), 0)
+        return torch.full(size.shape, basic, dtype=torch.int64, device=size.device)
+    coef = float(np.float32(SCALES) / lb_scalerange)
+    val = coef * (torch.log(size / float(basic_size06)) / float(log2)) + 0.5
     return torch.clamp(torch.trunc(val).to(torch.int64), 0, SCALES - 1)
 
 
-def _describable_mask(pat: DevicePattern, h: int, w: int, kp: KeyPoints) -> torch.Tensor:
+def _describable_mask(
+    pat: DevicePattern, h: int, w: int, kp: KeyPoints, scale_invariant: bool = True
+) -> torch.Tensor:
     """Valid AND inside the pattern border (RoiPredicate, :532-536)."""
-    bf = pat.size_list[scale_index(kp.size)].to(torch.float32)
+    bf = pat.size_list[scale_index(kp.size, scale_invariant)].to(torch.float32)
     return kp.valid & (kp.x >= bf) & (kp.x < w - bf) & (kp.y >= bf) & (kp.y < h - bf)
 
 
-def describable_count(pat: DevicePattern, imgs: torch.Tensor, keypoints: KeyPoints) -> torch.Tensor:
+def describable_count(
+    pat: DevicePattern, imgs: torch.Tensor, keypoints: KeyPoints, *,
+    scale_invariant: bool = True,
+) -> torch.Tensor:
     """Batch-total describable keypoints: what the describe capacity must cover."""
     _, h, w = imgs.shape
-    return _describable_mask(pat, h, w, keypoints).sum(dtype=torch.int32)
+    return _describable_mask(pat, h, w, keypoints, scale_invariant).sum(dtype=torch.int32)
 
 
 def _stack_frames(imgs: torch.Tensor) -> torch.Tensor:
@@ -114,12 +135,63 @@ def _stack_frames(imgs: torch.Tensor) -> torch.Tensor:
     return integral_image_i32(imgs).reshape(b * (h + 1), w + 1)
 
 
+def _check_u8(img: torch.Tensor) -> None:
+    if img.dtype != torch.uint8:
+        raise ValueError(f"only uint8 images are described, got {img.dtype}")
+
+
+def extract_descriptors(
+    pat: DevicePattern,
+    img: torch.Tensor,
+    keypoints: KeyPoints,
+    *,
+    rotation_invariant: bool = True,
+    scale_invariant: bool = True,
+):
+    """Describe every slot of (K,) keypoints on one (H, W) uint8 image.
+
+    Returns (keypoints with angle set and border-filtered valid, (K, 12)
+    int32 descriptor words).
+    """
+    _check_u8(img)
+    h, w = img.shape
+    row_base = torch.zeros(keypoints.capacity, dtype=torch.int32, device=img.device)
+    return _describe_core(
+        pat, integral_image_i32(img), h, w, keypoints, row_base,
+        rotation_invariant=rotation_invariant, scale_invariant=scale_invariant,
+    )
+
+
+def extract_descriptors_batch(
+    pat: DevicePattern,
+    imgs: torch.Tensor,
+    keypoints: KeyPoints,
+    *,
+    rotation_invariant: bool = True,
+    scale_invariant: bool = True,
+):
+    """Describe every slot of (B, K) keypoints on (B, H, W) frames in one
+    flat call: (keypoints (B, K), descriptors (B, K, 12) int32 words)."""
+    _check_u8(imgs)
+    b, h, w = imgs.shape
+    k = keypoints.capacity
+    row_base = torch.arange(b, dtype=torch.int32, device=imgs.device) * (h + 1)
+    out_kp, desc = _describe_core(
+        pat, _stack_frames(imgs), h, w, keypoints.map(lambda a: a.reshape(b * k)),
+        row_base.repeat_interleave(k),
+        rotation_invariant=rotation_invariant, scale_invariant=scale_invariant,
+    )
+    return out_kp.map(lambda a: a.reshape(b, k)), desc.reshape(b, k, -1)
+
+
 def extract_descriptors_compact(
     pat: DevicePattern,
     imgs: torch.Tensor,
     keypoints: KeyPoints,
     *,
     capacity: int,
+    rotation_invariant: bool = True,
+    scale_invariant: bool = True,
     with_diagnostics: bool = False,
 ):
     """Describe a batch over a static budget of describable keypoints.
@@ -131,6 +203,7 @@ def extract_descriptors_compact(
     with valid=False; ``with_diagnostics`` also returns the batch's
     describable count, which certifies no overflow when <= capacity.
     """
+    _check_u8(imgs)
     b, h, w = imgs.shape
     k = keypoints.capacity
     n = b * k
@@ -138,13 +211,16 @@ def extract_descriptors_compact(
     integral = _stack_frames(imgs)
 
     flat_kp = keypoints.map(lambda a: a.reshape(n))
-    describable = _describable_mask(pat, h, w, flat_kp)
+    describable = _describable_mask(pat, h, w, flat_kp, scale_invariant)
     order = torch.sort((~describable).to(torch.uint8), stable=True).indices
     sel = order[:capacity]
     comp_kp = flat_kp.map(lambda a: a[sel])
     row_base = (torch.div(sel, k, rounding_mode="floor") * (h + 1)).to(torch.int32)
 
-    out_kp_c, desc_c = _describe_core(pat, integral, h, w, comp_kp, row_base)
+    out_kp_c, desc_c = _describe_core(
+        pat, integral, h, w, comp_kp, row_base,
+        rotation_invariant=rotation_invariant, scale_invariant=scale_invariant,
+    )
 
     inv = torch.empty_like(order)
     inv[order] = torch.arange(n, device=order.device)
@@ -181,9 +257,16 @@ def _describe_core(
     cols: int,
     keypoints: KeyPoints,
     row_base: torch.Tensor,
+    *,
+    rotation_invariant: bool = True,
+    scale_invariant: bool = True,
 ):
-    """Orientation + descriptor for flat (K,) keypoints on stacked frames."""
-    scale_idx = scale_index(keypoints.size)
+    """Orientation + descriptor for flat (K,) keypoints on stacked frames.
+
+    Without rotation invariance the angle is kept and the pattern is not
+    rotated (theta 0), so only the second sampling runs.
+    """
+    scale_idx = scale_index(keypoints.size, scale_invariant)
     bf = pat.size_list[scale_idx].to(torch.float32)
     inside = (
         (keypoints.x >= bf) & (keypoints.x < cols - bf)
@@ -201,7 +284,19 @@ def _describe_core(
             scaling, scaling2, row_base, rows,
         )
 
-    # Phase 1: orientation from unrotated samples and the long pairs.
+    if rotation_invariant:
+        angle, theta = _orientation(pat, keypoints, scale_idx, sample)
+    else:
+        angle, theta = keypoints.angle, torch.zeros_like(scale_idx)
+
+    # Phase 2: rotated samples and the short-pair bits.
+    vals = sample(pat.lut_x[scale_idx, theta], pat.lut_y[scale_idx, theta])
+    return _pack_descriptor(pat, keypoints, angle, vals, valid)
+
+
+def _orientation(pat, keypoints, scale_idx, sample):
+    """Phase 1: angle (degrees) and rotation bin from the unrotated samples
+    and the long pairs (:714-740)."""
     need_angle = keypoints.angle == -1.0
     vals0 = sample(pat.lut_x[scale_idx, 0], pat.lut_y[scale_idx, 0])
     delta_t = vals0[:, pat.long_i] - vals0[:, pat.long_j]  # (K, L)
@@ -216,10 +311,7 @@ def _describe_core(
     theta = torch.trunc(N_ROT * angle / 360.0 + 0.5).to(torch.int64)
     theta = torch.where(theta < 0, theta + N_ROT, theta)
     theta = torch.where(theta >= N_ROT, theta - N_ROT, theta)
-
-    # Phase 2: rotated samples and the short-pair bits.
-    vals = sample(pat.lut_x[scale_idx, theta], pat.lut_y[scale_idx, theta])
-    return _pack_descriptor(pat, keypoints, angle, vals, valid)
+    return angle, theta
 
 
 def _pack_descriptor(pat, keypoints, angle, vals, valid):
@@ -238,3 +330,43 @@ def _pack_descriptor(pat, keypoints, angle, vals, valid):
     words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
     desc = torch.where(valid[:, None], words, torch.zeros_like(words))
     return dataclasses.replace(keypoints, angle=angle, valid=valid), desc
+
+
+class BriskExtractor(nn.Module):
+    """BriskDescriptorExtractor (brisk-descriptor-extractor.h:62-96) with
+    the v2 pattern; its buffers are the pattern tables, so ``.to(device)``
+    moves them.
+
+    ``pattern`` carries tables built elsewhere (``pattern_from_numpy``);
+    otherwise they are built from ``pattern_scale``. Calling it on one
+    (H, W) image with (K,) keypoints describes every slot, as the JAX
+    extractor does; a (B, H, W) batch with (B, K) keypoints goes through
+    ``extract_descriptors_batch``.
+    """
+
+    def __init__(
+        self,
+        rotation_invariant: bool = True,
+        scale_invariant: bool = True,
+        pattern_scale: float = 1.0,
+        pattern: DevicePattern | None = None,
+    ):
+        super().__init__()
+        self.rotation_invariant = rotation_invariant
+        self.scale_invariant = scale_invariant
+        if pattern is None:
+            pattern = DevicePattern.from_host(brisk_v2_pattern(pattern_scale))
+        for name in PATTERN_FIELDS:
+            self.register_buffer(name, getattr(pattern, name))
+
+    @property
+    def pattern(self) -> DevicePattern:
+        return DevicePattern(**{name: getattr(self, name) for name in PATTERN_FIELDS})
+
+    def forward(self, img: torch.Tensor, keypoints: KeyPoints):
+        fn = extract_descriptors if img.dim() == 2 else extract_descriptors_batch
+        return fn(
+            self.pattern, img, keypoints,
+            rotation_invariant=self.rotation_invariant,
+            scale_invariant=self.scale_invariant,
+        )

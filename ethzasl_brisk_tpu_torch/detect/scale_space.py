@@ -6,7 +6,8 @@ over a batch of frames ``(B, H, W)``:
 
 * pyramid: layer 0 = input, layer 1 = two-thirds sample, layer i >= 2 =
   half-sample of layer i-2;
-* Harris scores per layer (kernel K1 on the card);
+* Harris scores per layer (kernel K1 on the card), or with ``fused_mask``
+  the scores and their 2-D maxima in one pass (kernel K3);
 * 2-D maxima, then the 3-D checks against the neighbour layers: the
   reference's bilinear ScoreAbove/ScoreBelow at affine-mapped coordinates
   are exact rationals, so ``center * D^2`` is compared with the
@@ -31,7 +32,10 @@ from ethzasl_brisk_tpu_torch.core.keypoints import KeyPoints
 from ethzasl_brisk_tpu_torch.detect.subpixel import subpixel2d
 from ethzasl_brisk_tpu_torch.detect.uniformity import bucket_keypoints, enforce_uniformity
 from ethzasl_brisk_tpu_torch.kernels.downsample import halfsample8, twothirdsample8
-from ethzasl_brisk_tpu_torch.kernels.harris import harris_score_i32_fused
+from ethzasl_brisk_tpu_torch.kernels.harris import (
+    harris_score_i32_fused,
+    harris_score_mask_fused,
+)
 from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
 
 INT32_MIN = -(2**31)
@@ -155,6 +159,9 @@ class DetectorConfig:
     max_keypoints: int = 4096
     refine_capacity: "int | tuple | None" = None
     uniformity_block: int = 256
+    # Scores and 2-D maxima masks from one kernel (K3) instead of K1 then
+    # maxima2d_mask; bit-identical either way.
+    fused_mask: bool = False
 
     @property
     def n_layers(self) -> int:
@@ -174,17 +181,28 @@ class DetectorConfig:
 def layer_score_masks(
     pyramid: list[torch.Tensor], config: DetectorConfig, mark: Mark = _no_mark
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
-    """Per-layer (scores, candidate masks), each (B, h, w), for a pyramid."""
+    """Per-layer (scores, candidate masks), each (B, h, w), for a pyramid.
+
+    With ``config.fused_mask`` the ``harris`` stage also yields the 2-D
+    maxima masks (kernel K3); otherwise they are computed in ``masks``.
+    """
     n_layers = len(pyramid)
     geoms = [layer_geometry(i) for i in range(n_layers)]
-    scores = [harris_score_i32_fused(im) for im in pyramid]
-    mark("harris")
+    # The threshold truncates to int, as in the JAX package.
     thr = int(config.absolute_threshold)
+    base_masks = None
+    if config.fused_mask:
+        pairs = [harris_score_mask_fused(im, thr) for im in pyramid]
+        scores = [p[0] for p in pairs]
+        base_masks = [p[1] for p in pairs]
+    else:
+        scores = [harris_score_i32_fused(im) for im in pyramid]
+    mark("harris")
     masks = []
     for i in range(n_layers):
         sc = scores[i]
         h, w = sc.shape[-2:]
-        mask = maxima2d_mask(sc, thr)
+        mask = base_masks[i] if base_masks is not None else maxima2d_mask(sc, thr)
         center = sc.to(torch.int64)
         if i + 1 < n_layers:
             # Above: the truncated one_over_scale_above == 1
@@ -207,14 +225,26 @@ class DetectDiagnostics(NamedTuple):
     """Exactness certificate for the static capacities, per frame.
 
     ``ok`` holds when no per-layer candidate cap and no refine cap
-    truncated on that frame. Fields have a leading batch axis.
+    truncated on that frame. Fields have a leading batch axis (none for a
+    single image, as in the JAX package). ``topk_exact`` keeps the JAX
+    certificate's field: its block top-k can lose candidates, the port's
+    stable sort never does, so it is all True.
     """
 
     ok: torch.Tensor               # (B,) bool
     cand_counts: torch.Tensor      # (B, L) int32: 2d/3d maxima per layer
     cand_caps: torch.Tensor        # (L,) int32
+    topk_exact: torch.Tensor       # (B, L) bool: candidate top-k exact
     accepted_counts: torch.Tensor  # (B, L) int32: uniformity-accepted
     refine_caps: torch.Tensor      # (L,) int32 (INT32_MAX = uncapped)
+
+    def frame(self, i: int) -> "DetectDiagnostics":
+        """The certificate of frame ``i`` alone (no batch axis)."""
+        return DetectDiagnostics(
+            ok=self.ok[i], cand_counts=self.cand_counts[i], cand_caps=self.cand_caps,
+            topk_exact=self.topk_exact[i], accepted_counts=self.accepted_counts[i],
+            refine_caps=self.refine_caps,
+        )
 
 
 def _layer_candidates(sc: torch.Tensor, mask: torch.Tensor, cap: int):
@@ -349,10 +379,15 @@ def detect_keypoints(
              for i in range(n_layers)],
             dtype=torch.int32, device=dev,
         )
+        exact = torch.ones_like(counts, dtype=torch.bool)
         diag = DetectDiagnostics(
-            ok=(counts <= caps).all(dim=1) & (acc_counts <= rcaps).all(dim=1),
+            ok=(
+                (counts <= caps).all(dim=1) & exact.all(dim=1)
+                & (acc_counts <= rcaps).all(dim=1)
+            ),
             cand_counts=counts,
             cand_caps=caps,
+            topk_exact=exact,
             accepted_counts=acc_counts,
             refine_caps=rcaps,
         )

@@ -14,6 +14,9 @@ torch's ``>>`` on int32 is an arithmetic shift, as in C.
 
 ``harris_score_i32_fused`` is what the pipeline calls: a CUDA tensor goes
 through the kernel (or raises), a CPU tensor through the plain version.
+``harris_score_mask_fused`` (kernel K3, ``csrc/harris_mask.cu``; JAX
+``harris_score_mask_fused``) adds the 2-D maxima mask in the same pass; the
+``fused_mask`` detector setting calls it.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ethzasl_brisk_tpu_torch import _kernels
+from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
 
 
 def _shift(p: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -75,14 +79,19 @@ def harris_score_i32(img: torch.Tensor) -> torch.Tensor:
     return torch.where(_border_mask(h, w, 2, img.device), score, zero)
 
 
-def harris_score_i32_cuda(imgs: torch.Tensor) -> torch.Tensor:
-    """Kernel K1: uint8 (B, H, W) CUDA tensor -> int32 (B, H, W) scores."""
+def _check_frames(imgs: torch.Tensor, name: str) -> None:
+    """The kernels take contiguous uint8 (B, H, W) CUDA tensors only."""
     if imgs.device.type != "cuda":
-        raise ValueError(f"harris_score_i32_cuda needs a CUDA tensor, got {imgs.device}")
+        raise ValueError(f"{name} needs a CUDA tensor, got {imgs.device}")
     if imgs.dtype != torch.uint8 or imgs.dim() != 3 or not imgs.is_contiguous():
         raise ValueError(
             f"expected contiguous uint8 (B, H, W), got {imgs.dtype} {tuple(imgs.shape)}"
         )
+
+
+def harris_score_i32_cuda(imgs: torch.Tensor) -> torch.Tensor:
+    """Kernel K1: uint8 (B, H, W) CUDA tensor -> int32 (B, H, W) scores."""
+    _check_frames(imgs, "harris_score_i32_cuda")
     b, h, w = imgs.shape
     out = torch.empty((b, h, w), dtype=torch.int32, device=imgs.device)
     if out.numel() == 0:
@@ -102,3 +111,43 @@ def harris_score_i32_fused(imgs: torch.Tensor) -> torch.Tensor:
     if imgs.device.type == "cpu":
         return harris_score_i32(imgs)
     return harris_score_i32_cuda(imgs.contiguous())
+
+
+def harris_score_mask_i32(imgs: torch.Tensor, thr: int):
+    """Plain version of kernel K3: (scores, 2-D maxima mask), each (..., H, W).
+
+    The Harris scores followed by ``maxima2d_mask`` (border 2), which is
+    what the JAX package's ``harris_score_mask_fused`` computes off the TPU.
+    """
+    sc = harris_score_i32(imgs)
+    return sc, maxima2d_mask(sc, thr)
+
+
+def harris_score_mask_cuda(imgs: torch.Tensor, thr: int):
+    """Kernel K3: uint8 (B, H, W) CUDA tensor -> (int32 scores, bool mask)."""
+    _check_frames(imgs, "harris_score_mask_cuda")
+    thr = int(thr)
+    i32 = torch.iinfo(torch.int32)
+    if not i32.min <= thr <= i32.max:
+        raise ValueError(f"threshold {thr} does not fit int32")
+    b, h, w = imgs.shape
+    out = torch.empty((b, h, w), dtype=torch.int32, device=imgs.device)
+    mask = torch.empty((b, h, w), dtype=torch.bool, device=imgs.device)
+    if out.numel() == 0:
+        return out, mask
+    lib = _kernels.library()
+    err = lib.brisk_harris_score_mask(
+        imgs.data_ptr(), out.data_ptr(), mask.data_ptr(), b, h, w, thr,
+        _kernels.stream_ptr(imgs.device),
+    )
+    _kernels.check(err, "harris_score_mask_cuda")
+    _kernels.LAUNCHES["harris_score_mask"] += 1
+    return out, mask
+
+
+def harris_score_mask_fused(imgs: torch.Tensor, thr: int):
+    """(B, H, W) uint8 -> (int32 scores, bool 2-D maxima mask): kernel K3 on
+    a CUDA tensor, the plain version on a CPU tensor."""
+    if imgs.device.type == "cpu":
+        return harris_score_mask_i32(imgs, thr)
+    return harris_score_mask_cuda(imgs.contiguous(), thr)

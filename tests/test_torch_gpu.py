@@ -15,7 +15,12 @@ from ethzasl_brisk_tpu_torch.core.pattern import brisk_v2_pattern
 from ethzasl_brisk_tpu_torch.describe.extractor import _stack_frames, scale_index
 from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity, smoothed_intensity_cuda
 from ethzasl_brisk_tpu_torch.frames import bench_frames
-from ethzasl_brisk_tpu_torch.kernels.harris import harris_score_i32, harris_score_i32_cuda
+from ethzasl_brisk_tpu_torch.kernels.harris import (
+    harris_score_i32,
+    harris_score_i32_cuda,
+    harris_score_mask_cuda,
+    harris_score_mask_i32,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -36,6 +41,24 @@ def test_harris_cuda_matches_plain(cuda, shape):
     got = harris_score_i32_cuda(imgs)
     torch.cuda.synchronize()
     assert torch.equal(got, harris_score_i32(imgs))
+
+
+@pytest.mark.parametrize("thr", [0, 20, 300])
+@pytest.mark.parametrize(
+    "shape", [(2, 480, 640), (3, 320, 426), (2, 240, 320), (2, 160, 213), (1, 37, 70), (1, 4, 5)]
+)
+def test_harris_mask_cuda_matches_plain(cuda, shape, thr):
+    """Kernel K3 on smoothed noise (so the mask is not empty), scores and
+    mask bit for bit; the mask's bytes are only 0 and 1."""
+    imgs = torch.from_numpy(bench_frames(shape[0], shape[1], shape[2], seed=3)).to(cuda)
+    got_sc, got_mask = harris_score_mask_cuda(imgs, thr)
+    torch.cuda.synchronize()
+    ref_sc, ref_mask = harris_score_mask_i32(imgs, thr)
+    assert torch.equal(got_sc, ref_sc)
+    assert torch.equal(got_mask, ref_mask)
+    assert int(got_mask.view(torch.uint8).max()) <= 1
+    if shape[1] >= 37:
+        assert int(got_mask.sum()) > 0
 
 
 @pytest.mark.parametrize("pattern_scale", [1.0, 0.3])
@@ -66,22 +89,41 @@ def test_sampler_cuda_matches_plain(cuda, pattern_scale):
     assert torch.equal(got, smoothed_intensity(*args))
 
 
+STEP_CONFIG = dict(
+    octaves=2, uniformity_radius=30.0, absolute_threshold=20.0,
+    max_candidates=(704, 256, 192, 96), max_keypoints=128,
+    refine_capacity=(64, 32, 24, 16), describe_capacity=48,
+)
+
+
 def test_step_launches_both_kernels(cuda):
     from ethzasl_brisk_tpu_torch import FramePipeline, _kernels
 
-    feature = BriskFeature(
-        octaves=2, uniformity_radius=30.0, absolute_threshold=20.0,
-        max_candidates=(704, 256, 192, 96), max_keypoints=128,
-        refine_capacity=(64, 32, 24, 16), describe_capacity=48,
-    ).to(cuda)
+    feature = BriskFeature(**STEP_CONFIG).to(cuda)
     frames = torch.from_numpy(bench_frames(3, 120, 160))
     _kernels.reset_launches()
     got = FramePipeline(feature).step(frames.to(cuda))
-    assert _kernels.LAUNCHES == {"harris_score_i32": 4, "smoothed_intensity": 2}
-    ref = FramePipeline(BriskFeature(
-        octaves=2, uniformity_radius=30.0, absolute_threshold=20.0,
-        max_candidates=(704, 256, 192, 96), max_keypoints=128,
-        refine_capacity=(64, 32, 24, 16), describe_capacity=48,
-    )).step(frames)
+    assert _kernels.LAUNCHES["harris_score_i32"] == 4
+    assert _kernels.LAUNCHES["harris_score_mask"] == 0
+    assert _kernels.LAUNCHES["smoothed_intensity"] == 2
+    ref = FramePipeline(BriskFeature(**STEP_CONFIG)).step(frames)
     assert torch.equal(got[0].valid.cpu(), ref[0].valid)
     assert torch.equal(got[0].response.cpu(), ref[0].response)
+
+
+def test_fused_step_launches_k3_and_equals_default(cuda):
+    """fused_mask=True: K3 once per layer, K1 never, K2 twice; every output
+    bit-equal to the default step on the card."""
+    from ethzasl_brisk_tpu_torch import FramePipeline, _kernels
+
+    frames = torch.from_numpy(bench_frames(3, 120, 160)).to(cuda)
+    default = FramePipeline(BriskFeature(**STEP_CONFIG).to(cuda)).step(frames)
+    _kernels.reset_launches()
+    fused = FramePipeline(BriskFeature(**STEP_CONFIG, fused_mask=True).to(cuda)).step(frames)
+    assert _kernels.LAUNCHES["harris_score_mask"] == 4
+    assert _kernels.LAUNCHES["harris_score_i32"] == 0
+    assert _kernels.LAUNCHES["smoothed_intensity"] == 2
+    for a, b in zip(default[0].fields(), fused[0].fields()):
+        assert torch.equal(a, b)
+    for a, b in zip(default[1:], fused[1:]):
+        assert torch.equal(a, b)

@@ -234,6 +234,7 @@ def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['ethzasl_brisk_tpu'] = None\n"
         "import ethzasl_brisk_tpu_torch, ethzasl_brisk_tpu_torch.frames\n"
+        "import ethzasl_brisk_tpu_torch.core.image_io, ethzasl_brisk_tpu_torch.match.matcher\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'ethzasl_brisk_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
     )
