@@ -14,26 +14,29 @@ just after:
   K2 2), bit-equal to the main path;
 * the README quick start: two VGA frames written and read back as PGM,
   ``BriskFeature(octaves=0, ..., fused_mask=True).detect_and_compute`` on
-  each and ``radius_match_best`` (K3 once per image), compared with the
-  same calls on the CPU.
+  each host image (the entry point moves it to the card) and
+  ``radius_match_best`` (K3 once per image), compared with the same calls
+  on a ``device="cpu"`` feature;
+* the gather probes (``ethzasl_brisk_tpu_torch.probes``): each of the
+  sixteen ``pallas_call`` sites of the TPU probes P1 and P3 at full size,
+  its kernel (G1, G2, C or W) launched once, counted, and held bitwise
+  against its plain version.
 
 Both steps are timed at batch 16 and 128 with per-stage CUDA events, in
 turns (default, fused, fused, default), and each kernel against its plain
-version. Any failed check raises; the last line is a JSON object with
-``"ok": true``. Needs one CUDA card; without one it exits non-zero and
-prints no result.
+version and beside its bound. Any failed check raises; the last line is a
+JSON object with ``"ok": true``. Needs one CUDA card; without one it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 
-import numpy as np
 import torch
 
 # bench.py's feature configuration (bench.py:88-158) with its capacities
@@ -60,27 +63,57 @@ QUICK_CONFIG = dict(octaves=0, uniformity_radius=30.0, absolute_threshold=20.0,
 QUICK_RADIUS = 90
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+# Integer operations per pixel of K1, counted from csrc/harris.cuh: the
+# gradients 2 x 9 (3 differences, 3 multiplies, 2 sums, the x8), the three
+# products 3 x 2 (multiply, shift), the smoothing 3 x 11 and the score 8.
+K1_OPS_PER_PIXEL = 2 * 9 + 3 * 2 + 3 * 11 + 8
+# K3 adds the 2-D maximum: 7 maxima, the compare with it and the threshold.
+K3_OPS_PER_PIXEL = K1_OPS_PER_PIXEL + 9
+# K2 per (keypoint, point), counted from csrc/sampler.cu: (int32, float32)
+# operations of the geometry shared by both branches (46, 10), plus the
+# box branch (73, 20) or the small-sigma bilinear branch (38, 4).
+K2_OPS_BOX = (46 + 73, 10 + 20)
+K2_OPS_SMALL = (46 + 38, 10 + 4)
+# The 6 x 6 tap grid cells (row, column) each K2 branch reads
+# (sampler.cu's T(i, j)); the box branch's corner c and d columns depend on
+# ``big``.
+_BOX_TAPS = {(0, 0), (0, 1), (1, 0), (1, 1), (0, 3), (0, 4), (1, 3), (1, 4), (2, 5), (3, 5),
+             (2, 2), (3, 2), (4, 4), (4, 3), (5, 3), (5, 1), (4, 1), (4, 0)}
+K2_TAPS = {
+    "small": {(i, j) for i in range(3) for j in range(3)},
+    "big": _BOX_TAPS | {(2, 4), (3, 4), (2, 1), (3, 1)},
+    "box": _BOX_TAPS | {(2, 3), (3, 3), (2, 0), (3, 0)},
+}
 
 
-def cuda_time(fn, reps: int = 10, warmup: int = 3) -> float:
-    """Median time (ms) of fn() over ``reps`` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def k2_bound(calls) -> tuple[float, str]:
+    """K2's bound over the describe phases' inputs: the integral sectors
+    the taps read, the keypoint and pattern inputs and the output, and the
+    operations of the branch each point takes."""
+    from ethzasl_brisk_tpu_torch import measure
+    from ethzasl_brisk_tpu_torch.describe.sampler import _tap_geometry
+
+    used = {}
+    for name, taps in K2_TAPS.items():
+        used[name] = torch.zeros((6, 6), dtype=torch.bool, device=calls[0][0].device)
+        for i, j in taps:
+            used[name][i, j] = True
+    nbytes = int_ops = fp_ops = 0
+    for integral, key_x, key_y, pat_x, pat_y, pat_sigma, _, _, row_base, frame_rows in calls:
+        k, p = pat_x.shape
+        cols = integral.shape[1] - 1
+        g = _tap_geometry(key_x, key_y, pat_x, pat_y, pat_sigma)
+        rows = torch.clamp(g["row_coords"], 0, frame_rows).to(torch.int64)
+        rows = (rows + row_base.to(torch.int64)[:, None, None]) * (cols + 1)
+        flat = rows[..., :, None] + torch.clamp(g["col_coords"], 0, cols).to(torch.int64)[..., None, :]
+        small, big = g["small"][..., None, None], g["big"][..., None, None]
+        need = torch.where(small, used["small"], torch.where(big, used["big"], used["box"]))
+        n_small = int(g["small"].sum())
+        nbytes += (3 * 4 * k + 6 * 4 * k * p
+                   + measure.distinct_sector_bytes(flat[need], 4, integral.numel()))
+        int_ops += K2_OPS_SMALL[0] * n_small + K2_OPS_BOX[0] * (k * p - n_small)
+        fp_ops += K2_OPS_SMALL[1] * n_small + K2_OPS_BOX[1] * (k * p - n_small)
+    return measure.bound_ms(nbytes, int32_ops=int_ops, fp32_ops=fp_ops)
 
 
 def capture_sampler_inputs(feature, frames):
@@ -127,8 +160,8 @@ def theta_of(angle: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def quick_start(dev: torch.device) -> dict:
     """The README's Harris quick start on the card, held against the same
-    calls on the CPU. Returns the path's kernel launches."""
-    from ethzasl_brisk_tpu_torch import BriskFeature, _kernels
+    calls on a ``device="cpu"`` feature. Returns the path's kernel launches."""
+    from ethzasl_brisk_tpu_torch import BriskFeature, _kernels, measure
     from ethzasl_brisk_tpu_torch.core.image_io import read_pgm, write_pgm
     from ethzasl_brisk_tpu_torch.frames import bench_frames
     from ethzasl_brisk_tpu_torch.match.matcher import radius_match_best
@@ -141,10 +174,11 @@ def quick_start(dev: torch.device) -> dict:
     gpu_imgs = [im.to(dev) for im in imgs]
 
     # Certify the candidate cap first: the default 4096 truncates here.
-    probe = BriskFeature(**QUICK_CONFIG).to(dev)
+    probe = BriskFeature(**QUICK_CONFIG)
     counts = [int(probe.detect_with_diagnostics(im)[1].cand_counts.max()) for im in gpu_imgs]
     cap = -(-max(counts) * 11 // 10 // 1024) * 1024
-    feature = BriskFeature(**QUICK_CONFIG, max_candidates=cap).to(dev)
+    feature = BriskFeature(**QUICK_CONFIG, max_candidates=cap)
+    assert feature.device == dev, feature.device
     for im in gpu_imgs:
         assert bool(feature.detect_with_diagnostics(im)[1].ok), "quick start cap"
 
@@ -156,14 +190,15 @@ def quick_start(dev: torch.device) -> dict:
 
     torch.cuda.synchronize()
     _kernels.reset_launches()
-    out, match = run(feature, gpu_imgs)
+    out, match = run(feature, imgs)  # host images, as the README passes them
     torch.cuda.synchronize()
     launches = dict(_kernels.LAUNCHES)
+    assert all(t.device == dev for t in (*out[0][0].fields(), out[0][1], *match)), "outputs"
     assert launches["harris_score_mask"] == 2, launches
     assert launches["harris_score_i32"] == 0, launches
     assert launches["smoothed_intensity"] == 4, launches
 
-    ref, ref_match = run(BriskFeature(**QUICK_CONFIG, max_candidates=cap), imgs)
+    ref, ref_match = run(BriskFeature(**QUICK_CONFIG, max_candidates=cap, device="cpu"), imgs)
     flips, gap, n_valid = 0, 0, []
     for (kg, dg), (kc, dc) in zip(out, ref):
         assert kg.x.dim() == 1 and dg.shape == (kg.capacity, 12), "unbatched outputs"
@@ -185,7 +220,7 @@ def quick_start(dev: torch.device) -> dict:
     if flips == 0:
         for g, c in zip(match, ref_match):
             assert torch.equal(g.cpu(), c), "quick start matches"
-    ms = cuda_time(lambda: feature.detect_and_compute(gpu_imgs[0]), reps=5, warmup=1)
+    ms = measure.cuda_time(lambda: feature.detect_and_compute(gpu_imgs[0]), reps=5, warmup=1)
     print(
         f"[quick start] 2 VGA PGM images: candidates {counts} -> certified cap {cap}; "
         f"valid keypoints {n_valid}; launches {launches}; GPU vs CPU: valid bitwise, x/y "
@@ -203,7 +238,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    from ethzasl_brisk_tpu_torch import BriskFeature, FramePipeline, _kernels
+    from ethzasl_brisk_tpu_torch import BriskFeature, FramePipeline, _kernels, measure
     from ethzasl_brisk_tpu_torch.describe.sampler import (
         smoothed_intensity,
         smoothed_intensity_cuda,
@@ -217,10 +252,12 @@ def main() -> int:
         harris_score_mask_i32,
     )
     from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
+    from ethzasl_brisk_tpu_torch.probes import cases as probe_cases
+    cuda_time = measure.cuda_time
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    card = card_line()
+    card = measure.card_line()
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     print(f"[card] {card}", flush=True)
 
@@ -230,8 +267,10 @@ def main() -> int:
     print(f"[build] {lib_path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     frames16 = torch.from_numpy(bench_frames(16)).to(dev)
-    feature = BriskFeature(**BENCH_CONFIG).to(dev)
+    # The entry points run on the card by default.
+    feature = BriskFeature(**BENCH_CONFIG)
     pipe = FramePipeline(feature)
+    assert feature.device == pipe.device == dev, (feature.device, pipe.device)
 
     # ---- K1 against its plain version on the four pyramid layers.
     pyramid = scale_space.build_pyramid(frames16, 4)
@@ -305,7 +344,7 @@ def main() -> int:
     )
 
     # ---- The fused path (K3 for scores and 2-D maxima), counted.
-    fused_feature = BriskFeature(**BENCH_CONFIG, fused_mask=True).to(dev)
+    fused_feature = BriskFeature(**BENCH_CONFIG, fused_mask=True)
     fused_pipe = FramePipeline(fused_feature)
     torch.cuda.synchronize()
     _kernels.reset_launches()
@@ -322,7 +361,7 @@ def main() -> int:
     # ---- GPU step against the plain CPU step on the first 4 frames.
     f4 = frames16[:4]
     f4c = f4.cpu()
-    feature_cpu = BriskFeature(**BENCH_CONFIG)
+    feature_cpu = BriskFeature(**BENCH_CONFIG, device="cpu")
     cfg = feature.config
     pyr_g, pyr_c = scale_space.build_pyramid(f4, 4), scale_space.build_pyramid(f4c, 4)
     sc_g, mk_g = scale_space.layer_score_masks(pyr_g, cfg)
@@ -339,7 +378,7 @@ def main() -> int:
             scale_space._layer_accept(cg, cfg).cpu(), scale_space._layer_accept(cc, cfg)
         ), f"accept layer {i}"
     out_g = FramePipeline(feature).step(f4)
-    out_c = FramePipeline(feature_cpu).step(f4c)
+    out_c = FramePipeline(feature_cpu, device="cpu").step(f4c)
     kg, kc = out_g[0], out_c[0]
     assert torch.equal(kg.valid.cpu(), kc.valid), "valid"
     for name in ("size", "response", "octave"):
@@ -367,6 +406,11 @@ def main() -> int:
 
     # ---- The README quick start, through PGM files, counted.
     quick_start(dev)
+
+    # ---- The gather probes P1 and P3: every pallas_call site at full size,
+    # its kernel counted (once per site) and bitwise against its plain version.
+    probe_records = probe_cases.run_all(dev, card)
+    probe_rows = probe_cases.kernel_rows(probe_records)
 
     # ---- Timing.
     stage_names = ["pyramid", "harris", "masks", "candidates", "uniformity", "refine",
@@ -421,41 +465,44 @@ def main() -> int:
         k3_ms = cuda_time(lambda: [harris_score_mask_cuda(p, thr) for p in pyr])
         k3_plain = cuda_time(lambda: [harris_score_mask_i32(p, thr) for p in pyr])
         k1_nms = cuda_time(lambda: [maxima2d_mask(harris_score_i32_cuda(p), thr) for p in pyr])
+        # Bounds: K1 reads 1 B and writes 4 B per pixel, K3 one more byte.
+        pixels = sum(p.numel() for p in pyr)
+        k1_bound = measure.bound_ms(5 * pixels, int32_ops=K1_OPS_PER_PIXEL * pixels)
+        k3_bound = measure.bound_ms(6 * pixels, int32_ops=K3_OPS_PER_PIXEL * pixels)
+        k2_bnd = k2_bound(calls)
         print(
-            f"[timing] kernels B={batch}, per step (K1, K3: 4 layers; K2: 2 phases, "
-            f"K={calls[0][3].shape[0]}): K1 {k1_ms:.3f} ms vs plain {k1_plain:.3f} ms; "
-            f"K2 {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms; K3 {k3_ms:.3f} ms vs plain "
-            f"{k3_plain:.3f} ms vs K1 + maxima2d_mask {k1_nms:.3f} ms [{kind}; {card}]",
+            f"[timing] kernels B={batch}, per step (K1, K3: 4 layers, {pixels} pixels; K2: 2 "
+            f"phases, K={calls[0][3].shape[0]}): K1 {k1_ms:.3f} ms vs plain {k1_plain:.3f} ms, "
+            f"bound {k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 {k2_ms:.3f} ms vs plain "
+            f"{k2_plain:.3f} ms, bound {k2_bnd[0]:.4f} ms ({k2_bnd[1]}); K3 {k3_ms:.3f} ms vs "
+            f"plain {k3_plain:.3f} ms vs K1 + maxima2d_mask {k1_nms:.3f} ms, bound "
+            f"{k3_bound[0]:.4f} ms ({k3_bound[1]}) [{kind}; {card}]",
             flush=True,
         )
         if batch == 16:
-            kernel_ms = dict(k1=(k1_ms, k1_plain), k2=(k2_ms, k2_plain), k3=(k3_ms, k3_plain))
+            kernel_ms = dict(k1=(k1_ms, k1_plain, *k1_bound), k2=(k2_ms, k2_plain, *k2_bnd),
+                             k3=(k3_ms, k3_plain, *k3_bound))
         del frames, pyr, calls
         torch.cuda.empty_cache()
 
+    # K1-K3 at the main path's B=16 shapes. No one PyTorch call computes
+    # any of them (library_ms null).
     kernels = [
-        dict(
-            name="harris_score_i32", route="cuda",
-            source="ethzasl_brisk_tpu_torch/csrc/harris.cu",
-            replaces="ethzasl_brisk_tpu/kernels/pallas_harris.py:54",
-            launches=launches["harris_score_i32"], max_abs_err=k1_err,
-            ms=kernel_ms["k1"][0], plain_ms=kernel_ms["k1"][1],
-        ),
-        dict(
-            name="smoothed_intensity", route="cuda",
-            source="ethzasl_brisk_tpu_torch/csrc/sampler.cu",
-            replaces="ethzasl_brisk_tpu/describe/pallas_sampler.py:46",
-            launches=launches["smoothed_intensity"], max_abs_err=k2_err,
-            ms=kernel_ms["k2"][0], plain_ms=kernel_ms["k2"][1],
-        ),
-        dict(
-            name="harris_score_mask", route="cuda",
-            source="ethzasl_brisk_tpu_torch/csrc/harris_mask.cu",
-            replaces="ethzasl_brisk_tpu/kernels/pallas_harris.py:177",
-            launches=fused_launches["harris_score_mask"], max_abs_err=k3_err,
-            ms=kernel_ms["k3"][0], plain_ms=kernel_ms["k3"][1],
-        ),
-    ]
+        dict(name=name, route="cuda", source=f"ethzasl_brisk_tpu_torch/csrc/{src}",
+             replaces=replaces, launches=n, max_abs_err=err, ms=kernel_ms[key][0],
+             plain_ms=kernel_ms[key][1], bound_ms=kernel_ms[key][2],
+             bound_by=kernel_ms[key][3], library_ms=None)
+        for name, src, replaces, n, err, key in (
+            ("harris_score_i32", "harris.cu", "ethzasl_brisk_tpu/kernels/pallas_harris.py:54",
+             launches["harris_score_i32"], k1_err, "k1"),
+            ("smoothed_intensity", "sampler.cu",
+             "ethzasl_brisk_tpu/describe/pallas_sampler.py:46",
+             launches["smoothed_intensity"], k2_err, "k2"),
+            ("harris_score_mask", "harris_mask.cu",
+             "ethzasl_brisk_tpu/kernels/pallas_harris.py:177",
+             fused_launches["harris_score_mask"], k3_err, "k3"),
+        )
+    ] + probe_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

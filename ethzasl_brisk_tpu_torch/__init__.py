@@ -6,7 +6,12 @@ The JAX package stays the reference; this package imports neither it nor
 JAX. Its TPU kernels are hand-written CUDA here (``csrc/``), built with
 ``nvcc`` the first time a CUDA tensor reaches them.
 
-Quick start (one image; a CUDA image runs the kernels)::
+The entry points (``BriskFeature``, ``BriskExtractor``,
+``HarrisFeatureDetector``, ``FramePipeline``) run on the card unless given
+``device="cpu"``; they move their input images there. ``probes`` holds the
+TPU gather probes as GPU probes (``python -m ethzasl_brisk_tpu_torch.probes``).
+
+Quick start (one image, on the card)::
 
     img = torch.from_numpy(read_pgm("img1.pgm"))
     feature = BriskFeature(octaves=0, uniformity_radius=30.0,

@@ -37,7 +37,11 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"harris_score_i32": 0, "harris_score_mask": 0, "smoothed_intensity": 0}
+LAUNCHES = {
+    "harris_score_i32": 0, "harris_score_mask": 0, "smoothed_intensity": 0,
+    # The gather probes' kernels (probes/gather.py): G1, G2, C, W.
+    "probe_take": 0, "probe_point_gather": 0, "probe_relayout": 0, "probe_window_copy": 0,
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -139,6 +143,17 @@ def library() -> ctypes.CDLL:
                 vp, vp, ci, ci, vp,        # row_base, out, K, P, stream
             ]
             lib.brisk_smoothed_intensity.restype = ci
+            lib.brisk_probe_take.argtypes = [
+                vp, vp, vp, ci, ci,        # src, idx, out, elem_bytes, along_rows
+                ci, ci, ci, ci, ci, vp,    # R, W, S, Ws, n, stream
+            ]
+            lib.brisk_probe_take.restype = ci
+            lib.brisk_probe_point_gather.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+            lib.brisk_probe_point_gather.restype = ci
+            lib.brisk_probe_relayout.argtypes = [vp, vp, ci, ci, ci, vp]
+            lib.brisk_probe_relayout.restype = ci
+            lib.brisk_probe_window_copy.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+            lib.brisk_probe_window_copy.restype = ci
             lib.brisk_error_string.argtypes = [ci]
             lib.brisk_error_string.restype = ctypes.c_char_p
             _lib = lib

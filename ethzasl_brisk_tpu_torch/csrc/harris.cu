@@ -17,8 +17,10 @@
 // here; the TPU kernel's divisibility rule and 128-lane padding are Mosaic
 // constraints and have no counterpart.
 //
-// Bound: bytes. 1 byte in and 4 bytes out per pixel, ~60 integer ops per
-// pixel; the halo re-reads 12% of the input from L2.
+// Bound: int32 operations. 65 per pixel (harris.cuh: gradients 18, products
+// 6, smoothing 33, score 8) at the card's int32 rate take longer than the
+// 1 byte in and 4 bytes out per pixel at its memory rate; the halo re-reads
+// 12% of the input from L2.
 
 #include <cstdint>
 #include <cuda_runtime.h>

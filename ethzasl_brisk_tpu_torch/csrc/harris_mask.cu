@@ -19,8 +19,9 @@
 // (int32 pixels would make it 49 KB). The ragged right and bottom edges are
 // masked here. The mask is written as bytes 0/1 into a torch.bool tensor.
 //
-// Bound: bytes. 1 byte in and 5 bytes out per pixel; against K1 followed by
-// the plain NMS it saves the score map's re-read and the NMS temporaries.
+// Bound: int32 operations, as K1: its 65 per pixel and 9 for the maximum,
+// against 1 byte in and 5 bytes out per pixel. Against K1 followed by the
+// plain NMS it saves the score map's re-read and the NMS temporaries.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ethzasl_brisk_tpu_torch.core.device import resolve_device
 from ethzasl_brisk_tpu_torch.core.keypoints import KeyPoints
 from ethzasl_brisk_tpu_torch.core.pattern import (
     BASIC_SIZE,
@@ -334,14 +335,15 @@ def _pack_descriptor(pat, keypoints, angle, vals, valid):
 
 class BriskExtractor(nn.Module):
     """BriskDescriptorExtractor (brisk-descriptor-extractor.h:62-96) with
-    the v2 pattern; its buffers are the pattern tables, so ``.to(device)``
-    moves them.
+    the v2 pattern; its buffers are the pattern tables.
 
-    ``pattern`` carries tables built elsewhere (``pattern_from_numpy``);
-    otherwise they are built from ``pattern_scale``. Calling it on one
-    (H, W) image with (K,) keypoints describes every slot, as the JAX
-    extractor does; a (B, H, W) batch with (B, K) keypoints goes through
-    ``extract_descriptors_batch``.
+    It runs on ``device`` (default the card; ``device="cpu"`` for the CPU):
+    the buffers live there, and a call moves its image and keypoints there
+    and returns its outputs there. ``pattern`` carries tables built
+    elsewhere (``pattern_from_numpy``); otherwise they are built from
+    ``pattern_scale``. Calling it on one (H, W) image with (K,) keypoints
+    describes every slot, as the JAX extractor does; a (B, H, W) batch with
+    (B, K) keypoints goes through ``extract_descriptors_batch``.
     """
 
     def __init__(
@@ -350,23 +352,31 @@ class BriskExtractor(nn.Module):
         scale_invariant: bool = True,
         pattern_scale: float = 1.0,
         pattern: DevicePattern | None = None,
+        device: str | torch.device = "cuda",
     ):
         super().__init__()
+        dev = resolve_device(device)
         self.rotation_invariant = rotation_invariant
         self.scale_invariant = scale_invariant
         if pattern is None:
             pattern = DevicePattern.from_host(brisk_v2_pattern(pattern_scale))
         for name in PATTERN_FIELDS:
-            self.register_buffer(name, getattr(pattern, name))
+            self.register_buffer(name, getattr(pattern, name).to(dev))
+
+    @property
+    def device(self) -> torch.device:
+        """Where the pattern tables live, and so where calls run."""
+        return self.lut_x.device
 
     @property
     def pattern(self) -> DevicePattern:
         return DevicePattern(**{name: getattr(self, name) for name in PATTERN_FIELDS})
 
     def forward(self, img: torch.Tensor, keypoints: KeyPoints):
+        dev = self.device
         fn = extract_descriptors if img.dim() == 2 else extract_descriptors_batch
         return fn(
-            self.pattern, img, keypoints,
+            self.pattern, img.to(dev), keypoints.map(lambda a: a.to(dev)),
             rotation_invariant=self.rotation_invariant,
             scale_invariant=self.scale_invariant,
         )

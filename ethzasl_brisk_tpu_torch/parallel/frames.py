@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 
+from ethzasl_brisk_tpu_torch.core.device import resolve_device
 from ethzasl_brisk_tpu_torch.detect.scale_space import Mark, _no_mark
 from ethzasl_brisk_tpu_torch.match.matcher import match_adjacent
 from ethzasl_brisk_tpu_torch.pipeline import BriskFeature
@@ -18,23 +19,34 @@ from ethzasl_brisk_tpu_torch.pipeline import BriskFeature
 
 @dataclasses.dataclass
 class FramePipeline:
+    """The step on ``device``: the card unless ``device="cpu"``. The
+    feature must live there too (build it with the same ``device``)."""
+
     feature: BriskFeature
+    device: str | torch.device = "cuda"
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.feature.device != self.device:
+            raise ValueError(
+                f"the feature runs on {self.feature.device}, the pipeline on {self.device}: "
+                "build both with the same device"
+            )
         # The match is a +-1 float32 product whose sums are exact integers;
         # pin full float32 so that holds by construction.
         torch.backends.cuda.matmul.allow_tf32 = False
 
     def step(self, frames: torch.Tensor, with_diagnostics: bool = False,
              mark: Mark = _no_mark):
-        """frames: (B, H, W) uint8 on the feature's device.
+        """frames: (B, H, W) uint8, moved to the pipeline's device.
 
-        Returns (keypoints (B, K), descriptors (B, K, 12) int32 words,
-        match_idx (B-1, K) int32, match_dist (B-1, K) int32), and with
-        ``with_diagnostics`` a dict holding the DetectDiagnostics
+        Returns, on that device, (keypoints (B, K), descriptors (B, K, 12)
+        int32 words, match_idx (B-1, K) int32, match_dist (B-1, K) int32),
+        and with ``with_diagnostics`` a dict holding the DetectDiagnostics
         (``detect``) and the batch's describable count (``describable``).
         ``mark(stage)`` is called after each stage.
         """
+        frames = frames.to(self.device)
         kps, diag = self.feature.detect(frames, with_diagnostics=True, mark=mark)
         kps, desc, n_desc = self.feature.describe(frames, kps, with_diagnostics=True)
         mark("describe")

@@ -2,8 +2,11 @@
 
 ``BriskFeature`` = ``ScaleSpaceFeatureDetector<HarrisScoreCalculator>`` +
 ``BriskDescriptorExtractor`` (brisk-feature.h:54-114). It is an
-``nn.Module`` whose extractor holds the pattern tables as buffers, so
-``.to(device)`` moves them.
+``nn.Module`` whose extractor holds the pattern tables as buffers.
+
+Both facades run on ``device``, the card unless the caller passes
+``device="cpu"``: each call moves its image(s) there and returns its
+outputs there.
 
 Ported knobs: octaves, uniformity_radius, absolute_threshold, max_num_kpt,
 rotation_invariant, scale_invariant, max_candidates, max_keypoints,
@@ -27,6 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ethzasl_brisk_tpu_torch.core.device import resolve_device
 from ethzasl_brisk_tpu_torch.core.keypoints import KeyPoints
 from ethzasl_brisk_tpu_torch.describe.extractor import (
     BriskExtractor,
@@ -73,6 +77,7 @@ class BriskFeature(nn.Module):
         fused_mask: bool = False,
         describe_capacity: int = 0,
         pattern: DevicePattern | None = None,
+        device: str | torch.device = "cuda",
     ):
         super().__init__()
         self.config = DetectorConfig(
@@ -89,7 +94,12 @@ class BriskFeature(nn.Module):
         self.max_keypoints = max_keypoints
         # Per-frame budget of describable keypoints (0 = describe every slot).
         self.describe_capacity = describe_capacity
-        self.extractor = BriskExtractor(rotation_invariant, scale_invariant, pattern=pattern)
+        self.extractor = BriskExtractor(rotation_invariant, scale_invariant, pattern=pattern,
+                                        device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.extractor.device
 
     @property
     def pattern(self) -> DevicePattern:
@@ -99,7 +109,8 @@ class BriskFeature(nn.Module):
                mark: Mark = _no_mark):
         """(H, W) or (B, H, W) uint8 -> KeyPoints (K,) or (B, K)
         [+ DetectDiagnostics]. ``mark(stage)`` is called after each stage."""
-        return _detect(self.config, self.max_keypoints, img, with_diagnostics, mark)
+        return _detect(self.config, self.max_keypoints, img.to(self.device), with_diagnostics,
+                       mark)
 
     def detect_with_diagnostics(self, img: torch.Tensor):
         """detect() + a DetectDiagnostics certifying that no capacity
@@ -113,15 +124,17 @@ class BriskFeature(nn.Module):
 
     def detect_and_compute(self, img: torch.Tensor):
         """Detect, then compute, on one (H, W) image or a (B, H, W) batch."""
+        img = img.to(self.device)
         return self.compute(img, self.detect(img))
 
     def describe(self, imgs: torch.Tensor, kps: KeyPoints, with_diagnostics: bool = False):
         """Batched describe over the describe budget: (KeyPoints, (B, K, 12)
         int32 words) [+ the batch's describable count]."""
+        dev = self.device
         b = imgs.shape[0]
         cap = self.describe_capacity * b if self.describe_capacity else b * kps.capacity
         return extract_descriptors_compact(
-            self.pattern, imgs, kps, capacity=cap,
+            self.pattern, imgs.to(dev), kps.map(lambda a: a.to(dev)), capacity=cap,
             rotation_invariant=self.extractor.rotation_invariant,
             scale_invariant=self.extractor.scale_invariant,
             with_diagnostics=with_diagnostics,
@@ -134,6 +147,7 @@ class HarrisFeatureDetector:
     Mirrors ``brisk::HarrisFeatureDetector(threshold, radius, maxKpts)``
     (harris-feature-detector.h:54-80) as the JAX package realises it: the
     octaves=0 ``BriskFeature`` detection, with max_keypoints = max_candidates.
+    It runs on ``device`` (the card unless ``device="cpu"``).
     """
 
     def __init__(
@@ -142,7 +156,9 @@ class HarrisFeatureDetector:
         uniformity_radius: float = 30.0,
         max_num_kpt: int = 2**31 - 1,
         max_candidates: int = 4096,
+        device: str | torch.device = "cuda",
     ):
+        self.device = resolve_device(device)
         self.config = DetectorConfig(
             octaves=0,
             uniformity_radius=uniformity_radius,
@@ -154,4 +170,5 @@ class HarrisFeatureDetector:
 
     def detect(self, img: torch.Tensor) -> KeyPoints:
         """(H, W) or (B, H, W) uint8 -> KeyPoints (K,) or (B, K)."""
-        return _detect(self.config, self.config.max_keypoints, img, False, _no_mark)
+        return _detect(self.config, self.config.max_keypoints, img.to(self.device), False,
+                       _no_mark)

@@ -1,0 +1,30 @@
+"""Run every gather-probe case on the card:
+
+    python -m ethzasl_brisk_tpu_torch.probes
+
+For each ``pallas_call`` site of P1 and P3 it builds the probe's full-size
+inputs on the card, launches the serving kernel once (counted), holds the
+result bitwise against the plain version, and prints kernel, plain and
+library times, the bound, the rate in elements/s and the card's name and
+power limit. A mismatch or launch error raises. Needs a CUDA card.
+"""
+import sys
+
+import torch
+
+from ethzasl_brisk_tpu_torch import measure
+from ethzasl_brisk_tpu_torch.probes import cases
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("probes: no CUDA device; the probes run on the card only", file=sys.stderr)
+        return 1
+    card = measure.card_line()
+    print(f"[card] {card}", flush=True)
+    cases.run_all(torch.device("cuda", 0), card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -92,7 +92,7 @@ def facade_pair(request, views):
     octaves = request.param
     jf = JaxBriskFeature(octaves=octaves, fused_mask=True, eager_exact=True, **CONFIG)
     feature = BriskFeature(octaves=octaves, fused_mask=True, pattern=_carried(jf.extractor),
-                           **CONFIG)
+                           device="cpu", **CONFIG)
     img = views[0]
     port = (feature.detect_with_diagnostics(torch.from_numpy(img)),
             feature.detect_and_compute(torch.from_numpy(img)))
@@ -126,7 +126,7 @@ def test_detect_and_compute_matches_jax(facade_pair, views):
 
 
 def test_harris_detector_matches_jax(views):
-    got = HarrisFeatureDetector(threshold=20.0, max_candidates=1536).detect(
+    got = HarrisFeatureDetector(threshold=20.0, max_candidates=1536, device="cpu").detect(
         torch.from_numpy(views[1]))
     ref = JaxHarris(threshold=20.0, max_candidates=1536).detect(jnp.asarray(views[1]))
     assert got.capacity == ref.x.shape[0] == 1536
@@ -138,7 +138,7 @@ def test_harris_detector_matches_jax(views):
 def batch_kps(views):
     """Port keypoints of both views (B=2, K=384) with every other valid
     keypoint given a preset angle, which describe must keep."""
-    kps = BriskFeature(octaves=2, **CONFIG).detect(torch.from_numpy(views))
+    kps = BriskFeature(octaves=2, device="cpu", **CONFIG).detect(torch.from_numpy(views))
     rng = np.random.default_rng(5)
     preset = rng.uniform(-180, 180, kps.x.shape).astype(np.float32)
     keep = (np.arange(kps.capacity)[None, :] % 2 == 0)
@@ -153,7 +153,7 @@ def test_extractor_matches_jax(views, batch_kps, rot, scale, pattern_scale):
     jext = JaxBriskExtractor(rotation_invariant=rot, scale_invariant=scale,
                              pattern_scale=pattern_scale)
     ext = BriskExtractor(rotation_invariant=rot, scale_invariant=scale,
-                         pattern_scale=pattern_scale)
+                         pattern_scale=pattern_scale, device="cpu")
     for f in PATTERN_FIELDS:
         np.testing.assert_array_equal(
             getattr(ext.pattern, f).numpy(), np.asarray(getattr(jext.pattern, f)), err_msg=f
@@ -206,7 +206,8 @@ def test_readme_quick_start_matches_jax(tmp_path, views):
     for p, v in zip(paths, views):
         write_pgm(p, v)
     jf = JaxBriskFeature(octaves=0, fused_mask=True, eager_exact=True, **CONFIG)
-    feature = BriskFeature(octaves=0, fused_mask=True, pattern=_carried(jf.extractor), **CONFIG)
+    feature = BriskFeature(octaves=0, fused_mask=True, pattern=_carried(jf.extractor),
+                           device="cpu", **CONFIG)
     port = [feature.detect_and_compute(torch.from_numpy(read_pgm(p))) for p in paths]
     ref = [jf.detect_and_compute(jnp.asarray(jio._read_pgm_py(p))) for p in paths]
     for (kps, desc), (jkps, jdesc) in zip(port, ref):

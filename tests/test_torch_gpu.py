@@ -99,14 +99,14 @@ STEP_CONFIG = dict(
 def test_step_launches_both_kernels(cuda):
     from ethzasl_brisk_tpu_torch import FramePipeline, _kernels
 
-    feature = BriskFeature(**STEP_CONFIG).to(cuda)
+    feature = BriskFeature(**STEP_CONFIG, device="cuda")
     frames = torch.from_numpy(bench_frames(3, 120, 160))
     _kernels.reset_launches()
-    got = FramePipeline(feature).step(frames.to(cuda))
+    got = FramePipeline(feature, device="cuda").step(frames.to(cuda))
     assert _kernels.LAUNCHES["harris_score_i32"] == 4
     assert _kernels.LAUNCHES["harris_score_mask"] == 0
     assert _kernels.LAUNCHES["smoothed_intensity"] == 2
-    ref = FramePipeline(BriskFeature(**STEP_CONFIG)).step(frames)
+    ref = FramePipeline(BriskFeature(**STEP_CONFIG, device="cpu"), device="cpu").step(frames)
     assert torch.equal(got[0].valid.cpu(), ref[0].valid)
     assert torch.equal(got[0].response.cpu(), ref[0].response)
 
@@ -117,9 +117,10 @@ def test_fused_step_launches_k3_and_equals_default(cuda):
     from ethzasl_brisk_tpu_torch import FramePipeline, _kernels
 
     frames = torch.from_numpy(bench_frames(3, 120, 160)).to(cuda)
-    default = FramePipeline(BriskFeature(**STEP_CONFIG).to(cuda)).step(frames)
+    default = FramePipeline(BriskFeature(**STEP_CONFIG, device="cuda"), device="cuda").step(frames)
     _kernels.reset_launches()
-    fused = FramePipeline(BriskFeature(**STEP_CONFIG, fused_mask=True).to(cuda)).step(frames)
+    fused = FramePipeline(BriskFeature(**STEP_CONFIG, fused_mask=True, device="cuda"),
+                          device="cuda").step(frames)
     assert _kernels.LAUNCHES["harris_score_mask"] == 4
     assert _kernels.LAUNCHES["harris_score_i32"] == 0
     assert _kernels.LAUNCHES["smoothed_intensity"] == 2
@@ -127,3 +128,102 @@ def test_fused_step_launches_k3_and_equals_default(cuda):
         assert torch.equal(a, b)
     for a, b in zip(default[1:], fused[1:]):
         assert torch.equal(a, b)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    """No device argument: the buffers live on the card, and a host image
+    comes back as outputs on the card."""
+    from ethzasl_brisk_tpu_torch import FramePipeline, HarrisFeatureDetector
+
+    feature = BriskFeature(octaves=0, absolute_threshold=20.0, max_candidates=2048)
+    assert all(b.device.type == "cuda" for b in feature.buffers())
+    img = torch.from_numpy(bench_frames(1, 120, 160)[0])
+    kps, desc = feature.detect_and_compute(img)
+    assert desc.device.type == "cuda" and all(f.device.type == "cuda" for f in kps.fields())
+    assert HarrisFeatureDetector(threshold=20.0).detect(img).x.device.type == "cuda"
+    assert FramePipeline(feature).device.type == "cuda"
+
+
+def _gather_inputs(rng, dtype, shape_src, shape_idx, hi):
+    src = rng.integers(0, 255 if dtype == np.uint8 else 1 << 22, shape_src).astype(dtype)
+    return torch.from_numpy(src), torch.from_numpy(rng.integers(0, hi, shape_idx, dtype=np.int32))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint8])
+@pytest.mark.parametrize("axis,blocks,src_shape,idx_shape", [
+    (0, 1, (300, 128), (257, 128)),      # global rows, P1 / P3 width
+    (0, 1, (300, 37), (41, 37)),         # a width that is no multiple of 32
+    (0, 3, (3 * 64, 128), (3 * 72, 128)),  # block-local rows
+    (0, 5, (5 * 50, 64), (5 * 50, 64)),
+    (1, 1, (200, 128), (200, 128)),      # lane gather
+    (1, 1, (200, 130), (200, 7)),
+    (1, 1, (999, 128), (999,)),          # the 1-D index of pallas_lane
+])
+def test_take_along_axis_cuda_matches_plain(cuda, dtype, axis, blocks, src_shape, idx_shape):
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    rng = np.random.default_rng(11)
+    hi = src_shape[0] // blocks if axis == 0 else src_shape[1]
+    src, idx = (t.to(cuda) for t in _gather_inputs(rng, dtype, src_shape, idx_shape, hi))
+    got = gather.take_along_axis(src, idx, axis, blocks)
+    torch.cuda.synchronize()
+    ref = gather.take_along_axis_plain(src, idx, axis, blocks)
+    assert got.dtype == src.dtype and torch.equal(got, ref)
+
+
+def test_point_gather_cuda_matches_plain(cuda):
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    rng = np.random.default_rng(12)
+    tab = torch.from_numpy(rng.integers(0, 1 << 20, (97, 130), dtype=np.int32)).to(cuda)
+    r = torch.from_numpy(rng.integers(0, 97, 5001, dtype=np.int32)).to(cuda)
+    c = torch.from_numpy(rng.integers(0, 130, 5001, dtype=np.int32)).to(cuda)
+    got = gather.point_gather(tab, r, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.point_gather_plain(tab, r, c))
+
+
+@pytest.mark.parametrize("transpose", [True, False])
+@pytest.mark.parametrize("shape", [(128, 4096), (8192, 64), (45, 77), (1, 33)])
+def test_relayout_cuda_matches_plain(cuda, transpose, shape):
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    src = torch.from_numpy(np.random.default_rng(13).integers(0, 1 << 22, shape, dtype=np.int32))
+    src = src.to(cuda)
+    got = gather.relayout(src, transpose)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.relayout_plain(src, transpose))
+
+
+@pytest.mark.parametrize("width", [768, 101, 64])
+def test_window_copy_cuda_matches_plain(cuda, width):
+    """Widths that are a multiple of 4 take 16-byte loads, others the
+    element-by-element copy; offsets include both image edges."""
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    rng = np.random.default_rng(14)
+    h, k = 130, 200
+    img = torch.from_numpy(rng.integers(0, 1 << 22, (h, width), dtype=np.int32)).to(cuda)
+    ax = rng.integers(0, width - 63, k, dtype=np.int32)
+    ay = rng.integers(0, h - 63, k, dtype=np.int32)
+    ax[:2], ay[:2] = (0, width - 64), (0, h - 64)
+    ax, ay = torch.from_numpy(ax).to(cuda), torch.from_numpy(ay).to(cuda)
+    got = gather.window_copy(img, ax, ay)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.window_copy_plain(img, ax, ay))
+
+
+def test_probe_wrappers_count_one_launch_each(cuda):
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.probes import cases
+
+    _kernels.reset_launches()
+    for case in cases.CASES:
+        kern = cases.KERNELS[case.kernel]
+        kern.wrapper(*case.args(cases.tensors(case, False, cuda)))
+    torch.cuda.synchronize()
+    want = {}
+    for case in cases.CASES:
+        counter = cases.KERNELS[case.kernel].counter
+        want[counter] = want.get(counter, 0) + 1
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == want

@@ -64,9 +64,9 @@ def test_layer_score_masks_fused_equals_unfused(frames, octaves, thr):
     pyr = scale_space.build_pyramid(torch.from_numpy(frames), max(2 * octaves, 1))
     stages = []
     sc_f, mk_f = scale_space.layer_score_masks(
-        pyr, BriskFeature(**cfg, fused_mask=True).config, mark=stages.append
+        pyr, BriskFeature(**cfg, fused_mask=True, device="cpu").config, mark=stages.append
     )
-    sc_u, mk_u = scale_space.layer_score_masks(pyr, BriskFeature(**cfg).config)
+    sc_u, mk_u = scale_space.layer_score_masks(pyr, BriskFeature(**cfg, device="cpu").config)
     assert stages == ["harris", "masks"]
     for a, b in zip(sc_f, sc_u):
         assert torch.equal(a, b)

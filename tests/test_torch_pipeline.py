@@ -164,8 +164,9 @@ def step_pair():
     carried = pattern_from_numpy(
         {f: np.asarray(getattr(jf.extractor.pattern, f)) for f in PATTERN_FIELDS}
     )
-    feature = BriskFeature(**CONFIG, describe_capacity=DESCRIBE_CAP, pattern=carried)
-    port = FramePipeline(feature).step(torch.from_numpy(frames), with_diagnostics=True)
+    feature = BriskFeature(**CONFIG, describe_capacity=DESCRIBE_CAP, pattern=carried,
+                           device="cpu")
+    port = FramePipeline(feature, device="cpu").step(torch.from_numpy(frames), with_diagnostics=True)
 
     dets, diags = zip(*(jf.detect_with_diagnostics(jnp.asarray(f)) for f in frames))
     det = jax.tree.map(lambda *a: jnp.stack(a), *dets)
@@ -188,7 +189,7 @@ def test_layers_match_jax(step_pair):
     frames, _, _ = step_pair
     cfg = JaxBriskFeature(**CONFIG).config
     jscores, jmasks = jss.layer_score_masks(jnp.asarray(frames[1]), cfg)
-    tcfg = BriskFeature(**CONFIG).config
+    tcfg = BriskFeature(**CONFIG, device="cpu").config
     pyr = tss.build_pyramid(torch.from_numpy(frames[1:2]), 4)
     scores, masks = tss.layer_score_masks(pyr, tcfg)
     for i in range(4):
