@@ -17,14 +17,15 @@ just after:
   each host image (the entry point moves it to the card) and
   ``radius_match_best`` (K3 once per image), compared with the same calls
   on a ``device="cpu"`` feature;
-* the gather probes (``ethzasl_brisk_tpu_torch.probes``): each of the
-  sixteen ``pallas_call`` sites of the TPU probes P1 and P3 at full size,
-  its kernel (G1, G2, C or W) launched once, counted, and held bitwise
-  against its plain version.
+* the gather probes (``ethzasl_brisk_tpu_torch.probes``): each of the 39
+  calls through the 26 ``pallas_call`` sites of the TPU probes P1, P3 and
+  P2 at full size, its kernel (G1, G2, C, W, T, X or S) launched once,
+  counted, and held bitwise against its plain version; each kernel and its
+  library yardstick timed by CUDA events and by the profiler's device time.
 
 Both steps are timed at batch 16 and 128 with per-stage CUDA events, in
 turns (default, fused, fused, default), and each kernel against its plain
-version and beside its bound. Any failed check raises; the last line is a
+version and beside its bound, by CUDA events and by its own device time. Any failed check raises; the last line is a
 JSON object with ``"ok": true``. Needs one CUDA card; without one it exits
 non-zero and prints no result.
 """
@@ -407,8 +408,9 @@ def main() -> int:
     # ---- The README quick start, through PGM files, counted.
     quick_start(dev)
 
-    # ---- The gather probes P1 and P3: every pallas_call site at full size,
-    # its kernel counted (once per site) and bitwise against its plain version.
+    # ---- The gather probes P1, P3 and P2: every call of the 26 pallas_call
+    # sites at full size, its kernel counted (once per call) and bitwise
+    # against its plain version.
     probe_records = probe_cases.run_all(dev, card)
     probe_rows = probe_cases.kernel_rows(probe_records)
 
@@ -465,6 +467,13 @@ def main() -> int:
         k3_ms = cuda_time(lambda: [harris_score_mask_cuda(p, thr) for p in pyr])
         k3_plain = cuda_time(lambda: [harris_score_mask_i32(p, thr) for p in pyr])
         k1_nms = cuda_time(lambda: [maxima2d_mask(harris_score_i32_cuda(p), thr) for p in pyr])
+        # The kernels' own time on the card, each step's launches from a cold L2.
+        k1_dev = measure.device_time(lambda: [harris_score_i32_cuda(p) for p in pyr],
+                                     ("harris_tile_kernel",))
+        k2_dev = measure.device_time(lambda: [smoothed_intensity_cuda(*a) for a in calls],
+                                     ("smoothed_intensity_kernel",))
+        k3_dev = measure.device_time(lambda: [harris_score_mask_cuda(p, thr) for p in pyr],
+                                     ("harris_mask_tile_kernel",))
         # Bounds: K1 reads 1 B and writes 4 B per pixel, K3 one more byte.
         pixels = sum(p.numel() for p in pyr)
         k1_bound = measure.bound_ms(5 * pixels, int32_ops=K1_OPS_PER_PIXEL * pixels)
@@ -472,16 +481,18 @@ def main() -> int:
         k2_bnd = k2_bound(calls)
         print(
             f"[timing] kernels B={batch}, per step (K1, K3: 4 layers, {pixels} pixels; K2: 2 "
-            f"phases, K={calls[0][3].shape[0]}): K1 {k1_ms:.3f} ms vs plain {k1_plain:.3f} ms, "
-            f"bound {k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 {k2_ms:.3f} ms vs plain "
-            f"{k2_plain:.3f} ms, bound {k2_bnd[0]:.4f} ms ({k2_bnd[1]}); K3 {k3_ms:.3f} ms vs "
+            f"phases, K={calls[0][3].shape[0]}): K1 {k1_ms:.3f} ms (device {k1_dev:.4f} ms) vs "
+            f"plain {k1_plain:.3f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 "
+            f"{k2_ms:.3f} ms (device {k2_dev:.4f} ms) vs plain {k2_plain:.3f} ms, bound "
+            f"{k2_bnd[0]:.4f} ms ({k2_bnd[1]}); K3 {k3_ms:.3f} ms (device {k3_dev:.4f} ms) vs "
             f"plain {k3_plain:.3f} ms vs K1 + maxima2d_mask {k1_nms:.3f} ms, bound "
             f"{k3_bound[0]:.4f} ms ({k3_bound[1]}) [{kind}; {card}]",
             flush=True,
         )
         if batch == 16:
-            kernel_ms = dict(k1=(k1_ms, k1_plain, *k1_bound), k2=(k2_ms, k2_plain, *k2_bnd),
-                             k3=(k3_ms, k3_plain, *k3_bound))
+            kernel_ms = dict(k1=(k1_ms, k1_plain, *k1_bound, k1_dev),
+                             k2=(k2_ms, k2_plain, *k2_bnd, k2_dev),
+                             k3=(k3_ms, k3_plain, *k3_bound, k3_dev))
         del frames, pyr, calls
         torch.cuda.empty_cache()
 
@@ -490,8 +501,8 @@ def main() -> int:
     kernels = [
         dict(name=name, route="cuda", source=f"ethzasl_brisk_tpu_torch/csrc/{src}",
              replaces=replaces, launches=n, max_abs_err=err, ms=kernel_ms[key][0],
-             plain_ms=kernel_ms[key][1], bound_ms=kernel_ms[key][2],
-             bound_by=kernel_ms[key][3], library_ms=None)
+             device_ms=kernel_ms[key][4], plain_ms=kernel_ms[key][1],
+             bound_ms=kernel_ms[key][2], bound_by=kernel_ms[key][3], library_ms=None)
         for name, src, replaces, n, err, key in (
             ("harris_score_i32", "harris.cu", "ethzasl_brisk_tpu/kernels/pallas_harris.py:54",
              launches["harris_score_i32"], k1_err, "k1"),
@@ -505,8 +516,9 @@ def main() -> int:
     ] + probe_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[card] {card}", flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+    # The run uses one card, whatever the machine holds.
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}),
+          flush=True)
     return 0
 
 

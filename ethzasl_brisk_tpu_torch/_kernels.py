@@ -39,8 +39,10 @@ NVCC_FLAGS = (
 
 LAUNCHES = {
     "harris_score_i32": 0, "harris_score_mask": 0, "smoothed_intensity": 0,
-    # The gather probes' kernels (probes/gather.py): G1, G2, C, W.
+    # The gather probes' kernels: G1, G2, C, W (probes/gather.py); T, X, S
+    # (probes/mosaic.py).
     "probe_take": 0, "probe_point_gather": 0, "probe_relayout": 0, "probe_window_copy": 0,
+    "probe_transpose_chain": 0, "probe_gather_chain": 0, "probe_window_colsum": 0,
 }
 
 _lock = threading.Lock()
@@ -144,7 +146,7 @@ def library() -> ctypes.CDLL:
             ]
             lib.brisk_smoothed_intensity.restype = ci
             lib.brisk_probe_take.argtypes = [
-                vp, vp, vp, ci, ci,        # src, idx, out, elem_bytes, along_rows
+                vp, vp, vp, ci, ci, ci,    # src, idx, out, src_bytes, out_bytes, along_rows
                 ci, ci, ci, ci, ci, vp,    # R, W, S, Ws, n, stream
             ]
             lib.brisk_probe_take.restype = ci
@@ -154,6 +156,12 @@ def library() -> ctypes.CDLL:
             lib.brisk_probe_relayout.restype = ci
             lib.brisk_probe_window_copy.argtypes = [vp, vp, vp, vp, ci, ci, vp]
             lib.brisk_probe_window_copy.restype = ci
+            lib.brisk_probe_transpose_chain.argtypes = [vp, vp, ci, vp]
+            lib.brisk_probe_transpose_chain.restype = ci
+            lib.brisk_probe_gather_chain.argtypes = [vp, vp, vp, ci, vp]
+            lib.brisk_probe_gather_chain.restype = ci
+            lib.brisk_probe_window_colsum.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+            lib.brisk_probe_window_colsum.restype = ci
             lib.brisk_error_string.argtypes = [ci]
             lib.brisk_error_string.restype = ctypes.c_char_p
             _lib = lib

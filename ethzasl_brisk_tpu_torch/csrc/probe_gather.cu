@@ -9,14 +9,23 @@
 //     not trace in JAX; its intended function is sub_gather2's), :121
 //     sub_gather2, :163 gather_big;
 //   tools/probes/probe_sampler_blocks.py:84 lane_scaled, :111 f_sub,
-//     :121 f_sub_big.
+//     :121 f_sub_big;
+//   tools/probes/probe_mosaic_gather.py:20 probe (its six gathers and the
+//     one-hot lane select, which is the gather of index column 0);
+//   tools/probes/probe_mosaic_gather2.py:25 probe (taa1), :106 wide;
+//   tools/probes/probe_mosaic_gather3.py:61 gather_big, :173 gather8;
+//   tools/probes/probe_mosaic_gather4.py:35 gather_big.
 // With src viewed as (B, S, Ws) and idx and out as (B, R, W) (B = 1 for a
-// 2-D call), it computes numpy's take_along_axis on int32 or uint8
-// elements:
-//   along rows:    out[b, i, j] = src[b, idx[b, i, j], j]   (Ws == W)
-//   along columns: out[b, i, j] = src[b, i, idx[b, i, j]]   (S == R)
+// 2-D call), it computes numpy's take_along_axis on 4-byte (int32 or
+// float32, moved as bits) or uint8 elements:
+//   along rows:    out[b, i, j] = src[b, idx[b, i, j], j]        (Ws == W)
+//   along columns: out[b, i, j] = src[b, i % S, idx[b, i, j]]    (R % S == 0)
 // The leading axis B makes the probes' block-local gathers (B blocks of S
 // source rows each, e.g. sub_big's 128 blocks of 4096 rows) one launch.
+// Along columns, index rows may be a whole multiple of the source rows:
+// every block of S index rows reads the same source (wide's 64 grid steps
+// over one (256, 2432) block). A uint8 source may be widened to an int32
+// output (gather8's src.astype(int32) before the gather).
 //
 // G2, point_gather, replaces tools/bench_pallas_gather.py:93
 // pallas_2stage: out[i] = tab[r[i], c[i]].
@@ -47,9 +56,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T, bool kAlongRows>
+template <typename Tin, typename Tout, bool kAlongRows>
 __global__ void __launch_bounds__(kThreads) take_kernel(
-    const T* __restrict__ src, const int32_t* __restrict__ idx, T* __restrict__ out,
+    const Tin* __restrict__ src, const int32_t* __restrict__ idx, Tout* __restrict__ out,
     unsigned R, unsigned W, unsigned S, unsigned Ws, unsigned n) {
   const unsigned t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= n) return;
@@ -61,22 +70,22 @@ __global__ void __launch_bounds__(kThreads) take_kernel(
     const unsigned b = row / R;
     s = ((size_t)b * S + k) * Ws + j;
   } else {
-    s = (size_t)row * Ws + k;
+    s = (size_t)(row % S) * Ws + k;
   }
-  out[t] = src[s];
+  out[t] = (Tout)src[s];
 }
 
-template <typename T>
+template <typename Tin, typename Tout>
 cudaError_t launch_take(const void* src, const void* idx, void* out, bool along_rows,
                         unsigned R, unsigned W, unsigned S, unsigned Ws, unsigned n,
                         cudaStream_t stream) {
   const unsigned blocks = (n + kThreads - 1) / kThreads;
   if (along_rows) {
-    take_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
-        (const T*)src, (const int32_t*)idx, (T*)out, R, W, S, Ws, n);
+    take_kernel<Tin, Tout, true><<<blocks, kThreads, 0, stream>>>(
+        (const Tin*)src, (const int32_t*)idx, (Tout*)out, R, W, S, Ws, n);
   } else {
-    take_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
-        (const T*)src, (const int32_t*)idx, (T*)out, R, W, S, Ws, n);
+    take_kernel<Tin, Tout, false><<<blocks, kThreads, 0, stream>>>(
+        (const Tin*)src, (const int32_t*)idx, (Tout*)out, R, W, S, Ws, n);
   }
   return cudaGetLastError();
 }
@@ -91,16 +100,21 @@ __global__ void __launch_bounds__(kThreads) point_gather_kernel(
 
 }  // namespace
 
-// G1. elem_bytes is 4 (int32) or 1 (uint8); n = B * R * W output elements.
-extern "C" int brisk_probe_take(const void* src, const void* idx, void* out, int elem_bytes,
-                                int along_rows, int R, int W, int S, int Ws, int n,
-                                void* stream) {
+// G1. (src_bytes, out_bytes) is (4, 4) (int32 or float32), (1, 1) (uint8)
+// or (1, 4) (uint8 widened to int32); n = B * R * W output elements.
+extern "C" int brisk_probe_take(const void* src, const void* idx, void* out, int src_bytes,
+                                int out_bytes, int along_rows, int R, int W, int S, int Ws,
+                                int n, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (elem_bytes == 4) {
-    return (int)launch_take<int32_t>(src, idx, out, along_rows != 0, R, W, S, Ws, n, st);
+  const bool rows = along_rows != 0;
+  if (src_bytes == 4 && out_bytes == 4) {
+    return (int)launch_take<uint32_t, uint32_t>(src, idx, out, rows, R, W, S, Ws, n, st);
   }
-  if (elem_bytes == 1) {
-    return (int)launch_take<uint8_t>(src, idx, out, along_rows != 0, R, W, S, Ws, n, st);
+  if (src_bytes == 1 && out_bytes == 1) {
+    return (int)launch_take<uint8_t, uint8_t>(src, idx, out, rows, R, W, S, Ws, n, st);
+  }
+  if (src_bytes == 1 && out_bytes == 4) {
+    return (int)launch_take<uint8_t, int32_t>(src, idx, out, rows, R, W, S, Ws, n, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,17 +1,21 @@
 """Timing on the card and the least time the card could take.
 
-``cuda_time`` times a function by CUDA events; ``card_line`` is the card's
-name and power limit as ``nvidia-smi`` reports them, printed beside every
-time. ``bound_ms`` is the least time one NVIDIA H100 SXM could take for a
-piece of work: the larger of its bytes over the device-memory rate and its
-operations over the peak rate for their type. The peaks are the published
-ones at the full 700 W limit (NVIDIA's data sheet): 3.35 TB/s of HBM3 and
-67 TFLOP/s of float32 outside the tensor cores, which is 132 SMs x 128
-lanes x 2 (a fused multiply-add) x 1.98 GHz. The data sheet gives no int32
-rate; the Hopper white paper gives 64 int32 lanes per SM, so at the same
-clock and counting a multiply-add as two operations, 33.5 Tops/s. Where a
-gather's traffic depends on its indices, ``distinct_sector_bytes`` counts
-the 32-byte sectors the indices touch, the least the card can read.
+``cuda_time`` times a function by CUDA events, which bracket the host work
+of each call as well, with its inputs warm in L2 from the call before;
+``device_time`` reads the kernels' own time on the card from
+``torch.profiler``, each call from a cold L2 as the bound assumes;
+``card_line`` is the card's name and power limit as ``nvidia-smi`` reports
+them, printed beside every time. ``bound_ms`` is the least time one NVIDIA
+H100 SXM could take for a piece of work: the larger of its bytes over the
+device-memory rate and its operations over the peak rate for their type.
+The peaks are the published ones at the full 700 W limit (NVIDIA's data
+sheet): 3.35 TB/s of HBM3 and 67 TFLOP/s of float32 outside the tensor
+cores, which is 132 SMs x 128 lanes x 2 (a fused multiply-add) x 1.98 GHz.
+The data sheet gives no int32 rate; the Hopper white paper gives 64 int32
+lanes per SM, so at the same clock and counting a multiply-add as two
+operations, 33.5 Tops/s. Where a gather's traffic depends on its indices,
+``distinct_sector_bytes`` counts the 32-byte sectors the indices touch, the
+least the card can read.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 132 * 64 * 2 * 1.98e9
 SECTOR = 32  # bytes: the unit in which the card moves device memory
+L2_BYTES = 50 * 2**20  # H100's L2 cache
+TRACE_ATTEMPTS = 3
 
 
 def card_line() -> str:
@@ -47,6 +53,65 @@ def cuda_time(fn, reps: int = 10, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _traced_calls(fn, flush: torch.Tensor, kernel_names, calls: int) -> list[float]:
+    """Device time (ms) of each of ``calls`` calls of fn(), each after a read
+    of ``flush``, as one profiler trace shows them (see ``device_time``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.sum(dim=1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    work = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            start, ms = ((e.start_ns(), e.duration_ns() / 1e6) if hasattr(e, "start_ns")
+                         else (1e3 * e.start_us(), e.duration_us() / 1e3))
+            work.append((start, ms, e.name()))
+    times, flushing = [], False
+    for _, ms, name in sorted(work):
+        if "reduce_kernel" in name:
+            if not flushing:
+                times.append(0.0)
+            flushing = True
+            continue
+        flushing = False
+        if times and (kernel_names is None or any(k in name for k in kernel_names)):
+            times[-1] += ms
+    return times
+
+
+def device_time(fn, kernel_names: tuple[str, ...] | None = None, reps: int = 10,
+                warmup: int = 3) -> float:
+    """Median device time (ms) of fn() over ``reps`` calls, each from a cold
+    L2: the summed own time on the card of the kernels whose names contain
+    one of ``kernel_names`` (all of the call's device work, copies included,
+    when None), from a ``torch.profiler`` trace of CUDA activity.
+
+    Before each call a row-wise float32 sum (one reduction kernel, no cast)
+    reads a buffer twice the L2's size; its kernel marks where each call's
+    work starts in the trace and is not counted, so ``fn`` must launch no
+    reduction of its own. The profiler can miss events, at the start of a
+    trace or all of them: each trace starts with one more call, not counted,
+    and a trace that still lacks a call is taken again, up to
+    ``TRACE_ATTEMPTS`` times, before this raises."""
+    for _ in range(warmup):
+        fn()
+    flush = torch.empty((2 * L2_BYTES // 4 // 512, 512), dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(TRACE_ATTEMPTS):
+        times = _traced_calls(fn, flush, kernel_names, reps + 1)[-reps:]
+        if len(times) == reps and all(times):
+            return statistics.median(times)
+        seen.append(len(times))
+    raise RuntimeError(f"device_time: {reps} calls of {kernel_names or 'any kernel'} not in "
+                       f"{TRACE_ATTEMPTS} profiler traces (found {seen})")
 
 
 def bound_ms(nbytes: float, int32_ops: float = 0.0, fp32_ops: float = 0.0) -> tuple[float, str]:

@@ -2,11 +2,12 @@
 
     python -m ethzasl_brisk_tpu_torch.probes
 
-For each ``pallas_call`` site of P1 and P3 it builds the probe's full-size
-inputs on the card, launches the serving kernel once (counted), holds the
-result bitwise against the plain version, and prints kernel, plain and
-library times, the bound, the rate in elements/s and the card's name and
-power limit. A mismatch or launch error raises. Needs a CUDA card.
+For each call of the ``pallas_call`` sites of P1, P3 and P2 (39 cases) it
+builds the probe's full-size inputs on the card, launches the serving
+kernel once (counted), holds the result bitwise against the plain version,
+and prints kernel (event and device), plain and library (event and device)
+times, the bound, the rate in elements/s and the card's name and power
+limit. A mismatch or launch error raises. Needs a CUDA card.
 """
 import sys
 

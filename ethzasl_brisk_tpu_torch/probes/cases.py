@@ -1,12 +1,15 @@
-"""The sixteen ``pallas_call`` sites of the TPU gather probes P1 and P3, and
+"""The 26 ``pallas_call`` sites of the TPU gather probes P1, P3 and P2, and
 the run that holds each site's kernel against its plain version on the card.
 
-One ``Case`` per site (site 11, ``lane_scaled``, runs at the probe's two
-scales, so it has two): the probe's function name and the file:line of its
-``pallas_call``, an input maker at the probe's full shapes or at a small test
-shape, drawn from ``np.random.default_rng`` with the probe's value and index
-distributions, and the kernel that serves it (``probes/gather.py``). All
-indices are int32 and in range, as in every probe.
+One ``Case`` per call of a site: sites 1-16 (P1 and P3) run once each but
+site 11, ``lane_scaled``, which runs at the probe's two scales; sites 17-26
+(P2, ``tools/probes/probe_mosaic_gather{,2,3,4}.py``) run 22 calls, site
+17's ``probe`` seven times, site 18's five, site 25's three. A case holds the
+probe's function name and the file:line of its ``pallas_call``, an input
+maker at the probe's full shapes or at a small test shape, drawn from
+``np.random.default_rng`` with the probe's value and index distributions,
+and the kernel that serves it (``probes/gather.py``, ``probes/mosaic.py``).
+All indices are int32 and in range, as in every probe.
 
 Traps kept in view here and in the tests:
 
@@ -17,14 +20,23 @@ Traps kept in view here and in the tests:
   3-D blocks raises ``ValueError: Incompatible shapes for broadcasting``);
   the port serves its intended function, site 9's;
 * sites 5, 8, 9 and 13 gather block-local rows, site 2 global rows;
-* site 6's source and output are uint8.
+* site 6's source and output are uint8; site 24 widens a uint8 source to
+  an int32 output;
+* site 17's last call is a one-hot lane select in float32 (a product and
+  a lane sum), served by G1 on index column 0: equal bit for bit on the
+  probe's tables, integers in [0, 1000);
+* site 19's 64 grid steps all read the same (256, 2432) source block;
+* site 21's eight transposes and adds equal ``t + 8``.
 
 ``run_all`` is what ``python -m ethzasl_brisk_tpu_torch.probes`` and the
 ``[probes]`` phase of ``chip_smoke.py`` run: each case once with the launch
 counters set to 0 just before and read just after, bitwise against the plain
 version, then timed against the plain version and the one PyTorch call that
-computes the same function, beside its bound. Nothing is caught: a mismatch
-or a launch error ends the run.
+computes the same function, beside its bound. Each kernel and library call
+is timed twice: by CUDA events around the call, which include its host work
+(the wrapper's checks, the ctypes call), and by ``torch.profiler`` as the
+kernels' own time on the card. Nothing is caught: a mismatch or a launch
+error ends the run.
 """
 from __future__ import annotations
 
@@ -35,12 +47,16 @@ import numpy as np
 import torch
 
 from ethzasl_brisk_tpu_torch import _kernels, measure
-from ethzasl_brisk_tpu_torch.probes import gather
+from ethzasl_brisk_tpu_torch.probes import gather, mosaic
 
 P1 = "tools/bench_pallas_gather.py"
 SUBLANE = "tools/probes/probe_sublane_gather.py"
 FORMULATIONS = "tools/probes/probe_gather_formulations.py"
 BLOCKS = "tools/probes/probe_sampler_blocks.py"
+MOSAIC = "tools/probes/probe_mosaic_gather.py"
+MOSAIC2 = "tools/probes/probe_mosaic_gather2.py"
+MOSAIC3 = "tools/probes/probe_mosaic_gather3.py"
+MOSAIC4 = "tools/probes/probe_mosaic_gather4.py"
 
 # P1's geometry (bench_pallas_gather.py:54-71): an (h, w) int32 table padded
 # into (rows_t, 128), n taps in clusters of ``cluster`` within +-spread
@@ -139,6 +155,59 @@ def _windows(rng, full):
                 ax=_ints(rng, (g["k"],), g["w"] - 64), ay=_ints(rng, (g["k"],), g["h"] - 64))
 
 
+def _scales(full, small):
+    return {True: full, False: small}
+
+
+# P2's shapes at full scale (the probes' own) and at the test's small scale.
+# probe_mosaic_gather.py: a (256, 128) table, row indices (8, 128) or of
+# the table's shape, lane indices of the table's shape or (256, 1).
+TABLE17 = _scales((256, 128), (32, 128))
+COL17 = _scales((256, 1), (32, 1))
+SHORT17 = _scales((8, 128), (8, 128))
+# probe_mosaic_gather2.py: lane gathers from sources up to 65536 wide, and
+# wide's 64 grid steps of 256 index rows over one (256, 2432) source.
+LANE18 = _scales((256, 128), (16, 128))
+WIDE19 = _scales((256, 2432), (16, 608))
+WIDE19_IDX = _scales((64 * 256, 128), (4 * 16, 128))
+# probe_mosaic_gather3.py's (16384, 128) tables, probe_mosaic_gather4.py's
+# three sizes, and dma_patches' images with 512 windows of 96 x 128.
+TABLE3 = _scales((16384, 128), (384, 128))
+SCALED25 = [_scales((m, 128), (small, 128))
+            for m, small in ((16384, 256), (131072, 512), (524288, 1024))]
+IMAGE23 = _scales((481, 768), (120, 200))
+IMAGE26 = _scales((488, 768), (120, 200))
+WINDOWS = _scales(512, 16)
+
+
+def _gather(src, idx, axis, dtype=np.int32, hi=1000):
+    """A take_along_axis probe's table in [0, hi) and its indices along
+    ``axis``; ``src`` and ``idx`` give the shapes per scale."""
+    def make(rng, full):
+        shape = src[full]
+        tab = _ints(rng, shape, hi, np.uint8 if dtype == np.uint8 else np.int32)
+        return dict(src=tab.astype(dtype), idx=_ints(rng, idx[full], shape[axis]))
+    return make
+
+
+def _tables(with_index):
+    def make(rng, full):
+        x = dict(t=_ints(rng, TABLE3[full], 1000))
+        if with_index:
+            x["i"] = _ints(rng, TABLE3[full], mosaic.BLOCK)
+        return x
+    return make
+
+
+def _dma_windows(image):
+    def make(rng, full):
+        h, w = image[full]
+        k = WINDOWS[full]
+        return dict(img=_ints(rng, (h, w), 255), ax=_ints(rng, (k,), w - mosaic.WIN_COLS),
+                    ay=_ints(rng, (k,), h - mosaic.WIN_ROWS))
+    return make
+
+
 @dataclasses.dataclass(frozen=True)
 class Case:
     site: int
@@ -163,7 +232,15 @@ def _take1(x):
     return x["src"], x["idx"], 1
 
 
-CASES = [
+def _lane_col0(x):
+    return x["src"], x["idx"][:, :1].contiguous(), 1
+
+
+def _windows_args(x):
+    return x["img"], x["ax"], x["ay"]
+
+
+CASES_P13 = [
     Case(1, "pallas_2stage", f"{P1}:93", "point_gather", _site1,
          lambda x: (x["tab"], x["r"], x["c"])),
     Case(2, "pallas_rows", f"{P1}:120", "take", _site2, lambda x: (x["tab"], x["idx"], 0),
@@ -185,11 +262,54 @@ CASES = [
     Case(13, "f_sub_big", f"{BLOCKS}:121", "take", _square(SQUARE_BLOCKS[32]), _take0, note="block-local"),
     Case(14, "f_resh", f"{BLOCKS}:144", "relayout", _patches,
          lambda x: (x["pat"].view(-1, x["pat"].shape[-1]), False)),
-    Case(15, "f_dma", f"{BLOCKS}:182", "window_copy", _windows,
-         lambda x: (x["img"], x["ax"], x["ay"])),
-    Case(16, "f_dma2", f"{BLOCKS}:238", "window_copy", _windows,
-         lambda x: (x["img"], x["ax"], x["ay"])),
+    Case(15, "f_dma", f"{BLOCKS}:182", "window_copy", _windows, _windows_args),
+    Case(16, "f_dma2", f"{BLOCKS}:238", "window_copy", _windows, _windows_args),
 ]
+
+CASES_P2 = [
+    Case(17, "probe(a)", f"{MOSAIC}:20", "take", _gather(TABLE17, SHORT17, 0), _take0,
+         note="axis 0, idx (8, 128)"),
+    Case(17, "probe(b)", f"{MOSAIC}:20", "take", _gather(TABLE17, TABLE17, 0), _take0,
+         note="axis 0"),
+    Case(17, "probe(c)", f"{MOSAIC}:20", "take", _gather(TABLE17, TABLE17, 0, np.float32),
+         _take0, note="axis 0, float32"),
+    Case(17, "probe(d)", f"{MOSAIC}:20", "take", _gather(TABLE17, TABLE17, 1), _take1,
+         note="axis 1"),
+    Case(17, "probe(e)", f"{MOSAIC}:20", "take", _gather(TABLE17, COL17, 1), _take1,
+         note="axis 1, idx (256, 1)"),
+    Case(17, "probe(f)", f"{MOSAIC}:20", "take", _gather(TABLE17, TABLE17, 1, np.float32),
+         _take1, note="axis 1, float32"),
+    Case(17, "probe(g)", f"{MOSAIC}:20", "lane_select",
+         _gather(TABLE17, TABLE17, 1, np.float32), _lane_col0,
+         note="one-hot lane select, served by G1 on index column 0"),
+    Case(18, "taa1(a)", f"{MOSAIC2}:25", "take",
+         _gather(_scales((256, 256), (16, 256)), LANE18, 1), _take1),
+    Case(18, "taa1(b)", f"{MOSAIC2}:25", "take",
+         _gather(_scales((256, 2432), (16, 2432)), LANE18, 1), _take1),
+    Case(18, "taa1(c)", f"{MOSAIC2}:25", "take",
+         _gather(_scales((8, 65536), (8, 4096)), _scales((8, 128), (8, 128)), 1), _take1),
+    Case(18, "taa1(d)", f"{MOSAIC2}:25", "take", _gather(LANE18, LANE18, 1, np.uint8, 255),
+         _take1, note="uint8"),
+    Case(18, "taa1(e)", f"{MOSAIC2}:25", "take", _gather(TABLE3, TABLE3, 1), _take1),
+    Case(19, "wide", f"{MOSAIC2}:106", "take", _gather(WIDE19, WIDE19_IDX, 1), _take1,
+         note="one source block shared by every grid step"),
+    Case(20, "gather_big", f"{MOSAIC3}:61", "take", _gather(TABLE3, TABLE3, 1), _take1),
+    Case(21, "transpose_many", f"{MOSAIC3}:86", "transpose_chain", _tables(False),
+         lambda x: (x["t"],), note="equals t + 8"),
+    Case(22, "chain", f"{MOSAIC3}:107", "gather_chain", _tables(True),
+         lambda x: (x["t"], x["i"])),
+    Case(23, "dma_patches", f"{MOSAIC3}:145", "window_colsum", _dma_windows(IMAGE23),
+         _windows_args, note="one window per grid step"),
+    Case(24, "gather8", f"{MOSAIC3}:173", "take_widen",
+         _gather(TABLE3, TABLE3, 1, np.uint8, 255),
+         lambda x: (x["src"], x["idx"], 1, 1, torch.int32), note="uint8 to int32"),
+    *(Case(25, f"gather_big({t[True][0]})", f"{MOSAIC4}:35", "take", _gather(t, t, 1), _take1)
+      for t in SCALED25),
+    Case(26, "dma_patches", f"{MOSAIC4}:87", "window_colsum", _dma_windows(IMAGE26),
+         _windows_args, note="eight windows per grid step"),
+]
+
+CASES = CASES_P13 + CASES_P2
 
 
 def tensors(case: Case, full: bool, device, seed: int | None = None) -> dict:
@@ -202,13 +322,18 @@ def tensors(case: Case, full: bool, device, seed: int | None = None) -> dict:
 # ---- The one PyTorch call that computes each kernel's function, timed as
 # a yardstick only.
 
-def _library_take(src, idx, axis, blocks=1):
+def _library_take(src, idx, axis, blocks=1, out_dtype=None):
     if idx.dim() == 1:
-        return torch.gather(src, 1, idx[:, None])
-    if axis == 1:
-        return torch.gather(src, 1, idx)
-    w = idx.shape[1]
-    return torch.gather(src.view(blocks, -1, w), 1, idx.view(blocks, -1, w))
+        out = torch.gather(src, 1, idx[:, None])
+    elif axis == 1 and idx.shape[0] != src.shape[0]:  # one source, shared by row blocks
+        copies = idx.shape[0] // src.shape[0]
+        out = torch.gather(src.expand(copies, *src.shape), 2, idx.view(copies, src.shape[0], -1))
+    elif axis == 1:
+        out = torch.gather(src, 1, idx)
+    else:
+        w = idx.shape[1]
+        out = torch.gather(src.view(blocks, -1, w), 1, idx.view(blocks, -1, w))
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 def _library_point(tab, r, c):
@@ -217,37 +342,55 @@ def _library_point(tab, r, c):
 
 @dataclasses.dataclass(frozen=True)
 class Kernel:
-    label: str                 # G1, G2, C, W
+    label: str                 # G1, G2, C, W, T, X, S
     counter: str               # key of _kernels.LAUNCHES
     source: str
+    names: tuple[str, ...]     # its CUDA kernels' names, as the profiler lists them
     wrapper: Callable
     plain: Callable
     library: Callable | None   # None: no one PyTorch call computes it
     library_name: str
     nbytes: Callable
+    int32_ops: Callable | None = None
 
+
+GATHER_CU = "ethzasl_brisk_tpu_torch/csrc/probe_gather.cu"
+COPY_CU = "ethzasl_brisk_tpu_torch/csrc/probe_copy.cu"
+MOSAIC_CU = "ethzasl_brisk_tpu_torch/csrc/probe_mosaic.cu"
+_G1 = dict(label="G1", counter="probe_take", source=GATHER_CU, names=("take_kernel",),
+           wrapper=gather.take_along_axis, library=_library_take,
+           nbytes=gather.take_along_axis_bytes)
 
 KERNELS = {
-    "take": Kernel("G1", "probe_take", "ethzasl_brisk_tpu_torch/csrc/probe_gather.cu",
-                   gather.take_along_axis, gather.take_along_axis_plain, _library_take,
-                   "torch.gather", gather.take_along_axis_bytes),
-    "point_gather": Kernel("G2", "probe_point_gather",
-                           "ethzasl_brisk_tpu_torch/csrc/probe_gather.cu",
+    "take": Kernel(**_G1, plain=gather.take_along_axis_plain, library_name="torch.gather"),
+    "take_widen": Kernel(**_G1, plain=gather.take_along_axis_plain,
+                         library_name="torch.gather then .int()"),
+    "lane_select": Kernel(**_G1, plain=gather.lane_select_plain, library_name="torch.gather"),
+    "point_gather": Kernel("G2", "probe_point_gather", GATHER_CU, ("point_gather_kernel",),
                            gather.point_gather, gather.point_gather_plain, _library_point,
                            "tab[r, c]", gather.point_gather_bytes),
-    "relayout": Kernel("C", "probe_relayout", "ethzasl_brisk_tpu_torch/csrc/probe_copy.cu",
+    "relayout": Kernel("C", "probe_relayout", COPY_CU, ("relayout_kernel",),
                        gather.relayout, gather.relayout_plain, gather.relayout_plain,
                        ".T.contiguous() / .clone()", gather.relayout_bytes),
-    "window_copy": Kernel("W", "probe_window_copy",
-                          "ethzasl_brisk_tpu_torch/csrc/probe_copy.cu",
+    "window_copy": Kernel("W", "probe_window_copy", COPY_CU, ("window_copy_kernel",),
                           gather.window_copy, gather.window_copy_plain, None, "none",
                           gather.window_copy_bytes),
+    "transpose_chain": Kernel("T", "probe_transpose_chain", MOSAIC_CU,
+                              ("transpose_chain_kernel",), mosaic.transpose_chain,
+                              mosaic.transpose_chain_plain, lambda t: t + 8, "t + 8",
+                              mosaic.transpose_chain_bytes, mosaic.transpose_chain_ops),
+    "gather_chain": Kernel("X", "probe_gather_chain", MOSAIC_CU, ("gather_chain_kernel",),
+                           mosaic.gather_chain, mosaic.gather_chain_plain, None, "none",
+                           mosaic.gather_chain_bytes),
+    "window_colsum": Kernel("S", "probe_window_colsum", MOSAIC_CU, ("window_colsum_kernel",),
+                            mosaic.window_colsum, mosaic.window_colsum_plain, None, "none",
+                            mosaic.window_colsum_bytes, mosaic.window_colsum_ops),
 }
 
 
 def run_case(case: Case, device: torch.device, card: str, reps: int = 10) -> dict:
-    """One site at full size on the card: counted launch, bitwise check,
-    times and bound. Returns its record."""
+    """One call of a site at full size on the card: counted launch, bitwise
+    check, times and bound. Returns its record."""
     kern = KERNELS[case.kernel]
     x = tensors(case, True, device)
     args = case.args(x)
@@ -264,22 +407,29 @@ def run_case(case: Case, device: torch.device, card: str, reps: int = 10) -> dic
         raise AssertionError(f"{case.label}: {kern.label} differs from its plain version")
     err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
     ms = measure.cuda_time(lambda: kern.wrapper(*args), reps=reps)
+    device_ms = measure.device_time(lambda: kern.wrapper(*args), kern.names, reps=reps)
     plain_ms = measure.cuda_time(lambda: kern.plain(*args), reps=reps)
-    library_ms = (measure.cuda_time(lambda: kern.library(*args), reps=reps)
-                  if kern.library else None)
+    library_ms = library_device_ms = None
+    if kern.library:
+        library_ms = measure.cuda_time(lambda: kern.library(*args), reps=reps)
+        library_device_ms = measure.device_time(lambda: kern.library(*args), reps=reps)
     nbytes = kern.nbytes(*args)
-    bound, bound_by = measure.bound_ms(nbytes)
+    ops = kern.int32_ops(*args) if kern.int32_ops else 0
+    bound, bound_by = measure.bound_ms(nbytes, int32_ops=ops)
     rec = dict(site=case.site, name=case.name, source=case.source, kernel=case.kernel,
                shapes={k: tuple(v.shape) for k, v in x.items() if torch.is_tensor(v)},
-               launches=1, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound, bound_by=bound_by, bytes=nbytes,
-               elements_per_s=got.numel() / (ms * 1e-3))
-    lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
+               launches=1, max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_device_ms=library_device_ms,
+               bound_ms=bound, bound_by=bound_by, bytes=nbytes, int32_ops=ops,
+               elements_per_s=got.numel() / (device_ms * 1e-3))
+    lib = (f"{library_ms:.4f} ms (device {library_device_ms:.4f} ms)"
+           if library_ms is not None else "none")
     print(
         f"[probes] {case.label} via {kern.label}: {rec['shapes']} -> {tuple(got.shape)} "
-        f"{got.dtype}; 1 launch; bitwise equal to plain; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library ({kern.library_name}) {lib}, bound {bound:.4f} ms "
-        f"({bound_by}, {nbytes} B); {rec['elements_per_s']:.4g} elements/s [{card}]",
+        f"{got.dtype}; 1 launch; bitwise equal to plain; kernel {ms:.4f} ms (device "
+        f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, library ({kern.library_name}) {lib}, "
+        f"bound {bound:.4f} ms ({bound_by}: {nbytes} B, {ops} int32 ops); "
+        f"{rec['elements_per_s']:.4g} elements/s of device time [{card}]",
         flush=True,
     )
     return rec
@@ -296,18 +446,25 @@ def run_all(device: torch.device, card: str, reps: int = 10) -> list[dict]:
 
 def kernel_rows(records: list[dict]) -> list[dict]:
     """One row per kernel for chip_smoke's ``kernels`` line: each site it
-    serves once (times, bounds and launches summed over them)."""
+    serves once (times, bounds and launches summed over its calls; bound by
+    what bounds the larger share of the summed bound)."""
     rows = []
-    for key, kern in KERNELS.items():
-        recs = [r for r in records if r["kernel"] == key]
-        sites = list(dict.fromkeys(r["source"] for r in recs))
+    for counter in dict.fromkeys(k.counter for k in KERNELS.values()):
+        kern = next(k for k in KERNELS.values() if k.counter == counter)
+        recs = [r for r in records if KERNELS[r["kernel"]].counter == counter]
+        libs = [r["library_ms"] for r in recs if r["library_ms"] is not None]
+        lib_dev = [r["library_device_ms"] for r in recs if r["library_device_ms"] is not None]
+        by = {b: sum(r["bound_ms"] for r in recs if r["bound_by"] == b)
+              for b in ("bytes", "operations")}
         rows.append(dict(
-            name=kern.counter, route="cuda", source=kern.source, replaces=", ".join(sites),
+            name=counter, route="cuda", source=kern.source,
+            replaces=", ".join(dict.fromkeys(r["source"] for r in recs)),
             launches=sum(r["launches"] for r in recs),
             max_abs_err=max(r["max_abs_err"] for r in recs),
-            ms=sum(r["ms"] for r in recs), plain_ms=sum(r["plain_ms"] for r in recs),
-            bound_ms=sum(r["bound_ms"] for r in recs),
-            bound_by="bytes",
-            library_ms=(sum(r["library_ms"] for r in recs) if kern.library else None),
+            ms=sum(r["ms"] for r in recs), device_ms=sum(r["device_ms"] for r in recs),
+            plain_ms=sum(r["plain_ms"] for r in recs),
+            bound_ms=sum(r["bound_ms"] for r in recs), bound_by=max(by, key=by.get),
+            library_ms=sum(libs) if len(libs) == len(recs) else None,
+            library_device_ms=sum(lib_dev) if len(lib_dev) == len(recs) else None,
         ))
     return rows

@@ -1,15 +1,20 @@
-"""The gather probes' kernels (P1, P3) on Hopper, each beside its plain version.
+"""The gather probes' gathers and copies on Hopper, each beside its plain version.
 
 The TPU probes under ``tools/`` time per-keypoint window copies and
 gathers into those windows, the building blocks of a describe sampler that
-stages each keypoint's window in fast memory. Four functions serve their
-sixteen ``pallas_call`` sites (``probes/cases.py`` maps each site):
+stages each keypoint's window in fast memory. These four functions serve
+the ``pallas_call`` sites of P1 and P3 and the gathers of P2
+(``probes/cases.py`` maps each site; ``probes/mosaic.py`` holds P2's other
+kernels):
 
 * G1 ``take_along_axis``: numpy's ``take_along_axis`` on axis 0 or 1 of a
-  2-D int32 or uint8 table, any width; on axis 0 optionally block-local
-  (``blocks`` equal blocks of source rows, one per block of index rows); on
-  axis 1 also with a 1-D index, one column per row
-  (``csrc/probe_gather.cu``);
+  2-D int32, float32 or uint8 table, any width; on axis 0 optionally
+  block-local (``blocks`` equal blocks of source rows, one per block of
+  index rows); on axis 1 also with a 1-D index, one column per row, or with
+  index rows a whole multiple of the source rows (each block of them reads
+  the same source); a uint8 source may widen to an int32 output
+  (``csrc/probe_gather.cu``). ``lane_select_plain`` is its plain version
+  for the one-hot lane select of ``probe_mosaic_gather.py``;
 * G2 ``point_gather``: ``out[i] = tab[r[i], c[i]]`` (``csrc/probe_gather.cu``);
 * C ``relayout``: the transpose or the plain copy of a 2-D int32 table,
   through shared memory (``csrc/probe_copy.cu``);
@@ -30,7 +35,7 @@ import torch
 from ethzasl_brisk_tpu_torch import _kernels, measure
 
 WINDOW = 64
-_ELEMENT = {torch.int32: 4, torch.uint8: 1}
+_ELEMENT = {torch.int32: 4, torch.float32: 4, torch.uint8: 1}
 _I32_MAX = 2**31 - 1
 
 
@@ -63,12 +68,16 @@ def _check_range(name: str, idx: torch.Tensor, lo: int, hi: int) -> None:
 
 # ---- G1: take_along_axis.
 
-def _take_geometry(src, idx, axis: int, blocks: int):
-    """Validate a G1 call: (B, R, W, S, Ws) with src viewed as (B, S, Ws) and
-    idx as (B, R, W), as csrc/probe_gather.cu takes them."""
+def _take_geometry(src, idx, axis: int, blocks: int, out_dtype=None):
+    """Validate a G1 call: (B, R, W, S, Ws, out dtype) with src viewed as
+    (B, S, Ws) and idx as (B, R, W), as csrc/probe_gather.cu takes them."""
     _device("take_along_axis", src, idx)
     _expect("take_along_axis src", src, tuple(_ELEMENT), (2,))
     _expect("take_along_axis idx", idx, (torch.int32,), (1, 2))
+    out_dtype = src.dtype if out_dtype is None else out_dtype
+    if out_dtype != src.dtype and (src.dtype, out_dtype) != (torch.uint8, torch.int32):
+        raise ValueError(f"take_along_axis: {src.dtype} source to {out_dtype} output "
+                         "(only uint8 widens, to int32)")
     if axis not in (0, 1):
         raise ValueError(f"take_along_axis: axis must be 0 or 1, got {axis}")
     if blocks < 1 or (blocks > 1 and axis != 0):
@@ -77,54 +86,61 @@ def _take_geometry(src, idx, axis: int, blocks: int):
     if idx.dim() == 1:
         if axis != 1 or idx.shape[0] != rows:
             raise ValueError("take_along_axis: a 1-D index takes one column of each source row")
-        return 1, rows, 1, rows, ws
+        return 1, rows, 1, rows, ws, out_dtype
     r_all, w = idx.shape
     if axis == 1:
-        if r_all != rows:
-            raise ValueError(f"take_along_axis: {r_all} index rows for {rows} source rows")
-        return 1, rows, w, rows, ws
+        if r_all % rows if rows else r_all:
+            raise ValueError(f"take_along_axis: {r_all} index rows are no whole multiple of "
+                             f"{rows} source rows")
+        return 1, r_all, w, rows, ws, out_dtype
     if w != ws or rows % blocks or r_all % blocks:
         raise ValueError(
             f"take_along_axis: src {tuple(src.shape)} and idx {tuple(idx.shape)} do not "
             f"split into {blocks} blocks of equal width"
         )
-    return blocks, r_all // blocks, w, rows // blocks, ws
+    return blocks, r_all // blocks, w, rows // blocks, ws, out_dtype
 
 
-def take_along_axis_plain(src, idx, axis: int, blocks: int = 1) -> torch.Tensor:
+def take_along_axis_plain(src, idx, axis: int, blocks: int = 1, out_dtype=None) -> torch.Tensor:
     """Plain version of G1 (torch.gather)."""
-    b, r, w, s, ws = _take_geometry(src, idx, axis, blocks)
+    b, r, w, s, ws, out_dtype = _take_geometry(src, idx, axis, blocks, out_dtype)
     _check_range("take_along_axis", idx, 0, s if axis == 0 else ws)
     if idx.dim() == 1:
-        return torch.gather(src, 1, idx.long()[:, None])[:, 0]
-    if axis == 1:
-        return torch.gather(src, 1, idx.long())
-    return torch.gather(src.view(b, s, w), 1, idx.long().view(b, r, w)).view(idx.shape)
+        out = torch.gather(src, 1, idx.long()[:, None])[:, 0]
+    elif axis == 1:
+        copies = r // s if s else 1
+        out = torch.gather(src.expand(copies, s, ws), 2, idx.long().view(copies, s, w))
+    else:
+        out = torch.gather(src.view(b, s, w), 1, idx.long().view(b, r, w))
+    return out.view(idx.shape).to(out_dtype)
 
 
-def take_along_axis(src, idx, axis: int, blocks: int = 1) -> torch.Tensor:
+def take_along_axis(src, idx, axis: int, blocks: int = 1, out_dtype=None) -> torch.Tensor:
     """G1: ``take_along_axis(src, idx, axis)``; on axis 0 with ``blocks`` > 1,
-    index row block i gathers from source row block i. The output has idx's
-    shape and src's dtype. Kernel on a CUDA tensor, plain version on a CPU one."""
-    b, r, w, s, ws = _take_geometry(src, idx, axis, blocks)
+    index row block i gathers from source row block i; on axis 1, index row
+    r gathers from source row ``r % rows``. The output has idx's shape and
+    ``out_dtype`` (default src's; a uint8 source may widen to int32). Kernel
+    on a CUDA tensor, plain version on a CPU one."""
+    b, r, w, s, ws, out_dtype = _take_geometry(src, idx, axis, blocks, out_dtype)
     if src.device.type == "cpu":
-        return take_along_axis_plain(src, idx, axis, blocks)
-    out = torch.empty(idx.shape, dtype=src.dtype, device=src.device)
+        return take_along_axis_plain(src, idx, axis, blocks, out_dtype)
+    out = torch.empty(idx.shape, dtype=out_dtype, device=src.device)
     if out.numel() == 0:
         return out
     err = _kernels.library().brisk_probe_take(
-        src.data_ptr(), idx.data_ptr(), out.data_ptr(), _ELEMENT[src.dtype], int(axis == 0),
-        r, w, s, ws, out.numel(), _kernels.stream_ptr(src.device),
+        src.data_ptr(), idx.data_ptr(), out.data_ptr(), _ELEMENT[src.dtype],
+        _ELEMENT[out_dtype], int(axis == 0), r, w, s, ws, out.numel(),
+        _kernels.stream_ptr(src.device),
     )
     _kernels.check(err, "take_along_axis")
     _kernels.LAUNCHES["probe_take"] += 1
     return out
 
 
-def take_along_axis_bytes(src, idx, axis: int, blocks: int = 1) -> int:
+def take_along_axis_bytes(src, idx, axis: int, blocks: int = 1, out_dtype=None) -> int:
     """Least traffic of G1: the index and the output once, and the distinct
     sectors of src that the indices touch."""
-    b, r, w, s, ws = _take_geometry(src, idx, axis, blocks)
+    b, r, w, s, ws, out_dtype = _take_geometry(src, idx, axis, blocks, out_dtype)
     dev = src.device
     cols = torch.arange(w, device=dev)
     rows = torch.arange(b * r, device=dev)[:, None]
@@ -132,10 +148,24 @@ def take_along_axis_bytes(src, idx, axis: int, blocks: int = 1) -> int:
     if axis == 0:
         flat = ((rows // r) * s + i) * ws + cols
     else:
-        flat = rows * ws + i
+        flat = (rows % max(s, 1)) * ws + i
     element = _ELEMENT[src.dtype]
-    return (idx.numel() * 4 + idx.numel() * element
+    return (idx.numel() * 4 + idx.numel() * _ELEMENT[out_dtype]
             + measure.distinct_sector_bytes(flat, element, src.numel()))
+
+
+def lane_select_plain(src, idx, axis: int = 1) -> torch.Tensor:
+    """Plain version of G1 as ``probe_mosaic_gather.py``'s one-hot lane
+    select computes it: ``out[r, 0] = sum_j [j == idx[r, 0]] * src[r, j]`` in
+    float32, a product with a one-hot mask and a lane sum. Equal bit for bit
+    to ``take_along_axis(src, idx[:, :1], 1)`` on finite tables without -0.0."""
+    _take_geometry(src, idx, axis, 1)
+    if axis != 1 or src.dtype != torch.float32 or tuple(idx.shape) != (src.shape[0], 1):
+        raise ValueError("lane_select: a float32 source and one index column per row, axis 1")
+    _check_range("lane_select", idx, 0, src.shape[1])
+    lanes = torch.arange(src.shape[1], dtype=torch.int32, device=src.device)
+    one_hot = (idx == lanes).to(torch.float32)
+    return (one_hot * src).sum(dim=1, keepdim=True)
 
 
 # ---- G2: point_gather.

@@ -227,3 +227,100 @@ def test_probe_wrappers_count_one_launch_each(cuda):
         counter = cases.KERNELS[case.kernel].counter
         want[counter] = want.get(counter, 0) + 1
     assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == want
+
+
+@pytest.mark.parametrize("width", [37, 130])
+@pytest.mark.parametrize("idx_width", [1, 7, 128])
+@pytest.mark.parametrize("mode", ["float32", "widen", "shared"])
+def test_take_along_axis_cuda_new_modes(cuda, mode, width, idx_width):
+    """G1's float32 bits, uint8 widened to int32, and one source shared by
+    row blocks (index rows three times the source rows), on axis 1."""
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    rng = np.random.default_rng(15)
+    rows = 50
+    dtype = np.uint8 if mode == "widen" else np.int32
+    src, idx = _gather_inputs(rng, dtype, (rows, width),
+                              (3 * rows if mode == "shared" else rows, idx_width), width)
+    if mode == "float32":
+        src = torch.from_numpy(rng.standard_normal((rows, width)).astype(np.float32))
+    out_dtype = torch.int32 if mode == "widen" else None
+    src, idx = src.to(cuda), idx.to(cuda)
+    got = gather.take_along_axis(src, idx, 1, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    ref = gather.take_along_axis_plain(src, idx, 1, out_dtype=out_dtype)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+    if mode == "float32":
+        assert got.dtype == torch.float32
+        assert torch.equal(got, torch.gather(src, 1, idx.long()))
+    if mode == "widen":
+        assert got.dtype == torch.int32
+
+
+def test_lane_select_cuda_matches_one_hot(cuda):
+    """Site 17's one-hot lane select: G1 on index column 0 equals the
+    one-hot product and lane sum bit for bit on integer-valued floats."""
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    rng = np.random.default_rng(16)
+    tab = torch.from_numpy(rng.integers(0, 1000, (256, 128)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 128, (256, 128), dtype=np.int32)).to(cuda)
+    col = idx[:, :1].contiguous()
+    got = gather.take_along_axis(tab, col, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.lane_select_plain(tab, col))
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_transpose_chain_cuda_matches_plain(cuda, blocks):
+    from ethzasl_brisk_tpu_torch.probes import mosaic
+
+    rng = np.random.default_rng(17)
+    t = torch.from_numpy(rng.integers(-2**31, 2**31, (blocks * 128, 128), dtype=np.int64)
+                         .astype(np.int32))
+    t[0, :2] = torch.tensor([2**31 - 1, 2**31 - 5], dtype=torch.int32)  # the adds wrap
+    t = t.to(cuda)
+    got = mosaic.transpose_chain(t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mosaic.transpose_chain_plain(t))
+    assert torch.equal(got, t + 8)
+
+
+def test_transpose_chain_cuda_raises_on_ragged_rows(cuda):
+    """The kernel takes whole 128 x 128 blocks only; the wrapper raises."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.probes import mosaic
+
+    _kernels.reset_launches()
+    with pytest.raises(ValueError):
+        mosaic.transpose_chain(torch.zeros((200, 128), dtype=torch.int32, device=cuda))
+    assert _kernels.LAUNCHES["probe_transpose_chain"] == 0
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_gather_chain_cuda_matches_plain(cuda, blocks):
+    from ethzasl_brisk_tpu_torch.probes import mosaic
+
+    rng = np.random.default_rng(18)
+    t = torch.from_numpy(rng.integers(0, 1 << 22, (blocks * 128, 128), dtype=np.int32)).to(cuda)
+    i = torch.from_numpy(rng.integers(0, 128, (blocks * 128, 128), dtype=np.int32)).to(cuda)
+    got = mosaic.gather_chain(t, i)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mosaic.gather_chain_plain(t, i))
+
+
+@pytest.mark.parametrize("width", [768, 130])
+def test_window_colsum_cuda_matches_plain(cuda, width):
+    """Windows at both image edges and unaligned offsets between them."""
+    from ethzasl_brisk_tpu_torch.probes import mosaic
+
+    rng = np.random.default_rng(19)
+    h, k = 200, 300
+    img = torch.from_numpy(rng.integers(0, 255, (h, width), dtype=np.int32)).to(cuda)
+    ax = rng.integers(0, width - 127, k, dtype=np.int32)
+    ay = rng.integers(0, h - 95, k, dtype=np.int32)
+    ax[:4], ay[:4] = (0, width - 128, 0, width - 128), (0, h - 96, h - 96, 0)
+    ax, ay = torch.from_numpy(ax).to(cuda), torch.from_numpy(ay).to(cuda)
+    got = mosaic.window_colsum(img, ax, ay)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mosaic.window_colsum_plain(img, ax, ay))

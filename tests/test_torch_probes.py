@@ -324,7 +324,7 @@ def _inputs(case):
     return x, t
 
 
-@pytest.mark.parametrize("case", cases.CASES, ids=lambda c: f"{c.site}-{c.name}")
+@pytest.mark.parametrize("case", cases.CASES_P13, ids=lambda c: f"{c.site}-{c.name}")
 def test_plain_matches_jax_probe(case):
     x, t = _inputs(case)
     kern = cases.KERNELS[case.kernel]
@@ -358,7 +358,7 @@ def test_site8_does_not_trace():
         site8_sub_gather(x)
 
 
-@pytest.mark.parametrize("case", [c for c in cases.CASES if c.kernel != "relayout"],
+@pytest.mark.parametrize("case", [c for c in cases.CASES_P13 if c.kernel != "relayout"],
                          ids=lambda c: f"{c.site}-{c.name}")
 def test_bytes_count_distinct_sectors(case):
     """The bound's traffic: the index and output arrays once, plus the
@@ -397,7 +397,7 @@ def _bad_calls():
     img = torch.zeros((70, 80), dtype=torch.int32)
     meta = torch.zeros((8, 4), dtype=torch.int32, device="meta")
     return {
-        "take dtype": lambda: gather.take_along_axis(i32.float(), idx, 0),
+        "take dtype": lambda: gather.take_along_axis(i32.double(), idx, 0),
         "take index dtype": lambda: gather.take_along_axis(i32, idx.long(), 0),
         "take shape": lambda: gather.take_along_axis(i32, idx[:, :3], 0),
         "take blocks": lambda: gather.take_along_axis(i32, idx[:6], 0, blocks=4),
