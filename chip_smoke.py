@@ -9,7 +9,8 @@ paths, each with the launch counters set to 0 just before it and read
 just after:
 
 * the main path, ``FramePipeline.step`` with the benchmark configuration
-  on 16 VGA frames (K1 4 launches, K2 2), compared with the plain CPU step;
+  on 16 VGA frames (K1 1 launch for the four pyramid layers, K2 2),
+  compared with the plain CPU step;
 * the fused path, the same step with ``fused_mask=True`` (K3 4, K1 0,
   K2 2), bit-equal to the main path;
 * the README quick start: two VGA frames written and read back as PGM,
@@ -64,19 +65,23 @@ QUICK_CONFIG = dict(octaves=0, uniformity_radius=30.0, absolute_threshold=20.0,
 QUICK_RADIUS = 90
 
 
-# Integer operations per pixel of K1, counted from csrc/harris.cuh: the
-# gradients 2 x 9 (3 differences, 3 multiplies, 2 sums, the x8), the three
-# products 3 x 2 (multiply, shift), the smoothing 3 x 11 and the score 8.
-K1_OPS_PER_PIXEL = 2 * 9 + 3 * 2 + 3 * 11 + 8
-# K3 adds the 2-D maximum: 7 maxima, the compare with it and the threshold.
-K3_OPS_PER_PIXEL = K1_OPS_PER_PIXEL + 9
+# Integer operations per pixel of K1, counted from csrc/harris.cu's
+# separable form: the gradients 11 (hd 1; hs 4; dx 4; dy 2), the three
+# products 3 x 2 (multiply, shift), the smoothing 3 x 7 (horizontal and
+# vertical [1, 2, 1] sums 3 each, the shift) and the score 8.
+K1_OPS_PER_PIXEL = 11 + 3 * 2 + 3 * 7 + 8
+# K3, counted from csrc/harris.cuh's 2-D form: the gradients 2 x 9 (3
+# differences, 3 multiplies, 2 sums, the x8), the products 3 x 2, the
+# smoothing 3 x 11, the score 8, and the 2-D maximum 9 (7 maxima, the
+# compare with it and the threshold).
+K3_OPS_PER_PIXEL = 2 * 9 + 3 * 2 + 3 * 11 + 8 + 9
 # K2 per (keypoint, point), counted from csrc/sampler.cu: (int32, float32)
 # operations of the geometry shared by both branches (46, 10), plus the
 # box branch (73, 20) or the small-sigma bilinear branch (38, 4).
 K2_OPS_BOX = (46 + 73, 10 + 20)
 K2_OPS_SMALL = (46 + 38, 10 + 4)
 # The 6 x 6 tap grid cells (row, column) each K2 branch reads
-# (sampler.cu's T(i, j)); the box branch's corner c and d columns depend on
+# (sampler.cu's tIJ); the box branch's corner c and d columns depend on
 # ``big``.
 _BOX_TAPS = {(0, 0), (0, 1), (1, 0), (1, 1), (0, 3), (0, 4), (1, 3), (1, 4), (2, 5), (3, 5),
              (2, 2), (3, 2), (4, 4), (4, 3), (5, 3), (5, 1), (4, 1), (4, 0)}
@@ -249,6 +254,7 @@ def main() -> int:
     from ethzasl_brisk_tpu_torch.kernels.harris import (
         harris_score_i32,
         harris_score_i32_cuda,
+        harris_score_i32_layers,
         harris_score_mask_cuda,
         harris_score_mask_i32,
     )
@@ -258,7 +264,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    card = measure.card_line()
+    card = measure.card_line(dev)
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     print(f"[card] {card}", flush=True)
 
@@ -273,17 +279,22 @@ def main() -> int:
     pipe = FramePipeline(feature)
     assert feature.device == pipe.device == dev, (feature.device, pipe.device)
 
-    # ---- K1 against its plain version on the four pyramid layers.
+    # ---- K1 against its plain version: the four pyramid layers in one
+    # launch, and each layer alone.
     pyramid = scale_space.build_pyramid(frames16, 4)
     k1_err = 0
-    for layer in pyramid:
-        got = harris_score_i32_cuda(layer)
+    _kernels.reset_launches()
+    got_layers = harris_score_i32_layers(pyramid)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["harris_score_i32"] == 1, _kernels.LAUNCHES
+    for layer, got in zip(pyramid, got_layers):
         ref = harris_score_i32(layer)
         torch.cuda.synchronize()
         k1_err = max(k1_err, int((got.to(torch.int64) - ref).abs().max()))
         assert torch.equal(got, ref), f"K1 differs on layer {tuple(layer.shape)}"
-    print(f"[K1] bitwise equal to plain on layers {[tuple(p.shape) for p in pyramid]}",
-          flush=True)
+        assert torch.equal(harris_score_i32_cuda(layer), ref), f"K1 alone, {tuple(layer.shape)}"
+    print(f"[K1] bitwise equal to plain on layers {[tuple(p.shape) for p in pyramid]} in one "
+          f"launch and each alone", flush=True)
 
     # ---- K3 against its plain version on the same layers, threshold 20.
     thr = int(BENCH_CONFIG["absolute_threshold"])
@@ -318,7 +329,7 @@ def main() -> int:
     kps, desc, midx, mdist, diag = pipe.step(frames16, with_diagnostics=True)
     torch.cuda.synchronize()
     launches = dict(_kernels.LAUNCHES)
-    assert launches["harris_score_i32"] == 4, launches
+    assert launches["harris_score_i32"] == 1, launches
     assert launches["smoothed_intensity"] == 2, launches
     b, k = kps.valid.shape
     print(
@@ -460,18 +471,17 @@ def main() -> int:
             )
         pyr = scale_space.build_pyramid(frames, 4)
         calls = capture_sampler_inputs(feature, frames)
-        k1_ms = cuda_time(lambda: [harris_score_i32_cuda(p) for p in pyr])
+        k1_ms = cuda_time(lambda: harris_score_i32_layers(pyr))
         k1_plain = cuda_time(lambda: [harris_score_i32(p) for p in pyr])
         k2_ms = cuda_time(lambda: [smoothed_intensity_cuda(*a) for a in calls])
         k2_plain = cuda_time(lambda: [smoothed_intensity(*a) for a in calls])
         k3_ms = cuda_time(lambda: [harris_score_mask_cuda(p, thr) for p in pyr])
         k3_plain = cuda_time(lambda: [harris_score_mask_i32(p, thr) for p in pyr])
-        k1_nms = cuda_time(lambda: [maxima2d_mask(harris_score_i32_cuda(p), thr) for p in pyr])
+        k1_nms = cuda_time(lambda: [maxima2d_mask(s, thr) for s in harris_score_i32_layers(pyr)])
         # The kernels' own time on the card, each step's launches from a cold L2.
-        k1_dev = measure.device_time(lambda: [harris_score_i32_cuda(p) for p in pyr],
-                                     ("harris_tile_kernel",))
+        k1_dev = measure.device_time(lambda: harris_score_i32_layers(pyr), ("harris_rows_kernel",))
         k2_dev = measure.device_time(lambda: [smoothed_intensity_cuda(*a) for a in calls],
-                                     ("smoothed_intensity_kernel",))
+                                     ("k2_sampler_kernel",))
         k3_dev = measure.device_time(lambda: [harris_score_mask_cuda(p, thr) for p in pyr],
                                      ("harris_mask_tile_kernel",))
         # Bounds: K1 reads 1 B and writes 4 B per pixel, K3 one more byte.

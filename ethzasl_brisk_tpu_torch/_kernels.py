@@ -7,9 +7,11 @@ never at import; it lands in ``build/kernels/`` at the root of the
 checkout, keyed on a hash of the sources and flags, so an unchanged tree
 reuses its library and an edited one rebuilds.
 
-Each kernel wrapper counts its launches in ``LAUNCHES`` (one per launch,
-nowhere else) so a run can show that its main path went through the
-kernels.
+Every kernel wrapper launches through ``launch``: it makes the tensors'
+card the current device for the call, passes that card's current stream,
+raises on a launch error and counts the launch in ``LAUNCHES`` (one per
+launch, nowhere else) so a run can show that its main path went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {
+    # K1 counts one per launch, which covers every pyramid layer of a call.
     "harris_score_i32": 0, "harris_score_mask": 0, "smoothed_intensity": 0,
     # The gather probes' kernels: G1, G2, C, W (probes/gather.py); T, X, S
     # (probes/mosaic.py).
@@ -134,8 +137,11 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.brisk_harris_score_i32.argtypes = [vp, vp, ci, ci, ci, vp]
-            lib.brisk_harris_score_i32.restype = ci
+            lib.brisk_harris_score_layers.argtypes = [
+                ctypes.POINTER(vp), ctypes.POINTER(vp),  # inputs, outputs per layer
+                ctypes.POINTER(ci), ci, vp,              # (B, H, W) per layer, layers, stream
+            ]
+            lib.brisk_harris_score_layers.restype = ci
             lib.brisk_harris_score_mask.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
             lib.brisk_harris_score_mask.restype = ci
             lib.brisk_smoothed_intensity.argtypes = [
@@ -168,12 +174,20 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error for its launch."""
+def launch(entry: str, counter: str, device: torch.device, *args) -> None:
+    """Launch the C entry point ``brisk_<entry>`` on card ``device``.
+
+    The card is the current device for the call (a ctypes launch goes to
+    the runtime's current device), the last argument is that card's
+    current stream, a launch error raises, and ``LAUNCHES[counter]`` counts
+    the launch.
+    """
+    if device.type != "cuda":
+        raise ValueError(f"{entry}: launches need a CUDA device, got {device}")
+    lib = library()
+    with torch.cuda.device(device):
+        err = getattr(lib, f"brisk_{entry}")(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        msg = library().brisk_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({msg})")
-
-
-def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+        msg = lib.brisk_error_string(err).decode()
+        raise RuntimeError(f"{entry}: CUDA launch failed: error {err} ({msg})")
+    LAUNCHES[counter] += 1

@@ -10,8 +10,10 @@
 // the image, so the INT32_MIN padding of maxima2d_mask is never observed:
 // the kernel needs only real scores (0 outside [2, n-3]) on a 1-pixel ring.
 //
-// Design: one block per (frame, 32-row tile, 64-column tile), as K1, with
-// every staged area one pixel wider so that the scores cover the NMS ring:
+// Design: one block per (frame, 32-row tile, 64-column tile), staging
+// tiles in shared memory (harris.cuh's 2-D form; K1 in harris.cu is
+// separable and works in registers instead), every staged area one pixel
+// wider so that the scores cover the NMS ring:
 //   pixels   (32+6) x (64+6) uint8  (2,660 B; image rows r0-3 .. r0+34),
 //   products 3 x (32+4) x (64+4) int32 (29,376 B),
 //   scores   (32+2) x (64+2) int32 (8,976 B),
@@ -19,7 +21,7 @@
 // (int32 pixels would make it 49 KB). The ragged right and bottom edges are
 // masked here. The mask is written as bytes 0/1 into a torch.bool tensor.
 //
-// Bound: int32 operations, as K1: its 65 per pixel and 9 for the maximum,
+// Bound: int32 operations: 65 per pixel (harris.cuh) and 9 for the maximum,
 // against 1 byte in and 5 bytes out per pixel. Against K1 followed by the
 // plain NMS it saves the score map's re-read and the NMS temporaries.
 

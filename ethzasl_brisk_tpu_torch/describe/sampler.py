@@ -178,19 +178,19 @@ def smoothed_intensity_cuda(
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if integral.dim() != 2:
         raise ValueError(f"integral: expected (R, C+1), got {tuple(integral.shape)}")
+    if k * p >= 2**31 or (frame_rows + 1) * integral.shape[1] >= 2**31:
+        raise ValueError("K2 takes fewer than 2^31 points and 2^31 ints a frame")
     out = torch.empty((k, p), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    lib = _kernels.library()
-    err = lib.brisk_smoothed_intensity(
+    _kernels.launch(
+        "smoothed_intensity", "smoothed_intensity", dev,
         integral.data_ptr(), integral.shape[1] - 1, frame_rows,
         key_x.data_ptr(), key_y.data_ptr(),
         pat_x.data_ptr(), pat_y.data_ptr(), pat_sigma.data_ptr(),
         pat_scaling.data_ptr(), pat_scaling2.data_ptr(),
-        row_base.data_ptr(), out.data_ptr(), k, p, _kernels.stream_ptr(dev),
+        row_base.data_ptr(), out.data_ptr(), k, p,
     )
-    _kernels.check(err, "smoothed_intensity_cuda")
-    _kernels.LAUNCHES["smoothed_intensity"] += 1
     return out
 
 

@@ -33,7 +33,7 @@ from ethzasl_brisk_tpu_torch.detect.subpixel import subpixel2d
 from ethzasl_brisk_tpu_torch.detect.uniformity import bucket_keypoints, enforce_uniformity
 from ethzasl_brisk_tpu_torch.kernels.downsample import halfsample8, twothirdsample8
 from ethzasl_brisk_tpu_torch.kernels.harris import (
-    harris_score_i32_fused,
+    harris_score_i32_layers,
     harris_score_mask_fused,
 )
 from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
@@ -196,7 +196,7 @@ def layer_score_masks(
         scores = [p[0] for p in pairs]
         base_masks = [p[1] for p in pairs]
     else:
-        scores = [harris_score_i32_fused(im) for im in pyramid]
+        scores = harris_score_i32_layers(pyramid)
     mark("harris")
     masks = []
     for i in range(n_layers):

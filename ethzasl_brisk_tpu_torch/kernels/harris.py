@@ -12,19 +12,25 @@ in ``csrc/harris.cu``). Reference: ``brisk/src/harris-scores.cc:53-279``:
 Gradients live on rows/cols [1, n-2], scores on [2, n-3], zero elsewhere.
 torch's ``>>`` on int32 is an arithmetic shift, as in C.
 
-``harris_score_i32_fused`` is what the pipeline calls: a CUDA tensor goes
-through the kernel (or raises), a CPU tensor through the plain version.
+``harris_score_i32_layers`` is what the pipeline calls: CUDA layers go
+through one launch of the kernel for the whole pyramid (or raise), CPU
+layers through the plain version; ``harris_score_i32_fused`` is its
+one-layer form.
 ``harris_score_mask_fused`` (kernel K3, ``csrc/harris_mask.cu``; JAX
 ``harris_score_mask_fused``) adds the 2-D maxima mask in the same pass; the
 ``fused_mask`` detector setting calls it.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from ethzasl_brisk_tpu_torch import _kernels
 from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
+
+_MAX_LAYERS = 8  # the layer table of csrc/harris.cu
 
 
 def _shift(p: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -89,20 +95,31 @@ def _check_frames(imgs: torch.Tensor, name: str) -> None:
         )
 
 
+def harris_score_i32_layers_cuda(layers: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Kernel K1 on pyramid layers in one launch (up to 8 layers a launch):
+    uint8 (B, H, W) CUDA tensors on one card -> int32 (B, H, W) scores."""
+    for im in layers:
+        _check_frames(im, "harris_score_i32_layers_cuda")
+    outs = [torch.empty(im.shape, dtype=torch.int32, device=im.device) for im in layers]
+    work = [(im, out) for im, out in zip(layers, outs) if out.numel()]
+    if not work:
+        return outs
+    if any(im.device != work[0][0].device for im, _ in work):
+        raise ValueError("harris_score_i32_layers_cuda: layers on more than one card")
+    for i in range(0, len(work), _MAX_LAYERS):
+        chunk = work[i : i + _MAX_LAYERS]
+        n = len(chunk)
+        imgs = (ctypes.c_void_p * n)(*(im.data_ptr() for im, _ in chunk))
+        ptrs = (ctypes.c_void_p * n)(*(out.data_ptr() for _, out in chunk))
+        dims = (ctypes.c_int * (3 * n))(*(d for im, _ in chunk for d in im.shape))
+        _kernels.launch("harris_score_layers", "harris_score_i32", chunk[0][0].device,
+                        imgs, ptrs, dims, n)
+    return outs
+
+
 def harris_score_i32_cuda(imgs: torch.Tensor) -> torch.Tensor:
     """Kernel K1: uint8 (B, H, W) CUDA tensor -> int32 (B, H, W) scores."""
-    _check_frames(imgs, "harris_score_i32_cuda")
-    b, h, w = imgs.shape
-    out = torch.empty((b, h, w), dtype=torch.int32, device=imgs.device)
-    if out.numel() == 0:
-        return out
-    lib = _kernels.library()
-    err = lib.brisk_harris_score_i32(
-        imgs.data_ptr(), out.data_ptr(), b, h, w, _kernels.stream_ptr(imgs.device)
-    )
-    _kernels.check(err, "harris_score_i32_cuda")
-    _kernels.LAUNCHES["harris_score_i32"] += 1
-    return out
+    return harris_score_i32_layers_cuda([imgs])[0]
 
 
 def harris_score_i32_fused(imgs: torch.Tensor) -> torch.Tensor:
@@ -111,6 +128,14 @@ def harris_score_i32_fused(imgs: torch.Tensor) -> torch.Tensor:
     if imgs.device.type == "cpu":
         return harris_score_i32(imgs)
     return harris_score_i32_cuda(imgs.contiguous())
+
+
+def harris_score_i32_layers(layers: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Scores of every pyramid layer: one K1 launch for CUDA tensors, the
+    plain version of each layer for CPU tensors."""
+    if all(im.device.type == "cpu" for im in layers):
+        return [harris_score_i32(im) for im in layers]
+    return harris_score_i32_layers_cuda([im.contiguous() for im in layers])
 
 
 def harris_score_mask_i32(imgs: torch.Tensor, thr: int):
@@ -135,13 +160,8 @@ def harris_score_mask_cuda(imgs: torch.Tensor, thr: int):
     mask = torch.empty((b, h, w), dtype=torch.bool, device=imgs.device)
     if out.numel() == 0:
         return out, mask
-    lib = _kernels.library()
-    err = lib.brisk_harris_score_mask(
-        imgs.data_ptr(), out.data_ptr(), mask.data_ptr(), b, h, w, thr,
-        _kernels.stream_ptr(imgs.device),
-    )
-    _kernels.check(err, "harris_score_mask_cuda")
-    _kernels.LAUNCHES["harris_score_mask"] += 1
+    _kernels.launch("harris_score_mask", "harris_score_mask", imgs.device,
+                    imgs.data_ptr(), out.data_ptr(), mask.data_ptr(), b, h, w, thr)
     return out, mask
 
 

@@ -4,8 +4,8 @@
 of each call as well, with its inputs warm in L2 from the call before;
 ``device_time`` reads the kernels' own time on the card from
 ``torch.profiler``, each call from a cold L2 as the bound assumes;
-``card_line`` is the card's name and power limit as ``nvidia-smi`` reports
-them, printed beside every time. ``bound_ms`` is the least time one NVIDIA
+``card_line`` is the run's card's name and power limit as ``nvidia-smi``
+reports them, printed beside every time. ``bound_ms`` is the least time one NVIDIA
 H100 SXM could take for a piece of work: the larger of its bytes over the
 device-memory rate and its operations over the peak rate for their type.
 The peaks are the published ones at the full 700 W limit (NVIDIA's data
@@ -32,12 +32,17 @@ L2_BYTES = 50 * 2**20  # H100's L2 cache
 TRACE_ATTEMPTS = 3
 
 
-def card_line() -> str:
+def card_line(device: str | torch.device) -> str:
+    """``nvidia-smi``'s name and power limit of the card ``device``, selected
+    by its UUID: an index would name another card under
+    ``CUDA_VISIBLE_DEVICES``."""
+    uuid = str(torch.cuda.get_device_properties(torch.device(device)).uuid).removeprefix("GPU-")
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--id=GPU-{uuid}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip()
 
 
 def cuda_time(fn, reps: int = 10, warmup: int = 3) -> float:

@@ -32,9 +32,6 @@ class FramePipeline:
                 f"the feature runs on {self.feature.device}, the pipeline on {self.device}: "
                 "build both with the same device"
             )
-        # The match is a +-1 float32 product whose sums are exact integers;
-        # pin full float32 so that holds by construction.
-        torch.backends.cuda.matmul.allow_tf32 = False
 
     def step(self, frames: torch.Tensor, with_diagnostics: bool = False,
              mark: Mark = _no_mark):

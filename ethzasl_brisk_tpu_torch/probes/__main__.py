@@ -21,9 +21,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probes: no CUDA device; the probes run on the card only", file=sys.stderr)
         return 1
-    card = measure.card_line()
+    dev = torch.device("cuda", 0)
+    card = measure.card_line(dev)
     print(f"[card] {card}", flush=True)
-    cases.run_all(torch.device("cuda", 0), card)
+    cases.run_all(dev, card)
     return 0
 
 

@@ -127,13 +127,11 @@ def take_along_axis(src, idx, axis: int, blocks: int = 1, out_dtype=None) -> tor
     out = torch.empty(idx.shape, dtype=out_dtype, device=src.device)
     if out.numel() == 0:
         return out
-    err = _kernels.library().brisk_probe_take(
+    _kernels.launch(
+        "probe_take", "probe_take", src.device,
         src.data_ptr(), idx.data_ptr(), out.data_ptr(), _ELEMENT[src.dtype],
         _ELEMENT[out_dtype], int(axis == 0), r, w, s, ws, out.numel(),
-        _kernels.stream_ptr(src.device),
     )
-    _kernels.check(err, "take_along_axis")
-    _kernels.LAUNCHES["probe_take"] += 1
     return out
 
 
@@ -196,12 +194,10 @@ def point_gather(tab, r, c) -> torch.Tensor:
     out = torch.empty(r.shape, dtype=torch.int32, device=tab.device)
     if out.numel() == 0:
         return out
-    err = _kernels.library().brisk_probe_point_gather(
+    _kernels.launch(
+        "probe_point_gather", "probe_point_gather", tab.device,
         tab.data_ptr(), r.data_ptr(), c.data_ptr(), out.data_ptr(), tab.shape[1], out.numel(),
-        _kernels.stream_ptr(tab.device),
     )
-    _kernels.check(err, "point_gather")
-    _kernels.LAUNCHES["probe_point_gather"] += 1
     return out
 
 
@@ -238,12 +234,8 @@ def relayout(src, transpose: bool) -> torch.Tensor:
                       device=src.device)
     if out.numel() == 0:
         return out
-    err = _kernels.library().brisk_probe_relayout(
-        src.data_ptr(), out.data_ptr(), rows, cols, int(transpose),
-        _kernels.stream_ptr(src.device),
-    )
-    _kernels.check(err, "relayout")
-    _kernels.LAUNCHES["probe_relayout"] += 1
+    _kernels.launch("probe_relayout", "probe_relayout", src.device,
+                    src.data_ptr(), out.data_ptr(), rows, cols, int(transpose))
     return out
 
 
@@ -293,12 +285,8 @@ def window_copy(img, ax, ay) -> torch.Tensor:
     out = torch.empty((k * WINDOW, WINDOW), dtype=torch.int32, device=img.device)
     if k == 0:
         return out
-    err = _kernels.library().brisk_probe_window_copy(
-        img.data_ptr(), ax.data_ptr(), ay.data_ptr(), out.data_ptr(), img.shape[1], k,
-        _kernels.stream_ptr(img.device),
-    )
-    _kernels.check(err, "window_copy")
-    _kernels.LAUNCHES["probe_window_copy"] += 1
+    _kernels.launch("probe_window_copy", "probe_window_copy", img.device,
+                    img.data_ptr(), ax.data_ptr(), ay.data_ptr(), out.data_ptr(), img.shape[1], k)
     return out
 
 

@@ -67,10 +67,8 @@ def transpose_chain(t) -> torch.Tensor:
     out = torch.empty_like(t)
     if nblk == 0:
         return out
-    err = _kernels.library().brisk_probe_transpose_chain(
-        t.data_ptr(), out.data_ptr(), nblk, _kernels.stream_ptr(t.device))
-    _kernels.check(err, "transpose_chain")
-    _kernels.LAUNCHES["probe_transpose_chain"] += 1
+    _kernels.launch("probe_transpose_chain", "probe_transpose_chain", t.device,
+                    t.data_ptr(), out.data_ptr(), nblk)
     return out
 
 
@@ -110,10 +108,8 @@ def gather_chain(t, i) -> torch.Tensor:
     out = torch.empty_like(t)
     if out.numel() == 0:
         return out
-    err = _kernels.library().brisk_probe_gather_chain(
-        t.data_ptr(), i.data_ptr(), out.data_ptr(), out.numel(), _kernels.stream_ptr(t.device))
-    _kernels.check(err, "gather_chain")
-    _kernels.LAUNCHES["probe_gather_chain"] += 1
+    _kernels.launch("probe_gather_chain", "probe_gather_chain", t.device,
+                    t.data_ptr(), i.data_ptr(), out.data_ptr(), out.numel())
     return out
 
 
@@ -169,12 +165,8 @@ def window_colsum(img, ax, ay) -> torch.Tensor:
     out = torch.empty((k, WIN_COLS), dtype=torch.int32, device=img.device)
     if k == 0:
         return out
-    err = _kernels.library().brisk_probe_window_colsum(
-        img.data_ptr(), ax.data_ptr(), ay.data_ptr(), out.data_ptr(), img.shape[1], k,
-        _kernels.stream_ptr(img.device),
-    )
-    _kernels.check(err, "window_colsum")
-    _kernels.LAUNCHES["probe_window_colsum"] += 1
+    _kernels.launch("probe_window_colsum", "probe_window_colsum", img.device,
+                    img.data_ptr(), ax.data_ptr(), ay.data_ptr(), out.data_ptr(), img.shape[1], k)
     return out
 
 

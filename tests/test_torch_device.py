@@ -69,3 +69,95 @@ def test_pipeline_and_feature_must_share_a_device():
     feature.extractor.lut_x = feature.extractor.lut_x.to("meta")
     with pytest.raises(ValueError, match="same device"):
         FramePipeline(feature, device="cpu")
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_pipeline_leaves_the_tf32_flag_alone(flag):
+    """Building a FramePipeline writes no process-wide matmul setting."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = flag
+    try:
+        FramePipeline(BriskFeature(**SMALL, device="cpu"), device="cpu")
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def test_launch_runs_on_the_tensors_card(monkeypatch):
+    """``_kernels.launch`` makes the given card current around the C call,
+    passes that card's stream last, counts one launch, and raises (without
+    counting) on a launch error."""
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    events = []
+
+    class FakeLib:
+        def brisk_probe_take(self, *args):
+            events.append(("call", args))
+            return self.err
+
+        def brisk_error_string(self, err):
+            return b"fake error"
+
+    class Guard:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            events.append(("enter", self.dev))
+
+        def __exit__(self, *exc):
+            events.append(("exit", self.dev))
+
+    class Stream:
+        def __init__(self, dev):
+            self.cuda_stream = 1000 + dev.index
+
+    lib = FakeLib()
+    monkeypatch.setattr(_kernels, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setitem(_kernels.LAUNCHES, "probe_take", 0)
+    dev = torch.device("cuda", 1)
+    lib.err = 0
+    _kernels.launch("probe_take", "probe_take", dev, 7, 8)
+    assert events == [("enter", dev), ("call", (7, 8, 1001)), ("exit", dev)]
+    assert _kernels.LAUNCHES["probe_take"] == 1
+    lib.err = 3
+    with pytest.raises(RuntimeError, match="fake error"):
+        _kernels.launch("probe_take", "probe_take", dev, 7, 8)
+    assert _kernels.LAUNCHES["probe_take"] == 1
+    with pytest.raises(ValueError, match="CUDA device"):
+        _kernels.launch("probe_take", "probe_take", torch.device("cpu"), 7, 8)
+
+
+def test_every_wrapper_launches_through_the_helper():
+    """Every C entry point of csrc/ is launched by ``_kernels.launch`` and
+    nowhere else: no module calls ``lib.brisk_*`` or bumps ``LAUNCHES``
+    itself, and each counter is some launch's."""
+    import ast
+    import pathlib
+    import re
+
+    import ethzasl_brisk_tpu_torch
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    pkg = pathlib.Path(ethzasl_brisk_tpu_torch.__file__).parent
+    entries = set()
+    for src in (pkg / "csrc").glob("*.cu"):
+        entries |= set(re.findall(r'extern "C" int brisk_(\w+)\(', src.read_text()))
+    launched, counters = set(), set()
+    for path in pkg.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and node.attr.startswith("brisk_"):
+                assert path.name == "_kernels.py", f"{path}: calls {node.attr} directly"
+            if isinstance(node, ast.AugAssign) and "LAUNCHES" in ast.unparse(node.target):
+                assert path.name == "_kernels.py", f"{path}: counts a launch by hand"
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "launch" and ast.unparse(node.func.value) == "_kernels"):
+                entry, counter = (a.value for a in node.args[:2])
+                launched.add(entry)
+                counters.add(counter)
+    assert launched == entries
+    assert counters == set(_kernels.LAUNCHES)

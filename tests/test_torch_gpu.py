@@ -89,6 +89,114 @@ def test_sampler_cuda_matches_plain(cuda, pattern_scale):
     assert torch.equal(got, smoothed_intensity(*args))
 
 
+def test_harris_layers_cuda_one_launch(cuda):
+    """K1 on layers of mixed widths in one launch (the main path's four
+    VGA layers, odd and tiny ones), and nine layers in two launches (the
+    layer table holds eight); every layer bitwise equal to plain."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.kernels.harris import harris_score_i32_layers
+
+    rng = np.random.default_rng(4)
+    shapes = [(2, 480, 640), (2, 320, 426), (2, 240, 320), (2, 160, 213)]
+    for extra in ([], [(1, 37, 70), (3, 4, 5), (1, 41, 121), (2, 1, 9), (1, 83, 3)]):
+        layers = [torch.from_numpy(bench_frames(*s, seed=5)).to(cuda) for s in shapes + extra]
+        layers[-1][0, :5] = torch.from_numpy(rng.integers(0, 256, layers[-1][0, :5].shape,
+                                                          dtype=np.uint8)).to(cuda)
+        _kernels.reset_launches()
+        got = harris_score_i32_layers(layers)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["harris_score_i32"] == (1 if not extra else 2)
+        for g, im in zip(got, layers):
+            assert torch.equal(g, harris_score_i32(im)), tuple(im.shape)
+
+
+@pytest.mark.parametrize("pattern_scale", [1.0, 0.6])
+def test_sampler_cuda_edges(cuda, pattern_scale):
+    """K2 where its taps clamp: keypoints on and beyond every edge and
+    corner of the first and the last frame of the stack (the integral's
+    last row), small-sigma and box points in one warp at pattern_scale 0.6,
+    and K * P not a multiple of the block; bitwise against plain."""
+    b, h, w = 3, 96, 130
+    imgs = torch.from_numpy(bench_frames(b, h, w, seed=7)).to(cuda)
+    host = brisk_v2_pattern(pattern_scale)
+    xs = np.array([-40.0, -3.5, 0.0, 0.5, w / 2, w - 1.0, w - 0.25, w + 2.0, w + 40.0], np.float32)
+    ys = np.array([-40.0, -2.5, 0.0, h / 2, h - 1.0, h + 3.0, h + 40.0], np.float32)
+    kx, ky = (a.reshape(-1) for a in np.meshgrid(xs, ys))
+    kx, ky = np.concatenate([kx, kx]), np.concatenate([ky, ky])
+    k = kx.size
+    frame = np.repeat(np.array([0, b - 1], np.int32), k // 2)
+    sizes = np.resize(np.array([12.0, 18.0, 24.0, 36.0, 54.0], np.float32), k)
+    sidx = scale_index(torch.from_numpy(sizes)).numpy()
+    rot = (np.arange(k) * 37) % 1024
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    args = (
+        _stack_frames(imgs), t(kx), t(ky),
+        t(host.lut_x[sidx, rot]), t(host.lut_y[sidx, rot]), t(host.lut_sigma[sidx]),
+        t(host.lut_scaling[sidx]), t(host.lut_scaling2[sidx]), t(frame * (h + 1)), h,
+    )
+    assert (k * host.lut_x.shape[-1]) % 128 != 0
+    got = smoothed_intensity_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, smoothed_intensity(*args))
+
+
+def test_match_exact_with_tf32(cuda):
+    """The +-1 float32 match stays bitwise equal to XOR + popcount with
+    TF32 matmuls allowed: its operands and partial sums are exact."""
+    from ethzasl_brisk_tpu_torch.match.matcher import (
+        hamming_distance_matrix,
+        hamming_distance_matrix_popcnt,
+    )
+
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.integers(-2**31, 2**31, (300, 12), dtype=np.int64)
+                         .astype(np.int32)).to(cuda)
+    tr = torch.from_numpy(rng.integers(-2**31, 2**31, (500, 12), dtype=np.int64)
+                          .astype(np.int32)).to(cuda)
+    tr[:50] = q[:50]
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = hamming_distance_matrix(q, tr)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert torch.equal(got.to(torch.int64), hamming_distance_matrix_popcnt(q, tr).to(torch.int64))
+
+
+def test_kernels_on_the_second_card(cuda):
+    """K1, K2 and a probe kernel on cuda:1 while cuda:0 is current: each
+    launches on the tensors' card, bitwise against plain."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    imgs = torch.from_numpy(bench_frames(2, 120, 160)).to(dev)
+    got = harris_score_i32_cuda(imgs)
+    assert torch.equal(got, harris_score_i32(imgs))
+    host = brisk_v2_pattern()
+    k = 20
+    sidx = np.full(k, 8)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    args = (_stack_frames(imgs), t(np.linspace(30, 130, k).astype(np.float32)),
+            t(np.linspace(30, 90, k).astype(np.float32)), t(host.lut_x[sidx, 0]),
+            t(host.lut_y[sidx, 0]), t(host.lut_sigma[sidx]), t(host.lut_scaling[sidx]),
+            t(host.lut_scaling2[sidx]), t(np.zeros(k, np.int32)), 120)
+    assert torch.equal(smoothed_intensity_cuda(*args), smoothed_intensity(*args))
+    src = torch.arange(64 * 128, dtype=torch.int32, device=dev).view(64, 128)
+    idx = torch.randint(0, 64, (32, 128), dtype=torch.int32, device=dev)
+    assert torch.equal(gather.take_along_axis(src, idx, 0), gather.take_along_axis_plain(src, idx, 0))
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+
+
 STEP_CONFIG = dict(
     octaves=2, uniformity_radius=30.0, absolute_threshold=20.0,
     max_candidates=(704, 256, 192, 96), max_keypoints=128,
@@ -103,7 +211,7 @@ def test_step_launches_both_kernels(cuda):
     frames = torch.from_numpy(bench_frames(3, 120, 160))
     _kernels.reset_launches()
     got = FramePipeline(feature, device="cuda").step(frames.to(cuda))
-    assert _kernels.LAUNCHES["harris_score_i32"] == 4
+    assert _kernels.LAUNCHES["harris_score_i32"] == 1  # one launch for the 4 layers
     assert _kernels.LAUNCHES["harris_score_mask"] == 0
     assert _kernels.LAUNCHES["smoothed_intensity"] == 2
     ref = FramePipeline(BriskFeature(**STEP_CONFIG, device="cpu"), device="cpu").step(frames)

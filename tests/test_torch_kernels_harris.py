@@ -98,3 +98,79 @@ def test_nms_and_integral_match_jax(frames, thr):
         np.asarray(jax.vmap(jax_integral)(jnp.asarray(frames))),
     )
 
+
+
+def _separable_harris(img: torch.Tensor) -> torch.Tensor:
+    """Kernel K1's order of the integer passes (csrc/harris.cu) in torch:
+    the column difference and [3, 10, 3] column sums, their vertical
+    [3, 10, 3] and difference (dx, dy x8), the products, the horizontal then
+    vertical [1, 2, 1] sums with one ``>> 4``, the score; 0 off [2, n-3]."""
+    from ethzasl_brisk_tpu_torch.kernels.harris import _border_mask, _shift
+
+    h, w = img.shape[-2:]
+    p = img.to(torch.int32)
+    left, right = _shift(p, 0, -1), _shift(p, 0, 1)
+    hd = left - right
+    hs = 3 * (left + right) + 10 * p
+    dx = 24 * (_shift(hd, -1, 0) + _shift(hd, 1, 0)) + 80 * hd
+    dy = 8 * (_shift(hs, -1, 0) - _shift(hs, 1, 0))
+
+    def smooth(v):
+        hsum = _shift(v, 0, -1) + 2 * v + _shift(v, 0, 1)
+        return (_shift(hsum, -1, 0) + 2 * hsum + _shift(hsum, 1, 0)) >> 4
+
+    sxx, syy, sxy = smooth((dx * dx) >> 16), smooth((dy * dy) >> 16), smooth((dx * dy) >> 16)
+    th = (sxx + syy) >> 1
+    score = sxx * syy - sxy * sxy - ((th * th) >> 2)
+    return torch.where(_border_mask(h, w, 2, img.device), score,
+                       torch.zeros((), dtype=torch.int32))
+
+
+def _extreme_frames(h: int, w: int) -> np.ndarray:
+    """0/255 frames whose gradients reach |dx|, |dy| = 8*16*255: a vertical
+    and a horizontal step, a 2x2 checkerboard and binary noise."""
+    yy, xx = np.mgrid[:h, :w]
+    pats = [xx >= w // 2, yy >= h // 2, ((yy // 2) + (xx // 2)) % 2 == 1,
+            np.random.default_rng(5).random((h, w)) < 0.5]
+    return np.stack([255 * p.astype(np.uint8) for p in pats])
+
+
+@pytest.mark.parametrize("case", ["layers", "37x70", "4x5", "extreme"])
+def test_harris_separable_order_matches_jax(frames, case):
+    """K1's separable integer order equals the JAX function bit for bit:
+    on the four pyramid layers of a frame, odd shapes, and 0/255 frames
+    at the int32 range limits."""
+    if case == "layers":
+        imgs = [g.numpy() for g in build_pyramid(torch.from_numpy(frames), 4)]
+    elif case == "extreme":
+        imgs = [_extreme_frames(40, 66), _extreme_frames(37, 70)]
+    else:
+        h, w = map(int, case.split("x"))
+        imgs = [np.random.default_rng(h).integers(0, 256, (2, h, w), dtype=np.uint8)]
+    for im in imgs:
+        got = _separable_harris(torch.from_numpy(np.ascontiguousarray(im))).numpy()
+        ref = np.asarray(jax.vmap(jax_harris)(jnp.asarray(im)))
+        np.testing.assert_array_equal(got, ref)
+        if case == "extreme":
+            # The steps reach |dx| = 32640 (dx*dx near 2^30) and scores
+            # past 2^24 of either sign.
+            assert got.max() > 2**24 and got.min() < -2**23
+            np.testing.assert_array_equal(got, harris_score_i32(torch.from_numpy(im)).numpy())
+
+
+def test_harris_layers_takes_plain_on_cpu(frames):
+    """``harris_score_i32_layers`` (one K1 launch for the pyramid on the
+    card) is the per-layer plain version on CPU tensors."""
+    from ethzasl_brisk_tpu_torch.kernels.harris import (
+        harris_score_i32_layers,
+        harris_score_i32_layers_cuda,
+    )
+
+    pyr = build_pyramid(torch.from_numpy(frames), 4)
+    got = harris_score_i32_layers(pyr)
+    assert len(got) == 4
+    for g, layer in zip(got, pyr):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), harris_score_i32(layer).numpy())
+    with pytest.raises(ValueError, match="CUDA"):
+        harris_score_i32_layers_cuda(pyr)

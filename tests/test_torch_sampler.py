@@ -162,3 +162,87 @@ def test_describe_matches_jax():
                                rtol=0, atol=1e-4)
     np.testing.assert_array_equal(desc.numpy(), np.asarray(jdesc).view(np.int32))
 
+
+def _kernel_tap_order(integral, kx, ky, px, py, ps, sc, sc2, row_base, frame_rows):
+    """Box-branch values as kernel K2 (csrc/sampler.cu) reads them: 22 taps
+    named by their column pairs, (x_left, x_left+1) and (x_right,
+    x_right+1) on rows y_top, y_top+1, y_bottom; (d_x, d_x+1) and (c_x,
+    c_x+1) on rows cd_y, cd_y+1; x_left+1 and x_right on row y_bottom+1;
+    sums wrapped to 32 bits."""
+    from ethzasl_brisk_tpu_torch.describe.sampler import _tap_geometry
+
+    g = _tap_geometry(kx, ky, px, py, ps)
+    cols = integral.shape[1] - 1
+    flat = integral.reshape(-1).to(torch.int64)
+    base = row_base.to(torch.int64)[:, None] * (cols + 1)
+    big = g["big"]
+
+    def row(r):
+        return base + r.clamp(0, frame_rows).to(torch.int64) * (cols + 1)
+
+    def col(c):
+        return c.clamp(0, cols).to(torch.int64)
+
+    xl, xr = g["x_left"], g["x_right"]
+    d_x, c_x = torch.where(big, xl + 1, xl), torch.where(big, xr + 1, xr)
+    cd_y = torch.where(big, g["y_bottom"] - 1, g["y_bottom"])
+    l0, l1, r0, r1 = col(xl), col(xl + 1), col(xr), col(xr + 1)
+    d0, d1, c0, c1 = col(d_x), col(d_x + 1), col(c_x), col(c_x + 1)
+    R0, R1 = row(g["y_top"]), row(g["y_top"] + 1)
+    R2, R3 = row(cd_y), row(cd_y + 1)
+    R4, R5 = row(g["y_bottom"]), row(g["y_bottom"] + 1)
+    t00, t01, t03, t04 = (flat[R0 + c] for c in (l0, l1, r0, r1))
+    t10, t11, t13, t14 = (flat[R1 + c] for c in (l0, l1, r0, r1))
+    d2, t22, c2, t25 = (flat[R2 + c] for c in (d0, d1, c0, c1))
+    d3, t32, c3, t35 = (flat[R3 + c] for c in (d0, d1, c0, c1))
+    t40, t41, t43, t44 = (flat[R4 + c] for c in (l0, l1, r0, r1))
+    t51, t53 = flat[R5 + l1], flat[R5 + r0]
+
+    def trunc(v):
+        return torch.trunc(v).to(torch.int64)
+
+    r_x_1f = xl.to(torch.float32) - g["x_1"] + 0.5
+    r_y_1f = g["y_top"].to(torch.float32) - g["y_1"] + 0.5
+    r_x1f = g["x1"] - xr.to(torch.float32) + 0.5
+    r_y1f = g["y1"] - g["y_bottom"].to(torch.float32) + 0.5
+    scf = sc.to(torch.float32)
+    corners = (trunc(r_x_1f * r_y_1f * scf) * (t11 - t01 - t10 + t00)
+               + trunc(r_x1f * r_y_1f * scf) * (t14 - t04 - t13 + t03)
+               + trunc(r_x1f * r_y1f * scf) * (t35 - t25 - c3 + c2)
+               + trunc(r_x_1f * r_y1f * scf) * (t32 - t22 - d3 + d2))
+    total = (corners + (t13 - t03 + t01 - t11) * trunc(r_y_1f * scf)
+             + (t43 - t13 + t11 - t41) * sc.to(torch.int64)
+             + (t41 - t11 + t10 - t40) * trunc(r_x_1f * scf)
+             + (t44 - t14 + t13 - t43) * trunc(r_x1f * scf)
+             + (t53 - t43 + t41 - t51) * trunc(r_y1f * scf))
+    total = ((total + 2**31) % 2**32 - 2**31).to(torch.int32)
+    return torch.div(total, sc2.clamp(min=1), rounding_mode="floor"), g["small"]
+
+
+@pytest.mark.parametrize("pattern_scale", [1.0, 0.3])
+def test_kernel_tap_order_matches_jax(pattern_scale):
+    """K2's reading of the box branch (by column pairs, the corner columns
+    that ``big`` picks named c_x and d_x) equals JAX's smoothed intensity on
+    describable keypoints and the plain version everywhere, keypoints whose
+    pattern leaves the frame (clipped taps) included."""
+    imgs, kx, ky, _, row_base, tab, desc = _inputs(pattern_scale)
+    rng = np.random.default_rng(2)
+    kx = np.concatenate([kx, rng.uniform(-8, W + 8, 40).astype(np.float32)])
+    ky = np.concatenate([ky, rng.uniform(-8, H + 8, 40).astype(np.float32)])
+    row_base = np.concatenate([row_base, np.repeat(np.arange(B, dtype=np.int32) * (H + 1), 20)])
+    tab = {k: np.concatenate([v, v[:40]]) for k, v in tab.items()}
+    desc = np.concatenate([desc, np.zeros(40, bool)])
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in tab.items()}
+    args = (_stack_frames(torch.from_numpy(imgs)), torch.from_numpy(kx), torch.from_numpy(ky),
+            t["pat_x"], t["pat_y"], t["pat_sigma"], t["pat_scaling"], t["pat_scaling2"],
+            torch.from_numpy(row_base), H)
+    got, small = _kernel_tap_order(*args)
+    box = ~small.numpy()
+    assert box.all() == (pattern_scale == 1.0) and box[~desc].sum() > 1000
+    plain = smoothed_intensity(*args).numpy()
+    np.testing.assert_array_equal(got.numpy()[box], plain[box])
+    u8 = np.asarray(jext.smoothed_intensity_u8(
+        *_jax_args(imgs, kx, ky, tab), row_base=jnp.asarray(row_base), frame_rows=H))
+    sel = box & desc[:, None]
+    assert sel.sum() > 1000
+    np.testing.assert_array_equal(got.numpy()[sel], u8[sel])
