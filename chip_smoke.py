@@ -4,15 +4,16 @@
 
 Builds the hand-written CUDA kernels (K1 Harris, K2 sampler, K3 Harris +
 2-D maxima) from ``ethzasl_brisk_tpu_torch/csrc`` and checks each against
-its plain torch version at the main path's shapes. Then it drives three
+its plain torch version at the main path's shapes (K1 and K3 on the four
+pyramid layers in one launch, and on each alone). Then it drives three
 paths, each with the launch counters set to 0 just before it and read
 just after:
 
 * the main path, ``FramePipeline.step`` with the benchmark configuration
   on 16 VGA frames (K1 1 launch for the four pyramid layers, K2 2),
   compared with the plain CPU step;
-* the fused path, the same step with ``fused_mask=True`` (K3 4, K1 0,
-  K2 2), bit-equal to the main path;
+* the fused path, the same step with ``fused_mask=True`` (K3 1 launch for
+  the four layers, K1 0, K2 2), bit-equal to the main path;
 * the README quick start: two VGA frames written and read back as PGM,
   ``BriskFeature(octaves=0, ..., fused_mask=True).detect_and_compute`` on
   each host image (the entry point moves it to the card) and
@@ -22,7 +23,9 @@ just after:
   calls through the 26 ``pallas_call`` sites of the TPU probes P1, P3 and
   P2 at full size, its kernel (G1, G2, C, W, T, X or S) launched once,
   counted, and held bitwise against its plain version; each kernel and its
-  library yardstick timed by CUDA events and by the profiler's device time.
+  library yardstick timed by CUDA events and by the profiler's device time,
+  and the kernels T, C and G1 summed against theirs (``t + 8``,
+  ``.clone()`` and ``torch.gather``).
 
 Both steps are timed at batch 16 and 128 with per-stage CUDA events, in
 turns (default, fused, fused, default), and each kernel against its plain
@@ -70,11 +73,11 @@ QUICK_RADIUS = 90
 # products 3 x 2 (multiply, shift), the smoothing 3 x 7 (horizontal and
 # vertical [1, 2, 1] sums 3 each, the shift) and the score 8.
 K1_OPS_PER_PIXEL = 11 + 3 * 2 + 3 * 7 + 8
-# K3, counted from csrc/harris.cuh's 2-D form: the gradients 2 x 9 (3
-# differences, 3 multiplies, 2 sums, the x8), the products 3 x 2, the
-# smoothing 3 x 11, the score 8, and the 2-D maximum 9 (7 maxima, the
-# compare with it and the threshold).
-K3_OPS_PER_PIXEL = 2 * 9 + 3 * 2 + 3 * 11 + 8 + 9
+# K3, counted from csrc/harris.cu's masked body: K1's, the separable 3 x 3
+# maximum 4 (the horizontal max of 3; the carried pair of rows with the
+# new row, and the new pair) and the mask 3 (the threshold, the compare
+# with the maximum, their and).
+K3_OPS_PER_PIXEL = K1_OPS_PER_PIXEL + 4 + 3
 # K2 per (keypoint, point), counted from csrc/sampler.cu: (int32, float32)
 # operations of the geometry shared by both branches (46, 10), plus the
 # box branch (73, 20) or the small-sigma bilinear branch (38, 4).
@@ -257,6 +260,7 @@ def main() -> int:
         harris_score_i32_layers,
         harris_score_mask_cuda,
         harris_score_mask_i32,
+        harris_score_mask_layers,
     )
     from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
     from ethzasl_brisk_tpu_torch.probes import cases as probe_cases
@@ -296,11 +300,15 @@ def main() -> int:
     print(f"[K1] bitwise equal to plain on layers {[tuple(p.shape) for p in pyramid]} in one "
           f"launch and each alone", flush=True)
 
-    # ---- K3 against its plain version on the same layers, threshold 20.
+    # ---- K3 against its plain version on the same layers, threshold 20:
+    # the four layers in one launch, and each layer alone.
     thr = int(BENCH_CONFIG["absolute_threshold"])
     k3_err = 0
-    for layer in pyramid:
-        got_sc, got_mask = harris_score_mask_cuda(layer, thr)
+    _kernels.reset_launches()
+    got_pairs = harris_score_mask_layers(pyramid, thr)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["harris_score_mask"] == 1, _kernels.LAUNCHES
+    for layer, (got_sc, got_mask) in zip(pyramid, got_pairs):
         ref_sc, ref_mask = harris_score_mask_i32(layer, thr)
         torch.cuda.synchronize()
         k3_err = max(k3_err, int((got_sc.to(torch.int64) - ref_sc).abs().max()),
@@ -308,8 +316,11 @@ def main() -> int:
         assert torch.equal(got_sc, ref_sc), f"K3 scores differ on layer {tuple(layer.shape)}"
         assert torch.equal(got_mask, ref_mask), f"K3 mask differs on layer {tuple(layer.shape)}"
         assert int(got_mask.view(torch.uint8).max()) == 1, "K3 mask bytes"
+        alone_sc, alone_mask = harris_score_mask_cuda(layer, thr)
+        assert torch.equal(alone_sc, ref_sc) and torch.equal(alone_mask, ref_mask), \
+            f"K3 alone, {tuple(layer.shape)}"
     print(f"[K3] scores and mask bitwise equal to plain at thr {thr} on layers "
-          f"{[tuple(p.shape) for p in pyramid]}", flush=True)
+          f"{[tuple(p.shape) for p in pyramid]} in one launch and each alone", flush=True)
 
     # ---- K2 against its plain version on both describe phases.
     k2_calls = capture_sampler_inputs(feature, frames16)
@@ -363,7 +374,7 @@ def main() -> int:
     fused_out = fused_pipe.step(frames16)
     torch.cuda.synchronize()
     fused_launches = dict(_kernels.LAUNCHES)
-    assert fused_launches["harris_score_mask"] == 4, fused_launches
+    assert fused_launches["harris_score_mask"] == 1, fused_launches
     assert fused_launches["harris_score_i32"] == 0, fused_launches
     assert fused_launches["smoothed_intensity"] == 2, fused_launches
     assert_same_step(fused_out, (kps, desc, midx, mdist), "fused vs default step")
@@ -424,6 +435,12 @@ def main() -> int:
     # against its plain version.
     probe_records = probe_cases.run_all(dev, card)
     probe_rows = probe_cases.kernel_rows(probe_records)
+    for row in probe_rows:
+        if row["name"] in ("probe_transpose_chain", "probe_relayout", "probe_take"):
+            lib = row["library_device_ms"]
+            print(f"[probes] {row['name']}: device {row['device_ms']:.4f} ms against its "
+                  f"library calls' {lib:.4f} ms ({row['device_ms'] / lib:.3f}x) over "
+                  f"{row['launches']} calls [{card}]", flush=True)
 
     # ---- Timing.
     stage_names = ["pyramid", "harris", "masks", "candidates", "uniformity", "refine",
@@ -475,15 +492,16 @@ def main() -> int:
         k1_plain = cuda_time(lambda: [harris_score_i32(p) for p in pyr])
         k2_ms = cuda_time(lambda: [smoothed_intensity_cuda(*a) for a in calls])
         k2_plain = cuda_time(lambda: [smoothed_intensity(*a) for a in calls])
-        k3_ms = cuda_time(lambda: [harris_score_mask_cuda(p, thr) for p in pyr])
+        k3_ms = cuda_time(lambda: harris_score_mask_layers(pyr, thr))
         k3_plain = cuda_time(lambda: [harris_score_mask_i32(p, thr) for p in pyr])
         k1_nms = cuda_time(lambda: [maxima2d_mask(s, thr) for s in harris_score_i32_layers(pyr)])
         # The kernels' own time on the card, each step's launches from a cold L2.
-        k1_dev = measure.device_time(lambda: harris_score_i32_layers(pyr), ("harris_rows_kernel",))
-        k2_dev = measure.device_time(lambda: [smoothed_intensity_cuda(*a) for a in calls],
+        k1_dev = measure.device_time(lambda: harris_score_i32_layers(pyr), dev,
+                                     ("harris_rows_kernel",))
+        k2_dev = measure.device_time(lambda: [smoothed_intensity_cuda(*a) for a in calls], dev,
                                      ("k2_sampler_kernel",))
-        k3_dev = measure.device_time(lambda: [harris_score_mask_cuda(p, thr) for p in pyr],
-                                     ("harris_mask_tile_kernel",))
+        k3_dev = measure.device_time(lambda: harris_score_mask_layers(pyr, thr), dev,
+                                     ("harris_mask_rows_kernel",))
         # Bounds: K1 reads 1 B and writes 4 B per pixel, K3 one more byte.
         pixels = sum(p.numel() for p in pyr)
         k1_bound = measure.bound_ms(5 * pixels, int32_ops=K1_OPS_PER_PIXEL * pixels)
@@ -519,7 +537,7 @@ def main() -> int:
             ("smoothed_intensity", "sampler.cu",
              "ethzasl_brisk_tpu/describe/pallas_sampler.py:46",
              launches["smoothed_intensity"], k2_err, "k2"),
-            ("harris_score_mask", "harris_mask.cu",
+            ("harris_score_mask", "harris.cu",
              "ethzasl_brisk_tpu/kernels/pallas_harris.py:177",
              fused_launches["harris_score_mask"], k3_err, "k3"),
         )

@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {
-    # K1 counts one per launch, which covers every pyramid layer of a call.
+    # K1 and K3 count one per launch, which covers every pyramid layer of a call.
     "harris_score_i32": 0, "harris_score_mask": 0, "smoothed_intensity": 0,
     # The gather probes' kernels: G1, G2, C, W (probes/gather.py); T, X, S
     # (probes/mosaic.py).
@@ -142,8 +142,11 @@ def library() -> ctypes.CDLL:
                 ctypes.POINTER(ci), ci, vp,              # (B, H, W) per layer, layers, stream
             ]
             lib.brisk_harris_score_layers.restype = ci
-            lib.brisk_harris_score_mask.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
-            lib.brisk_harris_score_mask.restype = ci
+            lib.brisk_harris_score_mask_layers.argtypes = [
+                ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp),  # inputs, scores, masks
+                ctypes.POINTER(ci), ci, ci, vp,  # (B, H, W) per layer, layers, threshold, stream
+            ]
+            lib.brisk_harris_score_mask_layers.restype = ci
             lib.brisk_smoothed_intensity.argtypes = [
                 vp, ci, ci,                # integral, cols, frame_rows
                 vp, vp,                    # key_x, key_y
@@ -162,7 +165,7 @@ def library() -> ctypes.CDLL:
             lib.brisk_probe_relayout.restype = ci
             lib.brisk_probe_window_copy.argtypes = [vp, vp, vp, vp, ci, ci, vp]
             lib.brisk_probe_window_copy.restype = ci
-            lib.brisk_probe_transpose_chain.argtypes = [vp, vp, ci, vp]
+            lib.brisk_probe_transpose_chain.argtypes = [vp, vp, ci, ci, vp]
             lib.brisk_probe_transpose_chain.restype = ci
             lib.brisk_probe_gather_chain.argtypes = [vp, vp, vp, ci, vp]
             lib.brisk_probe_gather_chain.restype = ci

@@ -3,16 +3,31 @@
 //
 // T, transpose_chain, replaces tools/probes/probe_mosaic_gather3.py:86
 // transpose_many: an int32 (m, 128) table in m / 128 square blocks, each
-// taken through eight rounds of x = x.T; x = x + 1. Eight transposes return
-// every element to its place, so the result is t + 8 (int32 wrapping).
-// The TPU holds the whole 128 x 128 block in VMEM and transposes it in the
-// vector unit. Here each block of threads owns one symmetric pair of 32 x 32
-// sub-tiles, (I, J) and (J, I) with I <= J (ten pairs per 128 x 128 block),
-// in two padded [32][33] words of shared memory (8.4 KB): a round reads
-// each tile's transpose down a column, which the padding spreads over all
-// 32 banks, adds 1 and writes it as the partner's new tile. A diagonal
-// tile is its own partner. Adds are unsigned, so overflow wraps as two's
-// complement without undefined behaviour.
+// taken through rounds (8 in the probe) of x = x.T; x = x + 1. Eight
+// transposes return every element to its place, so the probe's result is
+// t + 8 (int32 wrapping); an odd count gives x.T + rounds per block. The
+// TPU holds the whole 128 x 128 block in VMEM and transposes it in the
+// vector unit. A block's transpose is the transpose of each of its 16
+// sub-tiles of 32 x 32 and the swap of sub-tile (I, J) with (J, I). Here a
+// warp owns one sub-tile at a time, in its own 4 KB of shared memory, and
+// each round moves every element of it to its transposed place there, so a
+// round needs only __syncwarp; the swaps of all the rounds together are
+// the identity for an even count and one swap for an odd one, taken when
+// the tile is stored. The first round writes the tile's registers (16-byte
+// loads) down the columns; a middle round reads down the columns and
+// writes along the rows, 16 bytes a lane; the last reads down the columns
+// and stores 16 bytes a lane to the output (with one round, it reads along
+// the rows). A lane owns the 16-byte chunk lane % 8 of rows 4t + lane / 8
+// (t < 8), and a row's chunks are swizzled by the row's quarter (chunk
+// c of row R at c ^ (R / 4 % 8)), so a column read or write falls on 32
+// distinct banks and a row's 16-byte chunks on all of them. The grid is
+// persistent, four warps an SM (two or eight, padded tiles, pairs of tiles
+// a warp and two or three units in flight all measured slower), each warp
+// walking tiles with the card's whole warp count as its stride; it issues
+// its next tile's loads right after the current tile's first round, so
+// they overlap the remaining rounds, and its stores go out without
+// waiting. Adds are unsigned, so overflow wraps as two's complement
+// without undefined behaviour.
 //
 // X, gather_chain, replaces probe_mosaic_gather3.py:107 chain: per
 // 128-row block, a = take_along_axis(t, i, 1); out = take_along_axis(a.T,
@@ -32,7 +47,10 @@
 // Sums accumulate unsigned, wrapping as int32 does.
 //
 // Bound: bytes for all three. T reads and writes each element once (its
-// 8 adds per element are a tenth of that time); X reads the index and
+// 8 adds per element are a tenth of that time; its 8 shared-memory round
+// trips, 56 KB a tile, come to ~3.5 us of the card's 33 TB/s of shared
+// bandwidth at the probe's 8 MiB, under the 5.0 us of device memory, if
+// they overlap it); X reads the index and
 // writes the output once, plus the sectors of t it touches; S reads the
 // sectors its windows cover and writes 128 sums per window (its 95 adds per
 // sum are under half the byte time). Indices and offsets are trusted to be
@@ -46,56 +64,80 @@ namespace {
 
 constexpr int kBlk = 128;       // side of a transpose or gather block
 constexpr int kSub = 32;        // side of a sub-tile of T
-constexpr int kSubRows = 8;     // T: thread rows; each thread owns 4 rows of a tile
-constexpr int kPairs = 10;      // (I, J), I <= J, over the 4 x 4 sub-tiles
-constexpr int kRounds = 8;
+constexpr int kTWarps = 4;      // T: warps per block, one block an SM
 constexpr int kThreads = 256;
 constexpr int kWinRows = 96;
 constexpr int kWinCols = 128;
 
-__global__ void __launch_bounds__(kSub * kSubRows) transpose_chain_kernel(
-    const uint32_t* __restrict__ src, uint32_t* __restrict__ out) {
-  __shared__ uint32_t tile[2][kSub][kSub + 1];  // [0]: (I, J), [1]: (J, I)
-  const size_t base = (size_t)(blockIdx.x / kPairs) * kBlk * kBlk;
-  int p = blockIdx.x % kPairs, I = 0;
-  while (p > 3 - I) {
-    p -= 4 - I;
-    ++I;
-  }
-  const int J = I + p;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const size_t at_ij = base + (size_t)I * kSub * kBlk + J * kSub;
-  const size_t at_ji = base + (size_t)J * kSub * kBlk + I * kSub;
+// Word (R, col) of a 32 x 32 tile: the 16-byte chunk col / 4 of row R at
+// chunk (col / 4) ^ (R / 4 % 8).
+__device__ __forceinline__ int swizzled(int R, int col) {
+  return R * kSub + ((((col >> 2) ^ ((R >> 2) & 7)) << 2) | (col & 3));
+}
+
+__global__ void __launch_bounds__(kTWarps * kSub) transpose_chain_kernel(
+    const uint4* __restrict__ src, uint4* __restrict__ out, int tiles, int rounds) {
+  __shared__ __align__(16) uint32_t smem[kTWarps][kSub * kSub];
+  uint32_t* const s = smem[threadIdx.x / kSub];
+  const int lane = threadIdx.x % kSub;
+  const int stride = gridDim.x * kTWarps;
+  const int r = lane / 8, c4 = 4 * (lane % 8);  // rows 4t + r, columns c4 .. c4+3
+  // Element offset of tile u's first element, or of its swapped place.
+  auto at = [&](int u, bool swap) {
+    const int ti = (u / 4) % 4, tj = u % 4;
+    const int base = (u / 16) * kBlk * kBlk;
+    return swap ? base + tj * kSub * kBlk + ti * kSub : base + ti * kSub * kBlk + tj * kSub;
+  };
+  uint4 v[8];  // a tile as loaded: chunk (4t + r, c4) in v[t]
+  auto load = [&](int u) {
+    const int g = at(u, false);
 #pragma unroll
-  for (int k = 0; k < kSub / kSubRows; ++k) {
-    const int i = ty + kSubRows * k;
-    tile[0][i][tx] = src[at_ij + i * kBlk + tx];
-    tile[1][i][tx] = src[at_ji + i * kBlk + tx];
-  }
-  __syncthreads();
-  for (int round = 0; round < kRounds; ++round) {
-    // New (I, J)[i][j] = old (J, I)[j][i] + 1, and the other way round.
-    uint32_t a[kSub / kSubRows], b[kSub / kSubRows];
+    for (int t = 0; t < 8; ++t) v[t] = __ldg(src + (g + (4 * t + r) * kBlk + c4) / 4);
+  };
+
+  int u = blockIdx.x * kTWarps + threadIdx.x / kSub;
+  if (u < tiles) load(u);
+  for (; u < tiles; u += stride) {
+    // Round 1: element (i, c4 + w) to (c4 + w, i), + 1.
 #pragma unroll
-    for (int k = 0; k < kSub / kSubRows; ++k) {
-      const int i = ty + kSubRows * k;
-      a[k] = tile[1][tx][i] + 1u;
-      b[k] = tile[0][tx][i] + 1u;
+    for (int t = 0; t < 8; ++t) {
+      const int i = 4 * t + r;
+      s[swizzled(c4, i)] = v[t].x + 1u;
+      s[swizzled(c4 + 1, i)] = v[t].y + 1u;
+      s[swizzled(c4 + 2, i)] = v[t].z + 1u;
+      s[swizzled(c4 + 3, i)] = v[t].w + 1u;
     }
-    __syncthreads();
+    if (u + stride < tiles) load(u + stride);
+    __syncwarp();
+    for (int round = 2; round < rounds; ++round) {
+      uint32_t a[32];
 #pragma unroll
-    for (int k = 0; k < kSub / kSubRows; ++k) {
-      const int i = ty + kSubRows * k;
-      tile[0][i][tx] = a[k];
-      tile[1][i][tx] = b[k];
+      for (int t = 0; t < 8; ++t) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) a[4 * t + w] = s[swizzled(c4 + w, 4 * t + r)] + 1u;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        *reinterpret_cast<uint4*>(s + swizzled(4 * t + r, c4)) =
+            make_uint4(a[4 * t], a[4 * t + 1], a[4 * t + 2], a[4 * t + 3]);
+      }
+      __syncwarp();
     }
-    __syncthreads();
-  }
+    const int g = at(u, rounds % 2 == 1);
 #pragma unroll
-  for (int k = 0; k < kSub / kSubRows; ++k) {
-    const int i = ty + kSubRows * k;
-    out[at_ij + i * kBlk + tx] = tile[0][i][tx];
-    if (I != J) out[at_ji + i * kBlk + tx] = tile[1][i][tx];
+    for (int t = 0; t < 8; ++t) {
+      const int i = 4 * t + r;
+      uint4 e;
+      if (rounds >= 2) {  // the last round
+        e = make_uint4(s[swizzled(c4, i)] + 1u, s[swizzled(c4 + 1, i)] + 1u,
+                       s[swizzled(c4 + 2, i)] + 1u, s[swizzled(c4 + 3, i)] + 1u);
+      } else {
+        e = *reinterpret_cast<const uint4*>(s + swizzled(i, c4));
+      }
+      out[(g + i * kBlk + c4) / 4] = e;
+    }
+    __syncwarp();  // the tile is read before the next tile's first round
   }
 }
 
@@ -123,11 +165,18 @@ __global__ void __launch_bounds__(kWinCols) window_colsum_kernel(
 
 }  // namespace
 
-// T. src and out are (nblk * 128, 128) int32.
-extern "C" int brisk_probe_transpose_chain(const void* src, void* out, int nblk, void* stream) {
-  const dim3 block(kSub, kSubRows);
-  transpose_chain_kernel<<<(unsigned)nblk * kPairs, block, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)src, (uint32_t*)out);
+// T. src and out are (nblk * 128, 128) int32, 16-byte aligned; rounds >= 1.
+extern "C" int brisk_probe_transpose_chain(const void* src, void* out, int nblk, int rounds,
+                                           void* stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  if (const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return (int)err;
+  const int tiles = nblk * 16;
+  const int wanted = (tiles + kTWarps - 1) / kTWarps;
+  const int blocks = wanted < sms ? wanted : sms;
+  transpose_chain_kernel<<<blocks, kTWarps * kSub, 0, (cudaStream_t)stream>>>(
+      (const uint4*)src, (uint4*)out, tiles, rounds);
   return (int)cudaGetLastError();
 }
 

@@ -34,7 +34,7 @@ from ethzasl_brisk_tpu_torch.detect.uniformity import bucket_keypoints, enforce_
 from ethzasl_brisk_tpu_torch.kernels.downsample import halfsample8, twothirdsample8
 from ethzasl_brisk_tpu_torch.kernels.harris import (
     harris_score_i32_layers,
-    harris_score_mask_fused,
+    harris_score_mask_layers,
 )
 from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
 
@@ -192,7 +192,7 @@ def layer_score_masks(
     thr = int(config.absolute_threshold)
     base_masks = None
     if config.fused_mask:
-        pairs = [harris_score_mask_fused(im, thr) for im in pyramid]
+        pairs = harris_score_mask_layers(pyramid, thr)
         scores = [p[0] for p in pairs]
         base_masks = [p[1] for p in pairs]
     else:

@@ -16,9 +16,10 @@ torch's ``>>`` on int32 is an arithmetic shift, as in C.
 through one launch of the kernel for the whole pyramid (or raise), CPU
 layers through the plain version; ``harris_score_i32_fused`` is its
 one-layer form.
-``harris_score_mask_fused`` (kernel K3, ``csrc/harris_mask.cu``; JAX
-``harris_score_mask_fused``) adds the 2-D maxima mask in the same pass; the
-``fused_mask`` detector setting calls it.
+``harris_score_mask_layers`` (kernel K3, the same source's masked body;
+JAX ``harris_score_mask_fused``) adds the 2-D maxima mask in the same pass,
+one launch for the pyramid; the ``fused_mask`` detector setting calls it,
+and ``harris_score_mask_fused`` is its one-layer form.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 from ethzasl_brisk_tpu_torch import _kernels
 from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
 
-_MAX_LAYERS = 8  # the layer table of csrc/harris.cu
+_MAX_LAYERS = 8  # the layer table of csrc/harris.cu (K1 and K3)
 
 
 def _shift(p: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -95,25 +96,31 @@ def _check_frames(imgs: torch.Tensor, name: str) -> None:
         )
 
 
+def _layer_chunks(name: str, layers: list[torch.Tensor],
+                  outputs: list[tuple[torch.Tensor, ...]]):
+    """The launches over the non-empty layers, up to 8 layers each: per
+    launch the card and the layer table's arguments (the layers' pointers,
+    then each output's, their (B, H, W) and the count)."""
+    work = [(im, outs) for im, outs in zip(layers, outputs) if im.numel()]
+    if any(im.device != work[0][0].device for im, _ in work):
+        raise ValueError(f"{name}: layers on more than one card")
+    for i in range(0, len(work), _MAX_LAYERS):
+        chunk = work[i : i + _MAX_LAYERS]
+        n = len(chunk)
+        ptrs = [(ctypes.c_void_p * n)(*(t.data_ptr() for t in col))
+                for col in zip(*((im, *outs) for im, outs in chunk))]
+        dims = (ctypes.c_int * (3 * n))(*(d for im, _ in chunk for d in im.shape))
+        yield chunk[0][0].device, (*ptrs, dims, n)
+
+
 def harris_score_i32_layers_cuda(layers: list[torch.Tensor]) -> list[torch.Tensor]:
     """Kernel K1 on pyramid layers in one launch (up to 8 layers a launch):
     uint8 (B, H, W) CUDA tensors on one card -> int32 (B, H, W) scores."""
     for im in layers:
         _check_frames(im, "harris_score_i32_layers_cuda")
     outs = [torch.empty(im.shape, dtype=torch.int32, device=im.device) for im in layers]
-    work = [(im, out) for im, out in zip(layers, outs) if out.numel()]
-    if not work:
-        return outs
-    if any(im.device != work[0][0].device for im, _ in work):
-        raise ValueError("harris_score_i32_layers_cuda: layers on more than one card")
-    for i in range(0, len(work), _MAX_LAYERS):
-        chunk = work[i : i + _MAX_LAYERS]
-        n = len(chunk)
-        imgs = (ctypes.c_void_p * n)(*(im.data_ptr() for im, _ in chunk))
-        ptrs = (ctypes.c_void_p * n)(*(out.data_ptr() for _, out in chunk))
-        dims = (ctypes.c_int * (3 * n))(*(d for im, _ in chunk for d in im.shape))
-        _kernels.launch("harris_score_layers", "harris_score_i32", chunk[0][0].device,
-                        imgs, ptrs, dims, n)
+    for dev, args in _layer_chunks("harris_score_i32_layers_cuda", layers, [(o,) for o in outs]):
+        _kernels.launch("harris_score_layers", "harris_score_i32", dev, *args)
     return outs
 
 
@@ -148,26 +155,37 @@ def harris_score_mask_i32(imgs: torch.Tensor, thr: int):
     return sc, maxima2d_mask(sc, thr)
 
 
-def harris_score_mask_cuda(imgs: torch.Tensor, thr: int):
-    """Kernel K3: uint8 (B, H, W) CUDA tensor -> (int32 scores, bool mask)."""
-    _check_frames(imgs, "harris_score_mask_cuda")
+def harris_score_mask_layers_cuda(layers: list[torch.Tensor], thr: int):
+    """Kernel K3 on pyramid layers in one launch (up to 8 layers a launch):
+    uint8 (B, H, W) CUDA tensors on one card -> (int32 scores, bool mask)
+    per layer, one threshold for all."""
+    for im in layers:
+        _check_frames(im, "harris_score_mask_layers_cuda")
     thr = int(thr)
     i32 = torch.iinfo(torch.int32)
     if not i32.min <= thr <= i32.max:
         raise ValueError(f"threshold {thr} does not fit int32")
-    b, h, w = imgs.shape
-    out = torch.empty((b, h, w), dtype=torch.int32, device=imgs.device)
-    mask = torch.empty((b, h, w), dtype=torch.bool, device=imgs.device)
-    if out.numel() == 0:
-        return out, mask
-    _kernels.launch("harris_score_mask", "harris_score_mask", imgs.device,
-                    imgs.data_ptr(), out.data_ptr(), mask.data_ptr(), b, h, w, thr)
-    return out, mask
+    pairs = [(torch.empty(im.shape, dtype=torch.int32, device=im.device),
+              torch.empty(im.shape, dtype=torch.bool, device=im.device)) for im in layers]
+    for dev, args in _layer_chunks("harris_score_mask_layers_cuda", layers, pairs):
+        _kernels.launch("harris_score_mask_layers", "harris_score_mask", dev, *args, thr)
+    return pairs
+
+
+def harris_score_mask_layers(layers: list[torch.Tensor], thr: int):
+    """(scores, 2-D maxima mask) of every pyramid layer: one K3 launch for
+    CUDA tensors, the plain version of each layer for CPU tensors."""
+    if all(im.device.type == "cpu" for im in layers):
+        return [harris_score_mask_i32(im, thr) for im in layers]
+    return harris_score_mask_layers_cuda([im.contiguous() for im in layers], thr)
+
+
+def harris_score_mask_cuda(imgs: torch.Tensor, thr: int):
+    """Kernel K3: uint8 (B, H, W) CUDA tensor -> (int32 scores, bool mask)."""
+    return harris_score_mask_layers_cuda([imgs], thr)[0]
 
 
 def harris_score_mask_fused(imgs: torch.Tensor, thr: int):
     """(B, H, W) uint8 -> (int32 scores, bool 2-D maxima mask): kernel K3 on
     a CUDA tensor, the plain version on a CPU tensor."""
-    if imgs.device.type == "cpu":
-        return harris_score_mask_i32(imgs, thr)
-    return harris_score_mask_cuda(imgs.contiguous(), thr)
+    return harris_score_mask_layers([imgs], thr)[0]

@@ -30,6 +30,7 @@ INT32_OPS_PER_S = 132 * 64 * 2 * 1.98e9
 SECTOR = 32  # bytes: the unit in which the card moves device memory
 L2_BYTES = 50 * 2**20  # H100's L2 cache
 TRACE_ATTEMPTS = 3
+LEAD_CALLS = 3  # calls at the start of a trace that are not counted
 
 
 def card_line(device: str | torch.device) -> str:
@@ -62,16 +63,17 @@ def cuda_time(fn, reps: int = 10, warmup: int = 3) -> float:
 
 def _traced_calls(fn, flush: torch.Tensor, kernel_names, calls: int) -> list[float]:
     """Device time (ms) of each of ``calls`` calls of fn(), each after a read
-    of ``flush``, as one profiler trace shows them (see ``device_time``)."""
+    of ``flush`` on the card it lies on, as one profiler trace shows them
+    (see ``device_time``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             flush.sum(dim=1)
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(flush.device)
             fn()
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(flush.device)
     work = []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
@@ -91,27 +93,32 @@ def _traced_calls(fn, flush: torch.Tensor, kernel_names, calls: int) -> list[flo
     return times
 
 
-def device_time(fn, kernel_names: tuple[str, ...] | None = None, reps: int = 10,
-                warmup: int = 3) -> float:
-    """Median device time (ms) of fn() over ``reps`` calls, each from a cold
-    L2: the summed own time on the card of the kernels whose names contain
-    one of ``kernel_names`` (all of the call's device work, copies included,
-    when None), from a ``torch.profiler`` trace of CUDA activity.
+def device_time(fn, device: str | torch.device, kernel_names: tuple[str, ...] | None = None,
+                reps: int = 10, warmup: int = 3) -> float:
+    """Median device time (ms) of fn() over ``reps`` calls on card
+    ``device``, each from a cold L2: the summed own time on the card of the
+    kernels whose names contain one of ``kernel_names`` (all of the call's
+    device work, copies included, when None), from a ``torch.profiler``
+    trace of CUDA activity.
 
     Before each call a row-wise float32 sum (one reduction kernel, no cast)
-    reads a buffer twice the L2's size; its kernel marks where each call's
-    work starts in the trace and is not counted, so ``fn`` must launch no
-    reduction of its own. The profiler can miss events, at the start of a
-    trace or all of them: each trace starts with one more call, not counted,
-    and a trace that still lacks a call is taken again, up to
+    on that card reads a buffer twice its L2's size, and the card is
+    synchronised before and after the call; the sum's kernel marks where
+    each call's work starts in the trace and is not counted, so ``fn`` must
+    launch no reduction of its own. The profiler can miss events, at the start of a
+    trace or all of them: each trace starts with ``LEAD_CALLS`` more calls,
+    not counted, and a trace that still lacks a call is taken again, up to
     ``TRACE_ATTEMPTS`` times, before this raises."""
     for _ in range(warmup):
         fn()
-    flush = torch.empty((2 * L2_BYTES // 4 // 512, 512), dtype=torch.float32, device="cuda")
-    torch.cuda.synchronize()
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"device_time times work on a card, got {device}")
+    flush = torch.empty((2 * L2_BYTES // 4 // 512, 512), dtype=torch.float32, device=device)
+    torch.cuda.synchronize(device)
     seen = []
     for _ in range(TRACE_ATTEMPTS):
-        times = _traced_calls(fn, flush, kernel_names, reps + 1)[-reps:]
+        times = _traced_calls(fn, flush, kernel_names, reps + LEAD_CALLS)[-reps:]
         if len(times) == reps and all(times):
             return statistics.median(times)
         seen.append(len(times))

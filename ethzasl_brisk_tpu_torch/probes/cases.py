@@ -407,12 +407,12 @@ def run_case(case: Case, device: torch.device, card: str, reps: int = 10) -> dic
         raise AssertionError(f"{case.label}: {kern.label} differs from its plain version")
     err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
     ms = measure.cuda_time(lambda: kern.wrapper(*args), reps=reps)
-    device_ms = measure.device_time(lambda: kern.wrapper(*args), kern.names, reps=reps)
+    device_ms = measure.device_time(lambda: kern.wrapper(*args), device, kern.names, reps=reps)
     plain_ms = measure.cuda_time(lambda: kern.plain(*args), reps=reps)
     library_ms = library_device_ms = None
     if kern.library:
         library_ms = measure.cuda_time(lambda: kern.library(*args), reps=reps)
-        library_device_ms = measure.device_time(lambda: kern.library(*args), reps=reps)
+        library_device_ms = measure.device_time(lambda: kern.library(*args), device, reps=reps)
     nbytes = kern.nbytes(*args)
     ops = kern.int32_ops(*args) if kern.int32_ops else 0
     bound, bound_by = measure.bound_ms(nbytes, int32_ops=ops)

@@ -7,7 +7,8 @@ describe sampler could be built from. Three functions serve them
 (``csrc/probe_mosaic.cu``):
 
 * T ``transpose_chain``: an int32 (m, 128) table in m / 128 square blocks,
-  each taken through eight rounds of ``x = x.T; x = x + 1`` (``t + 8``);
+  each taken through eight rounds of ``x = x.T; x = x + 1`` (``t + 8``;
+  ``rounds`` sets another count, and an odd one gives ``x.T + rounds``);
 * X ``gather_chain``: per 128-row block, ``a = take_along_axis(t, i, 1)``
   then ``take_along_axis(a.T, i, 1)``;
 * S ``window_colsum``: the column sums of K windows of 96 x 128 int32 at
@@ -46,29 +47,39 @@ def _blocks(name: str, *tables: torch.Tensor) -> int:
 
 # ---- T: transpose_chain.
 
-def transpose_chain_plain(t) -> torch.Tensor:
-    """Plain version of T: the eight transposes and adds of each block,
-    step by step (int32 adds wrap)."""
+def _rounds(rounds: int) -> int:
+    if int(rounds) != rounds or rounds < 1:
+        raise ValueError(f"transpose_chain: rounds must be a positive integer, got {rounds}")
+    return int(rounds)
+
+
+def transpose_chain_plain(t, rounds: int = ROUNDS) -> torch.Tensor:
+    """Plain version of T: the transposes and adds of each block, step by
+    step (int32 adds wrap)."""
     nblk = _blocks("transpose_chain", t)
     x = t.view(nblk, BLOCK, BLOCK)
-    for _ in range(ROUNDS):
+    for _ in range(_rounds(rounds)):
         x = x.transpose(1, 2)
         x = x + 1
     return x.contiguous().view(t.shape)
 
 
-def transpose_chain(t) -> torch.Tensor:
-    """T: each 128 x 128 block of an int32 (m, 128) table through eight
-    rounds of transpose-then-add-1. Kernel on a CUDA tensor, plain version
-    on a CPU one."""
+def transpose_chain(t, rounds: int = ROUNDS) -> torch.Tensor:
+    """T: each 128 x 128 block of an int32 (m, 128) table through ``rounds``
+    rounds (the probe's 8) of transpose-then-add-1. Kernel on a CUDA
+    tensor, plain version on a CPU one."""
     nblk = _blocks("transpose_chain", t)
+    rounds = _rounds(rounds)
     if t.device.type == "cpu":
-        return transpose_chain_plain(t)
+        return transpose_chain_plain(t, rounds)
+    if t.data_ptr() % 16:
+        raise ValueError("transpose_chain: the kernel reads 16-byte chunks; the table's "
+                         "data must be 16-byte aligned")
     out = torch.empty_like(t)
     if nblk == 0:
         return out
     _kernels.launch("probe_transpose_chain", "probe_transpose_chain", t.device,
-                    t.data_ptr(), out.data_ptr(), nblk)
+                    t.data_ptr(), out.data_ptr(), nblk, rounds)
     return out
 
 
@@ -78,10 +89,10 @@ def transpose_chain_bytes(t) -> int:
     return 2 * 4 * t.numel()
 
 
-def transpose_chain_ops(t) -> int:
+def transpose_chain_ops(t, rounds: int = ROUNDS) -> int:
     """T's int32 operations: one add per element and round."""
     _blocks("transpose_chain", t)
-    return ROUNDS * t.numel()
+    return _rounds(rounds) * t.numel()
 
 
 # ---- X: gather_chain.

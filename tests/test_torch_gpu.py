@@ -20,6 +20,7 @@ from ethzasl_brisk_tpu_torch.kernels.harris import (
     harris_score_i32_cuda,
     harris_score_mask_cuda,
     harris_score_mask_i32,
+    harris_score_mask_layers,
 )
 
 pytestmark = pytest.mark.gpu
@@ -110,6 +111,26 @@ def test_harris_layers_cuda_one_launch(cuda):
             assert torch.equal(g, harris_score_i32(im)), tuple(im.shape)
 
 
+@pytest.mark.parametrize("thr", [0, 300])
+def test_harris_mask_layers_cuda_one_launch(cuda, thr):
+    """K3 on layers of mixed widths in one launch (the main path's four VGA
+    layers), and with five odd and tiny ones more in two launches (the
+    layer table holds eight); scores and mask bitwise equal to plain."""
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    shapes = [(2, 480, 640), (2, 320, 426), (2, 240, 320), (2, 160, 213)]
+    for extra in ([], [(1, 37, 70), (3, 4, 5), (1, 41, 121), (2, 1, 9), (1, 83, 3)]):
+        layers = [torch.from_numpy(bench_frames(*s, seed=6)).to(cuda) for s in shapes + extra]
+        _kernels.reset_launches()
+        got = harris_score_mask_layers(layers, thr)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["harris_score_mask"] == (1 if not extra else 2)
+        for (sc, mask), im in zip(got, layers):
+            ref_sc, ref_mask = harris_score_mask_i32(im, thr)
+            assert torch.equal(sc, ref_sc), tuple(im.shape)
+            assert torch.equal(mask, ref_mask), tuple(im.shape)
+
+
 @pytest.mark.parametrize("pattern_scale", [1.0, 0.6])
 def test_sampler_cuda_edges(cuda, pattern_scale):
     """K2 where its taps clamp: keypoints on and beyond every edge and
@@ -167,8 +188,8 @@ def test_match_exact_with_tf32(cuda):
 
 
 def test_kernels_on_the_second_card(cuda):
-    """K1, K2 and a probe kernel on cuda:1 while cuda:0 is current: each
-    launches on the tensors' card, bitwise against plain."""
+    """K1, K3, K2 and a probe kernel on cuda:1 while cuda:0 is current:
+    each launches on the tensors' card, bitwise against plain."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     from ethzasl_brisk_tpu_torch.probes import gather
@@ -178,6 +199,8 @@ def test_kernels_on_the_second_card(cuda):
     imgs = torch.from_numpy(bench_frames(2, 120, 160)).to(dev)
     got = harris_score_i32_cuda(imgs)
     assert torch.equal(got, harris_score_i32(imgs))
+    for a, b in zip(harris_score_mask_cuda(imgs, 20), harris_score_mask_i32(imgs, 20)):
+        assert torch.equal(a, b)
     host = brisk_v2_pattern()
     k = 20
     sidx = np.full(k, 8)
@@ -220,8 +243,8 @@ def test_step_launches_both_kernels(cuda):
 
 
 def test_fused_step_launches_k3_and_equals_default(cuda):
-    """fused_mask=True: K3 once per layer, K1 never, K2 twice; every output
-    bit-equal to the default step on the card."""
+    """fused_mask=True: K3 once for the four layers, K1 never, K2 twice;
+    every output bit-equal to the default step on the card."""
     from ethzasl_brisk_tpu_torch import FramePipeline, _kernels
 
     frames = torch.from_numpy(bench_frames(3, 120, 160)).to(cuda)
@@ -229,7 +252,7 @@ def test_fused_step_launches_k3_and_equals_default(cuda):
     _kernels.reset_launches()
     fused = FramePipeline(BriskFeature(**STEP_CONFIG, fused_mask=True, device="cuda"),
                           device="cuda").step(frames)
-    assert _kernels.LAUNCHES["harris_score_mask"] == 4
+    assert _kernels.LAUNCHES["harris_score_mask"] == 1
     assert _kernels.LAUNCHES["harris_score_i32"] == 0
     assert _kernels.LAUNCHES["smoothed_intensity"] == 2
     for a, b in zip(default[0].fields(), fused[0].fields()):
@@ -379,8 +402,13 @@ def test_lane_select_cuda_matches_one_hot(cuda):
     assert torch.equal(got, gather.lane_select_plain(tab, col))
 
 
-@pytest.mark.parametrize("blocks", [1, 3])
-def test_transpose_chain_cuda_matches_plain(cuda, blocks):
+@pytest.mark.parametrize("rounds", [1, 3, 8])
+@pytest.mark.parametrize("blocks", [1, 3, 132, 133])
+def test_transpose_chain_cuda_matches_plain(cuda, blocks, rounds):
+    """T at one and a few blocks and at the persistent grid's edge (132
+    blocks are 4 tiles for each of a 132-SM card's 528 warps, 133 leave
+    some warps a fifth), with odd counts of rounds, where the result is
+    each block transposed, and the probe's 8."""
     from ethzasl_brisk_tpu_torch.probes import mosaic
 
     rng = np.random.default_rng(17)
@@ -388,10 +416,13 @@ def test_transpose_chain_cuda_matches_plain(cuda, blocks):
                          .astype(np.int32))
     t[0, :2] = torch.tensor([2**31 - 1, 2**31 - 5], dtype=torch.int32)  # the adds wrap
     t = t.to(cuda)
-    got = mosaic.transpose_chain(t)
+    got = mosaic.transpose_chain(t, rounds)
     torch.cuda.synchronize()
-    assert torch.equal(got, mosaic.transpose_chain_plain(t))
-    assert torch.equal(got, t + 8)
+    assert torch.equal(got, mosaic.transpose_chain_plain(t, rounds))
+    if rounds == 8:
+        assert torch.equal(got, t + 8)
+    else:
+        assert torch.equal(got, torch.cat([b.T + rounds for b in t.split(128)]))
 
 
 def test_transpose_chain_cuda_raises_on_ragged_rows(cuda):
@@ -432,3 +463,26 @@ def test_window_colsum_cuda_matches_plain(cuda, width):
     got = mosaic.window_colsum(img, ax, ay)
     torch.cuda.synchronize()
     assert torch.equal(got, mosaic.window_colsum_plain(img, ax, ay))
+
+
+def test_device_time_flushes_and_waits_on_its_card(cuda):
+    """measure.device_time on cuda:1 while cuda:0 is current: the L2 flush
+    buffer lives on cuda:1, not cuda:0, and the timed kernel's time is
+    read."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from ethzasl_brisk_tpu_torch import measure
+
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    imgs = torch.from_numpy(bench_frames(4, 480, 640)).to(dev)
+    for d in (0, 1):
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    base = [torch.cuda.memory_allocated(d) for d in (0, 1)]
+    ms = measure.device_time(lambda: harris_score_i32_cuda(imgs), dev, ("harris_rows_kernel",),
+                             reps=3, warmup=1)
+    assert 0 < ms < 100
+    assert torch.cuda.max_memory_allocated(1) - base[1] >= 2 * measure.L2_BYTES
+    assert torch.cuda.max_memory_allocated(0) - base[0] < measure.L2_BYTES
+    assert torch.cuda.current_device() == 0

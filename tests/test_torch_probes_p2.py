@@ -237,6 +237,22 @@ def test_transpose_chain_is_t_plus_8():
     assert torch.equal(mosaic.transpose_chain(t), got)
 
 
+@pytest.mark.parametrize("rounds", [1, 3])
+def test_transpose_chain_odd_rounds_transpose(rounds):
+    """An odd count of rounds leaves each 128 x 128 block transposed:
+    ``x.T + rounds`` per block, so the count tests the data movement."""
+    t = torch.from_numpy(np.random.default_rng(22).integers(-2**31, 2**31, (384, 128),
+                                                            dtype=np.int64).astype(np.int32))
+    got = mosaic.transpose_chain_plain(t, rounds=rounds)
+    want = torch.cat([blk.T + rounds for blk in t.split(128)])
+    assert torch.equal(got, want)
+    assert torch.equal(mosaic.transpose_chain(t, rounds), got)
+    assert mosaic.transpose_chain_ops(t, rounds) == rounds * t.numel()
+    for bad in (0, -1, 2.5):
+        with pytest.raises(ValueError, match="rounds"):
+            mosaic.transpose_chain(t, bad)
+
+
 def _sectors(flat, itemsize):
     return measure.SECTOR * np.unique(np.asarray(flat, np.int64) * itemsize // measure.SECTOR).size
 
