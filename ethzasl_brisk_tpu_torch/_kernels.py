@@ -156,12 +156,14 @@ def library() -> ctypes.CDLL:
             lib.brisk_smoothed_intensity.restype = ci
             lib.brisk_probe_take.argtypes = [
                 vp, vp, vp, ci, ci, ci,    # src, idx, out, src_bytes, out_bytes, along_rows
-                ci, ci, ci, ci, ci, vp,    # R, W, S, Ws, n, stream
+                ci, ci, ci, ci, ci,        # R, W, S, Ws, n
+                ci, ci, ci, ci,            # the plan: body, vector, rows, copies,
+                ci, ci, ci, vp,            # smem, grid, threads; stream
             ]
             lib.brisk_probe_take.restype = ci
             lib.brisk_probe_point_gather.argtypes = [vp, vp, vp, vp, ci, ci, vp]
             lib.brisk_probe_point_gather.restype = ci
-            lib.brisk_probe_relayout.argtypes = [vp, vp, ci, ci, ci, vp]
+            lib.brisk_probe_relayout.argtypes = [vp, vp, ci, ci, ci, ci, vp]
             lib.brisk_probe_relayout.restype = ci
             lib.brisk_probe_window_copy.argtypes = [vp, vp, vp, vp, ci, ci, vp]
             lib.brisk_probe_window_copy.restype = ci

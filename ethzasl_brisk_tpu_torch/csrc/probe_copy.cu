@@ -4,10 +4,24 @@
 // (out = pat.reshape(128, 4096).T, written column by column in VMEM) and
 // tools/probes/probe_sampler_blocks.py:144 f_resh (out =
 // pat.reshape(8192, 64), an in-kernel reshape). For an int32 (rows, cols)
-// source it writes the (cols, rows) transpose or a plain copy. Each block
-// moves one 32 x 32 tile through shared memory (32 x 33 words, so the
-// transposed reads hit 32 different banks): reads and writes are both
-// coalesced whether or not the tile is transposed.
+// source it writes the (cols, rows) transpose or a plain copy. Both moves
+// are 16 bytes a thread where probes/gather.py:relayout_vector allows it
+// (both bases 16-byte aligned; for the transpose, rows and cols multiples
+// of 4), and 4 bytes a thread elsewhere:
+//   copy: no shared memory and no barrier; each thread has four loads in
+//     flight before its four stores, and a grid of 1024 chunks a block
+//     covers the probe's 2 MiB in one wave (a block's first threads copy
+//     the last n % 4 words);
+//   transpose: a block of two warps per 32 x 32 tile, each warp loading 16
+//     of its rows as 16-byte chunks, 4 a lane, and writing their words
+//     down the columns of a swizzled tile (chunk c of row R at c ^ (R / 4
+//     % 8), as T's in probe_mosaic.cu, so a column write hits 32 banks);
+//     after the barrier each warp stores 16 output rows as 16-byte chunks.
+//     A warp a tile (T's layout, 8 chunks a lane) measured slower at the
+//     probe's (128, 4096), where it leaves 4 warps an SM. The scalar
+//     transpose moves one 32 x 33-word tile a block.
+// Both probe calls move 2 MiB each way: at 3.35 TB/s that is 1.25 us,
+// under the ~2 us that any launch of one wave takes on the card.
 //
 // W, window_copy, replaces tools/probes/probe_sampler_blocks.py:182 f_dma
 // and :238 f_dma2, which copy K windows of 64 x 64 int32 from an image in
@@ -30,18 +44,92 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kTile = 32;
-constexpr int kRowsPerPass = 8;
+constexpr int kRowsPerPass = 8;  // the scalar transpose's block: 32 x 8 threads
+constexpr int kTileWarps = 2;    // the 16-byte transpose's block: a tile, 16 rows a warp
+constexpr int kCopyThreads = 256;
+constexpr int kCopyLoads = 4;    // loads in flight a copy thread
 constexpr int kWin = 64;
 constexpr int kWinThreads = 256;
 
-template <bool kTranspose>
-__global__ void __launch_bounds__(kTile * kRowsPerPass) relayout_kernel(
-    const int32_t* __restrict__ src, int32_t* __restrict__ out, int rows, int cols,
+template <bool kVector>
+__global__ void __launch_bounds__(kCopyThreads) relayout_copy_kernel(
+    const uint32_t* __restrict__ src, uint32_t* __restrict__ out, int n) {
+  // In 16-byte chunks when kVector, else in words.
+  using Unit = typename std::conditional<kVector, uint4, uint32_t>::type;
+  constexpr int kWords = sizeof(Unit) / 4;
+  const int units = n / kWords;
+  const Unit* s = reinterpret_cast<const Unit*>(src);
+  Unit* o = reinterpret_cast<Unit*>(out);
+  const int step = gridDim.x * kCopyThreads * kCopyLoads;
+  for (int x0 = blockIdx.x * kCopyThreads * kCopyLoads + threadIdx.x; x0 < units;
+       x0 += step) {
+    Unit v[kCopyLoads];
+#pragma unroll
+    for (int m = 0; m < kCopyLoads; ++m) {
+      const int x = x0 + m * kCopyThreads;
+      if (x < units) v[m] = s[x];
+    }
+#pragma unroll
+    for (int m = 0; m < kCopyLoads; ++m) {
+      const int x = x0 + m * kCopyThreads;
+      if (x < units) o[x] = v[m];
+    }
+  }
+  const int tail = units * kWords + (int)threadIdx.x;
+  if (blockIdx.x == 0 && tail < n) out[tail] = src[tail];
+}
+
+// Word (R, col) of a 32 x 32 tile: the 16-byte chunk col / 4 of row R at
+// chunk (col / 4) ^ (R / 4 % 8).
+__device__ __forceinline__ int swizzled(int R, int col) {
+  return R * kTile + ((((col >> 2) ^ ((R >> 2) & 7)) << 2) | (col & 3));
+}
+
+__global__ void __launch_bounds__(kTileWarps * 32) relayout_transpose16_kernel(
+    const uint32_t* __restrict__ src, uint32_t* __restrict__ out, int rows, int cols,
     int col_tiles) {
-  __shared__ int32_t tile[kTile][kTile + 1];
+  __shared__ __align__(16) uint32_t s[kTile * kTile];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = lane / 8, c4 = 4 * (lane % 8);  // tile rows 4 (2t + w) + r, columns c4 .. c4+3
+  const int r0 = (blockIdx.x / col_tiles) * kTile, k0 = (blockIdx.x % col_tiles) * kTile;
+  uint4 v[kTile / 4 / kTileWarps];
+#pragma unroll
+  for (int t = 0; t < kTile / 4 / kTileWarps; ++t) {
+    const int i = r0 + 4 * (kTileWarps * t + w) + r;
+    v[t] = i < rows && k0 + c4 < cols
+               ? __ldg(reinterpret_cast<const uint4*>(src + (size_t)i * cols + k0 + c4))
+               : make_uint4(0, 0, 0, 0);
+  }
+  // Source element (i, c4 + m) of the tile to (c4 + m, i).
+#pragma unroll
+  for (int t = 0; t < kTile / 4 / kTileWarps; ++t) {
+    const int i = 4 * (kTileWarps * t + w) + r;
+    s[swizzled(c4, i)] = v[t].x;
+    s[swizzled(c4 + 1, i)] = v[t].y;
+    s[swizzled(c4 + 2, i)] = v[t].z;
+    s[swizzled(c4 + 3, i)] = v[t].w;
+  }
+  __syncthreads();
+  // Output row k0 + i (source column k0 + i), columns r0 + c4 .. r0 + c4 + 3.
+#pragma unroll
+  for (int t = 0; t < kTile / 4 / kTileWarps; ++t) {
+    const int i = 4 * (kTileWarps * t + w) + r;
+    if (k0 + i < cols && r0 + c4 < rows) {
+      *reinterpret_cast<uint4*>(out + (size_t)(k0 + i) * rows + r0 + c4) =
+          *reinterpret_cast<const uint4*>(s + swizzled(i, c4));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTile * kRowsPerPass) relayout_transpose_kernel(
+    const uint32_t* __restrict__ src, uint32_t* __restrict__ out, int rows, int cols,
+    int col_tiles) {
+  __shared__ uint32_t tile[kTile][kTile + 1];  // 33 words a row: a column read hits 32 banks
   const int r0 = (blockIdx.x / col_tiles) * kTile;
   const int c0 = (blockIdx.x % col_tiles) * kTile;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -51,14 +139,9 @@ __global__ void __launch_bounds__(kTile * kRowsPerPass) relayout_kernel(
   }
   __syncthreads();
   for (int dy = ty; dy < kTile; dy += kRowsPerPass) {
-    if (kTranspose) {
-      // Output row c0 + dy holds source column c0 + dy.
-      const int orow = c0 + dy, ocol = r0 + tx;
-      if (orow < cols && ocol < rows) out[(size_t)orow * rows + ocol] = tile[tx][dy];
-    } else {
-      const int r = r0 + dy, c = c0 + tx;
-      if (r < rows && c < cols) out[(size_t)r * cols + c] = tile[dy][tx];
-    }
+    // Output row c0 + dy holds source column c0 + dy.
+    const int orow = c0 + dy, ocol = r0 + tx;
+    if (orow < cols && ocol < rows) out[(size_t)orow * rows + ocol] = tile[tx][dy];
   }
 }
 
@@ -97,19 +180,32 @@ __global__ void __launch_bounds__(kWinThreads) window_copy_kernel(
 
 }  // namespace
 
-// C. src (rows, cols) int32 -> out (cols, rows) if transpose else (rows, cols).
-extern "C" int brisk_probe_relayout(const void* src, void* out, int rows, int cols,
-                                    int transpose, void* stream) {
+// C. src (rows, cols) int32 -> out (cols, rows) if transpose else (rows, cols);
+// vector: 16-byte moves (probes/gather.py:relayout_vector).
+extern "C" int brisk_probe_relayout(const void* src_, void* out_, int rows, int cols,
+                                    int transpose, int vector, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* src = (const uint32_t*)src_;
+  uint32_t* out = (uint32_t*)out_;
   const int row_tiles = (rows + kTile - 1) / kTile;
   const int col_tiles = (cols + kTile - 1) / kTile;
-  const dim3 block(kTile, kRowsPerPass);
-  const unsigned blocks = (unsigned)row_tiles * (unsigned)col_tiles;
-  if (transpose) {
-    relayout_kernel<true><<<blocks, block, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)src, (int32_t*)out, rows, cols, col_tiles);
+  const int tiles = row_tiles * col_tiles;
+  if (transpose && vector) {
+    relayout_transpose16_kernel<<<tiles, kTileWarps * 32, 0, st>>>(src, out, rows, cols,
+                                                                   col_tiles);
+  } else if (transpose) {
+    relayout_transpose_kernel<<<tiles, dim3(kTile, kRowsPerPass), 0, st>>>(src, out, rows,
+                                                                            cols, col_tiles);
   } else {
-    relayout_kernel<false><<<blocks, block, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)src, (int32_t*)out, rows, cols, col_tiles);
+    const int n = rows * cols;
+    const int units = vector ? n / 4 : n;
+    const int per_block = kCopyThreads * kCopyLoads;
+    const int blocks = units > per_block ? (units + per_block - 1) / per_block : 1;
+    if (vector) {
+      relayout_copy_kernel<true><<<blocks, kCopyThreads, 0, st>>>(src, out, n);
+    } else {
+      relayout_copy_kernel<false><<<blocks, kCopyThreads, 0, st>>>(src, out, n);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -23,27 +23,77 @@
 // The leading axis B makes the probes' block-local gathers (B blocks of S
 // source rows each, e.g. sub_big's 128 blocks of 4096 rows) one launch.
 // Along columns, index rows may be a whole multiple of the source rows:
-// every block of S index rows reads the same source (wide's 64 grid steps
-// over one (256, 2432) block). A uint8 source may be widened to an int32
-// output (gather8's src.astype(int32) before the gather).
+// every block of S index rows (a copy) reads the same source (wide's 64
+// grid steps over one (256, 2432) block). A uint8 source may be widened to
+// an int32 output (gather8's src.astype(int32) before the gather).
+//
+// Bound: bytes. There is no arithmetic on the values: the least traffic is
+// the index and output arrays once plus the distinct 32-byte sectors of
+// the source that the indices touch (probes/gather.py's *_bytes count them
+// from the indices). A gather that loads each element straight from device
+// memory pays a whole 32-byte sector of L2 traffic for each 4-byte element
+// whose neighbours in the warp read other rows, which leaves L2, not the
+// HBM, as the limit. The TPU probes pin whole source blocks in VMEM; an
+// SM's 227 KB holds a slice of one. So G1 has three bodies, and
+// probes/gather.py:take_plan picks one per call from its shape, as the
+// measurements on an H100 ranked them (PERF.md), and cuts its grid. The
+// kernels trust the plan: it never asks for more shared memory than a block
+// may take, and it sends a call to a 16-byte move only where every pointer
+// moved 16 bytes at a time is 16-byte aligned and the widths are whole
+// 16-byte chunks.
+//
+// R, take_rows_kernel: row gathers from a staged column band. Serves the
+//   block-local row gathers of 4096-row blocks, sub_big
+//   (probe_sublane_gather.py:91), sub_gather and sub_gather2
+//   (probe_gather_formulations.py:101, :121). A CTA owns (block b, 8
+//   columns j0 .. j0 + 8) and first stages src[b, :, j0:j0+8] in shared
+//   memory, 128 KB at S = 4096, one CTA an SM. Eight columns are one
+//   32-byte sector of each index and output row, so each chunk a CTA loads
+//   or stores is a whole sector: 4-column bands (two CTAs an SM) split
+//   every sector between two CTAs and measured slower than direct loads,
+//   and 16 columns would take 256 KB. A cluster of 2 or 4 CTAs holding 16
+//   or 32 columns split by rows, read through distributed shared memory,
+//   also measured slower (PERF.md). Column j of source row k goes to word
+//   j * pitch + k (pitch = S rounded up to 8, plus 4), so the staging
+//   stores of a warp's 16 rows x 2 chunks, and its gathers of 32 random
+//   rows, spread over the 32 banks. Then the CTA serves its index rows: a
+//   thread takes one 16-byte chunk of an index row, reads 4 words from 4
+//   columns and stores 16 bytes. Each source element leaves device memory once and each index
+//   and output sector moves whole, so the traffic is the bound's (a
+//   one-sector-per-element gather moves 2.5 GB from L2 at sub_big for an
+//   891 MB bound). CTAs are numbered band-fastest, so a block's bands run
+//   together. Where blocks x bands give under two waves, the plan splits a
+//   band's index rows across CTAs, each staging the band again from L2.
+//   Blocks of more than 7256 rows (f_sub_big's 8192) do not fit a block's
+//   shared memory in 8-column bands and go to D.
+// L, take_lanes_kernel: lane gathers from staged source rows. Serves the
+//   axis-1 gathers of 8 M outputs or more, gather_big
+//   (probe_gather_formulations.py:163, probe_mosaic_gather4.py:35 at
+//   131072 and 524288 rows) and lane_scaled (probe_sampler_blocks.py:84),
+//   and wide (probe_mosaic_gather2.py:106), whose 64 copies of index rows
+//   share one source. A CTA copies its source rows into shared memory with
+//   16-byte cp.async and loads its 16-byte index chunks in the same breath,
+//   so no source load waits for an index; each thread then gathers 4
+//   outputs from shared memory and stores them at once. On a source of its
+//   own a CTA takes 16 rows of 128, two chunks a thread. On a shared source
+//   a CTA keeps 20 KB of source rows and walks its share of the copies, so
+//   the source leaves L2 about five times in all instead of once per index
+//   row.
+// D, take_direct_kernel: every other call: pallas_rows and pallas_lane
+//   (bench_pallas_gather.py:120, :145), sub_small and sub_u8
+//   (probe_sublane_gather.py:62, :112), f_sub and f_sub_big
+//   (probe_sampler_blocks.py:111, :121), probe (probe_mosaic_gather.py:20),
+//   taa1 (probe_mosaic_gather2.py:25), gather_big and gather8
+//   (probe_mosaic_gather3.py:61, :173) and gather_big at 16384 rows
+//   (probe_mosaic_gather4.py:35): a 1-D index, global rows, tables small
+//   enough for L2 to serve, rows or blocks too large to stage, and any call
+//   with unaligned pointers or widths no multiple of 4. With 1 M outputs or
+//   more, and index and output rows of whole aligned 16-byte chunks, 4
+//   outputs a thread from one 16-byte index load and one store; below
+//   that, one output a thread, which keeps every SM busy on small tables.
 //
 // G2, point_gather, replaces tools/bench_pallas_gather.py:93
-// pallas_2stage: out[i] = tab[r[i], c[i]].
-//
-// The TPU probes pin each source block in VMEM and gather in stages
-// (cross-sublane row gather, then lane select) because Mosaic lowers only
-// 2-D take_along_axis. A GPU thread loads its element straight from device
-// memory through L2, so one thread per output element, with no staging.
-//
-// Bound: bytes. There is no arithmetic on the values: each output element
-// reads a 4-byte index and one source element and writes one element. The
-// least traffic is the index and output arrays plus the distinct 32-byte
-// sectors of the source that the indices touch (probes/gather.py's
-// *_bytes count them from the indices). The design keeps the index reads and output
-// writes coalesced (neighbouring threads, neighbouring elements); source
-// reads coalesce where neighbouring outputs share a source row (a row
-// gather whose indices are equal along a row, as in pallas_rows) and are
-// one sector per element otherwise.
+// pallas_2stage: out[i] = tab[r[i], c[i]], one thread per point.
 //
 // Indices are trusted to be in range (the probes make them so; the plain
 // versions check it). Element counts are below 2^31 (the wrappers check),
@@ -54,40 +104,217 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // D and G2
+constexpr int kRowThreads = 512;   // R, at most
+constexpr int kLaneThreads = 256;  // L, at most
+constexpr int kStageLoads = 8;     // R: 16-byte staging loads in flight a thread
+constexpr int kChunkLoads = 4;     // R and L: 16-byte index loads in flight a thread
+constexpr int kBand = 8;           // R: columns a band, one 32-byte sector of a row
+enum Body { kDirect = 0, kRows = 1, kLanes = 2 };
 
-template <typename Tin, typename Tout, bool kAlongRows>
-__global__ void __launch_bounds__(kThreads) take_kernel(
+// Words between two staged columns of R (probes/gather.py:_pitch).
+__host__ __device__ constexpr int band_pitch(int S) { return ((S + 7) & ~7) + 4; }
+
+// Four gathered elements to out[0 .. 3] in one store (16 bytes, or 4 for uint8).
+__device__ __forceinline__ void store4(uint32_t* out, uint32_t a, uint32_t b, uint32_t c,
+                                       uint32_t d) {
+  *reinterpret_cast<uint4*>(out) = make_uint4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(uint8_t* out, uint8_t a, uint8_t b, uint8_t c,
+                                       uint8_t d) {
+  *reinterpret_cast<uchar4*>(out) = make_uchar4(a, b, c, d);
+}
+
+template <typename Tin, typename Tout, bool kAlongRows, bool kVector>
+__global__ void __launch_bounds__(kThreads) take_direct_kernel(
     const Tin* __restrict__ src, const int32_t* __restrict__ idx, Tout* __restrict__ out,
     unsigned R, unsigned W, unsigned S, unsigned Ws, unsigned n) {
-  const unsigned t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= n) return;
-  const unsigned row = t / W;  // b * R + i
-  const unsigned j = t - row * W;
-  const unsigned k = (unsigned)idx[t];
-  size_t s;
-  if (kAlongRows) {
-    const unsigned b = row / R;
-    s = ((size_t)b * S + k) * Ws + j;
-  } else {
-    s = (size_t)(row % S) * Ws + k;
+  constexpr unsigned kPer = kVector ? 4 : 1;
+  const unsigned e = (blockIdx.x * blockDim.x + threadIdx.x) * kPer;
+  if (e >= n) return;
+  const unsigned row = e / W;  // b * R + i
+  const unsigned j = e - row * W;
+  // Along rows, source element (k, j) of block b is base + k * Ws; along
+  // columns, element k of row i % S is base + k.
+  const size_t base = kAlongRows ? (size_t)(row / R) * S * Ws + j : (size_t)(row % S) * Ws;
+  const size_t step = kAlongRows ? Ws : 1;
+  const size_t lane = kAlongRows ? 1 : 0;  // the next output's column, along rows
+  if (!kVector) {
+    out[e] = (Tout)src[base + (size_t)(unsigned)idx[e] * step];
+    return;
   }
-  out[t] = (Tout)src[s];
+  const int4 k = __ldg(reinterpret_cast<const int4*>(idx + e));
+  store4(out + e, (Tout)src[base + (size_t)(unsigned)k.x * step],
+         (Tout)src[base + lane + (size_t)(unsigned)k.y * step],
+         (Tout)src[base + 2 * lane + (size_t)(unsigned)k.z * step],
+         (Tout)src[base + 3 * lane + (size_t)(unsigned)k.w * step]);
+}
+
+__global__ void __launch_bounds__(kRowThreads) take_rows_kernel(
+    const uint32_t* __restrict__ src, const int32_t* __restrict__ idx,
+    uint32_t* __restrict__ out, int R, int W, int S, int splits, int rows) {
+  extern __shared__ __align__(16) uint32_t band[];
+  constexpr int kChunks = kBand / 4;  // 16-byte chunks in a band's row
+  const int bands = W / kBand;
+  const int pitch = band_pitch(S);
+  const int T = blockDim.x;
+  const int w4 = W / 4;
+  int u = blockIdx.x;
+  const int j0 = (u % bands) * kBand;
+  u /= bands;
+  const int i0 = (u % splits) * rows;
+  const int b = u / splits;
+
+  // Stage src[b, :, j0:j0+kBand]: column j of source row k at band[j * pitch + k].
+  const uint4* s4 = reinterpret_cast<const uint4*>(src + (size_t)b * S * W + j0);
+  const int staged = S * kChunks;
+  for (int x0 = threadIdx.x; x0 < staged; x0 += kStageLoads * T) {
+    uint4 v[kStageLoads];
+#pragma unroll
+    for (int m = 0; m < kStageLoads; ++m) {
+      const int x = x0 + m * T;
+      if (x < staged) v[m] = __ldg(s4 + (size_t)(x / kChunks) * w4 + x % kChunks);
+    }
+#pragma unroll
+    for (int m = 0; m < kStageLoads; ++m) {
+      const int x = x0 + m * T;
+      if (x < staged) {
+        uint32_t* p = band + (x % kChunks) * 4 * pitch + x / kChunks;
+        p[0] = v[m].x;
+        p[pitch] = v[m].y;
+        p[2 * pitch] = v[m].z;
+        p[3 * pitch] = v[m].w;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Serve index rows i0 .. i0 + rows of block b, one 16-byte chunk a thread.
+  const int n = (min(R, i0 + rows) - i0) * kChunks;
+  const size_t first = ((size_t)b * R + i0) * W + j0;
+  const int4* idx4 = reinterpret_cast<const int4*>(idx + first);
+  uint4* out4 = reinterpret_cast<uint4*>(out + first);
+  for (int x0 = threadIdx.x; x0 < n; x0 += kChunkLoads * T) {
+    int4 k[kChunkLoads];
+#pragma unroll
+    for (int m = 0; m < kChunkLoads; ++m) {
+      const int x = x0 + m * T;
+      if (x < n) k[m] = __ldg(idx4 + (size_t)(x / kChunks) * w4 + x % kChunks);
+    }
+#pragma unroll
+    for (int m = 0; m < kChunkLoads; ++m) {
+      const int x = x0 + m * T;
+      if (x < n) {
+        const uint32_t* p = band + (x % kChunks) * 4 * pitch;
+        out4[(size_t)(x / kChunks) * w4 + x % kChunks] = make_uint4(
+            p[k[m].x], p[pitch + k[m].y], p[2 * pitch + k[m].z], p[3 * pitch + k[m].w]);
+      }
+    }
+  }
 }
 
 template <typename Tin, typename Tout>
-cudaError_t launch_take(const void* src, const void* idx, void* out, bool along_rows,
-                        unsigned R, unsigned W, unsigned S, unsigned Ws, unsigned n,
-                        cudaStream_t stream) {
-  const unsigned blocks = (n + kThreads - 1) / kThreads;
-  if (along_rows) {
-    take_kernel<Tin, Tout, true><<<blocks, kThreads, 0, stream>>>(
-        (const Tin*)src, (const int32_t*)idx, (Tout*)out, R, W, S, Ws, n);
-  } else {
-    take_kernel<Tin, Tout, false><<<blocks, kThreads, 0, stream>>>(
-        (const Tin*)src, (const int32_t*)idx, (Tout*)out, R, W, S, Ws, n);
+__global__ void __launch_bounds__(kLaneThreads) take_lanes_kernel(
+    const Tin* __restrict__ src, const int32_t* __restrict__ idx, Tout* __restrict__ out,
+    int W, int S, int Ws, int rows, int groups, int copies, int copies_per_cta) {
+  extern __shared__ __align__(16) unsigned char staged[];
+  const Tin* srow = reinterpret_cast<const Tin*>(staged);
+  const int T = blockDim.x;
+  const int s0 = (blockIdx.x % groups) * rows;
+  const int c0 = (blockIdx.x / groups) * copies_per_cta;
+  const int nrows = min(rows, S - s0);
+
+  // Source rows s0 .. s0 + nrows: one run of 16-byte chunks, in flight
+  // while the first index chunks load.
+  const int chunks = nrows * Ws * (int)sizeof(Tin) / 16;
+  const uint4* g = reinterpret_cast<const uint4*>(src + (size_t)s0 * Ws);
+  for (int x = threadIdx.x; x < chunks; x += T) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(staged + 16 * x);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(g + x));
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  // Chunk y of the CTA: copy c0 + y / per_copy, and within it the chunk
+  // y % per_copy of rows s0 .. s0 + nrows, which lie together in idx and out.
+  const int w4 = W / 4;
+  const int per_copy = nrows * w4;
+  const int n = (min(copies, c0 + copies_per_cta) - c0) * per_copy;
+  auto at = [&](int y) { return ((size_t)(c0 + y / per_copy) * S + s0) * w4 + y % per_copy; };
+  const int4* idx4 = reinterpret_cast<const int4*>(idx);
+  int4 k[kChunkLoads];
+  auto load = [&](int y0) {
+#pragma unroll
+    for (int m = 0; m < kChunkLoads; ++m) {
+      const int y = y0 + m * T;
+      if (y < n) k[m] = __ldg(idx4 + at(y));
+    }
+  };
+  load(threadIdx.x);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  for (int y0 = threadIdx.x; y0 < n; y0 += kChunkLoads * T) {
+    if (y0 != (int)threadIdx.x) load(y0);
+#pragma unroll
+    for (int m = 0; m < kChunkLoads; ++m) {
+      const int y = y0 + m * T;
+      if (y < n) {
+        const Tin* r = srow + (size_t)((y % per_copy) / w4) * Ws;
+        store4(out + 4 * at(y), (Tout)r[k[m].x], (Tout)r[k[m].y], (Tout)r[k[m].z],
+               (Tout)r[k[m].w]);
+      }
+    }
+  }
+}
+
+// Launch with `smem` bytes of dynamic shared memory, opting in above 48 KB.
+// An error leaves no trace in cudaGetLastError for the next launch.
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), int grid, int threads, int smem,
+                   cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
+  }
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+template <typename Tin, typename Tout>
+cudaError_t launch_take(const void* src_, const void* idx_, void* out_, bool along_rows, int R,
+                        int W, int S, int Ws, int n, int body, bool vector, int rows, int copies,
+                        int smem, int grid, int threads, cudaStream_t st) {
+  const Tin* src = (const Tin*)src_;
+  const int32_t* idx = (const int32_t*)idx_;
+  Tout* out = (Tout*)out_;
+  const unsigned u[] = {(unsigned)R, (unsigned)W, (unsigned)S, (unsigned)Ws, (unsigned)n};
+  if (body == kDirect) {
+    if (along_rows && vector)
+      return launch(take_direct_kernel<Tin, Tout, true, true>, grid, threads, 0, st, src, idx,
+                    out, u[0], u[1], u[2], u[3], u[4]);
+    if (along_rows)
+      return launch(take_direct_kernel<Tin, Tout, true, false>, grid, threads, 0, st, src, idx,
+                    out, u[0], u[1], u[2], u[3], u[4]);
+    if (vector)
+      return launch(take_direct_kernel<Tin, Tout, false, true>, grid, threads, 0, st, src, idx,
+                    out, u[0], u[1], u[2], u[3], u[4]);
+    return launch(take_direct_kernel<Tin, Tout, false, false>, grid, threads, 0, st, src, idx,
+                  out, u[0], u[1], u[2], u[3], u[4]);
+  }
+  if (body == kLanes && !along_rows) {
+    return launch(take_lanes_kernel<Tin, Tout>, grid, threads, smem, st, src, idx, out, W, S,
+                  Ws, rows, (S + rows - 1) / rows, R / S, copies);
+  }
+  if constexpr (sizeof(Tin) == 4 && sizeof(Tout) == 4) {
+    if (body == kRows && along_rows) {
+      return launch(take_rows_kernel, grid, threads, smem, st, src, idx, out, R, W, S,
+                    (R + rows - 1) / rows, rows);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 __global__ void __launch_bounds__(kThreads) point_gather_kernel(
@@ -101,20 +328,29 @@ __global__ void __launch_bounds__(kThreads) point_gather_kernel(
 }  // namespace
 
 // G1. (src_bytes, out_bytes) is (4, 4) (int32 or float32), (1, 1) (uint8)
-// or (1, 4) (uint8 widened to int32); n = B * R * W output elements.
+// or (1, 4) (uint8 widened to int32); n = B * R * W output elements. The
+// rest is probes/gather.py's TakePlan: body (0 D, 1 R, 2 L), vector (D),
+// rows (R: index rows a CTA; L: source rows a CTA), copies (L: copies a
+// CTA), dynamic shared memory, grid and block.
 extern "C" int brisk_probe_take(const void* src, const void* idx, void* out, int src_bytes,
                                 int out_bytes, int along_rows, int R, int W, int S, int Ws,
-                                int n, void* stream) {
+                                int n, int body, int vector, int rows, int copies, int smem,
+                                int grid, int threads, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const bool rows = along_rows != 0;
+  const bool by_rows = along_rows != 0, vec = vector != 0;
   if (src_bytes == 4 && out_bytes == 4) {
-    return (int)launch_take<uint32_t, uint32_t>(src, idx, out, rows, R, W, S, Ws, n, st);
+    return (int)launch_take<uint32_t, uint32_t>(src, idx, out, by_rows, R, W, S, Ws, n, body,
+                                                vec, rows, copies, smem, grid, threads,
+                                                st);
   }
   if (src_bytes == 1 && out_bytes == 1) {
-    return (int)launch_take<uint8_t, uint8_t>(src, idx, out, rows, R, W, S, Ws, n, st);
+    return (int)launch_take<uint8_t, uint8_t>(src, idx, out, by_rows, R, W, S, Ws, n, body,
+                                              vec, rows, copies, smem, grid, threads, st);
   }
   if (src_bytes == 1 && out_bytes == 4) {
-    return (int)launch_take<uint8_t, int32_t>(src, idx, out, rows, R, W, S, Ws, n, st);
+    return (int)launch_take<uint8_t, uint32_t>(src, idx, out, by_rows, R, W, S, Ws, n, body,
+                                               vec, rows, copies, smem, grid, threads,
+                                               st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -186,7 +186,7 @@ def _gather(src, idx, axis, dtype=np.int32, hi=1000):
     def make(rng, full):
         shape = src[full]
         tab = _ints(rng, shape, hi, np.uint8 if dtype == np.uint8 else np.int32)
-        return dict(src=tab.astype(dtype), idx=_ints(rng, idx[full], shape[axis]))
+        return dict(src=tab.astype(dtype, copy=False), idx=_ints(rng, idx[full], shape[axis]))
     return make
 
 
@@ -319,6 +319,25 @@ def tensors(case: Case, full: bool, device, seed: int | None = None) -> dict:
             for k, v in case.make(rng, full).items()}
 
 
+class _Shapes:
+    """Stands in for ``np.random.Generator`` in a case's maker: each draw is
+    a zero-strided view of its lower bound, so the maker gives every
+    input's shape and dtype without allocating its tables."""
+
+    def integers(self, low, high=None, size=None, dtype=np.int64):
+        return np.broadcast_to(np.asarray(low, dtype=dtype), () if size is None else size)
+
+
+def take_geometry(case: Case, full: bool = True) -> gather.TakeGeometry:
+    """A G1 case's geometry from shapes alone (its inputs as meta tensors)."""
+    meta = {k: torch.empty(v.shape, dtype=torch.from_numpy(np.empty(0, v.dtype)).dtype,
+                           device="meta") if isinstance(v, np.ndarray) else v
+            for k, v in case.make(_Shapes(), full).items()}
+    args = case.args(meta)
+    src, idx, axis, blocks, out_dtype = (*args, *(1, None)[len(args) - 3:])
+    return gather.take_geometry(src.shape, idx.shape, axis, blocks, src.dtype, out_dtype)
+
+
 # ---- The one PyTorch call that computes each kernel's function, timed as
 # a yardstick only.
 
@@ -357,7 +376,8 @@ class Kernel:
 GATHER_CU = "ethzasl_brisk_tpu_torch/csrc/probe_gather.cu"
 COPY_CU = "ethzasl_brisk_tpu_torch/csrc/probe_copy.cu"
 MOSAIC_CU = "ethzasl_brisk_tpu_torch/csrc/probe_mosaic.cu"
-_G1 = dict(label="G1", counter="probe_take", source=GATHER_CU, names=("take_kernel",),
+_G1 = dict(label="G1", counter="probe_take", source=GATHER_CU,
+           names=("take_direct_kernel", "take_rows_kernel", "take_lanes_kernel"),
            wrapper=gather.take_along_axis, library=_library_take,
            nbytes=gather.take_along_axis_bytes)
 
@@ -369,7 +389,9 @@ KERNELS = {
     "point_gather": Kernel("G2", "probe_point_gather", GATHER_CU, ("point_gather_kernel",),
                            gather.point_gather, gather.point_gather_plain, _library_point,
                            "tab[r, c]", gather.point_gather_bytes),
-    "relayout": Kernel("C", "probe_relayout", COPY_CU, ("relayout_kernel",),
+    "relayout": Kernel("C", "probe_relayout", COPY_CU,
+                       ("relayout_copy_kernel", "relayout_transpose16_kernel",
+                        "relayout_transpose_kernel"),
                        gather.relayout, gather.relayout_plain, gather.relayout_plain,
                        ".T.contiguous() / .clone()", gather.relayout_bytes),
     "window_copy": Kernel("W", "probe_window_copy", COPY_CU, ("window_copy_kernel",),
@@ -406,6 +428,7 @@ def run_case(case: Case, device: torch.device, card: str, reps: int = 10) -> dic
     if got.dtype != ref.dtype or not torch.equal(got, ref):
         raise AssertionError(f"{case.label}: {kern.label} differs from its plain version")
     err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
+    plan = gather.take_plan_for(*args).label if kern.counter == "probe_take" else None
     ms = measure.cuda_time(lambda: kern.wrapper(*args), reps=reps)
     device_ms = measure.device_time(lambda: kern.wrapper(*args), device, kern.names, reps=reps)
     plain_ms = measure.cuda_time(lambda: kern.plain(*args), reps=reps)
@@ -418,14 +441,15 @@ def run_case(case: Case, device: torch.device, card: str, reps: int = 10) -> dic
     bound, bound_by = measure.bound_ms(nbytes, int32_ops=ops)
     rec = dict(site=case.site, name=case.name, source=case.source, kernel=case.kernel,
                shapes={k: tuple(v.shape) for k, v in x.items() if torch.is_tensor(v)},
-               launches=1, max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-               library_ms=library_ms, library_device_ms=library_device_ms,
+               plan=plan, launches=1, max_abs_err=err, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_device_ms,
                bound_ms=bound, bound_by=bound_by, bytes=nbytes, int32_ops=ops,
                elements_per_s=got.numel() / (device_ms * 1e-3))
     lib = (f"{library_ms:.4f} ms (device {library_device_ms:.4f} ms)"
            if library_ms is not None else "none")
+    via = f"{kern.label}, {plan}" if plan else kern.label
     print(
-        f"[probes] {case.label} via {kern.label}: {rec['shapes']} -> {tuple(got.shape)} "
+        f"[probes] {case.label} via {via}: {rec['shapes']} -> {tuple(got.shape)} "
         f"{got.dtype}; 1 launch; bitwise equal to plain; kernel {ms:.4f} ms (device "
         f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, library ({kern.library_name}) {lib}, "
         f"bound {bound:.4f} ms ({bound_by}: {nbytes} B, {ops} int32 ops); "

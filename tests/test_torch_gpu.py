@@ -486,3 +486,138 @@ def test_device_time_flushes_and_waits_on_its_card(cuda):
     assert torch.cuda.max_memory_allocated(1) - base[1] >= 2 * measure.L2_BYTES
     assert torch.cuda.max_memory_allocated(0) - base[0] < measure.L2_BYTES
     assert torch.cuda.current_device() == 0
+
+
+def _take_call(rng, dtype, src_shape, idx_shape, axis, blocks=1):
+    """Card tensors for a G1 call: a table of ``dtype`` (float32 with
+    NaNs, infinities and -0.0, so its bits are what moves) and in-range
+    indices."""
+    if dtype == np.float32:
+        src = rng.standard_normal(src_shape).astype(np.float32)
+        src.reshape(-1)[:4] = [np.nan, -np.inf, -0.0, np.inf]
+    else:
+        src = rng.integers(0, 255 if dtype == np.uint8 else 1 << 30, src_shape).astype(dtype)
+    hi = src_shape[0] // blocks if axis == 0 else src_shape[1]
+    idx = rng.integers(0, hi, idx_shape, dtype=np.int32)
+    return torch.from_numpy(src).cuda(), torch.from_numpy(idx).cuda()
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+# (body: R, L, or D with (D4) or without (D1) 16-byte moves; dtype, out
+# dtype, src shape, idx shape, axis, blocks)
+TAKE_BODIES = [
+    ("R", np.int32, None, (3 * 1001, 96), (3 * 777, 96), 0, 3),    # S no multiple of 8
+    ("R", np.float32, None, (2 * 600, 8), (2 * 900, 8), 0, 2),     # one band
+    ("R", np.int32, None, (2000, 128), (5000, 128), 0, 1),         # B = 1: row splits
+    ("L", np.int32, None, (1001, 128), (1001, 128), 1, 1),         # groups of 16 rows, ragged
+    ("L", np.float32, None, (300, 128), (300, 128), 1, 1),
+    ("L", np.uint8, None, (1001, 128), (1001, 128), 1, 1),
+    ("L", np.uint8, torch.int32, (1001, 128), (1001, 128), 1, 1),
+    ("L", np.int32, None, (60, 256), (60, 20), 1, 1),              # 5 chunks a row
+    ("L", np.int32, None, (50, 2432), (7 * 50, 128), 1, 1),        # shared source
+    ("L", np.int32, None, (45, 128), (64 * 45, 128), 1, 1),        # shared, ragged groups
+    ("D1", np.int32, None, (300, 37), (41, 37), 0, 1),
+    ("D1", np.uint8, torch.int32, (200, 130), (600, 37), 1, 1),
+    ("D4", np.int32, None, (5 * 50, 64), (5 * 60, 64), 0, 5),
+    ("D4", np.uint8, None, (200, 130), (400, 8), 1, 1),
+    ("D4", np.float32, None, (200, 130), (200, 128), 1, 1),
+]
+
+
+@pytest.mark.parametrize("body,dtype,out_dtype,src_shape,idx_shape,axis,blocks", TAKE_BODIES)
+def test_take_bodies_match_plain(cuda, body, dtype, out_dtype, src_shape, idx_shape, axis,
+                                 blocks):
+    """Each G1 body, launched with its own plan, bitwise against the plain
+    version: ragged bands, groups and splits, every element type, and the
+    shared source."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    src, idx = _take_call(np.random.default_rng(31), dtype, src_shape, idx_shape, axis, blocks)
+    g, out_dtype = gather._take_geometry(src, idx, axis, blocks, out_dtype)
+    plan = {"R": lambda: gather.rows_plan(g), "L": lambda: gather.lanes_plan(g),
+            "D1": lambda: gather.direct_plan(g, False),
+            "D4": lambda: gather.direct_plan(g, True)}[body]()
+    assert plan is not None and plan.body[0] == body[0].lower()
+    if body == "R" and blocks == 1:
+        assert -(-g.r // plan.rows) > 1  # the index rows split across CTAs
+    out = torch.empty(idx.shape, dtype=out_dtype, device=cuda)
+    _kernels.reset_launches()
+    gather._launch_take(src, idx, out, g, plan)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["probe_take"] == 1
+    ref = gather.take_along_axis_plain(src, idx, axis, blocks, out_dtype)
+    assert out.dtype == ref.dtype and torch.equal(_bits(out), _bits(ref))
+
+
+def test_take_plan_routes_by_alignment(cuda):
+    """Views with a storage offset: an index 4 bytes past a 16-byte
+    boundary, or an output so placed, gets the one-output-a-thread body; 16
+    bytes past, the aligned call's body. Each bitwise against plain."""
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    rows = 1 << 13
+    src, idx = _take_call(np.random.default_rng(32), np.int32, (rows, 128), (rows + 1, 128), 1)
+    g, _ = gather._take_geometry(src, idx[:rows], 1, 1)
+    for off in (1, 4):
+        view = idx.view(-1)[off: off + rows * 128].view(rows, 128)
+        plan = gather.take_plan_for(src, view, 1)
+        assert plan == (gather.direct_plan(g, False) if off == 1 else gather.take_plan(g, 0, 0, 0))
+        got = gather.take_along_axis(src, view, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gather.take_along_axis_plain(src, view, 1))
+    store = torch.empty(rows * 128 + 1, dtype=torch.int32, device=cuda)
+    out = store[1:].view(rows, 128)
+    plan = gather.take_plan(g, 0, 0, out.data_ptr() % 16)
+    assert plan == gather.direct_plan(g, False)
+    gather._launch_take(src, idx[:rows], out, g, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gather.take_along_axis_plain(src, idx[:rows], 1))
+
+
+def test_take_unlaunchable_plan_raises(cuda):
+    """A plan the card refuses (R with twice its block's threads) raises
+    through the launch helper and counts no launch; one over the shared
+    memory a block may take is refused before it."""
+    import dataclasses
+
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    src, idx = _take_call(np.random.default_rng(33), np.int32, (4 * 512, 128), (4 * 512, 128),
+                          0, 4)
+    g, _ = gather._take_geometry(src, idx, 0, 4)
+    plan = gather.rows_plan(g)
+    out = torch.empty_like(idx)
+    _kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        gather._launch_take(src, idx, out, g, dataclasses.replace(plan, threads=1024))
+    with pytest.raises(ValueError, match="shared memory"):
+        gather._launch_take(src, idx, out, g,
+                            dataclasses.replace(plan, smem=gather.SMEM_LIMIT + 16))
+    assert _kernels.LAUNCHES["probe_take"] == 0
+    gather._launch_take(src, idx, out, g, plan)  # the next launch is not tainted
+    torch.cuda.synchronize()
+    assert torch.equal(out, gather.take_along_axis_plain(src, idx, 0, 4))
+
+
+@pytest.mark.parametrize("transpose", [True, False])
+@pytest.mark.parametrize("offset", [1, 4])
+@pytest.mark.parametrize("shape", [(128, 4096), (8192, 64), (45, 77), (1, 33)])
+def test_relayout_cuda_offset_views(cuda, transpose, offset, shape):
+    """C on a source that is a view with a storage offset: 4 bytes past a
+    16-byte boundary takes the 4-byte moves, 16 bytes past the 16-byte ones
+    where the shape allows; bitwise against plain either way."""
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    n = shape[0] * shape[1]
+    store = torch.from_numpy(np.random.default_rng(34).integers(0, 1 << 30, n + offset,
+                                                                dtype=np.int32)).to(cuda)
+    src = store[offset:].view(shape)
+    assert src.data_ptr() % 16 == 4 * offset % 16
+    got = gather.relayout(src, transpose)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.relayout_plain(src, transpose))
