@@ -102,6 +102,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;      // D and G2
@@ -264,23 +266,6 @@ __global__ void __launch_bounds__(kLaneThreads) take_lanes_kernel(
       }
     }
   }
-}
-
-// Launch with `smem` bytes of dynamic shared memory, opting in above 48 KB.
-// An error leaves no trace in cudaGetLastError for the next launch.
-template <typename... Params, typename... Args>
-cudaError_t launch(void (*kernel)(Params...), int grid, int threads, int smem,
-                   cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();
-      return err;
-    }
-  }
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 template <typename Tin, typename Tout>

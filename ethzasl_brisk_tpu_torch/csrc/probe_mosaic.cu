@@ -31,20 +31,43 @@
 //
 // X, gather_chain, replaces probe_mosaic_gather3.py:107 chain: per
 // 128-row block, a = take_along_axis(t, i, 1); out = take_along_axis(a.T,
-// i, 1), that is, with rows local to the block,
-//   out[r, c] = t[i[r, c], i[i[r, c], r]].
-// One thread per output: the index read is coalesced; the two dependent
-// reads come from the block's 64 KB of i and of t, which stay in L2.
-// Staging the block in shared memory is later work.
+// i, 1), that is, with rows local to the block and k = i[r, c],
+//   out[r, c] = t[k, i[k, r]].
+// Each output needs two dependent reads at random places of the block's
+// 64 KB of i and of t. Read from device memory, each costs a whole 32-byte
+// sector of L2 traffic (2 x 2 M x 32 B = 134 MB at the probe's 128 blocks,
+// against the 24 MB of its bound) and the three reads of an output wait on
+// each other. The TPU holds the block in VMEM; here one CTA of 512 threads
+// owns a block and first stages both halves of it in shared memory (129 KB,
+// one CTA an SM; the probe's 128 blocks are one wave on 132 SMs), with all
+// of its 16-byte loads in flight at once: t as it lies (a warp loads one
+// 512-byte row, so its 16-byte stores fall on all 32 banks), and i
+// transposed, iT[r][k] = i[k][r], in rows of 130 words. A warp loads i as 8
+// rows x 4 chunks, so the transposing stores of one of a chunk's four words
+// land on banks 2 (4q + j) + k, which are 32 distinct ones. The thread keeps
+// its own 32 words of i in registers: they are the k of its 32 outputs,
+// rows k of its chunks. Then it serves them from shared memory,
+// m = iT[r][k], out = ts[k][m], and stores 16 bytes a chunk. L2->SM
+// traffic falls to the bound's 24 MB; what is left is one stage, then one
+// serve, on each SM, with nothing to overlap them (1024 or 256 threads a
+// block, and t staged by cp.async, measured slower; PERF.md).
 //
 // S, window_colsum, replaces probe_mosaic_gather3.py:145 and
 // probe_mosaic_gather4.py:87 dma_patches (one window per grid step, or
 // eight): a DMA of a 96 x 128 int32 window at (ay[k], ax[k]) into VMEM and
 // its column sums,
 //   out[k, c] = sum_{r < 96} img[ay[k] + r, ax[k] + c].
-// One block per window and one thread per column: each window row is one
-// coalesced 512-byte read (offsets are not aligned, so element by element).
-// Sums accumulate unsigned, wrapping as int32 does.
+// The windows overlap: at the probes' 512 windows in a 768-wide image each
+// sector is read about 17 times, ~27 MB from L2 for 1.5 MB of image, so L2,
+// not HBM, feeds it. A window has a CTA of 256 threads, 8 warps of 12 rows
+// each, so the 512 windows are one wave with all their rows in flight
+// together (a thread a column, walking all 96 rows, measured 1.5x slower).
+// Lane l of a warp reads columns ax + l + 32 j of each of its rows, 48
+// words a lane, any width and any alignment; each warp's partial sums go to
+// shared memory and 128 threads add the 8 warps' sums into coalesced
+// stores. Aligned 16-byte chunks shifted by ax % 4, and two windows a CTA,
+// measured no faster (PERF.md): what bounds S now is the ~27 MB of sectors
+// from L2, which only windows sharing their rows could cut.
 //
 // Bound: bytes for all three. T reads and writes each element once (its
 // 8 adds per element are a tenth of that time; its 8 shared-memory round
@@ -55,19 +78,29 @@
 // sectors its windows cover and writes 128 sums per window (its 95 adds per
 // sum are under half the byte time). Indices and offsets are trusted to be
 // in range (the plain versions check them); element counts are below 2^31
-// (the wrappers check), so index math is 32-bit.
+// (the wrappers check), so index math is 32-bit. The wrappers own the
+// alignment checks: T and X move 16 bytes only on the bases they were given
+// aligned.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
 constexpr int kBlk = 128;       // side of a transpose or gather block
 constexpr int kSub = 32;        // side of a sub-tile of T
 constexpr int kTWarps = 4;      // T: warps per block, one block an SM
-constexpr int kThreads = 256;
 constexpr int kWinRows = 96;
 constexpr int kWinCols = 128;
+constexpr int kChainThreads = 512;  // X: a block's threads
+constexpr int kChainPitch = kBlk + 2;  // X: words of a row of iT
+constexpr int kChainSmem = 4 * kBlk * (kBlk + kChainPitch);  // X: ts and iT, bytes
+static_assert(kChainSmem <= 232448, "X: ts and iT exceed a block's shared memory");
+constexpr int kColWarps = 8;  // S: a window's warps
+constexpr int kColThreads = 32 * kColWarps;
+constexpr int kColRows = kWinRows / kColWarps;  // S: rows a warp
 
 // Word (R, col) of a 32 x 32 tile: the 16-byte chunk col / 4 of row R at
 // chunk (col / 4) ^ (R / 4 % 8).
@@ -141,26 +174,83 @@ __global__ void __launch_bounds__(kTWarps * kSub) transpose_chain_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) gather_chain_kernel(
-    const int32_t* __restrict__ t, const int32_t* __restrict__ i, int32_t* __restrict__ out,
-    unsigned n) {
-  const unsigned e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n) return;
-  const unsigned row = e / kBlk;
-  const unsigned first = row - row % kBlk;  // the block's first row
-  const unsigned k = (unsigned)i[e];
-  const unsigned m = (unsigned)i[(first + k) * kBlk + row % kBlk];
-  out[e] = t[(first + k) * kBlk + m];
+__global__ void __launch_bounds__(kChainThreads) gather_chain_kernel(
+    const uint4* __restrict__ t, const uint4* __restrict__ i, uint4* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* const ts = smem;                // t's block as it lies, 128 x 128
+  uint32_t* const iT = smem + kBlk * kBlk;  // iT[r * kChainPitch + k] = i[k][r]
+  constexpr int kChunks = kBlk * kBlk / 4;  // 16-byte chunks of a block
+  constexpr int kPer = kChunks / kChainThreads;  // 8 chunks a thread of each
+  constexpr int kWarps = kChainThreads / 32;
+  const size_t first = (size_t)blockIdx.x * kChunks;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  // The thread's chunks of i: tile warp + 16 n of 8 rows x 4 chunks, its
+  // row k[n] and chunk q[n] (of the row's 32).
+  int k[kPer], q[kPer];
+#pragma unroll
+  for (int n = 0; n < kPer; ++n) {
+    const int tile = warp + kWarps * n;
+    k[n] = 8 * (tile % 16) + lane % 8;
+    q[n] = 4 * (tile / 16) + lane / 8;
+  }
+  uint4 tv[kPer], iv[kPer];
+#pragma unroll
+  for (int n = 0; n < kPer; ++n) {
+    tv[n] = __ldg(t + first + threadIdx.x + n * kChainThreads);
+    iv[n] = __ldg(i + first + k[n] * (kBlk / 4) + q[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < kPer; ++n) {
+    *reinterpret_cast<uint4*>(ts + 4 * (threadIdx.x + n * kChainThreads)) = tv[n];
+    uint32_t* col = iT + 4 * q[n] * kChainPitch + k[n];
+    col[0] = iv[n].x;
+    col[kChainPitch] = iv[n].y;
+    col[2 * kChainPitch] = iv[n].z;
+    col[3 * kChainPitch] = iv[n].w;
+  }
+  __syncthreads();
+  // Outputs (k[n], 4 q[n] + j): m = iT[k[n]][i], out = ts[i][m].
+#pragma unroll
+  for (int n = 0; n < kPer; ++n) {
+    const uint32_t* row = iT + k[n] * kChainPitch;
+    const uint32_t a = iv[n].x, b = iv[n].y, c = iv[n].z, d = iv[n].w;
+    out[first + k[n] * (kBlk / 4) + q[n]] =
+        make_uint4(ts[a * kBlk + row[a]], ts[b * kBlk + row[b]], ts[c * kBlk + row[c]],
+                   ts[d * kBlk + row[d]]);
+  }
 }
 
-__global__ void __launch_bounds__(kWinCols) window_colsum_kernel(
+// S: block k serves window k; warp w sums rows w + 8 i (i < 12), lane l
+// columns l + 32 j (j < 4) of each.
+__global__ void __launch_bounds__(kColThreads) window_colsum_kernel(
     const int32_t* __restrict__ img, const int32_t* __restrict__ ax,
     const int32_t* __restrict__ ay, int32_t* __restrict__ out, int width) {
-  const int32_t* col = img + (size_t)ay[blockIdx.x] * width + ax[blockIdx.x] + threadIdx.x;
-  uint32_t sum = 0;
-#pragma unroll 8
-  for (int r = 0; r < kWinRows; ++r) sum += (uint32_t)col[(size_t)r * width];
-  out[blockIdx.x * kWinCols + threadIdx.x] = (int32_t)sum;
+  __shared__ uint32_t sums[kColWarps * kWinCols];  // the warps' partial sums
+  const int k = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int32_t* row = img + (size_t)(ay[k] + warp) * width + ax[k] + lane;
+  const size_t step = (size_t)kColWarps * width;  // between this warp's rows
+  uint32_t v[kColRows][4];
+#pragma unroll
+  for (int r = 0; r < kColRows; ++r) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[r][j] = (uint32_t)__ldg(row + r * step + 32 * j);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t s = v[0][j];
+#pragma unroll
+    for (int r = 1; r < kColRows; ++r) s += v[r][j];
+    sums[warp * kWinCols + lane + 32 * j] = s;
+  }
+  __syncthreads();
+  const int c = threadIdx.x;
+  if (c < kWinCols) {
+    uint32_t sum = 0;
+#pragma unroll
+    for (int w = 0; w < kColWarps; ++w) sum += sums[w * kWinCols + c];
+    out[(size_t)k * kWinCols + c] = (int32_t)sum;
+  }
 }
 
 }  // namespace
@@ -180,19 +270,17 @@ extern "C" int brisk_probe_transpose_chain(const void* src, void* out, int nblk,
   return (int)cudaGetLastError();
 }
 
-// X. t, i and out are (m, 128) int32 with m a multiple of 128; n = m * 128.
-extern "C" int brisk_probe_gather_chain(const void* t, const void* i, void* out, int n,
+// X. t, i and out are (nblk * 128, 128) int32, 16-byte aligned.
+extern "C" int brisk_probe_gather_chain(const void* t, const void* i, void* out, int nblk,
                                         void* stream) {
-  const unsigned blocks = ((unsigned)n + kThreads - 1) / kThreads;
-  gather_chain_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)t, (const int32_t*)i, (int32_t*)out, n);
-  return (int)cudaGetLastError();
+  return (int)launch(gather_chain_kernel, nblk, kChainThreads, kChainSmem, (cudaStream_t)stream,
+                     (const uint4*)t, (const uint4*)i, (uint4*)out);
 }
 
 // S. img (height, width) int32; ax, ay (K,) int32; out (K, 128) int32.
 extern "C" int brisk_probe_window_colsum(const void* img, const void* ax, const void* ay,
                                          void* out, int width, int K, void* stream) {
-  window_colsum_kernel<<<K, kWinCols, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)img, (const int32_t*)ax, (const int32_t*)ay, (int32_t*)out, width);
-  return (int)cudaGetLastError();
+  return (int)launch(window_colsum_kernel, K, kColThreads, 0, (cudaStream_t)stream,
+                     (const int32_t*)img, (const int32_t*)ax, (const int32_t*)ay, (int32_t*)out,
+                     width);
 }

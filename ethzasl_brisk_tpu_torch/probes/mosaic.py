@@ -9,10 +9,20 @@ describe sampler could be built from. Three functions serve them
 * T ``transpose_chain``: an int32 (m, 128) table in m / 128 square blocks,
   each taken through eight rounds of ``x = x.T; x = x + 1`` (``t + 8``;
   ``rounds`` sets another count, and an odd one gives ``x.T + rounds``);
-* X ``gather_chain``: per 128-row block, ``a = take_along_axis(t, i, 1)``
-  then ``take_along_axis(a.T, i, 1)``;
-* S ``window_colsum``: the column sums of K windows of 96 x 128 int32 at
-  per-window offsets, ``out[k, c] = sum_r img[ay[k] + r, ax[k] + c]``.
+* X ``gather_chain`` (replaces ``probe_mosaic_gather3.py:107`` ``chain``):
+  per 128-row block, ``a = take_along_axis(t, i, 1)`` then
+  ``take_along_axis(a.T, i, 1)``. Its two dependent reads per output fall
+  at random places of the block, a 32-byte sector of L2 traffic each when
+  read from device memory; the kernel stages the block's t and i (i
+  transposed) in shared memory, a CTA a block, and serves every output from
+  there, so the traffic is the bound's. It moves 16 bytes at a time: t, i
+  and the output must be 16-byte aligned, and the wrapper raises otherwise;
+* S ``window_colsum`` (replaces ``probe_mosaic_gather3.py:145`` and
+  ``probe_mosaic_gather4.py:87`` ``dma_patches``): the column sums of K
+  windows of 96 x 128 int32 at per-window offsets,
+  ``out[k, c] = sum_r img[ay[k] + r, ax[k] + c]``. The windows overlap, so
+  L2, not device memory, feeds it; a CTA of 256 threads a window keeps all
+  of its rows in flight together, on any width and alignment.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. A CPU tensor takes the plain version; a CUDA
@@ -113,15 +123,23 @@ def gather_chain(t, i) -> torch.Tensor:
     """X: per 128-row block, with rows local to it,
     ``out[r, c] = t[i[r, c], i[i[r, c], r]]`` for int32 (m, 128) tables and
     i in [0, 128). Kernel on CUDA tensors, plain version on CPU ones."""
-    _blocks("gather_chain", t, i)
+    nblk = _blocks("gather_chain", t, i)
     if t.device.type == "cpu":
         return gather_chain_plain(t, i)
     out = torch.empty_like(t)
-    if out.numel() == 0:
+    if nblk == 0:
         return out
-    _kernels.launch("probe_gather_chain", "probe_gather_chain", t.device,
-                    t.data_ptr(), i.data_ptr(), out.data_ptr(), out.numel())
+    _launch_chain(t, i, out)
     return out
+
+
+def _launch_chain(t, i, out) -> None:
+    """Launch X on card tensors of whole blocks, each 16-byte aligned."""
+    if any(x.data_ptr() % 16 for x in (t, i, out)):
+        raise ValueError("gather_chain: the kernel moves 16-byte chunks; t, i and the output "
+                         "must be 16-byte aligned")
+    _kernels.launch("probe_gather_chain", "probe_gather_chain", t.device,
+                    t.data_ptr(), i.data_ptr(), out.data_ptr(), t.shape[0] // BLOCK)
 
 
 def gather_chain_bytes(t, i) -> int:

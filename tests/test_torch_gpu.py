@@ -436,32 +436,95 @@ def test_transpose_chain_cuda_raises_on_ragged_rows(cuda):
     assert _kernels.LAUNCHES["probe_transpose_chain"] == 0
 
 
-@pytest.mark.parametrize("blocks", [1, 3])
-def test_gather_chain_cuda_matches_plain(cuda, blocks):
+@pytest.mark.parametrize("index", ["random", "zeros", "127"])
+@pytest.mark.parametrize("blocks", [1, 3, 128, 133])
+def test_gather_chain_cuda_matches_plain(cuda, blocks, index):
+    """X at one and a few blocks, the probe's 128 (one wave) and 133 (more
+    CTAs than a 132-SM card's SMs); i all 0 or all 127 puts every lane of
+    a warp on one row of the staged block; t spans the whole int32 range."""
+    from ethzasl_brisk_tpu_torch import _kernels
     from ethzasl_brisk_tpu_torch.probes import mosaic
 
     rng = np.random.default_rng(18)
-    t = torch.from_numpy(rng.integers(0, 1 << 22, (blocks * 128, 128), dtype=np.int32)).to(cuda)
-    i = torch.from_numpy(rng.integers(0, 128, (blocks * 128, 128), dtype=np.int32)).to(cuda)
+    shape = (blocks * 128, 128)
+    t = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+    t[0, :2] = (2**31 - 1, -2**31)
+    i = {"random": rng.integers(0, 128, shape), "zeros": np.zeros(shape),
+         "127": np.full(shape, 127)}[index].astype(np.int32)
+    t, i = torch.from_numpy(t).to(cuda), torch.from_numpy(i).to(cuda)
+    _kernels.reset_launches()
     got = mosaic.gather_chain(t, i)
     torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["probe_gather_chain"] == 1
     assert torch.equal(got, mosaic.gather_chain_plain(t, i))
 
 
-@pytest.mark.parametrize("width", [768, 130])
-def test_window_colsum_cuda_matches_plain(cuda, width):
-    """Windows at both image edges and unaligned offsets between them."""
+def test_gather_chain_cuda_raises_on_misaligned_base(cuda):
+    """X moves 16-byte chunks: a t, i or output 4 bytes past a 16-byte
+    boundary raises before any launch; 16 bytes past is aligned and runs."""
+    from ethzasl_brisk_tpu_torch import _kernels
     from ethzasl_brisk_tpu_torch.probes import mosaic
 
+    rng = np.random.default_rng(20)
+    n = 2 * 128 * 128
+    store = torch.from_numpy(rng.integers(0, 128, n + 4, dtype=np.int32)).to(cuda)
+    t = torch.from_numpy(rng.integers(0, 1 << 30, (256, 128), dtype=np.int32)).to(cuda)
+    i = store[:n].view(256, 128)
+    off = store[1:n + 1].view(256, 128)
+    _kernels.reset_launches()
+    for args in ((off, i), (t, off)):
+        with pytest.raises(ValueError, match="16-byte"):
+            mosaic.gather_chain(*args)
+    with pytest.raises(ValueError, match="16-byte"):
+        mosaic._launch_chain(t, i, store[1:n + 1].view(256, 128))
+    assert _kernels.LAUNCHES["probe_gather_chain"] == 0
+    past16 = store[4:n + 4].view(256, 128)
+    got = mosaic.gather_chain(t, past16)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["probe_gather_chain"] == 1
+    assert torch.equal(got, mosaic.gather_chain_plain(t, past16))
+
+
+# (height, width, offset of the image in its storage in elements)
+COLSUM_LAYOUTS = {
+    "768": (200, 768, 0),
+    "130": (200, 130, 0),
+    "768, 4 B past": (200, 768, 1),
+    "768, 16 B past": (200, 768, 4),
+    "772, 8 B past": (150, 772, 2),
+}
+
+
+@pytest.mark.parametrize("values", ["bytes", "wrapping"])
+@pytest.mark.parametrize("k", [1, 301, 513])
+@pytest.mark.parametrize("width", list(COLSUM_LAYOUTS))
+def test_window_colsum_cuda_matches_plain(cuda, width, k, values):
+    """S on aligned images, a ragged width and offset views; windows at
+    every ax % 4, at both image edges and one to three columns short of the
+    right edge; K = 1, 301 and 513; values of the probes' byte range, or
+    over all of int32 so the sums wrap."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.probes import mosaic
+
+    h, w, offset = COLSUM_LAYOUTS[width]
     rng = np.random.default_rng(19)
-    h, k = 200, 300
-    img = torch.from_numpy(rng.integers(0, 255, (h, width), dtype=np.int32)).to(cuda)
-    ax = rng.integers(0, width - 127, k, dtype=np.int32)
+    lo, hi = (0, 255) if values == "bytes" else (-2**31, 2**31)
+    store = rng.integers(lo, hi, h * w + offset, dtype=np.int64).astype(np.int32)
+    img = torch.from_numpy(store).to(cuda)[offset:].view(h, w)
+    assert img.data_ptr() % 16 == 4 * offset % 16
+    ax = rng.integers(0, w - 127, k, dtype=np.int32)
     ay = rng.integers(0, h - 95, k, dtype=np.int32)
-    ax[:4], ay[:4] = (0, width - 128, 0, width - 128), (0, h - 96, h - 96, 0)
+    edges = [(w - 128, h - 96), (w - 129, 0), (w - 130, h - 96), (w - 131, 3), (0, 0),
+             (1, h - 96), (2, 1), (3, 2)]
+    for n, (x, y) in enumerate(edges[:k]):
+        ax[n], ay[n] = min(max(x, 0), w - 128), y
+    if k > 8 and w >= 131:
+        assert set((ax % 4).tolist()) == {0, 1, 2, 3}
     ax, ay = torch.from_numpy(ax).to(cuda), torch.from_numpy(ay).to(cuda)
+    _kernels.reset_launches()
     got = mosaic.window_colsum(img, ax, ay)
     torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["probe_window_colsum"] == 1
     assert torch.equal(got, mosaic.window_colsum_plain(img, ax, ay))
 
 
