@@ -161,11 +161,17 @@ def library() -> ctypes.CDLL:
                 ci, ci, ci, vp,            # smem, grid, threads; stream
             ]
             lib.brisk_probe_take.restype = ci
-            lib.brisk_probe_point_gather.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+            lib.brisk_probe_point_gather.argtypes = [
+                vp, vp, vp, vp, ci, ci,    # tab, r, c, out, cols, n
+                ci, ci, vp,                # the plan: vector, grid; stream
+            ]
             lib.brisk_probe_point_gather.restype = ci
             lib.brisk_probe_relayout.argtypes = [vp, vp, ci, ci, ci, ci, vp]
             lib.brisk_probe_relayout.restype = ci
-            lib.brisk_probe_window_copy.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+            lib.brisk_probe_window_copy.argtypes = [
+                vp, vp, vp, vp, ci, ci,    # img, ax, ay, out, width, K
+                ci, vp,                    # the plan: vector; stream
+            ]
             lib.brisk_probe_window_copy.restype = ci
             lib.brisk_probe_transpose_chain.argtypes = [vp, vp, ci, ci, vp]
             lib.brisk_probe_transpose_chain.restype = ci

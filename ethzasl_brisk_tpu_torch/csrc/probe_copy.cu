@@ -24,17 +24,32 @@
 // under the ~2 us that any launch of one wave takes on the card.
 //
 // W, window_copy, replaces tools/probes/probe_sampler_blocks.py:182 f_dma
-// and :238 f_dma2, which copy K windows of 64 x 64 int32 from an image in
-// HBM to a VMEM slab by per-window DMAs (one at a time, or 8 in flight):
+// (k_dma, :163) and :238 f_dma2 (k_dma2, :200), which copy K windows of
+// 64 x 64 int32 from an image in HBM to a VMEM slab by per-window DMAs (one
+// at a time, or 8 in flight):
 //   out[k * 64 + r, c] = img[ay[k] + r, ax[k] + c].
-// One block per window. Each row is read as 16-byte chunks from the
-// aligned column ax & ~3, seventeen of them when ax is not a multiple of
-// 4, into shared memory; each output row is written as sixteen 16-byte
-// stores from the shifted shared row. An image whose width is not a
-// multiple of 4, or whose base is not 16-byte aligned, takes a plain
-// element-by-element copy. The TPU's semaphores and overlapped DMAs have no
-// counterpart: the blocks run in parallel, and cp.async/TMA staging is
-// later work.
+// Two bodies, picked per call by probes/gather.py:window_plan:
+// 16-byte, window_copy16_kernel, where the image's base and the output are
+//   16-byte aligned and the width is a multiple of 4: four CTAs of 256
+//   threads a window, 16 rows each, a thread an output chunk. A lane loads
+//   the aligned chunks q and q + 1 from column ax & ~3 of its image row
+//   together, keeps the four words ax % 4 in and stores 16 bytes. No
+//   shared memory and no barrier: one load round trip, then the store, with
+//   512 CTAs so that every SM takes part. Taking chunk q + 1 from the next
+//   lane by a shuffle instead ran as fast (0.00243 against 0.00246 ms), and
+//   0.0031 when the compiler split the two loads around the shuffle.
+// Words, window_copy_kernel, everywhere else: a CTA of 256 threads a
+//   window, element by element.
+// Why not TMA, Hopper's counterpart of the TPU's DMA (measured on an H100,
+// PERF.md §6): a tiled TMA load faults with an illegal instruction unless
+// its first column starts on a 16-byte boundary, so a window must be loaded
+// as 68 columns from ax & ~3 into shared memory and shifted on its way out.
+// That design, at one window, two windows or a quarter window a CTA, ran
+// 0.0027-0.0030 ms at the probe's 128 windows against this body's 0.0025,
+// and a TMA load with a bulk store, on windows already aligned, took
+// 0.0027. This body at one, two or eight CTAs a window ran 0.0029, 0.0026
+// and 0.0026; the first design (rows staged in shared memory, a barrier,
+// shifted scalar reads) took 0.0047.
 //
 // Bound: bytes, no arithmetic. C reads and writes every element once. W
 // reads the 32-byte sectors its windows cover (8 or 9 per window row) and
@@ -46,6 +61,8 @@
 
 #include <type_traits>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kTile = 32;
@@ -54,7 +71,10 @@ constexpr int kTileWarps = 2;    // the 16-byte transpose's block: a tile, 16 ro
 constexpr int kCopyThreads = 256;
 constexpr int kCopyLoads = 4;    // loads in flight a copy thread
 constexpr int kWin = 64;
-constexpr int kWinThreads = 256;
+constexpr int kWinThreads = 256;               // the word body: a CTA a window
+constexpr int kWinSplit = 4;                   // the 16-byte body: CTAs a window
+constexpr int kSplitRows = kWin / kWinSplit;   // rows a CTA
+constexpr int kChunkThreads = kSplitRows * kWin / 4;  // a 16-byte output chunk a thread
 
 template <bool kVector>
 __global__ void __launch_bounds__(kCopyThreads) relayout_copy_kernel(
@@ -145,36 +165,54 @@ __global__ void __launch_bounds__(kTile * kRowsPerPass) relayout_transpose_kerne
   }
 }
 
-template <bool kVector>
 __global__ void __launch_bounds__(kWinThreads) window_copy_kernel(
     const int32_t* __restrict__ img, const int32_t* __restrict__ ax,
     const int32_t* __restrict__ ay, int32_t* __restrict__ out, int width) {
-  // Four spare words per row for the seventeenth chunk; rows stay 16-byte aligned.
-  __shared__ __align__(16) int32_t rows[kWin][kWin + 4];
-  const int x0 = ax[blockIdx.x], y0 = ay[blockIdx.x];
-  const int32_t* win = img + (size_t)y0 * width;
+  const int32_t* win = img + (size_t)ay[blockIdx.x] * width + ax[blockIdx.x];
   int32_t* dst = out + (size_t)blockIdx.x * kWin * kWin;
-  if (!kVector) {
-    for (int i = threadIdx.x; i < kWin * kWin; i += kWinThreads) {
-      const int r = i / kWin, c = i % kWin;
-      dst[i] = win[(size_t)r * width + x0 + c];
-    }
-    return;
+  for (int i = threadIdx.x; i < kWin * kWin; i += kWinThreads) {
+    dst[i] = win[(size_t)(i / kWin) * width + i % kWin];
   }
-  const int a0 = x0 & ~3, shift = x0 & 3;
-  const int chunks = kWin / 4 + (shift != 0);
-  // With width % 4 == 0 and x0 + 64 <= width, chunk a0 + 64 exists only
-  // when shift != 0 and then ends inside the row.
-  for (int i = threadIdx.x; i < kWin * chunks; i += kWinThreads) {
-    const int r = i / chunks, q = i % chunks;
-    *reinterpret_cast<int4*>(&rows[r][4 * q]) =
-        *reinterpret_cast<const int4*>(win + (size_t)r * width + a0 + 4 * q);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kWin * kWin / 4; i += kWinThreads) {
-    const int r = i / (kWin / 4), q = i % (kWin / 4);
-    const int32_t* s = &rows[r][shift + 4 * q];
-    *reinterpret_cast<int4*>(dst + r * kWin + 4 * q) = make_int4(s[0], s[1], s[2], s[3]);
+}
+
+// Output chunk q of a window row from the aligned chunks a = q and b = q + 1
+// of its image row, for a window that starts S words past its aligned column.
+template <int S>
+__device__ __forceinline__ int4 shifted(int4 a, int4 b) {
+  if (S == 0) return a;
+  if (S == 1) return make_int4(a.y, a.z, a.w, b.x);
+  if (S == 2) return make_int4(a.z, a.w, b.x, b.y);
+  return make_int4(a.w, b.x, b.y, b.z);
+}
+
+// Chunk q of row r of the window (q = threadIdx.x % 16) from the aligned
+// chunks q and q + 1 of its image row, both loaded at once. Chunk q + 1 is
+// the next lane's chunk, which L1 serves again; for q = 15 it is chunk 16,
+// loaded only when S != 0 (width % 4 == 0 and ax + 64 <= width put it
+// inside the row).
+template <int S>
+__device__ __forceinline__ void copy_chunk(const int32_t* __restrict__ img,
+                                           int32_t* __restrict__ dst, int width, int a0,
+                                           int y0) {
+  const int q = threadIdx.x % 16, r = threadIdx.x / 16;
+  const int4* p = reinterpret_cast<const int4*>(img + (size_t)(y0 + r) * width + a0 + 4 * q);
+  const int4 v = __ldg(p);
+  const int4 next = S != 0 ? __ldg(p + 1) : v;
+  *reinterpret_cast<int4*>(dst + r * kWin + 4 * q) = shifted<S>(v, next);
+}
+
+// CTA u copies rows 16 (u % 4) .. 16 (u % 4) + 15 of window u / 4.
+__global__ void __launch_bounds__(kChunkThreads) window_copy16_kernel(
+    const int32_t* __restrict__ img, const int32_t* __restrict__ ax,
+    const int32_t* __restrict__ ay, int32_t* __restrict__ out, int width) {
+  const int k = blockIdx.x / kWinSplit, part = blockIdx.x % kWinSplit;
+  const int x0 = ax[k], y0 = ay[k] + part * kSplitRows, a0 = x0 & ~3;
+  int32_t* dst = out + (size_t)k * kWin * kWin + part * kSplitRows * kWin;
+  switch (x0 & 3) {  // the same for every thread of the CTA
+    case 0: copy_chunk<0>(img, dst, width, a0, y0); break;
+    case 1: copy_chunk<1>(img, dst, width, a0, y0); break;
+    case 2: copy_chunk<2>(img, dst, width, a0, y0); break;
+    default: copy_chunk<3>(img, dst, width, a0, y0); break;
   }
 }
 
@@ -210,16 +248,16 @@ extern "C" int brisk_probe_relayout(const void* src_, void* out_, int rows, int 
   return (int)cudaGetLastError();
 }
 
-// W. img (height, width) int32; ax, ay (K,) int32; out (K * 64, 64) int32.
+// W. img (height, width) int32; ax, ay (K,) int32; out (K * 64, 64) int32;
+// vector: probes/gather.py:window_plan's body (16-byte moves, else words).
 extern "C" int brisk_probe_window_copy(const void* img, const void* ax, const void* ay,
-                                       void* out, int width, int K, void* stream) {
-  const bool vector = width % 4 == 0 && (uintptr_t)img % 16 == 0 && (uintptr_t)out % 16 == 0;
+                                       void* out, int width, int K, int vector, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int32_t *i = (const int32_t*)img, *x = (const int32_t*)ax, *y = (const int32_t*)ay;
+  int32_t* o = (int32_t*)out;
   if (vector) {
-    window_copy_kernel<true><<<K, kWinThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)img, (const int32_t*)ax, (const int32_t*)ay, (int32_t*)out, width);
-  } else {
-    window_copy_kernel<false><<<K, kWinThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)img, (const int32_t*)ax, (const int32_t*)ay, (int32_t*)out, width);
+    return (int)launch(window_copy16_kernel, K * kWinSplit, kChunkThreads, 0, st, i, x, y, o,
+                       width);
   }
-  return (int)cudaGetLastError();
+  return (int)launch(window_copy_kernel, K, kWinThreads, 0, st, i, x, y, o, width);
 }

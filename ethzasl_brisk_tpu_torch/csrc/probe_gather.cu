@@ -93,7 +93,26 @@
 //   that, one output a thread, which keeps every SM busy on small tables.
 //
 // G2, point_gather, replaces tools/bench_pallas_gather.py:93
-// pallas_2stage: out[i] = tab[r[i], c[i]], one thread per point.
+// pallas_2stage (body k_2stage, :82): out[i] = tab[r[i], c[i]]. At the
+// probe's size r, c and out stream 24 MB from and to device memory, and the
+// table, 1.25 MB, sits in L2; the 2 M taps come in clusters of 2048 within
+// +-64 pixels of a centre, and the TPU grid walks one cluster a block. Each
+// table load fetches a 32-byte sector for 4 bytes. Two bodies, picked per
+// call by probes/gather.py:point_plan:
+// V, point_gather4_kernel, where r, c and out are 16-byte aligned: a CTA
+//   of 512 threads serves one run of 2048 taps (the TPU's block), a thread
+//   four of them: 16-byte loads of r and c, four table loads in flight
+//   together through the read-only path, one 16-byte store. r, c and out,
+//   touched once, move with the streaming (evict-first) hint, and the run's
+//   table sectors meet in L1: the same body with its table loads kept out
+//   of L1 (L2 only, or no L1 allocation) ran 1.4x slower. The first
+//   threads of CTA 0 serve the last n % 4 taps one a thread. Measured on
+//   an H100 (PERF.md §6): 0.0152 ms at site 1 against 0.0179 for S; a
+//   persistent grid that loads the next run's r and c while the current
+//   run's table loads are in flight (0.0160), 256 threads x 8 taps (0.0172)
+//   and the whole table in the distributed shared memory of 8-CTA clusters
+//   (0.064) lost; plain read-only loads of r and c tie.
+// S, point_gather_kernel, everywhere else: a thread a tap (the first design).
 //
 // Indices are trusted to be in range (the probes make them so; the plain
 // versions check it). Element counts are below 2^31 (the wrappers check),
@@ -106,7 +125,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // D and G2
+constexpr int kThreads = 256;      // D and G2's S
+constexpr int kPointThreads = 512; // G2's V: a run of 2048 taps a CTA
+constexpr int kPointTaps = 4;      // G2's V: taps a thread
 constexpr int kRowThreads = 512;   // R, at most
 constexpr int kLaneThreads = 256;  // L, at most
 constexpr int kStageLoads = 8;     // R: 16-byte staging loads in flight a thread
@@ -310,6 +331,27 @@ __global__ void __launch_bounds__(kThreads) point_gather_kernel(
   out[t] = tab[(size_t)(unsigned)r[t] * cols + (unsigned)c[t]];
 }
 
+__device__ __forceinline__ int32_t tap(const int32_t* __restrict__ tab, unsigned cols, int r,
+                                       int c) {
+  return __ldg(tab + (size_t)(unsigned)r * cols + (unsigned)c);
+}
+
+__global__ void __launch_bounds__(kPointThreads) point_gather4_kernel(
+    const int32_t* __restrict__ tab, const int32_t* __restrict__ r,
+    const int32_t* __restrict__ c, int32_t* __restrict__ out, unsigned cols, unsigned n) {
+  const unsigned quads = n / kPointTaps;
+  const unsigned q = blockIdx.x * kPointThreads + threadIdx.x;
+  if (q < quads) {
+    const int4 rr = __ldcs(reinterpret_cast<const int4*>(r) + q);
+    const int4 cc = __ldcs(reinterpret_cast<const int4*>(c) + q);
+    __stcs(reinterpret_cast<int4*>(out) + q,
+           make_int4(tap(tab, cols, rr.x, cc.x), tap(tab, cols, rr.y, cc.y),
+                     tap(tab, cols, rr.z, cc.z), tap(tab, cols, rr.w, cc.w)));
+  }
+  const unsigned t = quads * kPointTaps + threadIdx.x;
+  if (blockIdx.x == 0 && t < n) out[t] = tap(tab, cols, r[t], c[t]);
+}
+
 }  // namespace
 
 // G1. (src_bytes, out_bytes) is (4, 4) (int32 or float32), (1, 1) (uint8)
@@ -340,11 +382,19 @@ extern "C" int brisk_probe_take(const void* src, const void* idx, void* out, int
   return (int)cudaErrorInvalidValue;
 }
 
-// G2. tab is (rows, cols) int32; r, c and out hold n int32 elements.
+// G2. tab is (rows, cols) int32; r, c and out hold n int32 elements. The
+// rest is probes/gather.py's PointPlan: vector (V, else S) and grid.
 extern "C" int brisk_probe_point_gather(const void* tab, const void* r, const void* c,
-                                        void* out, int cols, int n, void* stream) {
-  const unsigned blocks = ((unsigned)n + kThreads - 1) / kThreads;
-  point_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)tab, (const int32_t*)r, (const int32_t*)c, (int32_t*)out, cols, n);
-  return (int)cudaGetLastError();
+                                        void* out, int cols, int n, int vector, int grid,
+                                        void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int32_t* t = (const int32_t*)tab;
+  const int32_t *rr = (const int32_t*)r, *cc = (const int32_t*)c;
+  int32_t* o = (int32_t*)out;
+  if (vector) {
+    return (int)launch(point_gather4_kernel, grid, kPointThreads, 0, st, t, rr, cc, o,
+                       (unsigned)cols, (unsigned)n);
+  }
+  return (int)launch(point_gather_kernel, grid, kThreads, 0, st, t, rr, cc, o, (unsigned)cols,
+                     (unsigned)n);
 }

@@ -359,6 +359,10 @@ def _library_point(tab, r, c):
     return tab[r, c]
 
 
+def _library_window(img, ax, ay):
+    return img.unfold(0, 64, 1).unfold(1, 64, 1)[ay.long(), ax.long()].reshape(-1, 64)
+
+
 @dataclasses.dataclass(frozen=True)
 class Kernel:
     label: str                 # G1, G2, C, W, T, X, S
@@ -371,6 +375,7 @@ class Kernel:
     library_name: str
     nbytes: Callable
     int32_ops: Callable | None = None
+    plan: Callable | None = None  # the plan that serves a call of the wrapper, if it has one
 
 
 GATHER_CU = "ethzasl_brisk_tpu_torch/csrc/probe_gather.cu"
@@ -379,24 +384,28 @@ MOSAIC_CU = "ethzasl_brisk_tpu_torch/csrc/probe_mosaic.cu"
 _G1 = dict(label="G1", counter="probe_take", source=GATHER_CU,
            names=("take_direct_kernel", "take_rows_kernel", "take_lanes_kernel"),
            wrapper=gather.take_along_axis, library=_library_take,
-           nbytes=gather.take_along_axis_bytes)
+           nbytes=gather.take_along_axis_bytes, plan=gather.take_plan_for)
 
 KERNELS = {
     "take": Kernel(**_G1, plain=gather.take_along_axis_plain, library_name="torch.gather"),
     "take_widen": Kernel(**_G1, plain=gather.take_along_axis_plain,
                          library_name="torch.gather then .int()"),
     "lane_select": Kernel(**_G1, plain=gather.lane_select_plain, library_name="torch.gather"),
-    "point_gather": Kernel("G2", "probe_point_gather", GATHER_CU, ("point_gather_kernel",),
+    "point_gather": Kernel("G2", "probe_point_gather", GATHER_CU,
+                           ("point_gather4_kernel", "point_gather_kernel"),
                            gather.point_gather, gather.point_gather_plain, _library_point,
-                           "tab[r, c]", gather.point_gather_bytes),
+                           "tab[r, c]", gather.point_gather_bytes,
+                           plan=gather.point_plan_for),
     "relayout": Kernel("C", "probe_relayout", COPY_CU,
                        ("relayout_copy_kernel", "relayout_transpose16_kernel",
                         "relayout_transpose_kernel"),
                        gather.relayout, gather.relayout_plain, gather.relayout_plain,
                        ".T.contiguous() / .clone()", gather.relayout_bytes),
-    "window_copy": Kernel("W", "probe_window_copy", COPY_CU, ("window_copy_kernel",),
-                          gather.window_copy, gather.window_copy_plain, None, "none",
-                          gather.window_copy_bytes),
+    "window_copy": Kernel("W", "probe_window_copy", COPY_CU,
+                          ("window_copy16_kernel", "window_copy_kernel"),
+                          gather.window_copy, gather.window_copy_plain, _library_window,
+                          "img.unfold(0, 64, 1).unfold(1, 64, 1)[ay, ax].reshape(-1, 64)",
+                          gather.window_copy_bytes, plan=gather.window_plan_for),
     "transpose_chain": Kernel("T", "probe_transpose_chain", MOSAIC_CU,
                               ("transpose_chain_kernel",), mosaic.transpose_chain,
                               mosaic.transpose_chain_plain, lambda t: t + 8, "t + 8",
@@ -428,7 +437,7 @@ def run_case(case: Case, device: torch.device, card: str, reps: int = 10) -> dic
     if got.dtype != ref.dtype or not torch.equal(got, ref):
         raise AssertionError(f"{case.label}: {kern.label} differs from its plain version")
     err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
-    plan = gather.take_plan_for(*args).label if kern.counter == "probe_take" else None
+    plan = kern.plan(*args).label if kern.plan else None
     ms = measure.cuda_time(lambda: kern.wrapper(*args), reps=reps)
     device_ms = measure.device_time(lambda: kern.wrapper(*args), device, kern.names, reps=reps)
     plain_ms = measure.cuda_time(lambda: kern.plain(*args), reps=reps)

@@ -17,11 +17,15 @@ kernels):
   call: a staged column band, staged source rows or direct loads).
   ``lane_select_plain`` is its plain version for the one-hot lane select
   of ``probe_mosaic_gather.py``;
-* G2 ``point_gather``: ``out[i] = tab[r[i], c[i]]`` (``csrc/probe_gather.cu``);
+* G2 ``point_gather``: ``out[i] = tab[r[i], c[i]]`` (``csrc/probe_gather.cu``;
+  ``point_plan`` picks 4 taps a thread with 16-byte moves where r, c and
+  the output are aligned, a tap a thread elsewhere);
 * C ``relayout``: the transpose or the plain copy of a 2-D int32 table,
   16 bytes a thread where ``relayout_vector`` allows (``csrc/probe_copy.cu``);
 * W ``window_copy``: ``out[k*64 + r, c] = img[ay[k] + r, ax[k] + c]``, K
-  windows of 64 x 64 int32 (``csrc/probe_copy.cu``).
+  windows of 64 x 64 int32 (``csrc/probe_copy.cu``; ``window_plan`` picks
+  16-byte moves where the image and its rows are 16-byte aligned, word loads
+  elsewhere).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. A CPU tensor takes the plain version; a CUDA
@@ -397,19 +401,77 @@ def point_gather_plain(tab, r, c) -> torch.Tensor:
     return tab[r.long(), c.long()]
 
 
+# G2's plan: which body of csrc/probe_gather.cu serves a call, and its grid.
+POINT_THREADS, POINT_TAPS = 512, 4   # V: a run of 2048 taps a CTA, 4 a thread
+SCALAR_THREADS = 256                 # S: a tap a thread
+
+
+class PointPlan(NamedTuple):
+    """How G2 serves a call of n taps; csrc/probe_gather.cu trusts it.
+    vector: V (16-byte moves of r, c and out, 4 taps a thread), else S."""
+    vector: bool
+    grid: int
+
+    @property
+    def label(self) -> str:
+        body = (f"V, {POINT_TAPS} taps a thread, {POINT_THREADS * POINT_TAPS} a CTA"
+                if self.vector else "S, a tap a thread")
+        threads = POINT_THREADS if self.vector else SCALAR_THREADS
+        return f"{body}; {self.grid} CTAs x {threads} threads"
+
+
+def point_plan(n: int, r_mod16: int, c_mod16: int, out_mod16: int) -> PointPlan:
+    """V where r, c and out all start on a 16-byte boundary (bytes past a
+    multiple of 16), its grid over the n // 4 whole quads of taps (at least
+    one CTA, whose first threads take the n % 4 left); S elsewhere."""
+    if r_mod16 == c_mod16 == out_mod16 == 0:
+        return PointPlan(True, max(1, -(-(n // POINT_TAPS) // POINT_THREADS)))
+    return PointPlan(False, -(-n // SCALAR_THREADS))
+
+
+def check_point_plan(plan: PointPlan, n: int, r_mod16: int, c_mod16: int,
+                     out_mod16: int) -> None:
+    """Raise ValueError for a plan csrc/probe_gather.cu cannot take on this
+    call: the kernel trusts it."""
+    if plan.vector and (r_mod16 or c_mod16 or out_mod16):
+        raise ValueError(f"point_gather: {plan} moves 16-byte chunks of r, c and out, which "
+                         "must be 16-byte aligned")
+    # V: a thread a quad of taps; CTA 0 also takes the last n % 4.
+    units, per_cta = (n // POINT_TAPS, POINT_THREADS) if plan.vector else (n, SCALAR_THREADS)
+    if not 0 < plan.grid <= _I32_MAX or plan.grid * per_cta < units:
+        raise ValueError(f"point_gather: {plan} does not cover {n} taps")
+
+
+def point_plan_for(tab, r, c) -> PointPlan:
+    """The plan ``point_gather`` takes for these card tensors (its output, a
+    fresh allocation, is aligned)."""
+    _point_check(tab, r, c)
+    return point_plan(r.numel(), r.data_ptr() % 16, c.data_ptr() % 16, 0)
+
+
+def _launch_point(tab, r, c, out, plan: PointPlan) -> None:
+    """Launch G2 on card tensors with this plan (checked first)."""
+    check_point_plan(plan, out.numel(), r.data_ptr() % 16, c.data_ptr() % 16,
+                     out.data_ptr() % 16)
+    _kernels.launch(
+        "probe_point_gather", "probe_point_gather", tab.device,
+        tab.data_ptr(), r.data_ptr(), c.data_ptr(), out.data_ptr(), tab.shape[1], out.numel(),
+        int(plan.vector), plan.grid,
+    )
+
+
 def point_gather(tab, r, c) -> torch.Tensor:
     """G2: ``out[i] = tab[r[i], c[i]]`` for an int32 (rows, cols) table.
-    Kernel on CUDA tensors, plain version on CPU ones."""
+    Kernel on CUDA tensors, served by the body ``point_plan`` picks; plain
+    version on CPU ones."""
     _point_check(tab, r, c)
     if tab.device.type == "cpu":
         return point_gather_plain(tab, r, c)
     out = torch.empty(r.shape, dtype=torch.int32, device=tab.device)
     if out.numel() == 0:
         return out
-    _kernels.launch(
-        "probe_point_gather", "probe_point_gather", tab.device,
-        tab.data_ptr(), r.data_ptr(), c.data_ptr(), out.data_ptr(), tab.shape[1], out.numel(),
-    )
+    _launch_point(tab, r, c, out, point_plan(out.numel(), r.data_ptr() % 16,
+                                             c.data_ptr() % 16, out.data_ptr() % 16))
     return out
 
 
@@ -496,10 +558,58 @@ def window_copy_plain(img, ax, ay) -> torch.Tensor:
     return img[rows, cols].reshape(-1, WINDOW)
 
 
+# W's plan: which body of csrc/probe_copy.cu serves a call.
+WINDOW_SPLIT = 4                     # the 16-byte body: CTAs a window, 16 rows each
+
+
+class WindowPlan(NamedTuple):
+    """How W serves a call; csrc/probe_copy.cu trusts it. vector: aligned
+    16-byte loads of the image rows and 16-byte stores, WINDOW_SPLIT CTAs a
+    window; else word loads, a CTA a window."""
+    vector: bool
+
+    @property
+    def label(self) -> str:
+        if self.vector:
+            return (f"16-byte moves, {WINDOW_SPLIT} CTAs of {WINDOW // WINDOW_SPLIT * 16} "
+                    "threads a window")
+        return "word loads, a CTA of 256 threads a window"
+
+
+def window_plan(width: int, img_mod16: int, out_mod16: int) -> WindowPlan:
+    """16-byte moves where the image's base and the output start on a
+    16-byte boundary (bytes past a multiple of 16) and every image row is
+    whole 16-byte chunks (width a multiple of 4); word loads elsewhere."""
+    return WindowPlan(img_mod16 == 0 and out_mod16 == 0 and width % 4 == 0)
+
+
+def check_window_plan(plan: WindowPlan, width: int, img_mod16: int, out_mod16: int) -> None:
+    """Raise ValueError for a plan csrc/probe_copy.cu cannot take on this
+    image: the kernel trusts it."""
+    if plan.vector and not window_plan(width, img_mod16, out_mod16).vector:
+        raise ValueError(f"window_copy: {plan} moves 16-byte chunks; the image and output "
+                         "must be 16-byte aligned and the width a multiple of 4")
+
+
+def window_plan_for(img, ax, ay) -> WindowPlan:
+    """The plan ``window_copy`` takes for these card tensors (its output, a
+    fresh allocation, is aligned)."""
+    _window_check(img, ax, ay)
+    return window_plan(img.shape[1], img.data_ptr() % 16, 0)
+
+
+def _launch_window(img, ax, ay, out, plan: WindowPlan) -> None:
+    """Launch W on card tensors with this plan (checked first)."""
+    check_window_plan(plan, img.shape[1], img.data_ptr() % 16, out.data_ptr() % 16)
+    _kernels.launch("probe_window_copy", "probe_window_copy", img.device,
+                    img.data_ptr(), ax.data_ptr(), ay.data_ptr(), out.data_ptr(), img.shape[1],
+                    ax.shape[0], int(plan.vector))
+
+
 def window_copy(img, ax, ay) -> torch.Tensor:
     """W: the K = len(ax) windows ``img[ay[k]:ay[k]+64, ax[k]:ax[k]+64]`` of
-    an int32 image stacked into (K*64, 64). Kernel on CUDA tensors, plain
-    version on CPU ones."""
+    an int32 image stacked into (K*64, 64). Kernel on CUDA tensors, served by
+    the body ``window_plan`` picks; plain version on CPU ones."""
     _window_check(img, ax, ay)
     if img.device.type == "cpu":
         return window_copy_plain(img, ax, ay)
@@ -507,8 +617,8 @@ def window_copy(img, ax, ay) -> torch.Tensor:
     out = torch.empty((k * WINDOW, WINDOW), dtype=torch.int32, device=img.device)
     if k == 0:
         return out
-    _kernels.launch("probe_window_copy", "probe_window_copy", img.device,
-                    img.data_ptr(), ax.data_ptr(), ay.data_ptr(), out.data_ptr(), img.shape[1], k)
+    _launch_window(img, ax, ay, out,
+                   window_plan(img.shape[1], img.data_ptr() % 16, out.data_ptr() % 16))
     return out
 
 

@@ -302,16 +302,64 @@ def test_take_along_axis_cuda_matches_plain(cuda, dtype, axis, blocks, src_shape
     assert got.dtype == src.dtype and torch.equal(got, ref)
 
 
-def test_point_gather_cuda_matches_plain(cuda):
+# Offsets in elements of the table, r and c in their storage: 4 bytes past a
+# 16-byte boundary sends r or c to G2's scalar body, 16 bytes past does not.
+POINT_VIEWS = {"aligned": (0, 0, 0), "tab 4 B past": (1, 0, 0), "r 4 B past": (0, 1, 0),
+               "c 12 B past": (0, 0, 3), "r and c 16 B past": (0, 4, 4)}
+
+
+@pytest.mark.parametrize("view", list(POINT_VIEWS))
+@pytest.mark.parametrize("cols", [128, 130])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 2048, 5001])
+def test_point_gather_cuda_matches_plain(cuda, n, cols, view):
+    """G2 at whole and ragged quads of taps, on two table widths and on
+    offset views: the body point_plan picks, one counted launch, bitwise
+    against plain."""
+    from ethzasl_brisk_tpu_torch import _kernels
     from ethzasl_brisk_tpu_torch.probes import gather
 
     rng = np.random.default_rng(12)
-    tab = torch.from_numpy(rng.integers(0, 1 << 20, (97, 130), dtype=np.int32)).to(cuda)
-    r = torch.from_numpy(rng.integers(0, 97, 5001, dtype=np.int32)).to(cuda)
-    c = torch.from_numpy(rng.integers(0, 130, 5001, dtype=np.int32)).to(cuda)
+    rows = 97
+    ot, o_r, oc = POINT_VIEWS[view]
+
+    def stored(hi, size, off):
+        return torch.from_numpy(rng.integers(0, hi, size + off, dtype=np.int32)).to(cuda)[off:]
+
+    tab = stored(1 << 20, rows * cols, ot).view(rows, cols)
+    r, c = stored(rows, n, o_r), stored(cols, n, oc)
+    r[:1], c[-1:] = rows - 1, cols - 1
+    assert gather.point_plan_for(tab, r, c).vector == (o_r % 4 == oc % 4 == 0)
+    _kernels.reset_launches()
     got = gather.point_gather(tab, r, c)
     torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["probe_point_gather"] == 1
     assert torch.equal(got, gather.point_gather_plain(tab, r, c))
+
+
+def test_point_gather_bad_plan_raises(cuda):
+    """The 16-byte body on a misaligned r, or a grid short of the taps, is
+    refused before launch; a launch the card refuses (an empty grid) raises
+    through the launch helper. None counts, and the next is not tainted."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    n = 5001
+    tab = torch.arange(97 * 128, dtype=torch.int32, device=cuda).view(97, 128)
+    r = torch.randint(0, 97, (n + 1,), dtype=torch.int32, device=cuda)
+    c = torch.randint(0, 128, (n,), dtype=torch.int32, device=cuda)
+    out = torch.empty(n, dtype=torch.int32, device=cuda)
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        gather._launch_point(tab, r[1:], c, out, gather.point_plan(n, 0, 0, 0))
+    with pytest.raises(ValueError, match="cover"):
+        gather._launch_point(tab, r[:n], c, out, gather.PointPlan(True, 2))
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):  # an empty grid
+        _kernels.launch("probe_point_gather", "probe_point_gather", cuda, tab.data_ptr(),
+                        r.data_ptr(), c.data_ptr(), out.data_ptr(), 128, n, 1, 0)
+    assert _kernels.LAUNCHES["probe_point_gather"] == 0
+    gather._launch_point(tab, r[:n], c, out, gather.point_plan(n, 0, 0, 0))
+    torch.cuda.synchronize()
+    assert torch.equal(out, gather.point_gather_plain(tab, r[:n], c))
 
 
 @pytest.mark.parametrize("transpose", [True, False])
@@ -326,19 +374,70 @@ def test_relayout_cuda_matches_plain(cuda, transpose, shape):
     assert torch.equal(got, gather.relayout_plain(src, transpose))
 
 
-@pytest.mark.parametrize("width", [768, 101, 64])
-def test_window_copy_cuda_matches_plain(cuda, width):
-    """Widths that are a multiple of 4 take 16-byte loads, others the
-    element-by-element copy; offsets include both image edges."""
+# (height, width, offset of the image in its storage in elements)
+WINDOW_LAYOUTS = {
+    "768": (130, 768, 0),
+    "772": (97, 772, 0),
+    "101": (130, 101, 0),
+    "64": (70, 64, 0),
+    "768, 4 B past": (130, 768, 1),
+    "768, 16 B past": (130, 768, 4),
+}
+
+
+@pytest.mark.parametrize("k", [1, 128, 200, 1000])
+@pytest.mark.parametrize("layout", list(WINDOW_LAYOUTS))
+def test_window_copy_cuda_matches_plain(cuda, layout, k):
+    """W on images whose rows are whole 16-byte chunks (16-byte moves), a
+    ragged width and offset views (word loads); windows at every ax % 4 and
+    at both image edges; one counted launch, bitwise against plain."""
+    from ethzasl_brisk_tpu_torch import _kernels
     from ethzasl_brisk_tpu_torch.probes import gather
 
+    h, w, offset = WINDOW_LAYOUTS[layout]
     rng = np.random.default_rng(14)
-    h, k = 130, 200
-    img = torch.from_numpy(rng.integers(0, 1 << 22, (h, width), dtype=np.int32)).to(cuda)
-    ax = rng.integers(0, width - 63, k, dtype=np.int32)
+    store = rng.integers(-2**31, 2**31, h * w + offset, dtype=np.int64).astype(np.int32)
+    img = torch.from_numpy(store).to(cuda)[offset:].view(h, w)
+    ax = rng.integers(0, w - 63, k, dtype=np.int32)
     ay = rng.integers(0, h - 63, k, dtype=np.int32)
-    ax[:2], ay[:2] = (0, width - 64), (0, h - 64)
+    edges = [(0, 0), (w - 64, h - 64), (1, h - 64), (2, 1), (3, 0), (w - 65, 2), (w - 66, 0),
+             (w - 67, h - 64)]
+    for i, (x, y) in enumerate(edges[:k]):
+        ax[i], ay[i] = min(max(x, 0), w - 64), y
+    if k > 4 and w > 66:
+        assert set((ax % 4).tolist()) == {0, 1, 2, 3}
     ax, ay = torch.from_numpy(ax).to(cuda), torch.from_numpy(ay).to(cuda)
+    assert gather.window_plan_for(img, ax, ay).vector == (w % 4 == 0 and offset % 4 == 0)
+    _kernels.reset_launches()
+    got = gather.window_copy(img, ax, ay)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["probe_window_copy"] == 1
+    assert torch.equal(got, gather.window_copy_plain(img, ax, ay))
+
+
+def test_window_copy_bad_plan_raises(cuda):
+    """The 16-byte body on a misaligned image or a ragged width is refused
+    before launch; a launch the card refuses (an empty grid) raises through
+    the launch helper. No launch is counted, and the next is not tainted."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.probes import gather
+
+    h, k = 100, 8
+    ax = torch.arange(k, dtype=torch.int32, device=cuda)
+    ay = torch.zeros(k, dtype=torch.int32, device=cuda)
+    out = torch.empty((k * 64, 64), dtype=torch.int32, device=cuda)
+    off = torch.zeros(h * 768 + 1, dtype=torch.int32, device=cuda)[1:].view(h, 768)
+    ragged = torch.zeros((h, 101), dtype=torch.int32, device=cuda)
+    _kernels.reset_launches()
+    for img in (off, ragged):
+        with pytest.raises(ValueError, match="16-byte"):
+            gather._launch_window(img, ax, ay, out, gather.WindowPlan(True))
+    for vector in (0, 1):
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            _kernels.launch("probe_window_copy", "probe_window_copy", cuda, ragged.data_ptr(),
+                            ax.data_ptr(), ay.data_ptr(), out.data_ptr(), 101, 0, vector)
+    assert _kernels.LAUNCHES["probe_window_copy"] == 0
+    img = torch.arange(h * 768, dtype=torch.int32, device=cuda).view(h, 768)
     got = gather.window_copy(img, ax, ay)
     torch.cuda.synchronize()
     assert torch.equal(got, gather.window_copy_plain(img, ax, ay))
