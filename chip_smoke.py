@@ -19,6 +19,16 @@ just after:
   each host image (the entry point moves it to the card) and
   ``radius_match_best`` (K3 once per image), compared with the same calls
   on a ``device="cpu"`` feature;
+* the 16-bit pipeline: ``detect_and_compute`` on one VGA uint16 frame (a
+  bench frame in the high byte, a seeded low byte) with float Harris
+  scores, float warps, the float integral and the float sampler, torch ops
+  that launch none of the hand-written kernels (all counts stay 0),
+  compared with a ``device="cpu"`` feature and timed per stage;
+* the facade's knobs on a VGA uint8 frame: caller keypoints from
+  ``KeyPoints.from_numpy`` through ``compute`` (K2 twice), then
+  ``refine_dtype="float64"`` with ``angle_exact=True`` through
+  ``detect_and_compute`` (K1 once, K2 twice), each bitwise against a
+  ``device="cpu"`` feature, and a feature built from bench.py's keywords;
 * the gather probes (``ethzasl_brisk_tpu_torch.probes``): each of the 39
   calls through the 26 ``pallas_call`` sites of the TPU probes P1, P3 and
   P2 at full size, its kernel (G1, G2, C, W, T, X or S) launched once,
@@ -66,6 +76,21 @@ SENTINEL = 385
 QUICK_CONFIG = dict(octaves=0, uniformity_radius=30.0, absolute_threshold=20.0,
                     fused_mask=True)
 QUICK_RADIUS = 90
+# The 16-bit phase: bench.py's detector on a 16-bit frame; float Harris on
+# 16 bits scales the 8-bit scores by ~257^4. The candidate cap is certified
+# on the frame before use.
+U16_CONFIG = dict(octaves=2, uniformity_radius=30.0, absolute_threshold=20.0 * 257.0**4,
+                  max_keypoints=1024)
+# bench.py's BriskFeature keywords (bench.py:99-158) at their defaults.
+BENCH_KEYWORDS = dict(
+    octaves=2, uniformity_radius=30.0, absolute_threshold=20.0,
+    max_candidates=(7168, 3072, 1792, 1024), max_keypoints=1024,
+    sampler="patch_pallas", patch_h=128, patch_w=128, topk_impl="block",
+    topk_block_size=2048, topk_block_r=96, uniformity_block=256,
+    refine_capacity=(352, 160, 96, 56), fused_mask=False, describe_capacity=448,
+)
+SYSTEM_KERNELS = ("harris_score_i32", "harris_score_mask", "smoothed_intensity")
+STAGES = ("pyramid", "harris", "masks", "candidates", "uniformity", "refine", "describe")
 
 
 # Integer operations per pixel of K1, counted from csrc/harris.cu's
@@ -240,6 +265,168 @@ def quick_start(dev: torch.device) -> dict:
         flush=True,
     )
     return launches
+
+
+def certified_cap(feature_kw: dict, img: torch.Tensor) -> int:
+    """A candidate cap with >= 10 % headroom over the frame's most
+    populous layer, in steps of 1024 (the default 4096 truncates on noise)."""
+    from ethzasl_brisk_tpu_torch import BriskFeature
+
+    diag = BriskFeature(**feature_kw).detect_with_diagnostics(img)[1]
+    return -(-int(diag.cand_counts.max()) * 11 // 10 // 1024) * 1024
+
+
+def assert_same_image_outputs(got, ref, what: str, allow_flips: bool) -> tuple[int, int]:
+    """One image's (KeyPoints, words) on the card against the CPU: every
+    field bitwise; with ``allow_flips`` the angle may differ and theta flip
+    at a bin edge, descriptors bitwise where theta agrees. Returns (valid
+    count, flips)."""
+    (kg, dg), (kc, dc) = got, ref
+    for name, a, b in zip(("x", "y", "size", "response", "octave", "valid"),
+                          (kg.x, kg.y, kg.size, kg.response, kg.octave, kg.valid),
+                          (kc.x, kc.y, kc.size, kc.response, kc.octave, kc.valid)):
+        assert torch.equal(a.cpu(), b), f"{what}: {name}"
+    if not allow_flips:
+        assert torch.equal(kg.angle.cpu(), kc.angle), f"{what}: angle"
+        assert torch.equal(dg.cpu(), dc), f"{what}: descriptors"
+        return int(kc.valid.sum()), 0
+    th_g, _ = theta_of(kg.angle.cpu())
+    th_c, raw_c = theta_of(kc.angle)
+    agree = (th_g == th_c) | ~kc.valid
+    edge = (raw_c - torch.round(raw_c)).abs() < 1e-3
+    assert bool(edge[~agree].all()), f"{what}: theta flip away from a bin edge"
+    assert torch.equal(dg.cpu()[agree], dc[agree]), f"{what}: descriptors where theta agrees"
+    return int(kc.valid.sum()), int((~agree).sum())
+
+
+def stage_times(feature, img: torch.Tensor, reps: int = 10, warmup: int = 3):
+    """Medians (ms) of ``reps`` single-image detect_and_compute runs, total
+    and per stage, by CUDA events at the stage boundaries."""
+    for _ in range(warmup):
+        feature.detect_and_compute(img)
+    torch.cuda.synchronize()
+    totals, stages = [], {n: [] for n in STAGES}
+    for _ in range(reps):
+        marks = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        feature.compute(img, feature.detect(img, mark=mark))
+        mark("describe")
+        torch.cuda.synchronize()
+        prev = start
+        for name, e in marks:
+            stages[name].append(prev.elapsed_time(e))
+            prev = e
+        totals.append(start.elapsed_time(marks[-1][1]))
+    return statistics.median(totals), {n: statistics.median(t) for n, t in stages.items()}
+
+
+def u16_phase(dev: torch.device, card: str) -> None:
+    """The 16-bit pipeline on one VGA frame, on the card against the CPU."""
+    import numpy as np
+
+    from ethzasl_brisk_tpu_torch import BriskFeature, _kernels
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+
+    high = bench_frames(1)[0].astype(np.uint16)
+    low = np.random.default_rng(16).integers(0, 256, high.shape).astype(np.uint16)
+    # x * 257 with its low byte replaced by a seeded one: all 16 bits used.
+    frame = torch.from_numpy(((high * 257) & 0xFF00) | low)
+    img = frame.to(dev)
+    cap = certified_cap(U16_CONFIG, img)
+    feature = BriskFeature(**U16_CONFIG, max_candidates=cap)
+    diag = feature.detect_with_diagnostics(img)[1]
+    assert bool(diag.ok), f"[u16] cap {cap}: {diag.cand_counts.tolist()}"
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    got = feature.detect_and_compute(frame)  # the host image, as a user passes it
+    torch.cuda.synchronize()
+    launches = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
+    assert not any(_kernels.LAUNCHES.values()), f"[u16] runs no hand-written kernel: {launches}"
+    assert got[0].x.device == dev and got[1].shape == (got[0].capacity, 12)
+    assert bool(torch.isfinite(got[0].x).all())
+    ref = BriskFeature(**U16_CONFIG, max_candidates=cap, device="cpu").detect_and_compute(frame)
+    n_valid, flips = assert_same_image_outputs(got, ref, "[u16]", allow_flips=True)
+    assert n_valid > 0
+    ms, stages = stage_times(feature, img)
+    stage_txt = ", ".join(f"{n} {t:.3f}" for n, t in stages.items())
+    print(
+        f"[u16] VGA uint16 frame: candidates {diag.cand_counts.tolist()} -> certified cap "
+        f"{cap}; valid keypoints {n_valid}; launches {launches}; GPU vs CPU: every field "
+        f"bitwise, {flips} theta bin-edge flips, descriptors bitwise where theta agrees; "
+        f"detect_and_compute median {ms:.3f} ms of 10 (3 warm-up); stages ms: {stage_txt} "
+        f"[{card}]",
+        flush=True,
+    )
+
+
+def facade_phase(dev: torch.device, card: str) -> None:
+    """Caller keypoints through compute, the float64 refine with exact
+    angles, and bench.py's keywords, on one VGA uint8 frame."""
+    import numpy as np
+
+    from ethzasl_brisk_tpu_torch import BriskFeature, KeyPoints, _kernels
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+
+    frame = torch.from_numpy(bench_frames(1, seed=11)[0])
+    rng = np.random.default_rng(11)
+    n = 800
+    x, y = rng.uniform(0, 640, n), rng.uniform(0, 480, n)
+    size = rng.uniform(8, 40, n)
+    angle = np.where(rng.random(n) < 0.5, rng.uniform(-180, 180, n), -1.0)
+    kw = dict(uniformity_radius=30.0, absolute_threshold=20.0, angle_exact=True)
+
+    feature = BriskFeature(**kw)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    got = feature.compute(frame, KeyPoints.from_numpy(x, y, size, angle, capacity=1024))
+    torch.cuda.synchronize()
+    launches = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
+    assert launches["smoothed_intensity"] == 2, launches
+    assert launches["harris_score_i32"] == launches["harris_score_mask"] == 0, launches
+    ref = BriskFeature(**kw, device="cpu").compute(
+        frame, KeyPoints.from_numpy(x, y, size, angle, capacity=1024, device="cpu"))
+    n_given, _ = assert_same_image_outputs(got, ref, "[facade] from_numpy", allow_flips=False)
+    assert n_given > 0
+
+    parity = dict(kw, octaves=2, refine_dtype="float64")
+    parity["max_candidates"] = certified_cap(parity, frame.to(dev))
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    got = BriskFeature(**parity).detect_and_compute(frame)
+    torch.cuda.synchronize()
+    launches64 = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
+    assert launches64["harris_score_i32"] == 1, launches64
+    assert launches64["smoothed_intensity"] == 2, launches64
+    ref = BriskFeature(**parity, device="cpu").detect_and_compute(frame)
+    n64, _ = assert_same_image_outputs(got, ref, "[facade] float64", allow_flips=False)
+    assert n64 > 0
+    f32 = BriskFeature(**dict(parity, refine_dtype="float32")).detect_and_compute(frame)[0]
+    moved = int((f32.x != got[0].x).sum() + (f32.y != got[0].y).sum())
+
+    bench = BriskFeature(**BENCH_KEYWORDS)
+    plain = BriskFeature(**{k: v for k, v in BENCH_KEYWORDS.items()
+                            if k not in ("sampler", "patch_h", "patch_w", "topk_impl",
+                                         "topk_block_size", "topk_block_r")})
+    assert bench.descriptor_bytes == 48 and bench.config == plain.config
+    (kb, db), (kp, dp) = bench.detect_and_compute(frame), plain.detect_and_compute(frame)
+    assert all(torch.equal(a, b) for a, b in zip(kb.fields(), kp.fields())) and torch.equal(db, dp)
+    print(
+        f"[facade] VGA uint8: {n} from_numpy keypoints (capacity 1024) through compute, "
+        f"launches {launches}, {n_given} described; refine_dtype float64 + angle_exact "
+        f"through detect_and_compute (cap {parity['max_candidates']}), launches {launches64}, "
+        f"{n64} valid, {moved} x/y values moved from the float32 refine; both bitwise "
+        f"against the CPU; bench.py's keywords build a feature equal to the default "
+        f"selectors' ({int(kb.valid.sum())} valid) [{card}]",
+        flush=True,
+    )
 
 
 def main() -> int:
@@ -429,6 +616,10 @@ def main() -> int:
 
     # ---- The README quick start, through PGM files, counted.
     quick_start(dev)
+
+    # ---- The 16-bit pipeline, and the facade's knobs, each counted.
+    u16_phase(dev, card)
+    facade_phase(dev, card)
 
     # ---- The gather probes P1, P3 and P2: every call of the 26 pallas_call
     # sites at full size, its kernel counted (once per call) and bitwise

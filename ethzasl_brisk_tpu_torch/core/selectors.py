@@ -1,0 +1,59 @@
+"""The JAX package's backend selectors, taken as checked no-ops.
+
+``BriskFeature`` and ``BriskExtractor`` in the JAX package choose among
+TPU formulations whose outputs are equal: the descriptor sampler
+(``sampler``, ``patch_h``, ``patch_w``), the candidate top-k (``topk_impl``,
+``topk_block_size``, ``topk_block_r``) and eager detection for exact float
+tails on XLA:CPU (``eager_exact``). The port has one formulation of each
+(kernel K2 for describe, a stable sort for the top-k, torch ops that round
+one at a time) and gives their common output, so it takes these knobs to
+build from the same keywords (bench.py's config dict) and checks them: a
+value the JAX package names is accepted and changes nothing, any other
+raises. Where the JAX package's block top-k can certify itself inexact,
+the port's sort is exact (``DetectDiagnostics.topk_exact`` is all True).
+"""
+from __future__ import annotations
+
+SAMPLERS = ("gather", "patch", "patch_ms", "patch_pallas")
+TOPK_IMPLS = ("sort", "select", "compact", "block")
+
+
+def _choice(name: str, value, choices: tuple[str, ...]) -> None:
+    if value not in choices:
+        raise ValueError(f"{name}={value!r}: the JAX package names {', '.join(choices)}")
+
+
+def _positive_int(name: str, value) -> None:
+    if isinstance(value, bool) or not isinstance(value, int) or value < 1:
+        raise ValueError(f"{name}={value!r}: expected a positive int")
+
+
+def _flag(name: str, value) -> None:
+    if not isinstance(value, bool):
+        raise ValueError(f"{name}={value!r}: expected a bool")
+
+
+def check_version(version: str, pattern_file) -> None:
+    """Only the v2 engine is ported; v1 (and its pattern files) is later
+    work."""
+    if version == "v1" or pattern_file is not None:
+        raise NotImplementedError(
+            "the v1 engine (version='v1', pattern_file) is not ported yet: "
+            "ROADMAP.md Queue 1 item 5"
+        )
+    if version != "v2":
+        raise ValueError(f"version={version!r}: expected 'v2' (or 'v1', not ported yet)")
+
+
+def check_extractor_selectors(sampler: str, patch_h: int, patch_w: int) -> None:
+    _choice("sampler", sampler, SAMPLERS)
+    _positive_int("patch_h", patch_h)
+    _positive_int("patch_w", patch_w)
+
+
+def check_detector_selectors(topk_impl: str, topk_block_size: int, topk_block_r: int,
+                             eager_exact: bool) -> None:
+    _choice("topk_impl", topk_impl, TOPK_IMPLS)
+    _positive_int("topk_block_size", topk_block_size)
+    _positive_int("topk_block_r", topk_block_r)
+    _flag("eager_exact", eager_exact)

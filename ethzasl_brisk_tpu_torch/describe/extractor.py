@@ -12,7 +12,19 @@ Entry points: :class:`BriskExtractor` (one image or a batch, every slot),
 ``extract_descriptors`` (one image), ``extract_descriptors_batch`` (a
 batch, every slot) and ``extract_descriptors_compact`` (a batch over a
 budget of describable keypoints, what ``FramePipeline`` runs). Only the
-v2 pattern is ported; uint8 images only.
+v2 pattern is ported.
+
+One uint16 image takes the 16-bit pipeline, as in the JAX package: the
+image scaled by 1/65536, its float integral and the float sampler
+``smoothed_intensity_f32`` (torch ops), whatever sampler is configured.
+The batched describes take uint8 only, as the JAX package's do (they
+stack int32 integrals).
+
+``angle_exact`` computes angle and theta on the host with a double
+``atan2`` of the float-cast long-pair sums (``_exact_angle_host``), bit
+for bit the reference's and the JAX package's ``angle_exact``; it syncs
+with the host, so it is for parity runs. The default keeps the float32
+chain on the device.
 """
 from __future__ import annotations
 
@@ -32,8 +44,9 @@ from ethzasl_brisk_tpu_torch.core.pattern import (
     BriskPattern,
     brisk_v2_pattern,
 )
+from ethzasl_brisk_tpu_torch.core.selectors import check_extractor_selectors, check_version
 from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity_fused
-from ethzasl_brisk_tpu_torch.kernels.integral import integral_image_i32
+from ethzasl_brisk_tpu_torch.kernels.integral import integral_image_16_f32, integral_image_i32
 
 PATTERN_FIELDS = (
     "lut_x", "lut_y", "lut_sigma", "lut_scaling", "lut_scaling2", "scale_list",
@@ -136,9 +149,127 @@ def _stack_frames(imgs: torch.Tensor) -> torch.Tensor:
     return integral_image_i32(imgs).reshape(b * (h + 1), w + 1)
 
 
-def _check_u8(img: torch.Tensor) -> None:
-    if img.dtype != torch.uint8:
-        raise ValueError(f"only uint8 images are described, got {img.dtype}")
+def check_u8_batch(imgs: torch.Tensor) -> None:
+    """Batches are uint8 only, as in the JAX package."""
+    if imgs.dtype == torch.uint16:
+        raise ValueError(
+            "a (B, H, W) uint16 batch is not supported: the JAX package's batched and "
+            "compacted describe is uint8 only (it stacks int32 integrals); pass uint16 "
+            "images one at a time as (H, W)"
+        )
+    if imgs.dtype != torch.uint8:
+        raise ValueError(f"batches are uint8 only, got {imgs.dtype}")
+
+
+def smoothed_intensity_f32(
+    img: torch.Tensor,
+    integral: torch.Tensor,
+    key_x: torch.Tensor,
+    key_y: torch.Tensor,
+    pat_x: torch.Tensor,
+    pat_y: torch.Tensor,
+    pat_sigma: torch.Tensor,
+    pat_area: torch.Tensor,
+) -> torch.Tensor:
+    """16-bit smoothed intensities (JAX ``smoothed_intensity_f32``): int32
+    (K, P) from the (H, W) float32 image scaled by 1/65536 and its
+    (H+1, W+1) float32 integral.
+
+    SmoothedIntensity<float, float> (brisk-descriptor-extractor.cc:368-530)
+    with float weights and no truncation but the result's, scaled by 256
+    (the JAX package's choice: it lands in the 8-bit path's range, and the
+    bits and orientation are invariant to a positive scale). Every float op
+    is a torch op in the JAX function's order, divisions by tensors, so the
+    values equal the JAX function run eagerly bit for bit, on the card too.
+    """
+    rows, cols = img.shape
+    flat_img, flat_int = img.reshape(-1), integral.reshape(-1)
+    xf = pat_x + key_x[:, None]
+    yf = pat_y + key_y[:, None]
+    sigma_half = pat_sigma
+
+    def at_img(y, x):
+        y = torch.clamp(y, 0, rows - 1).to(torch.int64)
+        return flat_img[y * cols + torch.clamp(x, 0, cols - 1)]
+
+    def at_int(y, x):
+        y = torch.clamp(y, 0, rows).to(torch.int64)
+        return flat_int[y * (cols + 1) + torch.clamp(x, 0, cols)]
+
+    def trunc_i32(v):
+        return torch.trunc(v).to(torch.int32)
+
+    # Small-sigma bilinear (:390-408): int ratios, float pixels.
+    x_i, y_i = trunc_i32(xf), trunc_i32(yf)
+    r_x = trunc_i32((xf - x_i.to(torch.float32)) * 1024).to(torch.float32)
+    r_y = trunc_i32((yf - y_i.to(torch.float32)) * 1024).to(torch.float32)
+    r_x_1b = 1024.0 - r_x
+    r_y_1b = 1024.0 - r_y
+    small_val = (
+        r_x_1b * r_y_1b * at_img(y_i, x_i)
+        + r_x * r_y_1b * at_img(y_i, x_i + 1)
+        + r_x * r_y * at_img(y_i + 1, x_i + 1)
+        + r_x_1b * r_y * at_img(y_i + 1, x_i)
+    ) / 1024.0
+
+    # Box path (:410-495) with float weights.
+    scaling = torch.full_like(pat_area, 4194304.0) / pat_area
+    scaling2 = scaling * pat_area / 1024.0
+    x_1 = xf - sigma_half
+    x1 = xf + sigma_half
+    y_1 = yf - sigma_half
+    y1 = yf + sigma_half
+    x_left = trunc_i32(x_1 + 0.5)
+    y_top = trunc_i32(y_1 + 0.5)
+    x_right = trunc_i32(x1 + 0.5)
+    y_bottom = trunc_i32(y1 + 0.5)
+
+    r_x_1f = x_left.to(torch.float32) - x_1 + 0.5
+    r_y_1f = y_top.to(torch.float32) - y_1 + 0.5
+    r_x1f = x1 - x_right.to(torch.float32) + 0.5
+    r_y1f = y1 - y_bottom.to(torch.float32) + 0.5
+    w_a = r_x_1f * r_y_1f * scaling
+    w_b = r_x1f * r_y_1f * scaling
+    w_c = r_x1f * r_y1f * scaling
+    w_d = r_x_1f * r_y1f * scaling
+    r_x_1_i = r_x_1f * scaling
+    r_y_1_i = r_y_1f * scaling
+    r_x1_i = r_x1f * scaling
+    r_y1_i = r_y1f * scaling
+
+    big = (x_right - x_left - 1) + (y_bottom - y_top - 1) > 2
+    cd_y = torch.where(big, y_bottom - 1, y_bottom)
+    c_x = torch.where(big, x_right + 1, x_right)
+    d_x = torch.where(big, x_left + 1, x_left)
+    corners = (
+        w_a * at_img(y_top, x_left)
+        + w_b * at_img(y_top, x_right)
+        + w_c * at_img(cd_y, c_x)
+        + w_d * at_img(cd_y, d_x)
+    )
+
+    t1 = at_int(y_top, x_left + 1)
+    t2 = at_int(y_top, x_right)
+    t3 = at_int(y_top + 1, x_right)
+    t4 = at_int(y_top + 1, x_right + 1)
+    t5 = at_int(y_bottom, x_right + 1)
+    t6 = at_int(y_bottom, x_right)
+    t7 = at_int(y_bottom + 1, x_right)
+    t8 = at_int(y_bottom + 1, x_left + 1)
+    t9 = at_int(y_bottom, x_left + 1)
+    t10 = at_int(y_bottom, x_left)
+    t11 = at_int(y_top + 1, x_left)
+    t12 = at_int(y_top + 1, x_left + 1)
+
+    upper = (t3 - t2 + t1 - t12) * r_y_1_i
+    middle = (t6 - t3 + t12 - t9) * scaling
+    left = (t9 - t12 + t11 - t10) * r_x_1_i
+    right = (t5 - t4 + t3 - t6) * r_x1_i
+    bottom = (t7 - t6 + t9 - t8) * r_y1_i
+    box = (corners + upper + middle + left + right + bottom) / scaling2
+
+    val = torch.where(sigma_half < 0.5, small_val, box)
+    return trunc_i32(256.0 * val)
 
 
 def extract_descriptors(
@@ -148,19 +279,26 @@ def extract_descriptors(
     *,
     rotation_invariant: bool = True,
     scale_invariant: bool = True,
+    angle_exact: bool = False,
 ):
-    """Describe every slot of (K,) keypoints on one (H, W) uint8 image.
+    """Describe every slot of (K,) keypoints on one (H, W) uint8 or uint16
+    image (uint16: the float 16-bit sampler, see the module docstring).
 
     Returns (keypoints with angle set and border-filtered valid, (K, 12)
     int32 descriptor words).
     """
-    _check_u8(img)
     h, w = img.shape
+    kw = dict(rotation_invariant=rotation_invariant, scale_invariant=scale_invariant,
+              angle_exact=angle_exact)
+    if img.dtype == torch.uint16:
+        return _describe_core(
+            pat, integral_image_16_f32(img), h, w, keypoints, None,
+            img_f32=img.to(torch.float32) / 65536.0, **kw,
+        )
+    if img.dtype != torch.uint8:
+        raise ValueError(f"only uint8 and uint16 images are described, got {img.dtype}")
     row_base = torch.zeros(keypoints.capacity, dtype=torch.int32, device=img.device)
-    return _describe_core(
-        pat, integral_image_i32(img), h, w, keypoints, row_base,
-        rotation_invariant=rotation_invariant, scale_invariant=scale_invariant,
-    )
+    return _describe_core(pat, integral_image_i32(img), h, w, keypoints, row_base, **kw)
 
 
 def extract_descriptors_batch(
@@ -170,10 +308,11 @@ def extract_descriptors_batch(
     *,
     rotation_invariant: bool = True,
     scale_invariant: bool = True,
+    angle_exact: bool = False,
 ):
-    """Describe every slot of (B, K) keypoints on (B, H, W) frames in one
-    flat call: (keypoints (B, K), descriptors (B, K, 12) int32 words)."""
-    _check_u8(imgs)
+    """Describe every slot of (B, K) keypoints on (B, H, W) uint8 frames in
+    one flat call: (keypoints (B, K), descriptors (B, K, 12) int32 words)."""
+    check_u8_batch(imgs)
     b, h, w = imgs.shape
     k = keypoints.capacity
     row_base = torch.arange(b, dtype=torch.int32, device=imgs.device) * (h + 1)
@@ -181,6 +320,7 @@ def extract_descriptors_batch(
         pat, _stack_frames(imgs), h, w, keypoints.map(lambda a: a.reshape(b * k)),
         row_base.repeat_interleave(k),
         rotation_invariant=rotation_invariant, scale_invariant=scale_invariant,
+        angle_exact=angle_exact,
     )
     return out_kp.map(lambda a: a.reshape(b, k)), desc.reshape(b, k, -1)
 
@@ -204,7 +344,7 @@ def extract_descriptors_compact(
     with valid=False; ``with_diagnostics`` also returns the batch's
     describable count, which certifies no overflow when <= capacity.
     """
-    _check_u8(imgs)
+    check_u8_batch(imgs)
     b, h, w = imgs.shape
     k = keypoints.capacity
     n = b * k
@@ -261,11 +401,27 @@ def _describe_core(
     *,
     rotation_invariant: bool = True,
     scale_invariant: bool = True,
+    angle_exact: bool = False,
+    img_f32: torch.Tensor | None = None,
 ):
     """Orientation + descriptor for flat (K,) keypoints on stacked frames.
 
     Without rotation invariance the angle is kept and the pattern is not
-    rotated (theta 0), so only the second sampling runs.
+    rotated (theta 0), so only the second sampling runs. With ``img_f32``
+    (one scaled 16-bit image; ``integral`` its float integral) the float
+    sampler serves both samplings, otherwise kernel K2 (its plain version
+    on the CPU).
+
+    The ``angle`` of a slot that leaves invalid (outside the pattern
+    border) lies outside parity with the JAX package: describe computes an
+    angle for every slot whose angle is -1, and for a slot whose taps leave
+    the frame the value depends on how each sampler clamps them. The JAX
+    samplers themselves disagree there: on a 240 x 320 bench frame
+    (octaves 2, radius 30, threshold 20, 256 keypoints: 203 detected, 105
+    describable) ``patch`` and ``patch_ms`` equal ``gather`` on ``valid``
+    and on every valid angle and differ from it on 94 of the 98
+    non-describable angles, by up to 8.17 degrees. Every other field, and
+    the angle of every valid slot, is held to the JAX package.
     """
     scale_idx = scale_index(keypoints.size, scale_invariant)
     bf = pat.size_list[scale_idx].to(torch.float32)
@@ -279,14 +435,20 @@ def _describe_core(
     scaling2 = pat.lut_scaling2[scale_idx].contiguous()
     key_x, key_y = keypoints.x.contiguous(), keypoints.y.contiguous()
 
-    def sample(px, py):
-        return smoothed_intensity_fused(
-            integral, key_x, key_y, px.contiguous(), py.contiguous(), sigma,
-            scaling, scaling2, row_base, rows,
-        )
+    if img_f32 is not None:
+        area = 4.0 * sigma * sigma
+
+        def sample(px, py):
+            return smoothed_intensity_f32(img_f32, integral, key_x, key_y, px, py, sigma, area)
+    else:
+        def sample(px, py):
+            return smoothed_intensity_fused(
+                integral, key_x, key_y, px.contiguous(), py.contiguous(), sigma,
+                scaling, scaling2, row_base, rows,
+            )
 
     if rotation_invariant:
-        angle, theta = _orientation(pat, keypoints, scale_idx, sample)
+        angle, theta = _orientation(pat, keypoints, scale_idx, sample, angle_exact)
     else:
         angle, theta = keypoints.angle, torch.zeros_like(scale_idx)
 
@@ -295,14 +457,46 @@ def _describe_core(
     return _pack_descriptor(pat, keypoints, angle, vals, valid)
 
 
-def _orientation(pat, keypoints, scale_idx, sample):
+def _exact_angle_host(d0: np.ndarray, d1: np.ndarray, given_angle: np.ndarray,
+                      need: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Reference-exact angle and rotation bin on the host
+    (brisk-descriptor-extractor.cc:732-739; the JAX package's
+    ``_exact_angle_host``).
+
+    ``atan2(float(direction1), float(direction0))`` resolves to the C
+    double ``atan2`` of the float-cast sums; ``/ M_PI * 180.0`` stays in
+    double and rounds once to the float angle; ``theta = int((n_rot *
+    angle) / 360.0 + 0.5)`` takes a float32 product, a double division
+    and add and a truncating cast, and negative thetas wrap by n_rot.
+    """
+    a = np.arctan2(
+        np.asarray(d1).astype(np.float32).astype(np.float64),
+        np.asarray(d0).astype(np.float32).astype(np.float64),
+    )
+    computed = (a / np.pi * 180.0).astype(np.float32)
+    ang = np.where(np.asarray(need), computed, np.asarray(given_angle)).astype(np.float32)
+    theta = np.trunc(
+        (np.float32(N_ROT) * ang).astype(np.float64) / 360.0 + 0.5
+    ).astype(np.int32)
+    theta = np.where(theta < 0, theta + N_ROT, theta)
+    theta = np.where(theta >= N_ROT, theta - N_ROT, theta)
+    return ang, theta.astype(np.int32)
+
+
+def _orientation(pat, keypoints, scale_idx, sample, angle_exact=False):
     """Phase 1: angle (degrees) and rotation bin from the unrotated samples
-    and the long pairs (:714-740)."""
+    and the long pairs (:714-740); with ``angle_exact`` on the host
+    (``_exact_angle_host``)."""
     need_angle = keypoints.angle == -1.0
     vals0 = sample(pat.lut_x[scale_idx, 0], pat.lut_y[scale_idx, 0])
     delta_t = vals0[:, pat.long_i] - vals0[:, pat.long_j]  # (K, L)
     d0 = _trunc_div(delta_t * pat.long_wdx[None, :], 1024).sum(dim=1, dtype=torch.int32)
     d1 = _trunc_div(delta_t * pat.long_wdy[None, :], 1024).sum(dim=1, dtype=torch.int32)
+    if angle_exact:
+        ang, theta = _exact_angle_host(d0.cpu().numpy(), d1.cpu().numpy(),
+                                       keypoints.angle.cpu().numpy(), need_angle.cpu().numpy())
+        dev = d0.device
+        return torch.from_numpy(ang).to(dev), torch.from_numpy(theta).to(dev, torch.int64)
     computed = (
         torch.atan2(d1.to(torch.float32), d0.to(torch.float32))
         / float(np.float32(np.pi))
@@ -335,7 +529,11 @@ def _pack_descriptor(pat, keypoints, angle, vals, valid):
 
 class BriskExtractor(nn.Module):
     """BriskDescriptorExtractor (brisk-descriptor-extractor.h:62-96) with
-    the v2 pattern; its buffers are the pattern tables.
+    the v2 pattern; its buffers are the pattern tables. It takes the JAX
+    extractor's keywords: ``version`` ("v2"; "v1" raises, not ported yet),
+    ``angle_exact`` and the sampler selectors ``sampler``, ``patch_h`` and
+    ``patch_w``, checked no-ops (``core/selectors.py``): K2 gives every
+    sampler's output.
 
     It runs on ``device`` (default the card; ``device="cpu"`` for the CPU):
     the buffers live there, and a call moves its image and keypoints there
@@ -353,11 +551,20 @@ class BriskExtractor(nn.Module):
         pattern_scale: float = 1.0,
         pattern: DevicePattern | None = None,
         device: str | torch.device = "cuda",
+        version: str = "v2",
+        pattern_file: str | None = None,
+        sampler: str = "gather",
+        patch_h: int = 192,
+        patch_w: int = 192,
+        angle_exact: bool = False,
     ):
         super().__init__()
+        check_version(version, pattern_file)
+        check_extractor_selectors(sampler, patch_h, patch_w)
         dev = resolve_device(device)
         self.rotation_invariant = rotation_invariant
         self.scale_invariant = scale_invariant
+        self.angle_exact = bool(angle_exact)
         if pattern is None:
             pattern = DevicePattern.from_host(brisk_v2_pattern(pattern_scale))
         for name in PATTERN_FIELDS:
@@ -372,6 +579,11 @@ class BriskExtractor(nn.Module):
     def pattern(self) -> DevicePattern:
         return DevicePattern(**{name: getattr(self, name) for name in PATTERN_FIELDS})
 
+    @property
+    def descriptor_bytes(self) -> int:
+        """Bytes of one descriptor (48 for v2)."""
+        return self.pattern.descriptor_words * 4
+
     def forward(self, img: torch.Tensor, keypoints: KeyPoints):
         dev = self.device
         fn = extract_descriptors if img.dim() == 2 else extract_descriptors_batch
@@ -379,4 +591,5 @@ class BriskExtractor(nn.Module):
             self.pattern, img.to(dev), keypoints.map(lambda a: a.to(dev)),
             rotation_invariant=self.rotation_invariant,
             scale_invariant=self.scale_invariant,
+            angle_exact=self.angle_exact,
         )

@@ -20,6 +20,9 @@ one-layer form.
 JAX ``harris_score_mask_fused``) adds the 2-D maxima mask in the same pass,
 one launch for the pyramid; the ``fused_mask`` detector setting calls it,
 and ``harris_score_mask_fused`` is its one-layer form.
+``harris_score_f32`` is the 16-bit pipeline's float score (JAX
+``harris_score_f32``), torch ops on either device: the JAX package runs it
+in XLA, with no TPU kernel.
 """
 from __future__ import annotations
 
@@ -83,6 +86,51 @@ def harris_score_i32(img: torch.Tensor) -> torch.Tensor:
     sxy = _smooth3x3_shift4((dx * dy) >> 16)
     trace_half = (sxx + syy) >> 1
     score = sxx * syy - sxy * sxy - ((trace_half * trace_half) >> 2)
+    return torch.where(_border_mask(h, w, 2, img.device), score, zero)
+
+
+def harris_score_f32(img: torch.Tensor) -> torch.Tensor:
+    """Float Harris scores (HarrisScoreCalculatorFloat semantics, the
+    16-bit pipeline's): (..., H, W) -> float32 (..., H, W).
+
+    Scharr/16 gradients, the [[1, 2, 1], [2, 4, 2], [1, 2, 1]]/16 smoothing
+    of their products and det - trace^2/16
+    (harris-score-calculator-float.cc:53-57), as elementwise shifts and
+    adds in the JAX package's order of operations: every op rounds on its
+    own, so the maps equal the JAX function run eagerly bit for bit (a
+    convolution would sum in another order).
+    """
+    h, w = img.shape[-2:]
+    p = img.to(torch.float32)
+    n = {
+        (dy, dx): _shift(p, dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+    }
+    gx = (
+        10.0 * (n[(0, -1)] - n[(0, 1)])
+        + 3.0 * (n[(-1, -1)] - n[(-1, 1)])
+        + 3.0 * (n[(1, -1)] - n[(1, 1)])
+    ) / 16.0
+    gy = (
+        10.0 * (n[(-1, 0)] - n[(1, 0)])
+        + 3.0 * (n[(-1, -1)] - n[(1, -1)])
+        + 3.0 * (n[(-1, 1)] - n[(1, 1)])
+    ) / 16.0
+    interior = _border_mask(h, w, 1, img.device)
+    zero = torch.zeros((), dtype=torch.float32, device=img.device)
+    gx = torch.where(interior, gx, zero)
+    gy = torch.where(interior, gy, zero)
+
+    def smooth(v):
+        s = (
+            4.0 * v
+            + 2.0 * (_shift(v, -1, 0) + _shift(v, 1, 0) + _shift(v, 0, -1) + _shift(v, 0, 1))
+            + _shift(v, -1, -1) + _shift(v, -1, 1) + _shift(v, 1, -1) + _shift(v, 1, 1)
+        )
+        return s / 16.0
+
+    sxx, syy, sxy = smooth(gx * gx), smooth(gy * gy), smooth(gx * gy)
+    trace = sxx + syy
+    score = sxx * syy - sxy * sxy - trace * trace / 16.0
     return torch.where(_border_mask(h, w, 2, img.device), score, zero)
 
 

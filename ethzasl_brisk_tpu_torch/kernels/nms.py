@@ -11,11 +11,14 @@ import torch.nn.functional as F
 
 
 def maxima2d_mask(
-    score: torch.Tensor, absolute_threshold: int, border: int = 2
+    score: torch.Tensor, absolute_threshold: "int | float", border: int = 2
 ) -> torch.Tensor:
-    """(..., H, W) int32 scores -> bool mask of 2-D maxima."""
+    """(..., H, W) int32 or float32 scores -> bool mask of 2-D maxima
+    (outside the map reads the dtype's least value: INT32_MIN or -inf)."""
     h, w = score.shape[-2:]
-    p = F.pad(score, (1, 1, 1, 1), value=torch.iinfo(score.dtype).min)
+    low = (float("-inf") if score.dtype.is_floating_point
+           else torch.iinfo(score.dtype).min)
+    p = F.pad(score, (1, 1, 1, 1), value=low)
     neigh = None
     for dy in range(3):
         for dx in range(3):

@@ -35,7 +35,8 @@ class FramePipeline:
 
     def step(self, frames: torch.Tensor, with_diagnostics: bool = False,
              mark: Mark = _no_mark):
-        """frames: (B, H, W) uint8, moved to the pipeline's device.
+        """frames: (B, H, W) uint8 (uint16 raises: the batched describe is
+        uint8 only), moved to the pipeline's device.
 
         Returns, on that device, (keypoints (B, K), descriptors (B, K, 12)
         int32 words, match_idx (B-1, K) int32, match_dist (B-1, K) int32),

@@ -8,22 +8,29 @@ Both facades run on ``device``, the card unless the caller passes
 ``device="cpu"``: each call moves its image(s) there and returns its
 outputs there.
 
-Ported knobs: octaves, uniformity_radius, absolute_threshold, max_num_kpt,
-rotation_invariant, scale_invariant, max_candidates, max_keypoints,
-refine_capacity, uniformity_block, fused_mask (kernel K3 for the scores
-and 2-D maxima) and describe_capacity; descriptors are v2. The JAX
-package's sampler, patch-size and top-k backend selectors pick among TPU
-formulations with equal outputs; here kernel K2 serves every describe and
-a stable sort every top-k.
+``BriskFeature`` takes every keyword of the JAX ``BriskFeature``, so
+bench.py's config dict builds one as it is. Ported knobs: octaves,
+uniformity_radius, absolute_threshold, max_num_kpt, rotation_invariant,
+scale_invariant, max_candidates, max_keypoints, refine_capacity,
+uniformity_block, fused_mask (kernel K3 for the scores and 2-D maxima),
+describe_capacity, refine_dtype ("float64" refines in double) and
+angle_exact (the host's double atan2); descriptors are v2 (``version="v1"``
+raises ``NotImplementedError``). The JAX package's sampler, patch-size,
+top-k and eager-detection selectors pick among formulations with equal
+outputs; here kernel K2 serves every describe, a stable sort every top-k
+and every float op rounds on its own, so they are checked no-ops
+(``core/selectors.py``).
 
 Single image or batch: ``detect``, ``detect_with_diagnostics``, ``compute``
-and ``detect_and_compute`` dispatch on ``img.dim()``. An (H, W) uint8
-image gives unbatched outputs, as the JAX methods do: KeyPoints (K,), a
-DetectDiagnostics without batch axis, (K, 12) int32 descriptor words, and
-``compute`` describes every slot (``describe_capacity`` does not apply). A
-(B, H, W) batch gives the same with a leading batch axis. ``describe`` is
-the batched describe over the ``describe_capacity`` budget that
-``FramePipeline`` runs.
+and ``detect_and_compute`` dispatch on ``img.dim()``. An (H, W) uint8 or
+uint16 image gives unbatched outputs, as the JAX methods do: KeyPoints
+(K,), a DetectDiagnostics without batch axis, (K, 12) int32 descriptor
+words, and ``compute`` describes every slot (``describe_capacity`` does not
+apply). uint16 takes the 16-bit pipeline (float Harris scores, warps and
+sampler). A (B, H, W) uint8 batch gives the same with a leading batch axis;
+a uint16 batch raises, since the JAX package's batched describe is uint8
+only. ``describe`` is the batched describe over the ``describe_capacity``
+budget that ``FramePipeline`` runs.
 """
 from __future__ import annotations
 
@@ -32,9 +39,11 @@ from torch import nn
 
 from ethzasl_brisk_tpu_torch.core.device import resolve_device
 from ethzasl_brisk_tpu_torch.core.keypoints import KeyPoints
+from ethzasl_brisk_tpu_torch.core.selectors import check_detector_selectors
 from ethzasl_brisk_tpu_torch.describe.extractor import (
     BriskExtractor,
     DevicePattern,
+    check_u8_batch,
     extract_descriptors_compact,
 )
 from ethzasl_brisk_tpu_torch.detect.scale_space import (
@@ -48,6 +57,8 @@ from ethzasl_brisk_tpu_torch.detect.scale_space import (
 def _detect(config: DetectorConfig, max_keypoints: int, img: torch.Tensor,
             with_diagnostics: bool, mark: Mark):
     single = img.dim() == 2
+    if not single:
+        check_u8_batch(img)
     out = detect_keypoints(img[None] if single else img, config, with_diagnostics, mark=mark)
     kps, diag = out if with_diagnostics else (out, None)
     if kps.capacity > max_keypoints:
@@ -78,8 +89,20 @@ class BriskFeature(nn.Module):
         describe_capacity: int = 0,
         pattern: DevicePattern | None = None,
         device: str | torch.device = "cuda",
+        *,
+        version: str = "v2",
+        refine_dtype: str = "float32",
+        angle_exact: bool = False,
+        sampler: str = "gather",
+        patch_h: int = 192,
+        patch_w: int = 192,
+        topk_impl: str = "sort",
+        topk_block_size: int = 2048,
+        topk_block_r: int = 256,
+        eager_exact: bool = False,
     ):
         super().__init__()
+        check_detector_selectors(topk_impl, topk_block_size, topk_block_r, eager_exact)
         self.config = DetectorConfig(
             octaves=octaves,
             uniformity_radius=uniformity_radius,
@@ -90,12 +113,16 @@ class BriskFeature(nn.Module):
             refine_capacity=refine_capacity,
             uniformity_block=uniformity_block,
             fused_mask=fused_mask,
+            refine_dtype=refine_dtype,
         )
         self.max_keypoints = max_keypoints
         # Per-frame budget of describable keypoints (0 = describe every slot).
         self.describe_capacity = describe_capacity
-        self.extractor = BriskExtractor(rotation_invariant, scale_invariant, pattern=pattern,
-                                        device=device)
+        self.extractor = BriskExtractor(
+            rotation_invariant, scale_invariant, pattern=pattern, device=device,
+            version=version, sampler=sampler, patch_h=patch_h, patch_w=patch_w,
+            angle_exact=angle_exact,
+        )
 
     @property
     def device(self) -> torch.device:
@@ -105,10 +132,16 @@ class BriskFeature(nn.Module):
     def pattern(self) -> DevicePattern:
         return self.extractor.pattern
 
+    @property
+    def descriptor_bytes(self) -> int:
+        """Bytes of one descriptor (48)."""
+        return self.extractor.descriptor_bytes
+
     def detect(self, img: torch.Tensor, with_diagnostics: bool = False,
                mark: Mark = _no_mark):
-        """(H, W) or (B, H, W) uint8 -> KeyPoints (K,) or (B, K)
-        [+ DetectDiagnostics]. ``mark(stage)`` is called after each stage."""
+        """(H, W) uint8 or uint16, or (B, H, W) uint8 -> KeyPoints (K,) or
+        (B, K) [+ DetectDiagnostics]. ``mark(stage)`` is called after each
+        stage."""
         return _detect(self.config, self.max_keypoints, img.to(self.device), with_diagnostics,
                        mark)
 
@@ -169,6 +202,7 @@ class HarrisFeatureDetector:
         )
 
     def detect(self, img: torch.Tensor) -> KeyPoints:
-        """(H, W) or (B, H, W) uint8 -> KeyPoints (K,) or (B, K)."""
+        """(H, W) uint8 or uint16, or (B, H, W) uint8 -> KeyPoints (K,) or
+        (B, K)."""
         return _detect(self.config, self.config.max_keypoints, img.to(self.device), False,
                        _no_mark)

@@ -231,11 +231,49 @@ def test_step_matches_jax(step_pair):
     assert (mdist.numpy() < 385).sum() > 10
 
 
+def test_invalid_slot_angle_outside_parity():
+    """The angle of a slot that leaves describe invalid is outside parity:
+    the JAX samplers disagree there. On a 240 x 320 bench frame the port's
+    keypoints go through JAX's ``gather`` and ``patch_ms`` samplers and the
+    port's describe: valid, descriptors and every valid angle agree across
+    all three, the JAX samplers' angles differ on invalid slots, and the
+    port equals JAX ``gather`` on every field but the invalid slots' angle."""
+    frame = bench_frames(1, 240, 320)[0]
+    cfg = dict(octaves=2, uniformity_radius=30.0, absolute_threshold=20.0, max_keypoints=256)
+    feature = BriskFeature(**cfg, device="cpu")
+    kps = feature.detect(torch.from_numpy(frame))
+    jkps = JaxKeyPoints(**{f: jnp.asarray(getattr(kps, f).numpy()) for f in
+                           ("x", "y", "size", "angle", "response", "octave", "valid")})
+    ref = {s: JaxBriskFeature(**cfg, sampler=s).compute(jnp.asarray(frame), jkps)
+           for s in ("gather", "patch_ms")}
+    port_kp, port_desc = feature.compute(torch.from_numpy(frame), kps)
+    (gk, gd), (pk, pd) = ref["gather"], ref["patch_ms"]
+    valid = np.asarray(gk.valid)
+    assert 50 < valid.sum() < kps.valid.sum()  # describe drops some detections
+    np.testing.assert_array_equal(np.asarray(pk.valid), valid)
+    np.testing.assert_array_equal(np.asarray(pd), np.asarray(gd))
+    np.testing.assert_array_equal(np.asarray(pk.angle)[valid], np.asarray(gk.angle)[valid])
+    assert (np.asarray(pk.angle) != np.asarray(gk.angle))[~valid].sum() > 10
+    # The port against JAX gather: every field on every slot but the angle.
+    np.testing.assert_array_equal(port_kp.valid.numpy(), valid)
+    for name in ("x", "y", "size", "response", "octave"):
+        np.testing.assert_array_equal(getattr(port_kp, name).numpy().view(np.int32),
+                                      np.asarray(getattr(gk, name)).view(np.int32))
+    np.testing.assert_allclose(port_kp.angle.numpy()[valid], np.asarray(gk.angle)[valid],
+                               rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(port_desc.numpy(), np.asarray(gd).view(np.int32))
+
+
 def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['ethzasl_brisk_tpu'] = None\n"
         "import ethzasl_brisk_tpu_torch, ethzasl_brisk_tpu_torch.frames\n"
         "import ethzasl_brisk_tpu_torch.core.image_io, ethzasl_brisk_tpu_torch.match.matcher\n"
+        # The golden-set IO and the 16-bit and parity branches' modules.
+        "from ethzasl_brisk_tpu_torch.core import golden, selectors\n"
+        "from ethzasl_brisk_tpu_torch.kernels import downsample, harris, integral\n"
+        "from ethzasl_brisk_tpu_torch.detect import scale_space, subpixel\n"
+        "from ethzasl_brisk_tpu_torch.describe import extractor\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'ethzasl_brisk_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
     )
