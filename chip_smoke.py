@@ -29,6 +29,13 @@ just after:
   ``refine_dtype="float64"`` with ``angle_exact=True`` through
   ``detect_and_compute`` (K1 once, K2 twice), each bitwise against a
   ``device="cpu"`` feature, and a feature built from bench.py's keywords;
+* the classic AST path (``[ast]``): ``AstFramePipeline.step`` with bench.py's
+  AST configuration on 80 VGA bench frames, its capacity and describe
+  certificates first (K2 2 launches, K1 and K3 none); 4 frames on the card
+  against a ``device="cpu"`` pipeline, ``compute_scale`` of frame 0's
+  keypoints and the ``exact`` cache model on frame 0, each against the CPU;
+  the step timed at batch 16 and 80 per stage, and K2 at the AST shapes
+  against its plain version and its bound;
 * the gather probes (``ethzasl_brisk_tpu_torch.probes``): each of the 39
   calls through the 26 ``pallas_call`` sites of the TPU probes P1, P3 and
   P2 at full size, its kernel (G1, G2, C, W, T, X or S) launched once,
@@ -89,6 +96,15 @@ BENCH_KEYWORDS = dict(
     topk_block_size=2048, topk_block_r=96, uniformity_block=256,
     refine_capacity=(352, 160, 96, 56), fused_mask=False, describe_capacity=448,
 )
+# bench.py's AST detector and pipeline (bench.py:_ast_detector_from_env
+# defaults, :522-556; main_ast, :590-602; its AST batch, :76). Its caps hold
+# on these frames (certified below before timing).
+AST_DETECTOR = dict(threshold=70, octaves=3,
+                    max_candidates_per_layer=(512, 384, 320, 160, 96, 48),
+                    raw_cache_model="emulated", detect_impl="dense")
+AST_PIPELINE = dict(sampler="patch_pallas", describe_capacity=384)
+AST_BATCH = 80
+AST_STAGES = ("pyramid", "layers", "candidates", "pass1", "aux", "pass2", "describe", "match")
 SYSTEM_KERNELS = ("harris_score_i32", "harris_score_mask", "smoothed_intensity")
 STAGES = ("pyramid", "harris", "masks", "candidates", "uniformity", "refine", "describe")
 
@@ -150,8 +166,8 @@ def k2_bound(calls) -> tuple[float, str]:
     return measure.bound_ms(nbytes, int32_ops=int_ops, fp32_ops=fp_ops)
 
 
-def capture_sampler_inputs(feature, frames):
-    """The smoothed_intensity arguments of both describe phases of a step."""
+def capture_sampler_inputs(run):
+    """The smoothed_intensity arguments of both describe phases of ``run()``."""
     from ethzasl_brisk_tpu_torch.describe import extractor
 
     calls = []
@@ -163,7 +179,7 @@ def capture_sampler_inputs(feature, frames):
 
     extractor.smoothed_intensity_fused = record
     try:
-        feature.describe(frames, feature.detect(frames))
+        run()
     finally:
         extractor.smoothed_intensity_fused = real
     assert len(calls) == 2, len(calls)
@@ -429,6 +445,193 @@ def facade_phase(dev: torch.device, card: str) -> None:
     )
 
 
+def timed_steps(pipe, frames, stage_names, reps=10, warmup=3):
+    """(median, min) step ms of ``reps`` steps after ``warmup``, and the
+    median ms of each stage, by CUDA events at the ``mark`` boundaries."""
+    for _ in range(warmup):
+        pipe.step(frames)
+    torch.cuda.synchronize()
+    totals, stages = [], {n: [] for n in stage_names}
+    for _ in range(reps):
+        marks = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pipe.step(frames, mark=mark)
+        torch.cuda.synchronize()
+        prev = start
+        for name, e in marks:
+            stages[name].append(prev.elapsed_time(e))
+            prev = e
+        totals.append(start.elapsed_time(marks[-1][1]))
+    return (statistics.median(totals), min(totals),
+            {n: statistics.median(t) for n, t in stages.items()})
+
+
+def device_busy_ms(fn) -> float:
+    """The summed device time (ms) of every kernel, copy and set that one
+    call of fn() puts on the card, from a ``torch.profiler`` trace (0.0 if
+    the trace holds no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def assert_same_step_flips(got, ref, what: str) -> tuple[int, int, float]:
+    """A step on the card against the CPU: every keypoint field but the
+    angle bitwise on every slot; theta equal or flipped at a bin edge;
+    descriptors bitwise where theta agrees, matches bitwise when it agrees
+    everywhere. Returns (valid, flips, largest valid angle gap)."""
+    kg, kc = got[0], ref[0]
+    for name in ("x", "y", "size", "response", "octave", "valid"):
+        assert torch.equal(getattr(kg, name).cpu(), getattr(kc, name)), f"{what}: {name}"
+    v = kc.valid
+    th_g, _ = theta_of(kg.angle.cpu())
+    th_c, raw_c = theta_of(kc.angle)
+    agree = (th_g == th_c) | ~v
+    edge = (raw_c - torch.round(raw_c)).abs() < 1e-3
+    assert bool(edge[~agree].all()), f"{what}: theta flip away from a bin edge"
+    assert torch.equal(got[1].cpu()[agree], ref[1][agree]), f"{what}: descriptors"
+    flips = int((~agree).sum())
+    if flips == 0:
+        assert torch.equal(got[2].cpu(), ref[2]) and torch.equal(got[3].cpu(), ref[3]), \
+            f"{what}: matches"
+    gap = float((kg.angle.cpu() - kc.angle).abs()[v].max()) if bool(v.any()) else 0.0
+    return int(v.sum()), flips, gap
+
+
+def ast_phase(dev: torch.device, card: str, kind: str) -> None:
+    """The classic AST path: bench.py's AST configuration on 80 VGA bench
+    frames, certified, counted, against the CPU, and timed."""
+    from ethzasl_brisk_tpu_torch import (
+        AstFramePipeline,
+        BriskFeatureDetector,
+        KeyPoints,
+        _kernels,
+        compute_scale,
+        measure,
+    )
+    from ethzasl_brisk_tpu_torch.describe.sampler import (
+        smoothed_intensity,
+        smoothed_intensity_cuda,
+    )
+    from ethzasl_brisk_tpu_torch.detect.ast_scale_space import ast_capacity_diagnostics
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+
+    host = torch.from_numpy(bench_frames(AST_BATCH))
+    frames = host.to(dev)
+    det = BriskFeatureDetector(**AST_DETECTOR)
+    pipe = AstFramePipeline(det, **AST_PIPELINE)
+    assert det.device == pipe.device == dev, (det.device, pipe.device)
+    caps = AST_DETECTOR["max_candidates_per_layer"]
+    cert = ast_capacity_diagnostics(frames, AST_DETECTOR["threshold"], AST_DETECTOR["octaves"],
+                                    caps)
+    counts = cert.corner_counts.max(dim=0).values.tolist()
+    assert bool(cert.ok.all()), f"[ast] caps {caps} against corners {counts}"
+
+    # ---- The path, counted: the step on the 80 frames.
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    kps, desc, midx, mdist, diag = pipe.step(frames, with_diagnostics=True)
+    torch.cuda.synchronize()
+    launches = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
+    assert launches == {"harris_score_i32": 0, "harris_score_mask": 0,
+                        "smoothed_intensity": 2}, launches
+    b, k = kps.valid.shape
+    n_desc = int(diag["describable"])
+    assert bool(diag["detect"].ok.all()), diag["detect"]
+    assert n_desc <= AST_PIPELINE["describe_capacity"] * b, n_desc
+    per_frame = kps.valid.sum(dim=1)
+    assert int(per_frame.min()) >= 1, per_frame
+    assert tuple(midx.shape) == tuple(mdist.shape) == (b - 1, k) and desc.shape == (b, k, 12)
+    assert int(midx.min()) >= 0 and int(midx.max()) < k
+    assert torch.equal(mdist == SENTINEL, ~kps.valid[1:]), "[ast] sentinel where query valid"
+    assert bool(torch.isfinite(kps.x).all() and torch.isfinite(kps.y).all())
+    budget = AST_PIPELINE["describe_capacity"] * b
+    print(f"[ast] step B={b} VGA: corners per layer (max over frames) {counts} under caps "
+          f"{list(caps)}, certified; describable {n_desc} <= {budget}; "
+          f"valid keypoints/frame min {int(per_frame.min())} max {int(per_frame.max())}; "
+          f"launches {launches}", flush=True)
+
+    # ---- 4 frames on the card against the CPU, counted.
+    det_cpu = BriskFeatureDetector(**AST_DETECTOR, device="cpu")
+    f4 = host[:4]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    got = pipe.step(f4)
+    torch.cuda.synchronize()
+    launches4 = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
+    assert launches4 == launches, launches4
+    ref = AstFramePipeline(det_cpu, device="cpu", **AST_PIPELINE).step(f4)
+    n_valid, flips, gap = assert_same_step_flips(got, ref, "[ast] gpu vs cpu")
+    assert n_valid > 0 and (n_valid - flips) / n_valid >= 0.999, (flips, n_valid)
+
+    # ---- compute_scale of frame 0's valid keypoints, and the exact model.
+    v0 = ref[0].valid[0]
+    cols = {f: getattr(ref[0], f)[0][v0].numpy() for f in ("x", "y", "size")}
+    got_cs = compute_scale(det, host[0], KeyPoints.from_numpy(**cols))
+    ref_cs = compute_scale(det_cpu, host[0], KeyPoints.from_numpy(**cols, device="cpu"))
+    for name, a, c in zip(("x", "y", "size", "angle", "response", "octave", "valid"),
+                          got_cs.fields(), ref_cs.fields()):
+        assert torch.equal(a.cpu(), c), f"[ast] compute_scale {name}"
+    cs_ms = measure.cuda_time(lambda: compute_scale(det, frames[0], KeyPoints.from_numpy(**cols)),
+                              reps=5, warmup=1)
+    exact_kw = dict(AST_DETECTOR, raw_cache_model="exact", detect_impl="candidates")
+    det_exact = BriskFeatureDetector(**exact_kw)
+    got_ex = det_exact.detect(host[0])
+    ref_ex = BriskFeatureDetector(**exact_kw, device="cpu").detect(host[0])
+    for name, a, c in zip(("x", "y", "size", "angle", "response", "octave", "valid"),
+                          got_ex.fields(), ref_ex.fields()):
+        assert torch.equal(a.cpu(), c), f"[ast] exact {name}"
+    ex_ms = measure.cuda_time(lambda: det_exact.detect(frames[0]), reps=5, warmup=1)
+    emu_ms = measure.cuda_time(lambda: det.detect(frames[0]), reps=5, warmup=1)
+    n_diff = int((got_ex.valid != pipe.detector.detect(frames[0]).valid).sum())
+    print(f"[ast] gpu vs cpu B=4: every keypoint field but the angle bitwise, {n_valid} valid, "
+          f"{flips} theta bin-edge flips, largest valid angle gap {gap:.3g} deg, descriptors "
+          f"and matches bitwise; launches {launches4}. compute_scale of frame 0's "
+          f"{int(v0.sum())} keypoints: bitwise, {cs_ms:.3f} ms; exact cache model on frame 0: "
+          f"bitwise, {int(got_ex.valid.sum())} valid ({n_diff} slots differ from emulated), "
+          f"detect {ex_ms:.3f} ms against emulated {emu_ms:.3f} ms (median of 5) [{card}]",
+          flush=True)
+
+    # ---- Timing at batch 16 and 80.
+    for batch in (16, AST_BATCH):
+        fb = frames[:batch]
+        torch.cuda.reset_peak_memory_stats()
+        med, low, stages = timed_steps(pipe, fb, AST_STAGES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = device_busy_ms(lambda: pipe.step(fb))
+        stage_txt = ", ".join(f"{n} {t:.3f}" for n, t in stages.items())
+        print(f"[ast timing] step B={batch}: median {med:.3f} ms, min {low:.3f} ms of 10 "
+              f"(3 warm-up), {batch / med * 1e3:.1f} frames/s; stages ms: {stage_txt}; "
+              f"peak mem {peak:.2f} GiB; device busy {busy:.3f} ms a step in a profiled step, "
+              f"{busy / med:.1%} of the median [{kind}; {card}]", flush=True)
+
+    # ---- K2 at the AST shapes: against its plain version, timed, bounded.
+    calls = capture_sampler_inputs(lambda: pipe.step(frames))
+    for phase, args in enumerate(calls):
+        assert torch.equal(smoothed_intensity_cuda(*args), smoothed_intensity(*args)), \
+            f"[ast] K2 differs in phase {phase}"
+    k2_ms = measure.cuda_time(lambda: [smoothed_intensity_cuda(*a) for a in calls])
+    k2_plain = measure.cuda_time(lambda: [smoothed_intensity(*a) for a in calls])
+    k2_dev = measure.device_time(lambda: [smoothed_intensity_cuda(*a) for a in calls], dev,
+                                 ("k2_sampler_kernel",))
+    k2_bnd = k2_bound(calls)
+    print(f"[ast K2] B={AST_BATCH}, 2 phases, K x P = {tuple(calls[0][3].shape)}: bitwise vs "
+          f"plain; {k2_ms:.3f} ms (device {k2_dev:.4f} ms) vs plain {k2_plain:.3f} ms, bound "
+          f"{k2_bnd[0]:.4f} ms ({k2_bnd[1]}) [{kind}; {card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -510,7 +713,8 @@ def main() -> int:
           f"{[tuple(p.shape) for p in pyramid]} in one launch and each alone", flush=True)
 
     # ---- K2 against its plain version on both describe phases.
-    k2_calls = capture_sampler_inputs(feature, frames16)
+    k2_calls = capture_sampler_inputs(
+        lambda: feature.describe(frames16, feature.detect(frames16)))
     k2_err = 0
     for phase, args in enumerate(k2_calls):
         got = smoothed_intensity_cuda(*args)
@@ -617,9 +821,10 @@ def main() -> int:
     # ---- The README quick start, through PGM files, counted.
     quick_start(dev)
 
-    # ---- The 16-bit pipeline, and the facade's knobs, each counted.
+    # ---- The 16-bit pipeline, the facade's knobs and the AST path, each counted.
     u16_phase(dev, card)
     facade_phase(dev, card)
+    ast_phase(dev, card, kind)
 
     # ---- The gather probes P1, P3 and P2: every call of the 26 pallas_call
     # sites at full size, its kernel counted (once per call) and bitwise
@@ -637,37 +842,13 @@ def main() -> int:
     stage_names = ["pyramid", "harris", "masks", "candidates", "uniformity", "refine",
                    "describe", "match"]
 
-    def timed_steps(pipe, frames, reps=10, warmup=3):
-        for _ in range(warmup):
-            pipe.step(frames)
-        torch.cuda.synchronize()
-        totals, stages = [], {n: [] for n in stage_names}
-        for _ in range(reps):
-            marks = []
-
-            def mark(name):
-                e = torch.cuda.Event(enable_timing=True)
-                e.record()
-                marks.append((name, e))
-
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-            pipe.step(frames, mark=mark)
-            torch.cuda.synchronize()
-            prev = start
-            for name, e in marks:
-                stages[name].append(prev.elapsed_time(e))
-                prev = e
-            totals.append(start.elapsed_time(marks[-1][1]))
-        return statistics.median(totals), {n: statistics.median(t) for n, t in stages.items()}
-
     for batch in (16, 128):
         frames = torch.from_numpy(bench_frames(batch)).to(dev)
         # In turns (default, fused, fused, default), so the two compare in one call.
         for label, p in (("step", pipe), ("fused step", fused_pipe),
                          ("fused step", fused_pipe), ("step", pipe)):
             torch.cuda.reset_peak_memory_stats()
-            ms, stages = timed_steps(p, frames)
+            ms, _, stages = timed_steps(p, frames, stage_names)
             peak = torch.cuda.max_memory_allocated() / 2**30
             stage_txt = ", ".join(f"{n} {t:.3f}" for n, t in stages.items())
             print(
@@ -678,7 +859,7 @@ def main() -> int:
                 flush=True,
             )
         pyr = scale_space.build_pyramid(frames, 4)
-        calls = capture_sampler_inputs(feature, frames)
+        calls = capture_sampler_inputs(lambda: feature.describe(frames, feature.detect(frames)))
         k1_ms = cuda_time(lambda: harris_score_i32_layers(pyr))
         k1_plain = cuda_time(lambda: [harris_score_i32(p) for p in pyr])
         k2_ms = cuda_time(lambda: [smoothed_intensity_cuda(*a) for a in calls])

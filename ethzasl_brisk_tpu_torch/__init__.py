@@ -7,7 +7,9 @@ JAX. Its TPU kernels are hand-written CUDA here (``csrc/``), built with
 ``nvcc`` the first time a CUDA tensor reaches them.
 
 The entry points (``BriskFeature``, ``BriskExtractor``,
-``HarrisFeatureDetector``, ``FramePipeline``) run on the card unless given
+``HarrisFeatureDetector``, ``FramePipeline``, the classic AGAST/OAST
+``BriskFeatureDetector`` with ``compute_scale``, and ``AstFramePipeline``)
+run on the card unless given
 ``device="cpu"``; they move their input images there. ``probes`` holds the
 TPU gather probes as GPU probes (``python -m ethzasl_brisk_tpu_torch.probes``).
 
@@ -19,7 +21,13 @@ Quick start (one image, on the card)::
     keypoints, descriptors = feature.detect_and_compute(img)
 """
 from ethzasl_brisk_tpu_torch.core.keypoints import KeyPoints
-from ethzasl_brisk_tpu_torch.parallel.frames import FramePipeline
-from ethzasl_brisk_tpu_torch.pipeline import BriskFeature, HarrisFeatureDetector
+from ethzasl_brisk_tpu_torch.parallel.frames import AstFramePipeline, FramePipeline
+from ethzasl_brisk_tpu_torch.pipeline import (
+    BriskFeature,
+    BriskFeatureDetector,
+    HarrisFeatureDetector,
+    compute_scale,
+)
 
-__all__ = ["BriskFeature", "FramePipeline", "HarrisFeatureDetector", "KeyPoints"]
+__all__ = ["AstFramePipeline", "BriskFeature", "BriskFeatureDetector", "FramePipeline",
+           "HarrisFeatureDetector", "KeyPoints", "compute_scale"]

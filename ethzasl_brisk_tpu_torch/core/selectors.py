@@ -11,11 +11,20 @@ build from the same keywords (bench.py's config dict) and checks them: a
 value the JAX package names is accepted and changes nothing, any other
 raises. Where the JAX package's block top-k can certify itself inexact,
 the port's sort is exact (``DetectDiagnostics.topk_exact`` is all True).
+
+The AST detector (``BriskFeatureDetector``) takes two more:
+``detect_impl`` (``"candidates"``, or ``"dense"``, the JAX package's
+whole-map engine, bitwise equal to the candidates engine, which the port
+runs for both) and ``raw_cache_model`` (``"emulated"``, ``"exact"``,
+``"cache"`` or ``"corner"``, each ported). The JAX facade's asserts hold as
+``ValueError``: ``"dense"`` needs ``"emulated"`` and scale suppression.
 """
 from __future__ import annotations
 
 SAMPLERS = ("gather", "patch", "patch_ms", "patch_pallas")
 TOPK_IMPLS = ("sort", "select", "compact", "block")
+DETECT_IMPLS = ("candidates", "dense")
+RAW_CACHE_MODELS = ("emulated", "exact", "cache", "corner")
 
 
 def _choice(name: str, value, choices: tuple[str, ...]) -> None:
@@ -57,3 +66,18 @@ def check_detector_selectors(topk_impl: str, topk_block_size: int, topk_block_r:
     _positive_int("topk_block_size", topk_block_size)
     _positive_int("topk_block_r", topk_block_r)
     _flag("eager_exact", eager_exact)
+
+
+def check_raw_cache_model(raw_cache_model: str) -> None:
+    _choice("raw_cache_model", raw_cache_model, RAW_CACHE_MODELS)
+
+
+def check_ast_selectors(detect_impl: str, raw_cache_model: str,
+                        suppress_scale_nonmaxima: bool, eager_exact: bool) -> None:
+    _choice("detect_impl", detect_impl, DETECT_IMPLS)
+    check_raw_cache_model(raw_cache_model)
+    _flag("eager_exact", eager_exact)
+    if detect_impl == "dense" and raw_cache_model != "emulated":
+        raise ValueError("detect_impl='dense' implements the emulated cache model only")
+    if detect_impl == "dense" and not suppress_scale_nonmaxima:
+        raise ValueError("detect_impl='dense' implements the suppressed mode only")

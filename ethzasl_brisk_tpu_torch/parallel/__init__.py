@@ -1,3 +1,3 @@
-from ethzasl_brisk_tpu_torch.parallel.frames import FramePipeline
+from ethzasl_brisk_tpu_torch.parallel.frames import AstFramePipeline, FramePipeline
 
-__all__ = ["FramePipeline"]
+__all__ = ["AstFramePipeline", "FramePipeline"]

@@ -4,6 +4,8 @@ On one GPU the JAX package's (data, model) mesh has no counterpart: the
 batch of frames is one tensor, and ``step`` detects and describes every
 frame, then matches each frame against the one before it, the building
 block of the VO front-end and of the throughput benchmark.
+``AstFramePipeline`` is the same step around the classic AGAST/OAST
+detector (``BriskFeatureDetector``), bench.py's ``BENCH_PIPELINE=ast``.
 """
 from __future__ import annotations
 
@@ -12,9 +14,24 @@ import dataclasses
 import torch
 
 from ethzasl_brisk_tpu_torch.core.device import resolve_device
+from ethzasl_brisk_tpu_torch.core.selectors import check_extractor_selectors
+from ethzasl_brisk_tpu_torch.describe.extractor import (
+    check_u8_batch,
+    extract_descriptors_compact,
+)
 from ethzasl_brisk_tpu_torch.detect.scale_space import Mark, _no_mark
 from ethzasl_brisk_tpu_torch.match.matcher import match_adjacent
-from ethzasl_brisk_tpu_torch.pipeline import BriskFeature
+from ethzasl_brisk_tpu_torch.pipeline import BriskFeature, BriskFeatureDetector
+
+
+def _same_device(module, device) -> torch.device:
+    dev = resolve_device(device)
+    if module.device != dev:
+        raise ValueError(
+            f"the {type(module).__name__} runs on {module.device}, the pipeline on {dev}: "
+            "build both with the same device"
+        )
+    return dev
 
 
 @dataclasses.dataclass
@@ -26,12 +43,7 @@ class FramePipeline:
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
-        if self.feature.device != self.device:
-            raise ValueError(
-                f"the feature runs on {self.feature.device}, the pipeline on {self.device}: "
-                "build both with the same device"
-            )
+        self.device = _same_device(self.feature, self.device)
 
     def step(self, frames: torch.Tensor, with_diagnostics: bool = False,
              mark: Mark = _no_mark):
@@ -47,6 +59,61 @@ class FramePipeline:
         frames = frames.to(self.device)
         kps, diag = self.feature.detect(frames, with_diagnostics=True, mark=mark)
         kps, desc, n_desc = self.feature.describe(frames, kps, with_diagnostics=True)
+        mark("describe")
+        midx, mdist = match_adjacent(desc, kps.valid)
+        mark("match")
+        if with_diagnostics:
+            return kps, desc, midx, mdist, {"detect": diag, "describable": n_desc}
+        return kps, desc, midx, mdist
+
+
+@dataclasses.dataclass
+class AstFramePipeline:
+    """The classic-BRISK (AGAST/OAST) batched detect + describe + match
+    step on ``device``, the card unless ``device="cpu"``; the detector must
+    live there too.
+
+    ``describe_capacity`` is the budget of describable keypoints per frame
+    (0 describes every slot): the batch's first ``describe_capacity * B``
+    describable keypoints in flat order are described, the rest dropped
+    (``extract_descriptors_compact``). ``sampler``, ``patch_h`` and
+    ``patch_w`` are the JAX package's sampler selectors, checked no-ops:
+    kernel K2 serves every describe.
+    """
+
+    detector: BriskFeatureDetector
+    device: str | torch.device = "cuda"
+    sampler: str = "patch_pallas"
+    patch_h: int = 256
+    patch_w: int = 256
+    describe_capacity: int = 640
+
+    def __post_init__(self):
+        check_extractor_selectors(self.sampler, self.patch_h, self.patch_w)
+        self.device = _same_device(self.detector, self.device)
+
+    def step(self, frames: torch.Tensor, with_diagnostics: bool = False,
+             mark: Mark = _no_mark):
+        """frames: (B, H, W) uint8, moved to the pipeline's device.
+
+        Returns (keypoints (B, K), descriptors (B, K, 12) int32 words,
+        match_idx (B-1, K) int32, match_dist (B-1, K) int32), and with
+        ``with_diagnostics`` a dict holding the AstDiagnostics (``detect``)
+        and the batch's describable count (``describable``). ``mark(stage)``
+        is called after each stage: pyramid, layers, candidates, pass1, aux,
+        pass2, describe, match.
+        """
+        frames = frames.to(self.device)
+        check_u8_batch(frames)
+        det = self.detector
+        kps, diag = det.detect(frames, with_diagnostics=True, mark=mark)
+        b = frames.shape[0]
+        cap = self.describe_capacity * b if self.describe_capacity else b * kps.capacity
+        kps, desc, n_desc = extract_descriptors_compact(
+            det.pattern, frames, kps, capacity=cap,
+            rotation_invariant=det.rotation_invariant, scale_invariant=det.scale_invariant,
+            with_diagnostics=True,
+        )
         mark("describe")
         midx, mdist = match_adjacent(desc, kps.valid)
         mark("match")

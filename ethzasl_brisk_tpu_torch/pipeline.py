@@ -31,6 +31,15 @@ sampler). A (B, H, W) uint8 batch gives the same with a leading batch axis;
 a uint16 batch raises, since the JAX package's batched describe is uint8
 only. ``describe`` is the batched describe over the ``describe_capacity``
 budget that ``FramePipeline`` runs.
+
+``BriskFeatureDetector`` is the classic AGAST/OAST detector
+(brisk-feature-detector.h:56-57) paired with ``BriskExtractor``, the
+reference's AST golden run and match test; ``compute_scale`` re-detects
+given keypoints through its scale space. It takes every keyword of the JAX
+facade, so bench.py's AST keywords build one as they are. Detection runs
+the candidates engine (``detect/ast_scale_space.py``) for every
+``raw_cache_model`` and for ``detect_impl="dense"``, the JAX package's
+whole-map engine, which is bitwise equal to it.
 """
 from __future__ import annotations
 
@@ -39,13 +48,18 @@ from torch import nn
 
 from ethzasl_brisk_tpu_torch.core.device import resolve_device
 from ethzasl_brisk_tpu_torch.core.keypoints import KeyPoints
-from ethzasl_brisk_tpu_torch.core.selectors import check_detector_selectors
+from ethzasl_brisk_tpu_torch.core.selectors import (
+    check_ast_selectors,
+    check_detector_selectors,
+    check_version,
+)
 from ethzasl_brisk_tpu_torch.describe.extractor import (
     BriskExtractor,
     DevicePattern,
     check_u8_batch,
     extract_descriptors_compact,
 )
+from ethzasl_brisk_tpu_torch.detect.ast_scale_space import detect_ast_keypoints
 from ethzasl_brisk_tpu_torch.detect.scale_space import (
     DetectorConfig,
     Mark,
@@ -206,3 +220,131 @@ class HarrisFeatureDetector:
         (B, K)."""
         return _detect(self.config, self.config.max_keypoints, img.to(self.device), False,
                        _no_mark)
+
+
+class BriskFeatureDetector(nn.Module):
+    """The classic AGAST/OAST detection facade with BRISK description.
+
+    Mirrors ``brisk::BriskFeatureDetector(thresh, octaves,
+    suppressScaleNonmaxima)`` (brisk-feature-detector.h:56-57) with a
+    ``BriskDescriptorExtractor``, as in the reference's AST golden run
+    (test-binary-equal.cc:322-331) and match test (test-match.cc).
+
+    ``max_candidates_per_layer`` is an int or a per-layer tuple (overflow
+    drops corners; ``detect_with_diagnostics`` certifies it did not).
+    ``raw_cache_model`` picks the model of the reference's lazy score cache
+    in the IsMax2D tie path: ``emulated`` (two vectorized passes),
+    ``exact`` (a sequential loop over the candidates, bit for bit the
+    reference; slow), ``cache`` or ``corner``. ``detect_impl`` and
+    ``eager_exact`` are checked no-ops (``core/selectors.py``);
+    ``version="v1"`` raises ``NotImplementedError``. It runs on ``device``,
+    the card unless ``device="cpu"``.
+
+    ``detect``, ``detect_with_diagnostics``, ``compute`` and
+    ``detect_and_compute`` take one (H, W) uint8 image (unbatched outputs,
+    as the JAX methods give) or a (B, H, W) batch.
+    """
+
+    def __init__(
+        self,
+        threshold: int = 70,
+        octaves: int = 3,
+        suppress_scale_nonmaxima: bool = True,
+        rotation_invariant: bool = True,
+        scale_invariant: bool = True,
+        version: str = "v2",
+        max_candidates_per_layer: "int | tuple" = 2048,
+        raw_cache_model: str = "emulated",
+        eager_exact: bool = False,
+        angle_exact: bool = False,
+        detect_impl: str = "candidates",
+        *,
+        pattern: DevicePattern | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        super().__init__()
+        check_version(version, None)
+        check_ast_selectors(detect_impl, raw_cache_model, suppress_scale_nonmaxima, eager_exact)
+        self.threshold = threshold
+        self.octaves = octaves
+        self.suppress_scale_nonmaxima = suppress_scale_nonmaxima
+        self.max_candidates_per_layer = max_candidates_per_layer
+        self.raw_cache_model = raw_cache_model
+        self.extractor = BriskExtractor(
+            rotation_invariant, scale_invariant, pattern=pattern, device=device,
+            version=version, angle_exact=angle_exact,
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.extractor.device
+
+    @property
+    def pattern(self) -> DevicePattern:
+        return self.extractor.pattern
+
+    @property
+    def descriptor_bytes(self) -> int:
+        """Bytes of one descriptor (48)."""
+        return self.extractor.descriptor_bytes
+
+    @property
+    def rotation_invariant(self) -> bool:
+        return self.extractor.rotation_invariant
+
+    @property
+    def scale_invariant(self) -> bool:
+        return self.extractor.scale_invariant
+
+    def _run(self, img: torch.Tensor, with_diagnostics: bool, mark: Mark, **kw):
+        img = img.to(self.device)
+        single = img.dim() == 2
+        out = detect_ast_keypoints(
+            img[None] if single else img, threshold=self.threshold, octaves=self.octaves,
+            max_candidates_per_layer=self.max_candidates_per_layer,
+            suppress_scale_nonmaxima=self.suppress_scale_nonmaxima,
+            with_diagnostics=with_diagnostics, mark=mark, **kw,
+        )
+        kps, diag = out if with_diagnostics else (out, None)
+        if single:
+            kps = kps.map(lambda a: a[0])
+            diag = diag.frame(0) if diag is not None else None
+        return (kps, diag) if with_diagnostics else kps
+
+    def detect(self, img: torch.Tensor, with_diagnostics: bool = False,
+               mark: Mark = _no_mark):
+        """(H, W) or (B, H, W) uint8 -> KeyPoints (K,) or (B, K) [+
+        AstDiagnostics]. ``mark(stage)`` is called after each stage."""
+        return self._run(img, with_diagnostics, mark, raw_cache_model=self.raw_cache_model)
+
+    def detect_with_diagnostics(self, img: torch.Tensor):
+        """detect() + an AstDiagnostics certifying that the per-layer
+        candidate capacities did not truncate on this input."""
+        return self.detect(img, with_diagnostics=True)
+
+    def compute(self, img: torch.Tensor, keypoints: KeyPoints):
+        """Orientation + descriptors of every keypoint slot."""
+        return self.extractor(img, keypoints)
+
+    def detect_and_compute(self, img: torch.Tensor):
+        """Detect, then compute, on one (H, W) image or a (B, H, W) batch."""
+        img = img.to(self.device)
+        return self.compute(img, self.detect(img))
+
+
+def compute_scale(detector: BriskFeatureDetector, img: torch.Tensor,
+                  keypoints: KeyPoints) -> KeyPoints:
+    """Re-detect given keypoints through the AST scale space.
+
+    ``BriskFeatureDetector::ComputeScale`` (brisk-feature-detector.cc:
+    87-92): GetKeypoints in usePassedKeypoints mode (brisk-scale-space.cc:
+    103-124) with overwrite_lower_thres=0. Every keypoint is mapped into
+    every layer, the 2-D maximum check is skipped and the sub-pixel and 3-D
+    refinement emit the refined keypoints, one slot per (keypoint, layer).
+    ``img`` is (H, W) with (K,) keypoints or (B, H, W) with (B, K); both
+    move to the detector's device.
+    """
+    kps = keypoints.map(lambda a: a.to(detector.device))
+    if img.dim() == 2:
+        kps = kps.map(lambda a: a[None])
+    return detector._run(img, False, _no_mark, passed_keypoints=kps, lower_threshold=0)

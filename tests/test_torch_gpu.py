@@ -783,3 +783,61 @@ def test_relayout_cuda_offset_views(cuda, transpose, offset, shape):
     got = gather.relayout(src, transpose)
     torch.cuda.synchronize()
     assert torch.equal(got, gather.relayout_plain(src, transpose))
+
+
+AST_CONFIG = dict(threshold=40, octaves=2, max_candidates_per_layer=(1024, 512, 256, 128))
+
+
+def _theta(angle):
+    return torch.remainder(torch.trunc(1024 * angle / 360.0 + 0.5).to(torch.int64), 1024)
+
+
+def _assert_ast_outputs(got, ref):
+    """Card against CPU: every keypoint field but the angle bit for bit; the
+    rotation bin equal (or flipped at a bin edge); descriptors bit for bit
+    where it is equal, and the matches when it is equal everywhere."""
+    kg, kc = got[0], ref[0]
+    for name in ("x", "y", "size", "response", "octave", "valid"):
+        assert torch.equal(getattr(kg, name).cpu(), getattr(kc, name)), name
+    raw = 1024 * kc.angle / 360.0 + 0.5
+    agree = (_theta(kg.angle.cpu()) == _theta(kc.angle)) | ~kc.valid
+    assert bool(((raw - torch.round(raw)).abs() < 1e-3)[~agree].all())
+    assert torch.equal(got[1].cpu()[agree], ref[1][agree])
+    if bool(agree.all()):
+        assert torch.equal(got[2].cpu(), ref[2]) and torch.equal(got[3].cpu(), ref[3])
+
+
+@pytest.mark.parametrize("model", ["emulated", "exact"])
+def test_ast_step_on_card_matches_cpu(cuda, model):
+    """The AST step on the card: K2 twice, K1 and K3 never; its outputs
+    against the same step on the CPU."""
+    from ethzasl_brisk_tpu_torch import AstFramePipeline, BriskFeatureDetector, _kernels
+
+    frames = torch.from_numpy(bench_frames(3, 160, 212, seed=5))
+    cfg = dict(AST_CONFIG, raw_cache_model=model)
+    pipe = AstFramePipeline(BriskFeatureDetector(**cfg, device="cuda"), device="cuda",
+                            describe_capacity=200)
+    _kernels.reset_launches()
+    got = pipe.step(frames)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["smoothed_intensity"] == 2
+    assert _kernels.LAUNCHES["harris_score_i32"] == _kernels.LAUNCHES["harris_score_mask"] == 0
+    ref = AstFramePipeline(BriskFeatureDetector(**cfg, device="cpu"), device="cpu",
+                           describe_capacity=200).step(frames)
+    assert int(ref[0].valid.sum()) > 100
+    _assert_ast_outputs(got, ref)
+
+
+def test_ast_compute_scale_on_card_matches_cpu(cuda):
+    from ethzasl_brisk_tpu_torch import BriskFeatureDetector, KeyPoints, compute_scale
+
+    frame = torch.from_numpy(bench_frames(1, 160, 212, seed=6)[0])
+    det_cpu = BriskFeatureDetector(**AST_CONFIG, device="cpu")
+    kps = det_cpu.detect(frame)
+    cols = {f: getattr(kps, f)[kps.valid].numpy() for f in ("x", "y", "size")}
+    ref = compute_scale(det_cpu, frame, KeyPoints.from_numpy(**cols, device="cpu"))
+    got = compute_scale(BriskFeatureDetector(**AST_CONFIG, device="cuda"), frame,
+                        KeyPoints.from_numpy(**cols, device="cuda"))
+    for a, b in zip(got.fields(), ref.fields()):
+        assert torch.equal(a.cpu(), b)
+    assert int(ref.valid.sum()) > 50

@@ -274,6 +274,10 @@ def test_port_imports_without_jax():
         "from ethzasl_brisk_tpu_torch.kernels import downsample, harris, integral\n"
         "from ethzasl_brisk_tpu_torch.detect import scale_space, subpixel\n"
         "from ethzasl_brisk_tpu_torch.describe import extractor\n"
+        # The AST path.
+        "from ethzasl_brisk_tpu_torch.kernels import agast\n"
+        "from ethzasl_brisk_tpu_torch.detect import ast_exact, ast_layer, ast_scale_space\n"
+        "from ethzasl_brisk_tpu_torch.parallel import frames\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'ethzasl_brisk_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
     )
