@@ -36,6 +36,18 @@ just after:
   keypoints and the ``exact`` cache model on frame 0, each against the CPU;
   the step timed at batch 16 and 80 per stage, and K2 at the AST shapes
   against its plain version and its bound;
+* the v1 engine (``[v1]``): ``BriskFeatureDetector(version="v1")`` on VGA
+  bench frames, its caps certified first; ``detect_and_compute`` on 4
+  frames (K2's v1-rounding variant 2 launches each), ``AstFramePipeline`` at
+  batch 16 (K2 with v2 rounding, as the JAX step, and a 512-bit match) and
+  ``BriskFeature(version="v1")`` on one frame (K1 1, K2 v1 2), each against
+  a ``device="cpu"`` twin; K2's v1 variant against its plain version and
+  its bound, and the v1 step timed per stage;
+* the camera-aware path (``[camera]``): ``CameraAwareFeatureGrid`` on a
+  radial-tangential and an equidistant VGA camera and the single-view
+  ``CameraAwareFeature``, with the benchmark's ``BriskFeature``, on a bench
+  frame taken as the distorted image (K1 1, K2 2 an image), against
+  ``device="cpu"`` twins and timed per stage;
 * the gather probes (``ethzasl_brisk_tpu_torch.probes``): each of the 39
   calls through the 26 ``pallas_call`` sites of the TPU probes P1, P3 and
   P2 at full size, its kernel (G1, G2, C, W, T, X or S) launched once,
@@ -105,7 +117,23 @@ AST_DETECTOR = dict(threshold=70, octaves=3,
 AST_PIPELINE = dict(sampler="patch_pallas", describe_capacity=384)
 AST_BATCH = 80
 AST_STAGES = ("pyramid", "layers", "candidates", "pass1", "aux", "pass2", "describe", "match")
-SYSTEM_KERNELS = ("harris_score_i32", "harris_score_mask", "smoothed_intensity")
+SYSTEM_KERNELS = ("harris_score_i32", "harris_score_mask", "smoothed_intensity",
+                  "smoothed_intensity_v1")
+# The v1 engine on the bench frames. bench.py's AST threshold 70 finds no
+# v1 corner on these smoothed-noise frames (their local contrast stays under
+# 70; v2's threshold map lowers its effective threshold there), so [v1]
+# prints that certificate and runs threshold 35, which finds about as many
+# corners as v2 does at 70. Its caps are bench.py's AST caps, raised where
+# the frames need it (certified at run time).
+V1_THRESHOLD = 35
+V1_BATCH = 16
+# [camera]: the JAX camera-aware test's radial-tangential camera
+# (tests/test_geometry.py:167-169) at twice its size, and an equidistant
+# camera with the JAX round-trip test's coefficients (:50).
+CAMERA = dict(fu=520.0, fv=520.0, cu=320.0, cv=240.0, width=640, height=480)
+RADTAN = (-0.25, 0.06, 0.0, 0.0)
+EQUIDISTANT = (-0.01, 0.005, -0.002, 0.001)
+CAMERA_STAGES = ("detect", "warp", "describe", "angles")
 STAGES = ("pyramid", "harris", "masks", "candidates", "uniformity", "refine", "describe")
 
 
@@ -124,6 +152,9 @@ K3_OPS_PER_PIXEL = K1_OPS_PER_PIXEL + 4 + 3
 # box branch (73, 20) or the small-sigma bilinear branch (38, 4).
 K2_OPS_BOX = (46 + 73, 10 + 20)
 K2_OPS_SMALL = (46 + 38, 10 + 4)
+# The v1 variant adds one add to the bilinear branch and a halving and an
+# add to the box branch.
+K2_V1_EXTRA = {"box": 2, "small": 1}
 # The 6 x 6 tap grid cells (row, column) each K2 branch reads
 # (sampler.cu's tIJ); the box branch's corner c and d columns depend on
 # ``big``.
@@ -149,7 +180,7 @@ def k2_bound(calls) -> tuple[float, str]:
         for i, j in taps:
             used[name][i, j] = True
     nbytes = int_ops = fp_ops = 0
-    for integral, key_x, key_y, pat_x, pat_y, pat_sigma, _, _, row_base, frame_rows in calls:
+    for integral, key_x, key_y, pat_x, pat_y, pat_sigma, _, _, row_base, frame_rows, *v1 in calls:
         k, p = pat_x.shape
         cols = integral.shape[1] - 1
         g = _tap_geometry(key_x, key_y, pat_x, pat_y, pat_sigma)
@@ -162,6 +193,8 @@ def k2_bound(calls) -> tuple[float, str]:
         nbytes += (3 * 4 * k + 6 * 4 * k * p
                    + measure.distinct_sector_bytes(flat[need], 4, integral.numel()))
         int_ops += K2_OPS_SMALL[0] * n_small + K2_OPS_BOX[0] * (k * p - n_small)
+        if v1 and v1[0]:
+            int_ops += K2_V1_EXTRA["small"] * n_small + K2_V1_EXTRA["box"] * (k * p - n_small)
         fp_ops += K2_OPS_SMALL[1] * n_small + K2_OPS_BOX[1] * (k * p - n_small)
     return measure.bound_ms(nbytes, int32_ops=int_ops, fp32_ops=fp_ops)
 
@@ -546,7 +579,7 @@ def ast_phase(dev: torch.device, card: str, kind: str) -> None:
     torch.cuda.synchronize()
     launches = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
     assert launches == {"harris_score_i32": 0, "harris_score_mask": 0,
-                        "smoothed_intensity": 2}, launches
+                        "smoothed_intensity": 2, "smoothed_intensity_v1": 0}, launches
     b, k = kps.valid.shape
     n_desc = int(diag["describable"])
     assert bool(diag["detect"].ok.all()), diag["detect"]
@@ -632,6 +665,252 @@ def ast_phase(dev: torch.device, card: str, kind: str) -> None:
           f"{k2_bnd[0]:.4f} ms ({k2_bnd[1]}) [{kind}; {card}]", flush=True)
 
 
+def counted(fn):
+    """fn()'s result and the system kernels' launches during it, the
+    counters set to 0 just before and read just after."""
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
+
+
+def v1_caps(frames: torch.Tensor, threshold: int) -> tuple[tuple, list, list]:
+    """bench.py's AST caps, each raised to 1.25 x the most corners any
+    frame's layer holds (in steps of 32) where the frames need it, and
+    certified: (caps, maxima at ``threshold``, maxima at bench.py's 70)."""
+    from ethzasl_brisk_tpu_torch.detect.ast_scale_space import ast_capacity_diagnostics
+
+    bench_caps = AST_DETECTOR["max_candidates_per_layer"]
+    octaves = AST_DETECTOR["octaves"]
+    at70 = ast_capacity_diagnostics(frames, AST_DETECTOR["threshold"], octaves, bench_caps,
+                                    v1=True).corner_counts.max(dim=0).values.tolist()
+    counts = ast_capacity_diagnostics(frames, threshold, octaves, bench_caps,
+                                      v1=True).corner_counts.max(dim=0).values.tolist()
+    caps = tuple(max(c, -(-n * 5 // 4 // 32) * 32) for c, n in zip(bench_caps, counts))
+    cert = ast_capacity_diagnostics(frames, threshold, octaves, caps, v1=True)
+    assert bool(cert.ok.all()), f"[v1] caps {caps} against corners {counts}"
+    return caps, counts, at70
+
+
+def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
+    """The v1 engine on VGA bench frames: the facade, the AST step and the
+    Harris feature, each counted and against a CPU twin; K2's v1 variant
+    against its plain version; the v1 step timed. Returns K2 v1's row."""
+    from ethzasl_brisk_tpu_torch import AstFramePipeline, BriskFeature, BriskFeatureDetector, measure
+    from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity, smoothed_intensity_cuda
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+
+    host = torch.from_numpy(bench_frames(V1_BATCH))
+    frames = host.to(dev)
+    caps, counts, at70 = v1_caps(frames, V1_THRESHOLD)
+    kw = dict(AST_DETECTOR, threshold=V1_THRESHOLD, max_candidates_per_layer=caps, version="v1")
+    det, det_cpu = BriskFeatureDetector(**kw), BriskFeatureDetector(**kw, device="cpu")
+    assert det.descriptor_bytes == 64 and det.extractor.v1_rounding
+    print(f"[v1] B={V1_BATCH} VGA bench frames: v1 corners per layer (max over frames) at "
+          f"threshold 70 {at70}; at {V1_THRESHOLD} {counts}, certified under caps {list(caps)}",
+          flush=True)
+
+    # ---- The facade on 4 frames: K2's v1 variant, 2 launches a frame.
+    got, launches = counted(lambda: [det.detect_and_compute(host[i]) for i in range(4)])
+    assert launches == {"harris_score_i32": 0, "harris_score_mask": 0, "smoothed_intensity": 0,
+                        "smoothed_intensity_v1": 8}, launches
+    n_fac, flips_fac = 0, 0
+    for i, g in enumerate(got):
+        assert g[1].shape == (g[0].capacity, 16), g[1].shape
+        n, f = assert_same_image_outputs(g, det_cpu.detect_and_compute(host[i]),
+                                         f"[v1] facade frame {i}", allow_flips=True)
+        n_fac, flips_fac = n_fac + n, flips_fac + f
+    assert n_fac > 0 and flips_fac <= n_fac // 1000, (flips_fac, n_fac)
+
+    # ---- The AST step at B=16: v2 rounding (the JAX step passes no
+    # v1_rounding), a 512-bit match with sentinel 513.
+    pipe = AstFramePipeline(det, **AST_PIPELINE)
+    step, launches_step = counted(lambda: pipe.step(frames, with_diagnostics=True))
+    assert launches_step == {"harris_score_i32": 0, "harris_score_mask": 0,
+                             "smoothed_intensity": 2, "smoothed_intensity_v1": 0}, launches_step
+    kps, desc, midx, mdist, diag = step
+    assert desc.shape[-1] == 16 and bool(diag["detect"].ok.all())
+    assert int(diag["describable"]) <= AST_PIPELINE["describe_capacity"] * V1_BATCH
+    assert torch.equal(mdist == 513, ~kps.valid[1:]), "[v1] sentinel 513 where query invalid"
+    assert int(mdist.max()) <= 513
+    ref = AstFramePipeline(det_cpu, device="cpu", **AST_PIPELINE).step(host)
+    n_step, flips_step, gap = assert_same_step_flips(step[:4], ref, "[v1] step gpu vs cpu")
+    assert n_step > 0 and flips_step <= n_step // 1000, (flips_step, n_step)
+
+    # ---- The Harris feature with the v1 extractor on one frame.
+    feat = BriskFeature(**BENCH_CONFIG, version="v1")
+    hg, launches_h = counted(lambda: feat.detect_and_compute(host[0]))
+    assert launches_h == {"harris_score_i32": 1, "harris_score_mask": 0, "smoothed_intensity": 0,
+                          "smoothed_intensity_v1": 2}, launches_h
+    n_h, flips_h = assert_same_image_outputs(
+        hg, BriskFeature(**BENCH_CONFIG, version="v1", device="cpu").detect_and_compute(host[0]),
+        "[v1] BriskFeature", allow_flips=True)
+    assert n_h > 0
+    print(f"[v1] detect_and_compute on 4 frames: launches {launches}, {n_fac} valid, {flips_fac} "
+          f"theta bin-edge flips; AstFramePipeline B={V1_BATCH}: launches {launches_step}, "
+          f"{n_step} valid, {flips_step} flips, largest valid angle gap {gap:.3g} deg, describable "
+          f"{int(diag['describable'])}, 512-bit match; BriskFeature(version='v1') on frame 0: "
+          f"launches {launches_h}, {n_h} valid, {flips_h} flips; each against a device='cpu' twin: "
+          f"every other field bitwise, descriptors bitwise where theta agrees [{card}]", flush=True)
+
+    # ---- K2's v1 variant at the facade's shapes, against its plain version.
+    calls = capture_sampler_inputs(lambda: det.detect_and_compute(frames[0]))
+    assert all(c[10] for c in calls), "the facade describes with v1 rounding"
+    err = 0
+    for phase, args in enumerate(calls):
+        got_k2, ref_k2 = smoothed_intensity_cuda(*args), smoothed_intensity(*args)
+        err = max(err, int((got_k2.to(torch.int64) - ref_k2).abs().max()))
+        assert torch.equal(got_k2, ref_k2), f"[v1] K2 v1 differs in phase {phase}"
+    small = sum(int((c[5] < 0.5).sum()) for c in calls)
+    # The v1 ring's smallest sigma is 0.65 at pattern_scale 1, so the
+    # bilinear branch is dead above; at 0.5 it is live.
+    from ethzasl_brisk_tpu_torch.describe.extractor import BriskExtractor
+
+    import numpy as np
+
+    from ethzasl_brisk_tpu_torch import KeyPoints
+
+    half = BriskExtractor(version="v1", pattern_scale=0.5)
+    rng = np.random.default_rng(5)
+    h, w = host.shape[1:]
+    # Sizes from 4 px: scale index 0 (size under ~7.5) holds the sigmas < 0.5.
+    kps05 = KeyPoints.from_numpy(rng.uniform(0, w, 1024), rng.uniform(0, h, 1024),
+                                 rng.uniform(4, 24, 1024))
+    calls05 = capture_sampler_inputs(lambda: half(frames[0], kps05))
+    small05 = sum(int((c[5] < 0.5).sum()) for c in calls05)
+    assert small05 > 0, "[v1] the bilinear branch is live at pattern_scale 0.5"
+    for phase, args in enumerate(calls05):
+        assert torch.equal(smoothed_intensity_cuda(*args), smoothed_intensity(*args)), \
+            f"[v1] K2 v1 differs at pattern_scale 0.5, phase {phase}"
+    k2_ms = measure.cuda_time(lambda: [smoothed_intensity_cuda(*a) for a in calls])
+    k2_plain = measure.cuda_time(lambda: [smoothed_intensity(*a) for a in calls])
+    k2_dev = measure.device_time(lambda: [smoothed_intensity_cuda(*a) for a in calls], dev,
+                                 ("k2_sampler_kernel",))
+    bnd = k2_bound(calls)
+    print(f"[v1 K2] v1 rounding, 2 phases, K x P = {tuple(calls[0][3].shape)} ({small} "
+          f"small-sigma points; at pattern_scale 0.5 {small05}, bitwise too): bitwise vs plain; "
+          f"{k2_ms:.3f} ms (device {k2_dev:.4f} ms) vs "
+          f"plain {k2_plain:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{kind}; {card}]", flush=True)
+
+    # ---- The v1 step timed at B=16.
+    torch.cuda.reset_peak_memory_stats()
+    med, low, stages = timed_steps(pipe, frames, AST_STAGES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stage_txt = ", ".join(f"{n} {t:.3f}" for n, t in stages.items())
+    print(f"[v1 timing] step B={V1_BATCH}: median {med:.3f} ms, min {low:.3f} ms of 10 (3 warm-up), "
+          f"{V1_BATCH / med * 1e3:.1f} frames/s; stages ms: {stage_txt}; peak mem {peak:.2f} GiB "
+          f"[{kind}; {card}]", flush=True)
+    return dict(name="smoothed_intensity_v1", route="cuda",
+                source="ethzasl_brisk_tpu_torch/csrc/sampler.cu",
+                replaces="ethzasl_brisk_tpu/describe/pallas_sampler.py:46",
+                launches=launches["smoothed_intensity_v1"], max_abs_err=err, ms=k2_ms,
+                device_ms=k2_dev, plain_ms=k2_plain, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=None)
+
+
+def assert_same_camera_outputs(got, ref, what: str) -> tuple[int, int, float]:
+    """A camera-aware run on the card against the CPU: every keypoint field
+    but the angle bitwise (x and y within 1 ULP, as the Harris detection's
+    on the card); descriptors bitwise on at least 99.9 % of the valid
+    keypoints (a view angle's theta may flip at a bin edge); the angle
+    within 1e-2 degree. Returns (valid, descriptor rows that differ,
+    largest valid angle gap)."""
+    (kg, dg), (kc, dc) = got, ref
+    for name in ("size", "response", "octave", "valid"):
+        assert torch.equal(getattr(kg, name).cpu(), getattr(kc, name)), f"{what}: {name}"
+    assert max(ulp_gap(kg.x, kc.x), ulp_gap(kg.y, kc.y)) <= 1, f"{what}: x/y"
+    v = kc.valid
+    rows = int((dg.cpu() != dc).any(dim=1)[v].sum())
+    n = int(v.sum())
+    assert n > 0 and rows <= n // 1000, (what, rows, n)
+    gap = float((kg.angle.cpu() - kc.angle).abs()[v].max())
+    assert gap < 1e-2, (what, gap)
+    return n, rows, gap
+
+
+def camera_phase(dev: torch.device, card: str, kind: str) -> None:
+    """The camera-aware path on a VGA bench frame taken as the distorted
+    image: two grids and the single view, counted, against the CPU, timed."""
+    from ethzasl_brisk_tpu_torch import BriskFeature, measure
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+    from ethzasl_brisk_tpu_torch.geometry import (
+        EquidistantDistortion,
+        PinholeCamera,
+        RadialTangentialDistortion,
+    )
+    from ethzasl_brisk_tpu_torch.geometry.camera_aware import (
+        CameraAwareFeature,
+        CameraAwareFeatureGrid,
+    )
+
+    host = torch.from_numpy(bench_frames(1, seed=13)[0])
+    img = host.to(dev)
+    feature, feature_cpu = BriskFeature(**BENCH_CONFIG), BriskFeature(**BENCH_CONFIG, device="cpu")
+    diag = feature.detect_with_diagnostics(img)[1]
+    assert bool(diag.ok), f"[camera] detect certificate: {diag}"
+    cams = {
+        "radtan": PinholeCamera(**CAMERA, distortion=RadialTangentialDistortion(*RADTAN)),
+        "equidistant": PinholeCamera(**CAMERA, distortion=EquidistantDistortion(*EQUIDISTANT)),
+    }
+    expect = {"harris_score_i32": 1, "harris_score_mask": 0, "smoothed_intensity": 2,
+              "smoothed_intensity_v1": 0}
+    for name, cam in cams.items():
+        t0 = time.perf_counter()
+        grid = CameraAwareFeatureGrid(cam, feature)
+        build_s = time.perf_counter() - t0
+        grid_cpu = CameraAwareFeatureGrid(cam, feature_cpu, device="cpu")
+        got, launches = counted(lambda: grid.detect_and_compute(host))
+        assert launches == expect, (name, launches)
+        assert got[1].shape == (got[0].capacity, 12) and bool(torch.isfinite(got[0].angle).all())
+        n, rows, gap = assert_same_camera_outputs(got, grid_cpu.detect_and_compute(host),
+                                                  f"[camera] {name} grid")
+        for _ in range(3):
+            grid.detect_and_compute(img)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        totals, stages = [], {s: [] for s in CAMERA_STAGES}
+        for _ in range(10):
+            marks = []
+
+            def mark(stage):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                marks.append((stage, e))
+
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            grid.detect_and_compute(img, mark=mark)
+            torch.cuda.synchronize()
+            prev = start
+            for stage, e in marks:
+                stages[stage].append(prev.elapsed_time(e))
+                prev = e
+            totals.append(start.elapsed_time(marks[-1][1]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stage_txt = ", ".join(f"{s} {statistics.median(t):.3f}" for s, t in stages.items())
+        print(f"[camera] {name} grid: {grid.n_views} views ({grid.n_x} x {grid.n_y}), padded view "
+              f"{tuple(grid.dist_maps.shape[1:3])}, views built on the host in {build_s:.2f} s; "
+              f"launches {launches}; {n} valid, GPU vs CPU: fields bitwise (x/y within 1 ULP), "
+              f"{rows} descriptor rows differ, largest angle gap {gap:.3g} deg; "
+              f"detect_and_compute median {statistics.median(totals):.3f} ms, min "
+              f"{min(totals):.3f} of 10 (3 warm-up); stages ms: {stage_txt}; peak mem "
+              f"{peak:.3f} GiB [{kind}; {card}]", flush=True)
+
+    single = CameraAwareFeature(cams["radtan"], feature)
+    got, launches = counted(lambda: single.detect_and_compute(host))
+    assert launches == expect, launches
+    ref = CameraAwareFeature(cams["radtan"], feature_cpu).detect_and_compute(host)
+    assert torch.equal(got[2].cpu(), ref[2]), "[camera] single view warp"
+    n, rows, gap = assert_same_camera_outputs(got[:2], ref[:2], "[camera] single view")
+    ms = measure.cuda_time(lambda: single.detect_and_compute(img))
+    print(f"[camera] single view (radtan): launches {launches}; warp bitwise, {n} valid, {rows} "
+          f"descriptor rows differ, largest angle gap {gap:.3g} deg; detect_and_compute median "
+          f"{ms:.3f} ms of 10 [{kind}; {card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -656,6 +935,7 @@ def main() -> int:
     from ethzasl_brisk_tpu_torch.probes import cases as probe_cases
     cuda_time = measure.cuda_time
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = measure.card_line(dev)
@@ -825,6 +1105,8 @@ def main() -> int:
     u16_phase(dev, card)
     facade_phase(dev, card)
     ast_phase(dev, card, kind)
+    v1_row = v1_phase(dev, card, kind)
+    camera_phase(dev, card, kind)
 
     # ---- The gather probes P1, P3 and P2: every call of the 26 pallas_call
     # sites at full size, its kernel counted (once per call) and bitwise
@@ -913,8 +1195,9 @@ def main() -> int:
              "ethzasl_brisk_tpu/kernels/pallas_harris.py:177",
              fused_launches["harris_score_mask"], k3_err, "k3"),
         )
-    ] + probe_rows
+    ] + [v1_row] + probe_rows
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"[wall] {time.perf_counter() - t_start:.1f} s from start to the kernels line", flush=True)
     print(f"[card] {card}", flush=True)
     # The run uses one card, whatever the machine holds.
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}),

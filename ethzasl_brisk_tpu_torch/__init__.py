@@ -10,8 +10,10 @@ The entry points (``BriskFeature``, ``BriskExtractor``,
 ``HarrisFeatureDetector``, ``FramePipeline``, the classic AGAST/OAST
 ``BriskFeatureDetector`` with ``compute_scale``, and ``AstFramePipeline``)
 run on the card unless given
-``device="cpu"``; they move their input images there. ``probes`` holds the
-TPU gather probes as GPU probes (``python -m ethzasl_brisk_tpu_torch.probes``).
+``device="cpu"``; they move their input images there. ``version="v1"``
+selects the v1 engine. ``geometry`` holds the cameras and the camera-aware
+path (``geometry/camera_aware.py``), ``probes`` the TPU gather probes as
+GPU probes (``python -m ethzasl_brisk_tpu_torch.probes``).
 
 Quick start (one image, on the card)::
 

@@ -42,6 +42,8 @@ NVCC_FLAGS = (
 LAUNCHES = {
     # K1 and K3 count one per launch, which covers every pyramid layer of a call.
     "harris_score_i32": 0, "harris_score_mask": 0, "smoothed_intensity": 0,
+    # K2's v1-rounding variant (the same entry point with its flag set).
+    "smoothed_intensity_v1": 0,
     # The gather probes' kernels: G1, G2, C, W (probes/gather.py); T, X, S
     # (probes/mosaic.py).
     "probe_take": 0, "probe_point_gather": 0, "probe_relayout": 0, "probe_window_copy": 0,
@@ -151,7 +153,7 @@ def library() -> ctypes.CDLL:
                 vp, ci, ci,                # integral, cols, frame_rows
                 vp, vp,                    # key_x, key_y
                 vp, vp, vp, vp, vp,        # pat_x, pat_y, sigma, scaling, scaling2
-                vp, vp, ci, ci, vp,        # row_base, out, K, P, stream
+                vp, vp, ci, ci, ci, vp,    # row_base, out, K, P, v1_rounding, stream
             ]
             lib.brisk_smoothed_intensity.restype = ci
             lib.brisk_probe_take.argtypes = [

@@ -25,6 +25,7 @@ SAMPLERS = ("gather", "patch", "patch_ms", "patch_pallas")
 TOPK_IMPLS = ("sort", "select", "compact", "block")
 DETECT_IMPLS = ("candidates", "dense")
 RAW_CACHE_MODELS = ("emulated", "exact", "cache", "corner")
+VERSIONS = ("v2", "v1")
 
 
 def _choice(name: str, value, choices: tuple[str, ...]) -> None:
@@ -42,16 +43,9 @@ def _flag(name: str, value) -> None:
         raise ValueError(f"{name}={value!r}: expected a bool")
 
 
-def check_version(version: str, pattern_file) -> None:
-    """Only the v2 engine is ported; v1 (and its pattern files) is later
-    work."""
-    if version == "v1" or pattern_file is not None:
-        raise NotImplementedError(
-            "the v1 engine (version='v1', pattern_file) is not ported yet: "
-            "ROADMAP.md Queue 1 item 5"
-        )
-    if version != "v2":
-        raise ValueError(f"version={version!r}: expected 'v2' (or 'v1', not ported yet)")
+def check_version(version: str) -> None:
+    """The descriptor engine: ``"v2"`` or the legacy ``"v1"``."""
+    _choice("version", version, VERSIONS)
 
 
 def check_extractor_selectors(sampler: str, patch_h: int, patch_w: int) -> None:

@@ -36,6 +36,12 @@
 // defined (it matches torch's int32 wrap; it never happens for keypoints
 // inside the frame), and the final division floors like Python's //.
 //
+// The v1 engine's rounding (brisk-v1.cc:246, :331, :366; the JAX samplers'
+// v1_rounding, pallas_sampler.py:466-470) is the template flag V1: each
+// division adds half its divisor first, +512 before the bilinear branch's
+// /1024 and +max(scaling2, 1)/2 before the box branch's /scaling2, in
+// uint32 like the sums. It costs one add (and a shift) a point.
+//
 // Bound: bytes, the integral sectors the taps touch, the keypoint and
 // pattern inputs and the output. What holds the kernel back is the L1
 // traffic of scattered 4-byte taps: the 32 lanes of a load touch different
@@ -93,6 +99,7 @@ __device__ __forceinline__ Geom geometry(float kx, float ky, float px, float py,
 
 // The value x1024 of one point from its geometry and the integral of its
 // frame (`frame` points at the frame's row 0).
+template <bool V1>
 __device__ __forceinline__ int point_value(const int32_t* __restrict__ frame, int stride,
                                            const Geom& g, int frame_rows, int cols,
                                            int scaling, int scaling2) {
@@ -117,7 +124,7 @@ __device__ __forceinline__ int point_value(const int32_t* __restrict__ frame, in
     const uint32_t r_x = (uint32_t)trunc_i32((g.xf - (float)g.x_i) * 1024.0f);
     const uint32_t r_y = (uint32_t)trunc_i32((g.yf - (float)g.y_i) * 1024.0f);
     const uint32_t sum = (1024u - r_x) * (1024u - r_y) * s00 + r_x * (1024u - r_y) * s01 +
-                         r_x * r_y * s11 + (1024u - r_x) * r_y * s10;
+                         r_x * r_y * s11 + (1024u - r_x) * r_y * s10 + (V1 ? 512u : 0u);
     return floordiv((int)sum, 1024);
   }
   // ---- Box branch (:410-495), corner pixels from integral differences.
@@ -165,10 +172,13 @@ __device__ __forceinline__ int point_value(const int32_t* __restrict__ frame, in
   const uint32_t left = (t41 - t11 + t10 - t40) * r_x_1_i;
   const uint32_t right = (t44 - t14 + t13 - t43) * r_x1_i;
   const uint32_t bottom = (t53 - t43 + t41 - t51) * r_y1_i;
-  const uint32_t total = corners + upper + middle + left + right + bottom;
-  return floordiv((int)total, max(scaling2, 1));
+  const int divisor = max(scaling2, 1);
+  const uint32_t total = corners + upper + middle + left + right + bottom +
+                         (V1 ? (uint32_t)(divisor / 2) : 0u);
+  return floordiv((int)total, divisor);
 }
 
+template <bool V1>
 __global__ void __launch_bounds__(kThreads) k2_sampler_kernel(
     const int32_t* __restrict__ integral, int cols, int frame_rows,
     const float* __restrict__ key_x, const float* __restrict__ key_y,
@@ -181,27 +191,41 @@ __global__ void __launch_bounds__(kThreads) k2_sampler_kernel(
   const int k = t / P;
   const int stride = cols + 1;
   const Geom g = geometry(key_x[k], key_y[k], pat_x[t], pat_y[t], pat_sigma[t]);
-  out[t] = point_value(integral + (size_t)row_base[k] * stride, stride, g, frame_rows, cols,
+  out[t] = point_value<V1>(integral + (size_t)row_base[k] * stride, stride, g, frame_rows, cols,
                        pat_scaling[t], pat_scaling2[t]);
+}
+
+template <bool V1>
+void launch_k2(const void* integral, int cols, int frame_rows, const void* key_x,
+               const void* key_y, const void* pat_x, const void* pat_y, const void* pat_sigma,
+               const void* pat_scaling, const void* pat_scaling2, const void* row_base,
+               void* out, int n, int P, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  k2_sampler_kernel<V1><<<blocks, kThreads, 0, stream>>>(
+      (const int32_t*)integral, cols, frame_rows, (const float*)key_x,
+      (const float*)key_y, (const float*)pat_x, (const float*)pat_y,
+      (const float*)pat_sigma, (const int32_t*)pat_scaling,
+      (const int32_t*)pat_scaling2, (const int32_t*)row_base, (int32_t*)out, n, P);
 }
 
 }  // namespace
 
 // K2 on K keypoints of P points: out (K, P) int32. K * P, and the
 // (frame_rows + 1) * (cols + 1) ints of one frame, stay under 2^31.
+// v1_rounding != 0 launches the v1 engine's rounding.
 extern "C" int brisk_smoothed_intensity(
     const void* integral, int cols, int frame_rows, const void* key_x,
     const void* key_y, const void* pat_x, const void* pat_y, const void* pat_sigma,
     const void* pat_scaling, const void* pat_scaling2, const void* row_base, void* out,
-    int K, int P, void* stream) {
+    int K, int P, int v1_rounding, void* stream) {
   const long long n = (long long)K * P;
   if (n > INT32_MAX || (long long)(frame_rows + 1) * (cols + 1) > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  k2_sampler_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)integral, cols, frame_rows, (const float*)key_x,
-      (const float*)key_y, (const float*)pat_x, (const float*)pat_y,
-      (const float*)pat_sigma, (const int32_t*)pat_scaling,
-      (const int32_t*)pat_scaling2, (const int32_t*)row_base, (int32_t*)out, (int)n, P);
+  if (v1_rounding)
+    launch_k2<true>(integral, cols, frame_rows, key_x, key_y, pat_x, pat_y, pat_sigma,
+                    pat_scaling, pat_scaling2, row_base, out, (int)n, P, (cudaStream_t)stream);
+  else
+    launch_k2<false>(integral, cols, frame_rows, key_x, key_y, pat_x, pat_y, pat_sigma,
+                     pat_scaling, pat_scaling2, row_base, out, (int)n, P, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,12 @@ from a 6x6 grid of integral-image taps:
 Wherever all taps lie inside the frame (every describable keypoint) this
 equals ``smoothed_intensity_u8`` and the TPU samplers bit for bit.
 
+``v1_rounding`` is the v1 engine's rounding (brisk-v1.cc:246, :331, :366;
+the JAX samplers' ``v1_rounding``): each division adds half its divisor
+first, ``+ 512`` before ``// 1024`` in the small-sigma bilinear branch and
+``+ max(scaling2, 1) // 2`` before ``// scaling2`` in the box branch, in
+int32 with wrap-around as the sums are.
+
 ``smoothed_intensity`` is the plain torch version and
 ``smoothed_intensity_cuda`` launches kernel K2 (``csrc/sampler.cu``); the
 pipeline calls ``smoothed_intensity_fused``, which picks by device.
@@ -63,7 +69,7 @@ def _tap_geometry(key_x, key_y, pat_x, pat_y, pat_sigma) -> dict:
     )
 
 
-def _values_from_taps(taps, g, pat_scaling, pat_scaling2) -> torch.Tensor:
+def _values_from_taps(taps, g, pat_scaling, pat_scaling2, v1_rounding=False) -> torch.Tensor:
     """(K, P, 6, 6) int32 taps -> (K, P) int32 values x1024.
 
     Grid rows: 0=y_top 1=y_top+1 2=cd_y 3=cd_y+1 4=y_bottom 5=y_bottom+1;
@@ -110,7 +116,10 @@ def _values_from_taps(taps, g, pat_scaling, pat_scaling2) -> torch.Tensor:
     right = (t5 - t4 + t3 - t6) * r_x1_i
     bottom = (t7 - t6 + t9 - t8) * r_y1_i
     total = corners + upper + middle + left + right + bottom
-    box = torch.div(total, torch.clamp(pat_scaling2, min=1), rounding_mode="floor")
+    scaling2 = torch.clamp(pat_scaling2, min=1)
+    if v1_rounding:
+        total = total + torch.div(scaling2, 2, rounding_mode="floor")
+    box = torch.div(total, scaling2, rounding_mode="floor")
 
     # Small-sigma bilinear (:391-408).
     s00 = it(1, 1) - it(0, 1) - it(1, 0) + it(0, 0)
@@ -119,12 +128,13 @@ def _values_from_taps(taps, g, pat_scaling, pat_scaling2) -> torch.Tensor:
     s11 = it(2, 2) - it(1, 2) - it(2, 1) + it(1, 1)
     r_x = _trunc_i32((g["xf"] - g["x_i"].to(torch.float32)) * 1024)
     r_y = _trunc_i32((g["yf"] - g["y_i"].to(torch.float32)) * 1024)
-    small_val = torch.div(
+    small_sum = (
         (1024 - r_x) * (1024 - r_y) * s00 + r_x * (1024 - r_y) * s01
-        + r_x * r_y * s11 + (1024 - r_x) * r_y * s10,
-        1024,
-        rounding_mode="floor",
+        + r_x * r_y * s11 + (1024 - r_x) * r_y * s10
     )
+    if v1_rounding:
+        small_sum = small_sum + 512
+    small_val = torch.div(small_sum, 1024, rounding_mode="floor")
     return torch.where(g["small"], small_val, box)
 
 
@@ -139,6 +149,7 @@ def smoothed_intensity(
     pat_scaling2: torch.Tensor,  # (K, P) i32
     row_base: torch.Tensor,      # (K,) i32 first integral row of the keypoint's frame
     frame_rows: int,             # frame height (its integral has frame_rows+1 rows)
+    v1_rounding: bool = False,   # the v1 engine's half-divisor rounding
 ) -> torch.Tensor:
     """Plain version of kernel K2: (K, P) int32 smoothed intensities x1024."""
     cols = integral.shape[1] - 1
@@ -148,14 +159,16 @@ def smoothed_intensity(
     cols_c = torch.clamp(g["col_coords"], 0, cols).to(torch.int64)
     flat_idx = rows[..., :, None] + cols_c[..., None, :]  # (K, P, 6, 6)
     taps = integral.reshape(-1)[flat_idx]
-    return _values_from_taps(taps, g, pat_scaling, pat_scaling2)
+    return _values_from_taps(taps, g, pat_scaling, pat_scaling2, v1_rounding)
 
 
 def smoothed_intensity_cuda(
     integral, key_x, key_y, pat_x, pat_y, pat_sigma, pat_scaling, pat_scaling2,
-    row_base, frame_rows: int,
+    row_base, frame_rows: int, v1_rounding: bool = False,
 ) -> torch.Tensor:
-    """Kernel K2: the same values as :func:`smoothed_intensity`, on the card."""
+    """Kernel K2: the same values as :func:`smoothed_intensity`, on the card.
+    ``v1_rounding`` launches its v1 variant, counted as
+    ``smoothed_intensity_v1``."""
     dev = integral.device
     if dev.type != "cuda":
         raise ValueError(f"smoothed_intensity_cuda needs CUDA tensors, got {dev}")
@@ -183,14 +196,15 @@ def smoothed_intensity_cuda(
     out = torch.empty((k, p), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    _kernels.launch(
-        "smoothed_intensity", "smoothed_intensity", dev,
-        integral.data_ptr(), integral.shape[1] - 1, frame_rows,
-        key_x.data_ptr(), key_y.data_ptr(),
-        pat_x.data_ptr(), pat_y.data_ptr(), pat_sigma.data_ptr(),
-        pat_scaling.data_ptr(), pat_scaling2.data_ptr(),
-        row_base.data_ptr(), out.data_ptr(), k, p,
-    )
+    args = (integral.data_ptr(), integral.shape[1] - 1, frame_rows,
+            key_x.data_ptr(), key_y.data_ptr(),
+            pat_x.data_ptr(), pat_y.data_ptr(), pat_sigma.data_ptr(),
+            pat_scaling.data_ptr(), pat_scaling2.data_ptr(),
+            row_base.data_ptr(), out.data_ptr(), k, p)
+    if v1_rounding:
+        _kernels.launch("smoothed_intensity", "smoothed_intensity_v1", dev, *args, 1)
+    else:
+        _kernels.launch("smoothed_intensity", "smoothed_intensity", dev, *args, 0)
     return out
 
 

@@ -290,11 +290,12 @@ def exact_is2d_layer(
     return is2d
 
 
-def exact_is2d_layers(layers: list[AstLayerMaps], cand) -> list[torch.Tensor]:
+def exact_is2d_layers(layers: list[AstLayerMaps], cand,
+                      drop: int = K_DROP_THRESHOLD) -> list[torch.Tensor]:
     """The ``exact`` model's IsMax2D masks of every layer: per layer, the
     order-independent 3-D gates feed the same-layer 3x3 write condition,
     and the accepted candidates' exact above-scan stamps prefill the next
-    layer."""
+    layer. ``drop`` is the scans' drop threshold (0 for the v1 engine)."""
     n_layers = len(layers)
     prefill = torch.zeros(layers[0].cache.shape, dtype=torch.bool, device=layers[0].cache.device)
     out = []
@@ -306,15 +307,15 @@ def exact_is2d_layers(layers: list[AstLayerMaps], cand) -> list[torch.Tensor]:
         if n_layers == 1:
             gate = torch.ones_like(valid)
         elif i == n_layers - 1:
-            gate = _score_patch_max(layers[i - 1], xs, ys, center, mode_b)[0]
+            gate = _score_patch_max(layers[i - 1], xs, ys, center, mode_b, drop)[0]
         else:
-            gate = _score_patch_max(layers[i + 1], xs, ys, center, mode_a)[0]
+            gate = _score_patch_max(layers[i + 1], xs, ys, center, mode_a, drop)[0]
             if i > 0:  # layer 0's below guess (AGAST 5/8) never rejects
-                gate = gate & _score_patch_max(layers[i - 1], xs, ys, center, mode_b)[0]
+                gate = gate & _score_patch_max(layers[i - 1], xs, ys, center, mode_b, drop)[0]
         is2d = exact_is2d_layer(layers[i], xs, ys, valid, gate, prefill,
                                 float_patch=(i == n_layers - 1))
         out.append(is2d)
         if i + 1 < n_layers:
-            ax, ay, stamp = above_scan_stamps(layers[i + 1], xs, ys, center, mode_a)
+            ax, ay, stamp = above_scan_stamps(layers[i + 1], xs, ys, center, mode_a, drop)
             prefill = scatter_stamps(layers[i + 1], ax, ay, stamp, valid & is2d)
     return out

@@ -46,7 +46,12 @@ from ethzasl_brisk_tpu_torch.core.selectors import check_raw_cache_model
 from ethzasl_brisk_tpu_torch.detect.ast_layer import AstLayerMaps, _shift, build_ast_layer
 from ethzasl_brisk_tpu_torch.detect.scale_space import Mark, _no_mark
 from ethzasl_brisk_tpu_torch.kernels.agast import agast5_8_score_map
-from ethzasl_brisk_tpu_torch.kernels.downsample import halfsample8, twothirdsample8
+from ethzasl_brisk_tpu_torch.kernels.downsample import (
+    halfsample8,
+    halfsample8_v1,
+    twothirdsample8,
+    twothirdsample8_v1,
+)
 
 f32 = torch.float32
 f64 = torch.float64
@@ -100,15 +105,19 @@ def _layer_geometry(i: int) -> tuple[float, float]:
     return scale, 0.5 * scale - 0.5
 
 
-def pyramid_images(imgs: torch.Tensor, octaves: int) -> list[torch.Tensor]:
+def pyramid_images(imgs: torch.Tensor, octaves: int, v1: bool = False) -> list[torch.Tensor]:
     """ConstructPyramid's images (brisk-scale-space.cc:64-90): the input,
-    its two-thirds sample, then half samples of the layer two below."""
+    its two-thirds sample, then half samples of the layer two below. The v1
+    engine has the same geometry (brisk-v1.cc:577-593) with its own
+    resamplers, whose rounding differs on every derived layer."""
+    half, twothirds = (halfsample8_v1, twothirdsample8_v1) if v1 else (halfsample8,
+                                                                       twothirdsample8)
     n_layers = max(2 * octaves, 1)
     out = [imgs]
     if n_layers > 1:
-        out.append(twothirdsample8(imgs))
+        out.append(twothirds(imgs))
     for i in range(2, n_layers):
-        out.append(halfsample8(out[i - 2]))
+        out.append(half(out[i - 2]))
     return out
 
 
@@ -121,8 +130,9 @@ def build_ast_pyramid(
     v1: bool = False,
     mark: Mark = _no_mark,
 ) -> list[AstLayerMaps]:
-    """The layers of ConstructPyramid with their dense maps."""
-    images = pyramid_images(imgs, octaves)
+    """The layers of ConstructPyramid with their dense maps (``v1``: the
+    legacy engine's resamplers and layers)."""
+    images = pyramid_images(imgs, octaves, v1)
     mark("pyramid")
     layers = []
     for i, im in enumerate(images):
@@ -533,7 +543,8 @@ def _score_patch_max(
     order, its first-strict-maximum rule, the below-scan smoothing
     tie-break, the missing threshold check on the bottom row, and the final
     Subpixel2D and saturation. ``drop`` is the v2 engine's
-    kDropThreshold_ (a probe above thr + drop rejects).
+    kDropThreshold_ (a probe above thr + drop rejects); the v1 engine
+    compares with the center score itself (brisk-v1.cc:1113-1120): 0.
     """
     threshold = (thr + drop).to(f32)
     xsf, ysf = xs.to(f32), ys.to(f32)
@@ -668,7 +679,11 @@ def _score_patch_max(
 # ---------------------------------------------------------------------------
 # Refine3D (brisk-scale-space.cc:534-754).
 # ---------------------------------------------------------------------------
-def _weak_edge(s_1_1, max_above, max_below_f):
+def _weak_edge(s_1_1, max_above, max_below_f, v1: bool):
+    """(no_refine, discard) of the scale-axis tests (:612-630); v1 has none."""
+    if v1:
+        return torch.zeros_like(max_above, dtype=torch.bool), torch.zeros_like(
+            max_above, dtype=torch.bool)
     weak = ((s_1_1 - K_MAX_THRESHOLD).to(f32) < max_above) | (
         (s_1_1 - K_MAX_THRESHOLD).to(f32) < max_below_f)
     edge = ((s_1_1 - K_MIN_DROP).to(f32) > max_above) | (
@@ -676,16 +691,25 @@ def _weak_edge(s_1_1, max_above, max_below_f):
     return weak & edge, weak & ~edge
 
 
-def refine3d(layers: list[AstLayerMaps], i: int, xs, ys, t58_layer0: Optional[torch.Tensor]):
+def _drop(v1: bool) -> int:
+    return 0 if v1 else K_DROP_THRESHOLD
+
+
+def refine3d(layers: list[AstLayerMaps], i: int, xs, ys, t58_layer0: Optional[torch.Tensor],
+             v1: bool = False):
     """Refine3D of the candidates of layer i (not the last layer).
 
     Returns (ismax, score, x, y, scale_total, ismax_above, ismax_below) in
-    the original image's coordinates."""
+    the original image's coordinates. ``v1``: the legacy engine
+    (brisk-v1.cc:942-1110) has no scale-axis weak/edge gates (it always
+    refines the scale) and scans with drop 0."""
     this = layers[i]
     center = _cache_score(this, xs, ys)
+    drop = _drop(v1)
     is_octave = i % 2 == 0
     above_mode = "above_octave" if is_octave else "above_intra"
-    ismax_a, max_above, dxa, dya = _score_patch_max(layers[i + 1], xs, ys, center, above_mode)
+    ismax_a, max_above, dxa, dya = _score_patch_max(layers[i + 1], xs, ys, center, above_mode,
+                                                    drop=drop)
 
     patch = _patch33(lambda xg, yg: _cache_score(this, xg, yg), xs, ys)
     dxl, dyl, max_layer = ast_subpixel2d(patch)
@@ -702,14 +726,17 @@ def refine3d(layers: list[AstLayerMaps], i: int, xs, ys, t58_layer0: Optional[to
             max_below_f = p58.reshape(p58.shape[:-2] + (9,)).amax(dim=-1).to(f32)
             dxb, dyb, _ = ast_subpixel2d(p58)
             ismax_b = torch.ones_like(ismax_a)
-            # Scale-axis tests (:612-630).
-            no_refine = (s_1_1 - K_MAX_THRESHOLD) <= _trunc_i32(max_above)
-            discard = torch.zeros_like(no_refine)
+            # Scale-axis tests (:612-630); v1 has none (brisk-v1.cc:1012).
+            if v1:
+                no_refine = discard = torch.zeros_like(ismax_a)
+            else:
+                no_refine = (s_1_1 - K_MAX_THRESHOLD) <= _trunc_i32(max_above)
+                discard = torch.zeros_like(no_refine)
             r_scale, r_max = refine1d_2(max_below_f, max_layer_or_center, max_above)
         else:
             ismax_b, max_below_f, dxb, dyb = _score_patch_max(
-                layers[i - 1], xs, ys, center, "below_octave")
-            no_refine, discard = _weak_edge(s_1_1, max_above, max_below_f)
+                layers[i - 1], xs, ys, center, "below_octave", drop=drop)
+            no_refine, discard = _weak_edge(s_1_1, max_above, max_below_f, v1)
             r_scale, r_max = refine1d(max_below_f, max_layer_or_center, max_above)
         scale = torch.where(no_refine, _f32(1.0, xs), r_scale)
         mx = torch.where(no_refine, max_layer, r_max)
@@ -734,8 +761,8 @@ def refine3d(layers: list[AstLayerMaps], i: int, xs, ys, t58_layer0: Optional[to
             y_out = torch.where(up, _fmul(y_up, ls) + lo, _fmul(y_dn, ls) + lo)
     else:
         ismax_b, max_below_f, dxb, dyb = _score_patch_max(
-            layers[i - 1], xs, ys, center, "below_intra")
-        no_refine, discard = _weak_edge(s_1_1, max_above, max_below_f)
+            layers[i - 1], xs, ys, center, "below_intra", drop=drop)
+        no_refine, discard = _weak_edge(s_1_1, max_above, max_below_f, v1)
         r_scale, r_max = refine1d_1(max_below_f, max_layer_or_center, max_above)
         scale = torch.where(no_refine, _f32(1.0, xs), r_scale)
         mx = torch.where(no_refine, max_layer, r_max)
@@ -761,7 +788,8 @@ def refine3d(layers: list[AstLayerMaps], i: int, xs, ys, t58_layer0: Optional[to
 # ---------------------------------------------------------------------------
 # Detection (BriskFeatureDetector::detectImpl + GetKeypoints).
 # ---------------------------------------------------------------------------
-def _process_layer(layers, i, xs, ys, t58, e_query, e_patch, prefill, is2d_override=None):
+def _process_layer(layers, i, xs, ys, t58, e_query, e_patch, prefill, is2d_override=None,
+                   v1=False):
     """One layer's maxima pipeline: (is2d, accepted, (x, y, size, score,
     octave), ismax_above, ismax_below)."""
     layer = layers[i]
@@ -785,7 +813,8 @@ def _process_layer(layers, i, xs, ys, t58, e_query, e_patch, prefill, is2d_overr
     elif i == n_layers - 1:
         center = _cache_score(layer, xs, ys)
         below_mode = "below_octave" if i % 2 == 0 else "below_intra"
-        ismax_b, _, _, _ = _score_patch_max(layers[i - 1], xs, ys, center, below_mode)
+        ismax_b, _, _, _ = _score_patch_max(layers[i - 1], xs, ys, center, below_mode,
+                                            drop=_drop(v1))
         patch = _patch33(lambda xg, yg: _cache_score(layer, xg, yg), xs, ys)
         dxl, dyl, score = ast_subpixel2d(patch)
         x_out = _fmul(xs.to(f32) + dxl, ls) + lo
@@ -795,7 +824,7 @@ def _process_layer(layers, i, xs, ys, t58, e_query, e_patch, prefill, is2d_overr
         ismax_a = ones
     else:
         ismax, score, x_out, y_out, scale_total, ismax_a, ismax_b = refine3d(
-            layers, i, xs, ys, t58)
+            layers, i, xs, ys, t58, v1)
         size = K_BASIC_SIZE * scale_total
         accepted = is2d & ismax
     return is2d, accepted, (x_out, y_out, size, score, i), ismax_a, ismax_b
@@ -996,16 +1025,12 @@ def detect_ast_keypoints(
     ``mark(stage)`` is called after each stage: pyramid, layers,
     candidates, pass1 and aux (``emulated`` only), pass2.
     """
-    if v1:
-        raise NotImplementedError(
-            "the v1 engine (version='v1') is not ported yet: ROADMAP.md Queue 1 item 5"
-        )
     check_raw_cache_model(raw_cache_model)
     if imgs.dim() != 3 or imgs.dtype != torch.uint8:
         raise ValueError(f"expected uint8 frames (B, H, W), got {imgs.dtype} {tuple(imgs.shape)}")
     dev = imgs.device
     bsz = imgs.shape[0]
-    layers = build_ast_pyramid(imgs, octaves, threshold, lower=lower_threshold, mark=mark)
+    layers = build_ast_pyramid(imgs, octaves, threshold, lower=lower_threshold, v1=v1, mark=mark)
     n_layers = len(layers)
     t58 = agast5_8_score_map(layers[0].img) if n_layers > 1 else None
     mark("layers")
@@ -1067,7 +1092,7 @@ def detect_ast_keypoints(
         for i in range(n_layers):
             xs, ys, valid = cand[i]
             is2d, _, _, ismax_a, ismax_b = _process_layer(layers, i, xs, ys, t58,
-                                                          None, None, None)
+                                                          None, None, None, v1=v1)
             pass1.append(dict(is2d=is2d, patch_touched=is2d & ismax_a & ismax_b,
                               above_ok=ismax_a))
         mark("pass1")
@@ -1076,7 +1101,7 @@ def detect_ast_keypoints(
     elif model == "exact":
         from ethzasl_brisk_tpu_torch.detect.ast_exact import exact_is2d_layers
 
-        exact_is2d = exact_is2d_layers(layers, cand)
+        exact_is2d = exact_is2d_layers(layers, cand, drop=_drop(v1))
 
     per_layer = []
     for i in range(n_layers):
@@ -1084,13 +1109,15 @@ def detect_ast_keypoints(
         e_q, e_p, pre = aux[i]
         if model == "exact":
             _, accepted, fields, _, _ = _process_layer(
-                layers, i, xs, ys, t58, None, None, None, is2d_override=exact_is2d[i])
+                layers, i, xs, ys, t58, None, None, None, is2d_override=exact_is2d[i], v1=v1)
         elif model != "emulated":
             is2d = is_max_2d(layers[i], xs, ys, raw_model=model)
-            _, accepted, fields, _, _ = _process_layer(layers, i, xs, ys, t58, None, None, None)
+            _, accepted, fields, _, _ = _process_layer(layers, i, xs, ys, t58, None, None, None,
+                                                       v1=v1)
             accepted = accepted & is2d
         else:
-            _, accepted, fields, _, _ = _process_layer(layers, i, xs, ys, t58, e_q, e_p, pre)
+            _, accepted, fields, _, _ = _process_layer(layers, i, xs, ys, t58, e_q, e_p, pre,
+                                                       v1=v1)
         x_out, y_out, size, score, octave_idx = fields
         per_layer.append(KeyPoints(
             x=x_out, y=y_out, size=size, angle=torch.full_like(x_out, -1.0),

@@ -30,7 +30,7 @@ INT32_OPS_PER_S = 132 * 64 * 2 * 1.98e9
 SECTOR = 32  # bytes: the unit in which the card moves device memory
 L2_BYTES = 50 * 2**20  # H100's L2 cache
 TRACE_ATTEMPTS = 3
-LEAD_CALLS = 3  # calls at the start of a trace that are not counted
+LEAD_CALLS = 6  # calls at the start of a trace that are not counted
 
 
 def card_line(device: str | torch.device) -> str:

@@ -50,11 +50,13 @@ class FramePipeline:
         """frames: (B, H, W) uint8 (uint16 raises: the batched describe is
         uint8 only), moved to the pipeline's device.
 
-        Returns, on that device, (keypoints (B, K), descriptors (B, K, 12)
+        Returns, on that device, (keypoints (B, K), descriptors (B, K, W)
         int32 words, match_idx (B-1, K) int32, match_dist (B-1, K) int32),
         and with ``with_diagnostics`` a dict holding the DetectDiagnostics
         (``detect``) and the batch's describable count (``describable``).
-        ``mark(stage)`` is called after each stage.
+        ``mark(stage)`` is called after each stage. As the JAX step
+        (``_pipeline_step``), the match counts the first 384 bits with
+        sentinel 385 whatever W, and the describe rounds as v2.
         """
         frames = frames.to(self.device)
         kps, diag = self.feature.detect(frames, with_diagnostics=True, mark=mark)
@@ -96,12 +98,18 @@ class AstFramePipeline:
              mark: Mark = _no_mark):
         """frames: (B, H, W) uint8, moved to the pipeline's device.
 
-        Returns (keypoints (B, K), descriptors (B, K, 12) int32 words,
+        Returns (keypoints (B, K), descriptors (B, K, W) int32 words,
         match_idx (B-1, K) int32, match_dist (B-1, K) int32), and with
         ``with_diagnostics`` a dict holding the AstDiagnostics (``detect``)
         and the batch's describable count (``describable``). ``mark(stage)``
         is called after each stage: pyramid, layers, candidates, pass1, aux,
         pass2, describe, match.
+
+        As the JAX step (``_ast_pipeline_step``): the match runs over all
+        ``W * 32`` bits of the descriptors (512 for v1) with sentinel
+        ``W * 32 + 1``, and the describe does not pass ``v1_rounding`` on,
+        so a v1 detector describes with the v1 pattern and v2 rounding (the
+        facade's ``detect_and_compute`` rounds as v1).
         """
         frames = frames.to(self.device)
         check_u8_batch(frames)
@@ -115,7 +123,7 @@ class AstFramePipeline:
             with_diagnostics=True,
         )
         mark("describe")
-        midx, mdist = match_adjacent(desc, kps.valid)
+        midx, mdist = match_adjacent(desc, kps.valid, n_bits=desc.shape[-1] * 32)
         mark("match")
         if with_diagnostics:
             return kps, desc, midx, mdist, {"detect": diag, "describable": n_desc}

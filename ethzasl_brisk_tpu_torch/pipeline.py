@@ -13,9 +13,10 @@ bench.py's config dict builds one as it is. Ported knobs: octaves,
 uniformity_radius, absolute_threshold, max_num_kpt, rotation_invariant,
 scale_invariant, max_candidates, max_keypoints, refine_capacity,
 uniformity_block, fused_mask (kernel K3 for the scores and 2-D maxima),
-describe_capacity, refine_dtype ("float64" refines in double) and
-angle_exact (the host's double atan2); descriptors are v2 (``version="v1"``
-raises ``NotImplementedError``). The JAX package's sampler, patch-size,
+describe_capacity, refine_dtype ("float64" refines in double),
+angle_exact (the host's double atan2) and version (``"v1"``: the v1 ring
+pattern, 16-word descriptors and K2's v1 rounding on the Harris
+detections). The JAX package's sampler, patch-size,
 top-k and eager-detection selectors pick among formulations with equal
 outputs; here kernel K2 serves every describe, a stable sort every top-k
 and every float op rounds on its own, so they are checked no-ops
@@ -39,7 +40,10 @@ given keypoints through its scale space. It takes every keyword of the JAX
 facade, so bench.py's AST keywords build one as they are. Detection runs
 the candidates engine (``detect/ast_scale_space.py``) for every
 ``raw_cache_model`` and for ``detect_impl="dense"``, the JAX package's
-whole-map engine, which is bitwise equal to it.
+whole-map engine, which is bitwise equal to it. ``version="v1"`` runs the
+v1 engine end to end: its resamplers, plain OAST detection without the
+threshold map, no scale-axis weak/edge gates, drop threshold 0
+(brisk-v1.cc:595-1110) and the v1 extractor.
 """
 from __future__ import annotations
 
@@ -51,7 +55,6 @@ from ethzasl_brisk_tpu_torch.core.keypoints import KeyPoints
 from ethzasl_brisk_tpu_torch.core.selectors import (
     check_ast_selectors,
     check_detector_selectors,
-    check_version,
 )
 from ethzasl_brisk_tpu_torch.describe.extractor import (
     BriskExtractor,
@@ -148,7 +151,7 @@ class BriskFeature(nn.Module):
 
     @property
     def descriptor_bytes(self) -> int:
-        """Bytes of one descriptor (48)."""
+        """Bytes of one descriptor (48; 64 for v1)."""
         return self.extractor.descriptor_bytes
 
     def detect(self, img: torch.Tensor, with_diagnostics: bool = False,
@@ -175,8 +178,10 @@ class BriskFeature(nn.Module):
         return self.compute(img, self.detect(img))
 
     def describe(self, imgs: torch.Tensor, kps: KeyPoints, with_diagnostics: bool = False):
-        """Batched describe over the describe budget: (KeyPoints, (B, K, 12)
-        int32 words) [+ the batch's describable count]."""
+        """Batched describe over the describe budget: (KeyPoints, (B, K, W)
+        int32 words) [+ the batch's describable count]. As the JAX step's
+        describe, it does not pass ``v1_rounding`` on: a v1 feature describes
+        a batch with the v1 pattern and v2 rounding."""
         dev = self.device
         b = imgs.shape[0]
         cap = self.describe_capacity * b if self.describe_capacity else b * kps.capacity
@@ -236,9 +241,9 @@ class BriskFeatureDetector(nn.Module):
     in the IsMax2D tie path: ``emulated`` (two vectorized passes),
     ``exact`` (a sequential loop over the candidates, bit for bit the
     reference; slow), ``cache`` or ``corner``. ``detect_impl`` and
-    ``eager_exact`` are checked no-ops (``core/selectors.py``);
-    ``version="v1"`` raises ``NotImplementedError``. It runs on ``device``,
-    the card unless ``device="cpu"``.
+    ``eager_exact`` are checked no-ops (``core/selectors.py``).
+    ``version="v1"`` is the v1 engine end to end (the module docstring).
+    It runs on ``device``, the card unless ``device="cpu"``.
 
     ``detect``, ``detect_with_diagnostics``, ``compute`` and
     ``detect_and_compute`` take one (H, W) uint8 image (unbatched outputs,
@@ -263,9 +268,9 @@ class BriskFeatureDetector(nn.Module):
         device: str | torch.device = "cuda",
     ):
         super().__init__()
-        check_version(version, None)
         check_ast_selectors(detect_impl, raw_cache_model, suppress_scale_nonmaxima, eager_exact)
         self.threshold = threshold
+        self.v1 = version == "v1"
         self.octaves = octaves
         self.suppress_scale_nonmaxima = suppress_scale_nonmaxima
         self.max_candidates_per_layer = max_candidates_per_layer
@@ -285,7 +290,7 @@ class BriskFeatureDetector(nn.Module):
 
     @property
     def descriptor_bytes(self) -> int:
-        """Bytes of one descriptor (48)."""
+        """Bytes of one descriptor (48; 64 for v1)."""
         return self.extractor.descriptor_bytes
 
     @property
@@ -315,7 +320,8 @@ class BriskFeatureDetector(nn.Module):
                mark: Mark = _no_mark):
         """(H, W) or (B, H, W) uint8 -> KeyPoints (K,) or (B, K) [+
         AstDiagnostics]. ``mark(stage)`` is called after each stage."""
-        return self._run(img, with_diagnostics, mark, raw_cache_model=self.raw_cache_model)
+        return self._run(img, with_diagnostics, mark, raw_cache_model=self.raw_cache_model,
+                         v1=self.v1)
 
     def detect_with_diagnostics(self, img: torch.Tensor):
         """detect() + an AstDiagnostics certifying that the per-layer
@@ -342,7 +348,8 @@ def compute_scale(detector: BriskFeatureDetector, img: torch.Tensor,
     every layer, the 2-D maximum check is skipped and the sub-pixel and 3-D
     refinement emit the refined keypoints, one slot per (keypoint, layer).
     ``img`` is (H, W) with (K,) keypoints or (B, H, W) with (B, K); both
-    move to the detector's device.
+    move to the detector's device. As the JAX function, it runs the v2
+    engine whatever the detector's version.
     """
     kps = keypoints.map(lambda a: a.to(detector.device))
     if img.dim() == 2:

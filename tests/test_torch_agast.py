@@ -98,8 +98,15 @@ def test_layer_maps_bitwise(shape, threshold, lower):
 
 
 def test_layer_v1_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tal.build_ast_layer(torch.zeros((1, 16, 16), dtype=torch.uint8), 40, v1=True)
+    """The v1 layer, now ported (the test keeps the name it had while v1
+    raised): a constant threshold map, plain OAST 9/16 corners and the
+    cache max(t*, 0), bitwise against the JAX layer."""
+    img = crop(38, 51, seed=38)
+    ref = jal.build_ast_layer(jnp.asarray(img), 30, v1=True)
+    got = tal.build_ast_layer(torch.from_numpy(img)[None], 30, v1=True)
+    for f in ("t_star", "thrmap", "corner", "cache"):
+        _same(getattr(got, f)[0], getattr(ref, f), f)
+    assert int(got.corner.sum()) > 0
 
 
 @pytest.mark.parametrize("octaves", [0, 1, 3])

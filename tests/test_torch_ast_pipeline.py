@@ -226,7 +226,7 @@ def test_bench_keywords_build_a_port_detector(frames):
     (dict(detect_impl="dense", raw_cache_model="exact"), ValueError),
     (dict(detect_impl="dense", suppress_scale_nonmaxima=False), ValueError),
     (dict(eager_exact="yes"), ValueError),
-    (dict(version="v1"), NotImplementedError),
+    (dict(version="V1"), ValueError),
     (dict(version="v3"), ValueError),
 ])
 def test_detector_rejects_bad_selectors(kw, exc):

@@ -841,3 +841,94 @@ def test_ast_compute_scale_on_card_matches_cpu(cuda):
     for a, b in zip(got.fields(), ref.fields()):
         assert torch.equal(a.cpu(), b)
     assert int(ref.valid.sum()) > 50
+
+
+@pytest.mark.parametrize("pattern_scale", [1.0, 0.5])
+def test_sampler_v1_cuda_matches_plain(cuda, pattern_scale):
+    """K2's v1-rounding variant against its plain version, counted as
+    ``smoothed_intensity_v1``: the v1 ring at pattern_scale 0.5 puts the
+    sigmas of scale index 0 (sizes under ~7.5) below 0.5, so both branches
+    run; clipped taps too."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.core.pattern import brisk_v1_pattern
+
+    rng = np.random.default_rng(2)
+    b, h, w, k = 3, 120, 160, 200
+    imgs = torch.from_numpy(bench_frames(b, h, w)).to(cuda)
+    host = brisk_v1_pattern(pattern_scale)
+    sizes = torch.from_numpy(rng.choice([5.0, 7.0, 12.0, 24.0, 54.0], b * k).astype(np.float32))
+    sidx = scale_index(sizes).numpy()
+    rot = rng.integers(0, 1024, b * k)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    args = (
+        _stack_frames(imgs),
+        t(rng.uniform(-5, w + 5, b * k).astype(np.float32)),
+        t(rng.uniform(-5, h + 5, b * k).astype(np.float32)),
+        t(host.lut_x[sidx, rot]), t(host.lut_y[sidx, rot]), t(host.lut_sigma[sidx]),
+        t(host.lut_scaling[sidx]), t(host.lut_scaling2[sidx]),
+        t(np.repeat(np.arange(b, dtype=np.int32) * (h + 1), k)), h, True,
+    )
+    assert bool((args[5] < 0.5).any()) == (pattern_scale == 0.5)
+    _kernels.reset_launches()
+    got = smoothed_intensity_cuda(*args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["smoothed_intensity_v1"] == 1
+    assert _kernels.LAUNCHES["smoothed_intensity"] == 0
+    assert torch.equal(got, smoothed_intensity(*args))
+    assert not torch.equal(got, smoothed_intensity_cuda(*args[:-1])), "v1 rounds otherwise"
+
+
+def test_v1_facade_on_card_matches_cpu(cuda):
+    """``BriskFeatureDetector(version="v1")`` on the card: K2's v1 variant
+    twice; every field and descriptor against the CPU (theta may flip only
+    at a bin edge)."""
+    from ethzasl_brisk_tpu_torch import BriskFeatureDetector, _kernels
+
+    frame = torch.from_numpy(bench_frames(1, 160, 212, seed=5)[0])
+    cfg = dict(threshold=35, octaves=3, max_candidates_per_layer=512, version="v1")
+    _kernels.reset_launches()
+    got = BriskFeatureDetector(**cfg, device="cuda").detect_and_compute(frame)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["smoothed_intensity_v1"] == 2
+    assert _kernels.LAUNCHES["smoothed_intensity"] == 0
+    ref = BriskFeatureDetector(**cfg, device="cpu").detect_and_compute(frame)
+    assert got[1].shape == (got[0].capacity, 16) and int(ref[0].valid.sum()) > 20
+    kg, kc = got[0], ref[0]
+    for name in ("x", "y", "size", "response", "octave", "valid"):
+        assert torch.equal(getattr(kg, name).cpu(), getattr(kc, name)), name
+    agree = (_theta(kg.angle.cpu()) == _theta(kc.angle)) | ~kc.valid
+    assert torch.equal(got[1].cpu()[agree], ref[1][agree])
+
+
+def test_camera_grid_on_card_matches_cpu(cuda):
+    """The camera-aware grid on the card: K1 once and K2 twice (v2
+    rounding); keypoints and descriptors against the CPU, the angle within
+    1e-2 degree (float32 ``cos``, ``sin`` and ``atan2`` differ between
+    the card and the CPU)."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.geometry import PinholeCamera, RadialTangentialDistortion
+    from ethzasl_brisk_tpu_torch.geometry.camera_aware import CameraAwareFeatureGrid
+
+    frame = torch.from_numpy(bench_frames(1, 240, 320, seed=8)[0])
+    cam = PinholeCamera(260.0, 260.0, 160.0, 120.0, 320, 240,
+                        RadialTangentialDistortion(-0.25, 0.06, 0.0, 0.0))
+    kw = dict(octaves=0, uniformity_radius=0.0, absolute_threshold=35.0, max_candidates=512,
+              max_keypoints=512)
+    grid = CameraAwareFeatureGrid(cam, BriskFeature(**kw), margin=40)
+    _kernels.reset_launches()
+    got = grid.detect_and_compute(frame)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["harris_score_i32"] == 1
+    assert _kernels.LAUNCHES["smoothed_intensity"] == 2
+    assert _kernels.LAUNCHES["smoothed_intensity_v1"] == 0
+    ref = CameraAwareFeatureGrid(cam, BriskFeature(**kw, device="cpu"), margin=40,
+                                 device="cpu").detect_and_compute(frame)
+    kg, kc = got[0], ref[0]
+    for name in ("size", "response", "octave", "valid"):
+        assert torch.equal(getattr(kg, name).cpu(), getattr(kc, name)), name
+    rows = (got[1].cpu() != ref[1]).any(dim=1)[kc.valid]
+    assert int(rows.sum()) <= int(kc.valid.sum()) // 1000 and int(kc.valid.sum()) > 50
+    assert float((kg.angle.cpu() - kc.angle).abs()[kc.valid].max()) < 1e-2

@@ -278,6 +278,12 @@ def test_port_imports_without_jax():
         "from ethzasl_brisk_tpu_torch.kernels import agast\n"
         "from ethzasl_brisk_tpu_torch.detect import ast_exact, ast_layer, ast_scale_space\n"
         "from ethzasl_brisk_tpu_torch.parallel import frames\n"
+        # The v1 engine's modules and the camera-aware path.
+        "from ethzasl_brisk_tpu_torch.core import pattern\n"
+        "from ethzasl_brisk_tpu_torch.describe import sampler\n"
+        "from ethzasl_brisk_tpu_torch.kernels import filters\n"
+        "from ethzasl_brisk_tpu_torch.geometry import cameras, camera_aware\n"
+        "import ethzasl_brisk_tpu_torch.geometry\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'ethzasl_brisk_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
     )
