@@ -48,6 +48,14 @@ just after:
   ``CameraAwareFeature``, with the benchmark's ``BriskFeature``, on a bench
   frame taken as the distorted image (K1 1, K2 2 an image), against
   ``device="cpu"`` twins and timed per stage;
+* the keyframed VO + BA loop (``[vo]``): ``vo.sequence.run_keyframed``, the
+  counterpart of ``tools/kitti_eval.py`` with its defaults but the ``lm``
+  solver, on 48 VGA frames of the synthetic VO scene, its frame-0 capacity
+  certificate first (K1 once a frame and once for the certificate, K2
+  twice a frame, K3 none); the same loop on a ``device="cpu"`` twin with
+  the same RANSAC draws (detection bitwise on every frame, keyframes and
+  BA runs equal, poses within tolerance); the 8-point systems' SVD null
+  vectors on the card; per-stage times a frame and a window, ATE and RPE;
 * the gather probes (``ethzasl_brisk_tpu_torch.probes``): each of the 39
   calls through the 26 ``pallas_call`` sites of the TPU probes P1, P3 and
   P2 at full size, its kernel (G1, G2, C, W, T, X or S) launched once,
@@ -135,6 +143,15 @@ RADTAN = (-0.25, 0.06, 0.0, 0.0)
 EQUIDISTANT = (-0.01, 0.005, -0.002, 0.001)
 CAMERA_STAGES = ("detect", "warp", "describe", "angles")
 STAGES = ("pyramid", "harris", "masks", "candidates", "uniformity", "refine", "describe")
+# [vo]: tools/synthetic_vo_bench.py's clean scene (texture seed 11, its
+# VGA camera) along its trajectory, through run_keyframed with
+# tools/kitti_eval.py's defaults but the lm solver (kitti_eval's default is
+# the trimmed one). Tolerances of the CPU twin: see vo_phase.
+VO_FRAMES = 48
+VO_SEED = 11
+VO_CAMERA = (400.0, 400.0, 320.0, 240.0, 640, 480)
+VO_FLAGS = dict(ba_solver="lm")
+VO_DRAW_SEED = 3
 
 
 # Integer operations per pixel of K1, counted from csrc/harris.cu's
@@ -506,20 +523,6 @@ def timed_steps(pipe, frames, stage_names, reps=10, warmup=3):
             {n: statistics.median(t) for n, t in stages.items()})
 
 
-def device_busy_ms(fn) -> float:
-    """The summed device time (ms) of every kernel, copy and set that one
-    call of fn() puts on the card, from a ``torch.profiler`` trace (0.0 if
-    the trace holds no device events)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
-
-
 def assert_same_step_flips(got, ref, what: str) -> tuple[int, int, float]:
     """A step on the card against the CPU: every keypoint field but the
     angle bitwise on every slot; theta equal or flipped at a bin edge;
@@ -643,7 +646,7 @@ def ast_phase(dev: torch.device, card: str, kind: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         med, low, stages = timed_steps(pipe, fb, AST_STAGES)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        busy = device_busy_ms(lambda: pipe.step(fb))
+        busy = measure.device_busy_ms(lambda: pipe.step(fb))
         stage_txt = ", ".join(f"{n} {t:.3f}" for n, t in stages.items())
         print(f"[ast timing] step B={batch}: median {med:.3f} ms, min {low:.3f} ms of 10 "
               f"(3 warm-up), {batch / med * 1e3:.1f} frames/s; stages ms: {stage_txt}; "
@@ -911,6 +914,162 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> None:
           f"{ms:.3f} ms of 10 [{kind}; {card}]", flush=True)
 
 
+def shared_draw(seed: int):
+    """A RANSAC draw that hands the card and the CPU the same samples: the
+    uniforms come from a CPU generator and go through the port's own
+    inverse-CDF on the weights' device."""
+    from ethzasl_brisk_tpu_torch.geometry.ransac import sample_indices
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(n_hyp, k, weights):
+        u = torch.rand((n_hyp, k), generator=gen, dtype=torch.float64)
+        return sample_indices(u.to(weights.device), weights)
+    return draw
+
+
+def vo_phase(dev: torch.device, card: str, kind: str) -> None:
+    """The keyframed VO + window-BA loop on a VGA synthetic sequence,
+    counted, against a CPU twin, timed per stage."""
+    import numpy as np
+
+    from ethzasl_brisk_tpu_torch import measure
+    from ethzasl_brisk_tpu_torch.frames import make_texture, render_scene, trajectory
+    from ethzasl_brisk_tpu_torch.geometry import PinholeCamera
+    from ethzasl_brisk_tpu_torch.vo import frontend
+    from ethzasl_brisk_tpu_torch.vo.sequence import FRAME_STAGES, WINDOW_STAGES, run_keyframed
+
+    # The 8-point systems' null vectors: cuSOLVER's batched SVD must hand
+    # back the 9th right singular vector of RANSAC's (512, 8, 9) and
+    # (256, 8, 9) systems.
+    rng = np.random.default_rng(VO_SEED)
+    for shape in ((512, 8, 9), (256, 8, 9)):
+        a = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+        v = torch.linalg.svd(a.to(dev), full_matrices=True)[2][..., -1, :].cpu()
+        ref = torch.linalg.svd(a.double(), full_matrices=True)[2][..., -1, :]
+        resid = float(torch.linalg.vector_norm(a @ v[..., None], dim=(-2, -1)).max())
+        align = float((v.double() * ref).sum(-1).abs().min())
+        assert resid < 1e-4 and align > 1 - 1e-4, (shape, resid, align)
+        print(f"[vo] SVD {shape} on the card: |A v| <= {resid:.2e}, |v . v_cpu64| >= "
+              f"{align:.6f}", flush=True)
+
+    t0 = time.perf_counter()
+    cam = PinholeCamera(*VO_CAMERA)
+    tex = make_texture(np.random.default_rng(VO_SEED))
+    traj = trajectory(VO_FRAMES)
+    frames = [render_scene(tex, cam, r, t) for r, t in traj]
+    gt = np.tile(np.eye(4), (VO_FRAMES, 1, 1))
+    for i, (r, t) in enumerate(traj):
+        gt[i, :3, :3] = r.T
+        gt[i, :3, 3] = -r.T @ t
+    render_s = time.perf_counter() - t0
+
+    recorded = []
+    process = frontend.VoFrontend.process_frame
+
+    def recording(self, img):
+        out = process(self, img)
+        recorded.append(out)
+        return out
+
+    # Warm-up on the first frames (first calls of cuSOLVER and the jvp),
+    # which checks the frame-0 capacity certificate first.
+    warm = run_keyframed(frames[:8], cam, gt[:8], draw=shared_draw(VO_DRAW_SEED), **VO_FLAGS)
+    assert warm["capacity_ok"], "[vo] frame-0 capacity certificate"
+    marks = []
+
+    def mark(stage):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((stage, e))
+
+    frontend.VoFrontend.process_frame = recording
+    try:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        got, launches = counted(lambda: run_keyframed(
+            frames, cam, gt, draw=shared_draw(VO_DRAW_SEED), mark=mark, **VO_FLAGS))
+        loop_s = time.perf_counter() - t0
+        card_frames = list(recorded)
+        recorded.clear()
+        t0 = time.perf_counter()
+        ref = run_keyframed(frames, cam, gt, draw=shared_draw(VO_DRAW_SEED), device="cpu",
+                            **VO_FLAGS)
+        cpu_s = time.perf_counter() - t0
+        cpu_frames = list(recorded)
+    finally:
+        frontend.VoFrontend.process_frame = process
+    assert got["capacity_ok"] and ref["capacity_ok"]
+    # K1 once a frame and once for the frame-0 certificate, K2 twice a frame.
+    expect = {"harris_score_i32": VO_FRAMES + 1, "harris_score_mask": 0,
+              "smoothed_intensity": 2 * VO_FRAMES, "smoothed_intensity_v1": 0}
+    assert launches == expect, launches
+    assert len(card_frames) == len(cpu_frames) == VO_FRAMES
+    n_valid, flips = [], 0
+    for i, (g, c) in enumerate(zip(card_frames, cpu_frames)):
+        n, f = assert_same_image_outputs(g, c, f"[vo] frame {i}", allow_flips=True)
+        n_valid.append(n)
+        flips += f
+    for key in ("frames", "keyframes", "ba_runs", "ba_rejects"):
+        assert got[key] == ref[key], (key, got[key], ref[key])
+    assert got["keyframes"] >= VO_FRAMES // 8 and got["ba_runs"] >= 1, (got["keyframes"],
+                                                                        got["ba_runs"])
+    # The card's and the CPU's float32 SVDs differ in the last digits, as
+    # torch's and JAX's do on the CPU (tests/test_torch_vo_keyframed.py),
+    # so the trajectories agree to a tolerance: camera centres within 5 %
+    # of the path, rotations within 0.02, ATE within 1 % of the path.
+    path = float(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1).sum())
+    centre_gap = float(np.abs(got["poses"][:, :3, 3] - ref["poses"][:, :3, 3]).max())
+    rot_gap = float(np.abs(got["poses"][:, :3, :3] - ref["poses"][:, :3, :3]).max())
+    assert np.isfinite(got["poses"]).all()
+    assert centre_gap <= 0.05 * path and rot_gap <= 0.02, (centre_gap, rot_gap)
+    assert abs(got["ate_rmse"] - ref["ate_rmse"]) <= 0.01 * path, (got["ate_rmse"],
+                                                                    ref["ate_rmse"])
+    assert got["ate_rmse"] < 0.05 * path, got["ate_rmse"]
+
+    # The card's busy share over the first 16 frames (4-5 windows): the
+    # device time of one profiled run against the wall time of one plain run.
+    def head():
+        return run_keyframed(frames[:16], cam, gt[:16], draw=shared_draw(VO_DRAW_SEED),
+                             **VO_FLAGS)
+
+    head()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    head()
+    torch.cuda.synchronize()
+    head_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = measure.device_busy_ms(head)
+
+    torch.cuda.synchronize()
+    times = {s: [] for s in FRAME_STAGES + WINDOW_STAGES}
+    prev = start
+    for stage, e in marks:
+        times[stage].append(prev.elapsed_time(e))
+        prev = e
+    # Frame 0's detect also holds the certificate and the setup.
+    times["detect"] = times["detect"][1:]
+    stage_txt = ", ".join(f"{s} {statistics.median(t):.3f} (x{len(t)})"
+                          for s, t in times.items() if t)
+    print(f"[vo] {VO_FRAMES} VGA frames (synthetic_vo_bench scene, seed {VO_SEED}, rendered on "
+          f"the host in {render_s:.2f} s), run_keyframed {VO_FLAGS}: launches {launches}; "
+          f"valid keypoints/frame {min(n_valid)}-{max(n_valid)}; keyframes {got['keyframes']}, "
+          f"BA runs {got['ba_runs']}, rejects {got['ba_rejects']}; ATE {got['ate_rmse']:.5f} "
+          f"(CPU {ref['ate_rmse']:.5f}) on a {path:.3f} path, RPE {got['rpe_trans_rmse']:.5f} / "
+          f"{got['rpe_rot_rmse_deg']:.4f} deg", flush=True)
+    print(f"[vo] card vs CPU twin (same draws): detection bitwise on every frame, {flips} theta "
+          f"bin-edge flips, descriptors bitwise where theta agrees; keyframes, BA runs and "
+          f"rejects equal; camera centres within {centre_gap:.2e}, rotations within "
+          f"{rot_gap:.2e}", flush=True)
+    print(f"[vo timing] loop {loop_s:.2f} s on the card ({loop_s / VO_FRAMES * 1e3:.1f} ms a "
+          f"frame), CPU twin {cpu_s:.2f} s; median ms a frame (detect, match, ransac, refine, "
+          f"kf_verify) and a window (build_ba on the host, ba_solve) by CUDA events: "
+          f"{stage_txt}; first 16 frames {head_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"(idle {1 - busy_ms / head_ms:.1%}) [{kind}; {card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1107,6 +1266,7 @@ def main() -> int:
     ast_phase(dev, card, kind)
     v1_row = v1_phase(dev, card, kind)
     camera_phase(dev, card, kind)
+    vo_phase(dev, card, kind)
 
     # ---- The gather probes P1, P3 and P2: every call of the 26 pallas_call
     # sites at full size, its kernel counted (once per call) and bitwise

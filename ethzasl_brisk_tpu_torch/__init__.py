@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of ``ethzasl_brisk_tpu`` for NVIDIA Hopper.
 
 Mirrors the JAX package module by module (``core/``, ``kernels/``,
-``detect/``, ``describe/``, ``match/``, ``parallel/``, ``pipeline.py``).
+``detect/``, ``describe/``, ``match/``, ``geometry/``, ``vo/``, ``ba/``,
+``parallel/``, ``pipeline.py``).
 The JAX package stays the reference; this package imports neither it nor
 JAX. Its TPU kernels are hand-written CUDA here (``csrc/``), built with
 ``nvcc`` the first time a CUDA tensor reaches them.
@@ -11,9 +12,13 @@ The entry points (``BriskFeature``, ``BriskExtractor``,
 ``BriskFeatureDetector`` with ``compute_scale``, and ``AstFramePipeline``)
 run on the card unless given
 ``device="cpu"``; they move their input images there. ``version="v1"``
-selects the v1 engine. ``geometry`` holds the cameras and the camera-aware
-path (``geometry/camera_aware.py``), ``probes`` the TPU gather probes as
-GPU probes (``python -m ethzasl_brisk_tpu_torch.probes``).
+selects the v1 engine. ``geometry`` holds the cameras, the camera-aware
+path (``geometry/camera_aware.py``) and RANSAC (``geometry/ransac.py``);
+``vo`` the VO front-end, tracks, trajectory evaluation and the keyframed
+VO + window-BA loop (``python -m ethzasl_brisk_tpu_torch.vo``); ``ba`` the
+SE(3) helpers, windowed bundle adjustment and the pose graph; ``probes``
+the TPU gather probes as GPU probes (``python -m
+ethzasl_brisk_tpu_torch.probes``).
 
 Quick start (one image, on the card)::
 

@@ -4,6 +4,7 @@
 of each call as well, with its inputs warm in L2 from the call before;
 ``device_time`` reads the kernels' own time on the card from
 ``torch.profiler``, each call from a cold L2 as the bound assumes;
+``device_busy_ms`` sums the card's busy time over one call;
 ``card_line`` is the run's card's name and power limit as ``nvidia-smi``
 reports them, printed beside every time. ``bound_ms`` is the least time one NVIDIA
 H100 SXM could take for a piece of work: the larger of its bytes over the
@@ -124,6 +125,36 @@ def device_time(fn, device: str | torch.device, kernel_names: tuple[str, ...] | 
         seen.append(len(times))
     raise RuntimeError(f"device_time: {reps} calls of {kernel_names or 'any kernel'} not in "
                        f"{TRACE_ATTEMPTS} profiler traces (found {seen})")
+
+
+def busy_ms(events) -> float:
+    """The summed duration (ms) of the device events (kernels, copies,
+    sets) among a trace's kineto events, each counted once.
+    ``key_averages()`` lists a kernel's time twice, under the kernel and
+    again as the self device time of the operator that launched it, so a
+    sum over its rows doubles the device work."""
+    from torch.autograd import DeviceType
+
+    total = 0.0
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            total += (e.duration_ns() / 1e6 if hasattr(e, "duration_ns")
+                      else e.duration_us() / 1e3)
+    return total
+
+
+def device_busy_ms(fn) -> float:
+    """The card's busy time (ms) in one call of fn(), after one warm-up
+    call: every kernel, copy and set of a ``torch.profiler`` trace, once
+    each (0.0 if the trace holds no device event)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return busy_ms(prof.profiler.kineto_results.events())
 
 
 def bound_ms(nbytes: float, int32_ops: float = 0.0, fp32_ops: float = 0.0) -> tuple[float, str]:

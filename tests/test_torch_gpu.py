@@ -932,3 +932,142 @@ def test_camera_grid_on_card_matches_cpu(cuda):
     rows = (got[1].cpu() != ref[1]).any(dim=1)[kc.valid]
     assert int(rows.sum()) <= int(kc.valid.sum()) // 1000 and int(kc.valid.sum()) > 50
     assert float((kg.angle.cpu() - kc.angle).abs()[kc.valid].max()) < 1e-2
+
+
+def _vo_frames(n):
+    from ethzasl_brisk_tpu_torch.frames import make_texture, render_scene, trajectory
+    from ethzasl_brisk_tpu_torch.geometry import PinholeCamera
+
+    cam = PinholeCamera(200.0, 200.0, 160.0, 120.0, 320, 240)
+    tex = make_texture(np.random.default_rng(11))
+    return cam, [render_scene(tex, cam, r, t) for r, t in trajectory(n)]
+
+
+def test_svd_null_vectors_on_card(cuda):
+    """RANSAC's batched (512, 8, 9) and (256, 8, 9) systems: the card's
+    ``svd(full_matrices=True)`` hands back the 9th right singular vector."""
+    rng = np.random.default_rng(0)
+    for shape in ((512, 8, 9), (256, 8, 9)):
+        a = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+        v = torch.linalg.svd(a.to(cuda), full_matrices=True)[2][..., -1, :].cpu()
+        ref = torch.linalg.svd(a.double(), full_matrices=True)[2][..., -1, :]
+        assert float(torch.linalg.vector_norm(a @ v[..., None], dim=(-2, -1)).max()) < 1e-4
+        assert float((v.double() * ref).sum(-1).abs().min()) > 1 - 1e-4
+
+
+def test_relative_pose_on_card_matches_cpu(cuda):
+    """``VoFrontend`` on the card against a ``device="cpu"`` twin on two
+    240 x 320 frames: detection and descriptors bitwise (theta may flip at
+    a bin edge), and with the same draws the relative pose within 1e-3
+    (the card's and the CPU's float32 SVDs differ in the last digits) and
+    the inlier counts within 2 % and 2. The default draw (a
+    generator on the card) runs without a host sync error."""
+    from ethzasl_brisk_tpu_torch.geometry.ransac import sample_indices
+    from ethzasl_brisk_tpu_torch.vo import VoConfig, VoFrontend
+
+    cam, frames = _vo_frames(3)
+    kw = dict(octaves=2, uniformity_radius=0.0, absolute_threshold=30.0, max_candidates=2048,
+              max_keypoints=1024)
+    cfg = VoConfig(normalize_exposure=True, min_inlier_spread=0.15)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        vo = VoFrontend(cam, BriskFeature(**kw, device=dev), cfg)
+        a = vo.process_frame(torch.from_numpy(frames[0]))
+        b = vo.process_frame(torch.from_numpy(frames[2]))
+        gen = torch.Generator().manual_seed(5)
+
+        def draw(n, k, w):
+            return sample_indices(torch.rand((n, k), generator=gen, dtype=torch.float64)
+                                  .to(w.device), w)
+
+        outs[dev.type] = (a, b, vo.relative_pose(None, *a, *b, draw=draw))
+        if dev.type == "cuda":
+            own = vo.relative_pose(torch.Generator(dev).manual_seed(0), *a, *b)
+            assert own[0].device.type == "cuda" and bool(own[3])
+    (ga, gb, gp), (ca, cb, cp) = outs["cuda"], outs["cpu"]
+    for (kg, dg), (kc, dc) in ((ga, ca), (gb, cb)):
+        for name in ("x", "y", "size", "response", "octave", "valid"):
+            assert torch.equal(getattr(kg, name).cpu(), getattr(kc, name)), name
+        agree = (_theta(kg.angle.cpu()) == _theta(kc.angle)) | ~kc.valid
+        assert torch.equal(dg.cpu()[agree], dc[agree])
+    assert bool(gp[3]) and bool(cp[3])
+    assert float((gp[0].cpu() - cp[0]).abs().max()) < 1e-3
+    assert float((gp[1].cpu() - cp[1]).abs().max()) < 1e-3
+    assert abs(int(gp[2]) - int(cp[2])) <= 0.02 * int(cp[2]) + 2
+
+
+def _ba_window(dtype, seed=3):
+    """tests/test_ba.py's dense window (6 poses along x, 200 points), in
+    numpy: poses 0 and 1 exact, the others and the points perturbed."""
+    from ethzasl_brisk_tpu_torch.ba.se3 import so3_exp
+
+    rng = np.random.default_rng(seed)
+    k, n_lm = 6, 200
+    pts = rng.uniform([-3, -2, 4], [3, 2, 10], (n_lm, 3))
+    t_cam = -np.stack([np.linspace(0, 1.0, k), np.zeros(k), np.zeros(k)], 1)
+    kf = np.repeat(np.arange(k), n_lm)
+    lm = np.tile(np.arange(n_lm), k)
+    x_c = pts[lm] + t_cam[kf]
+    uv = np.stack([400 * x_c[:, 0] / x_c[:, 2] + 320, 400 * x_c[:, 1] / x_c[:, 2] + 240], 1)
+    uv += rng.normal(0, 0.3, uv.shape)
+    w = rng.normal(0, 0.02, (k, 3))
+    w[:2] = 0
+    t0 = t_cam + rng.normal(0, 0.02, (k, 3)) * (np.arange(k) >= 2)[:, None]
+    return dict(r=so3_exp(torch.from_numpy(w)).numpy().astype(dtype), t=t0.astype(dtype),
+                points=(pts + rng.normal(0, 0.1, pts.shape)).astype(dtype), kf_idx=kf,
+                lm_idx=lm, uv=uv.astype(dtype), valid=np.ones(len(kf), bool),
+                fu=np.asarray(400.0, dtype), fv=np.asarray(400.0, dtype),
+                cu=np.asarray(320.0, dtype), cv=np.asarray(240.0, dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lm_window_on_card_matches_cpu(cuda, dtype):
+    """One LM window (kitti_eval's settings: 12 iterations, damping 1e-2,
+    fix_poses 2, Huber 3) on the card against the CPU. The scatter-adds
+    add in no fixed order on the card, so: float64 poses within 1e-8 and
+    costs within 1e-9 relative; float32 poses within 5e-3, final costs
+    within 1 %."""
+    from ethzasl_brisk_tpu_torch.ba.window import BaProblem, solve_window_ba_lm
+
+    arrays = _ba_window(dtype)
+    outs = [solve_window_ba_lm(BaProblem.from_numpy(arrays, dev), iterations=12, damping=1e-2,
+                               fix_poses=2, huber_delta=3.0) for dev in (cuda, "cpu")]
+    (g, gc, _), (c, cc, _) = outs
+    assert g.t.device.type == "cuda" and bool(torch.isfinite(gc).all())
+    f64 = dtype == np.float64
+    for f in ("r", "t"):
+        assert float((getattr(g, f).cpu() - getattr(c, f)).abs().max()) < (1e-8 if f64 else 5e-3)
+    rel = float((gc.cpu() - cc).abs().max() / cc[0]) if f64 else \
+        abs(float(gc[-1]) - float(cc[-1])) / float(cc[-1])
+    assert rel < (1e-9 if f64 else 1e-2), rel
+
+
+def test_pose_graph_on_card_matches_cpu(cuda):
+    """tests/test_ba.py's 12-node loop with a repeated edge, float32: the
+    card within 5e-5 of the CPU, and converged."""
+    from ethzasl_brisk_tpu_torch.ba.pose_graph import PoseGraph, optimize_pose_graph
+    from ethzasl_brisk_tpu_torch.ba.se3 import so3_exp
+
+    n = 12
+    rng = np.random.default_rng(7)
+    ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    r_gt = np.stack([[[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+                     for a in ang])
+    t_gt = -np.einsum("nij,nj->ni", r_gt, np.stack([5 * np.cos(ang), 5 * np.sin(ang),
+                                                     np.zeros(n)], 1))
+    ei = np.append(np.arange(n - 1), [n - 1, 3])
+    ej = np.append(np.arange(1, n), [0, 4])
+    rel_r = np.einsum("nij,nkj->nik", r_gt[ei], r_gt[ej])
+    rel_t = t_gt[ei] - np.einsum("nij,nj->ni", rel_r, t_gt[ej])
+    w = rng.normal(0, 0.03, (n, 3))
+    w[0] = 0
+    r0 = so3_exp(torch.from_numpy(w)).numpy() @ r_gt
+    t0 = t_gt + rng.normal(0, 0.2, (n, 3)) * (np.arange(n) > 0)[:, None]
+    arrays = dict(r=r0.astype(np.float32), t=t0.astype(np.float32), edge_i=ei, edge_j=ej,
+                  rel_r=rel_r.astype(np.float32), rel_t=rel_t.astype(np.float32),
+                  weight=np.ones(len(ei), np.float32))
+    (g, gc), (c, cc) = [optimize_pose_graph(PoseGraph.from_numpy(arrays, dev), iterations=15,
+                                            damping=1e-5) for dev in (cuda, "cpu")]
+    assert float((g.t.cpu() - c.t).abs().max()) < 5e-5
+    assert float((g.r.cpu() - c.r).abs().max()) < 5e-5
+    assert float(gc[-1]) < 1e-6

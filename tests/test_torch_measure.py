@@ -1,0 +1,58 @@
+"""``measure.busy_ms``: the card's busy time from a profiler trace counts
+each device event once.
+
+``torch.profiler``'s ``key_averages()`` lists a kernel's time under the
+kernel and again as the self device time of the operator that launched
+it, so summing its rows (what ``chip_smoke.py`` did before) doubles the
+busy time. The trace's kineto events hold each kernel, copy and set once,
+with its device type; ``busy_ms`` sums those of the card. Fake events
+stand in for a trace here (this machine has no card to profile).
+"""
+import pytest
+import torch
+from torch.autograd import DeviceType
+
+from ethzasl_brisk_tpu_torch import measure
+
+
+class _Event:
+    def __init__(self, device_type, ns):
+        self._type, self._ns = device_type, ns
+
+    def device_type(self):
+        return self._type
+
+    def duration_ns(self):
+        return self._ns
+
+
+class _OldEvent:
+    """A kineto event of a torch that reports microseconds only."""
+
+    def __init__(self, device_type, us):
+        self._type, self._us = device_type, us
+
+    def device_type(self):
+        return self._type
+
+    def duration_us(self):
+        return self._us
+
+
+def test_busy_ms_counts_device_events_once():
+    # An operator on the host (3 ms, whose launch owns the kernel) and its
+    # kernel (1.5 ms) and a copy (0.5 ms) on the card.
+    events = [_Event(DeviceType.CPU, 3_000_000), _Event(DeviceType.CUDA, 1_500_000),
+              _Event(DeviceType.CUDA, 500_000)]
+    assert measure.busy_ms(events) == pytest.approx(2.0)
+    assert measure.busy_ms([_OldEvent(DeviceType.CUDA, 250), _OldEvent(DeviceType.CPU, 9)]) \
+        == pytest.approx(0.25)
+    assert measure.busy_ms([]) == 0.0
+
+
+def test_device_busy_ms_fails_without_a_card():
+    """A measuring path that finds no card fails; it gives no busy time."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        measure.device_busy_ms(lambda: None)

@@ -284,6 +284,12 @@ def test_port_imports_without_jax():
         "from ethzasl_brisk_tpu_torch.kernels import filters\n"
         "from ethzasl_brisk_tpu_torch.geometry import cameras, camera_aware\n"
         "import ethzasl_brisk_tpu_torch.geometry\n"
+        # Geometry, VO and BA.
+        "from ethzasl_brisk_tpu_torch.geometry import ransac\n"
+        "from ethzasl_brisk_tpu_torch.ba import pose_graph, se3, window\n"
+        "from ethzasl_brisk_tpu_torch.vo import evaluate, frontend, sequence, tracks\n"
+        "import ethzasl_brisk_tpu_torch.ba, ethzasl_brisk_tpu_torch.vo\n"
+        "import ethzasl_brisk_tpu_torch.vo.__main__\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'ethzasl_brisk_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
     )
