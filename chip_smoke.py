@@ -56,6 +56,25 @@ just after:
   the same RANSAC draws (detection bitwise on every frame, keyframes and
   BA runs equal, poses within tolerance); the 8-point systems' SVD null
   vectors on the card; per-stage times a frame and a window, ATE and RPE;
+* the keyframed loop's checkpoints (``[ckpt]``): ``run_keyframed`` on the
+  first 24 frames of the ``[vo]`` scene with a checkpoint every 2
+  keyframes, stopped by an exception after 14 frames and resumed from its
+  latest checkpoint, bitwise equal to an uninterrupted run under
+  deterministic algorithms (two plain runs differ in the last bits: the
+  BA's ``index_add_`` adds with atomics); K1 and K2 counted on the resume;
+* the utilities (``[utils]``): ``utils.roofline.measure_peaks`` on the card
+  beside the data sheet's peaks, ``roofline.report`` over ``stage_times``'
+  stages against both, and a ``utils.timing.timer`` in each mode around a
+  B=16 step, its sample bracketing the step's CUDA-event time;
+* the sharded layer (``[dist]``): one NCCL rank, a (1, 1) mesh: the sharded
+  knn bitwise the dense knn, ``FramePipeline(mesh=...)`` counted (K1 1, K2
+  2) and bitwise the plain step, the AST step over it (K2 2) bitwise the
+  plain AST step, the distributed BA and pose graph within
+  1e-9 of the single-card solvers in float64 and within the JAX tests' bars
+  in float32, the ``worker`` command's run and the dry run;
+* the examples (``[examples]``): ``live_pipeline`` over 9 VGA bench frames
+  written as PGM (K1 3, K2 4), its ``batch`` lines equal to a
+  ``--device cpu`` run's, and ``cameras_demo`` on the card;
 * the gather probes (``ethzasl_brisk_tpu_torch.probes``): each of the 39
   calls through the 26 ``pallas_call`` sites of the TPU probes P1, P3 and
   P2 at full size, its kernel (G1, G2, C, W, T, X or S) launched once,
@@ -152,6 +171,18 @@ VO_SEED = 11
 VO_CAMERA = (400.0, 400.0, 320.0, 240.0, 640, 480)
 VO_FLAGS = dict(ba_solver="lm")
 VO_DRAW_SEED = 3
+# [ckpt]: the [vo] scene and flags over its first CKPT_FRAMES frames, a
+# checkpoint every 2 keyframes, stopped after CKPT_CRASH_AFTER frames.
+CKPT_FRAMES = 24
+CKPT_CRASH_AFTER = 14
+# [utils]: the published H100 SXM dense TF32 and bfloat16 matmul peaks
+# (NVIDIA's data sheet, 700 W), printed beside the measured ones with the
+# float32 and HBM peaks that measure.bound_ms keeps (datasheet_peaks).
+DATASHEET_TENSOR_GFLOPS = dict(peak_gflops_tf32=495e3, peak_gflops_bf16=989e3)
+# [examples]: live_pipeline over 9 bench frames in batches of 4 (two
+# batches, the second with its boundary pair).
+LIVE_FRAMES = 9
+LIVE_BATCH = 4
 
 
 # Integer operations per pixel of K1, counted from csrc/harris.cu's
@@ -934,8 +965,6 @@ def vo_phase(dev: torch.device, card: str, kind: str) -> None:
     import numpy as np
 
     from ethzasl_brisk_tpu_torch import measure
-    from ethzasl_brisk_tpu_torch.frames import make_texture, render_scene, trajectory
-    from ethzasl_brisk_tpu_torch.geometry import PinholeCamera
     from ethzasl_brisk_tpu_torch.vo import frontend
     from ethzasl_brisk_tpu_torch.vo.sequence import FRAME_STAGES, WINDOW_STAGES, run_keyframed
 
@@ -954,14 +983,7 @@ def vo_phase(dev: torch.device, card: str, kind: str) -> None:
               f"{align:.6f}", flush=True)
 
     t0 = time.perf_counter()
-    cam = PinholeCamera(*VO_CAMERA)
-    tex = make_texture(np.random.default_rng(VO_SEED))
-    traj = trajectory(VO_FRAMES)
-    frames = [render_scene(tex, cam, r, t) for r, t in traj]
-    gt = np.tile(np.eye(4), (VO_FRAMES, 1, 1))
-    for i, (r, t) in enumerate(traj):
-        gt[i, :3, :3] = r.T
-        gt[i, :3, 3] = -r.T @ t
+    frames, cam, gt = vo_scene(VO_FRAMES)
     render_s = time.perf_counter() - t0
 
     recorded = []
@@ -1070,6 +1092,351 @@ def vo_phase(dev: torch.device, card: str, kind: str) -> None:
           f"(idle {1 - busy_ms / head_ms:.1%}) [{kind}; {card}]", flush=True)
 
 
+def utils_phase(dev: torch.device, card: str, kind: str, feature, pipe, frames16) -> None:
+    """The card's own peaks beside the data sheet's, the roofline report
+    over stage_times' stages, and the timing registry around one step in
+    each mode, whose samples must bracket the step's CUDA-event time."""
+    from ethzasl_brisk_tpu_torch import measure
+    from ethzasl_brisk_tpu_torch.utils import roofline, timing
+
+    sheet = dict(DATASHEET_TENSOR_GFLOPS, peak_gflops=measure.FP32_OPS_PER_S / 1e9,
+                 peak_gbs=measure.HBM_BYTES_PER_S / 1e9)
+    peaks = roofline.measure_peaks(device=dev)
+    print(f"[utils] measured peaks: float32 matmul {peaks['peak_gflops']:.1f} GFLOP/s at "
+          f"matmul precision {peaks['f32_matmul_precision']!r}, bfloat16 matmul "
+          f"{peaks['peak_gflops_bf16']:.1f} GFLOP/s, 64 MB read {peaks['peak_gbs']:.1f} GB/s; "
+          f"data sheet float32 {sheet['peak_gflops']:.0f}, TF32 "
+          f"{sheet['peak_gflops_tf32']:.0f}, bfloat16 "
+          f"{sheet['peak_gflops_bf16']:.0f} GFLOP/s, HBM "
+          f"{sheet['peak_gbs']:.0f} GB/s [{kind}; {card}]", flush=True)
+    assert all(peaks[k] > 0 for k in ("peak_gflops", "peak_gflops_bf16", "peak_gbs")), peaks
+
+    img = frames16[0]
+    total, stages = stage_times(feature, img)
+    caps = BENCH_CONFIG["max_candidates"]
+    model = roofline.stage_model(batch=1, h=img.shape[0], w=img.shape[1], n_layers=4,
+                                 max_candidates=sum(caps) // len(caps),
+                                 max_keypoints=BENCH_CONFIG["max_keypoints"],
+                                 describe_slots=BENCH_CONFIG["describe_capacity"])
+    stage_ms = dict(scores=stages["harris"], masks=stages["masks"],
+                    top_k=stages["candidates"], uniformity=stages["uniformity"],
+                    refine=stages["refine"], describe=stages["describe"])
+    for label, pk in (("measured", peaks), ("data-sheet", sheet)):
+        rep = roofline.report(stage_ms, model, pk)
+        txt = "; ".join(f"{n} {r['ms']} ms ({r['kind']}) mfu {r['mfu']} bw {r['bandwidth_frac']}"
+                        for n, r in rep.items())
+        print(f"[utils] roofline of one VGA detect_and_compute ({total:.3f} ms) against the "
+              f"{label} peaks: {txt} [{kind}; {card}]", flush=True)
+
+    timing.Timing.reset()
+    pipe.step(frames16)
+    torch.cuda.synchronize()
+    for mode in ("checksum", "block", "checksum", "block"):
+        box = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with timing.timer(f"utils/step-{mode}", block_on=box, mode=mode):
+            start.record()
+            box.append(pipe.step(frames16))
+            end.record()
+        end.synchronize()
+        event_ms = start.elapsed_time(end)
+        sample_ms = timing.Timing.get(f"utils/step-{mode}").window[-1] * 1e3
+        assert event_ms <= sample_ms <= 1.25 * event_ms + 5.0, (mode, event_ms, sample_ms)
+        print(f"[utils] timer mode {mode} around one B=16 step: sample {sample_ms:.3f} ms, "
+              f"CUDA events {event_ms:.3f} ms [{kind}; {card}]", flush=True)
+    print("[utils] " + timing.Timing.print_timing().replace("\n", "\n[utils] "), flush=True)
+
+
+def vo_scene(n: int):
+    """The [vo] scene's first n VGA frames, its camera and ground truth."""
+    import numpy as np
+
+    from ethzasl_brisk_tpu_torch.frames import make_texture, render_scene, trajectory
+    from ethzasl_brisk_tpu_torch.geometry import PinholeCamera
+
+    cam = PinholeCamera(*VO_CAMERA)
+    tex = make_texture(np.random.default_rng(VO_SEED))
+    traj = trajectory(n)
+    frames = [render_scene(tex, cam, r, t) for r, t in traj]
+    gt = np.tile(np.eye(4), (n, 1, 1))
+    for i, (r, t) in enumerate(traj):
+        gt[i, :3, :3] = r.T
+        gt[i, :3, 3] = -r.T @ t
+    return frames, cam, gt
+
+
+class _Crash(Exception):
+    pass
+
+
+def ckpt_phase(dev: torch.device, card: str, kind: str) -> None:
+    """run_keyframed with checkpoints on the card: stopped partway as a
+    crash would stop it, resumed from its latest checkpoint, bitwise equal
+    to an uninterrupted run."""
+    import warnings
+
+    import numpy as np
+
+    from ethzasl_brisk_tpu_torch.utils.checkpoint import CheckpointManager
+    from ethzasl_brisk_tpu_torch.vo.sequence import run_keyframed
+
+    frames, cam, gt = vo_scene(CKPT_FRAMES)
+    # Two plain runs: the BA's index_add_ adds with atomics on the card,
+    # so the last bits of a run need not repeat.
+    runs = [run_keyframed(frames, cam, gt, device=dev, **VO_FLAGS) for _ in range(2)]
+    repeat_gap = float(np.abs(runs[0]["poses"] - runs[1]["poses"]).max())
+    # The three runs compared bitwise run with deterministic algorithms
+    # (CUBLAS_WORKSPACE_CONFIG is set in main before the first cuBLAS call).
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as nondet:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            ref = run_keyframed(frames, cam, gt, device=dev, **VO_FLAGS)
+            ref_s = time.perf_counter() - t0
+            seen = []
+
+            def crash(stage):
+                if stage == "detect":
+                    seen.append(1)
+                    if len(seen) > CKPT_CRASH_AFTER:
+                        raise _Crash
+
+            with tempfile.TemporaryDirectory() as tmp:
+                ckpt = dict(checkpoint_dir=os.path.join(tmp, "ck"), checkpoint_every=2)
+                t0 = time.perf_counter()
+                try:
+                    run_keyframed(frames, cam, gt, device=dev, mark=crash, **ckpt, **VO_FLAGS)
+                except _Crash:
+                    pass
+                else:
+                    raise AssertionError("[ckpt] the stopped run ran to its end")
+                crash_s = time.perf_counter() - t0
+                mgr = CheckpointManager(ckpt["checkpoint_dir"])
+                steps = mgr.all_steps()
+                assert steps, "[ckpt] no checkpoint before the stop"
+                size = os.path.getsize(mgr._path(steps[-1]))
+                t0 = time.perf_counter()
+                got, launches = counted(lambda: run_keyframed(frames, cam, gt, device=dev, **ckpt,
+                                                              **VO_FLAGS))
+                resume_s = time.perf_counter() - t0
+                saved_state, _ = mgr.restore_latest()
+                t0 = time.perf_counter()
+                mgr.save(10**6, saved_state)
+                save_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet_ops = sorted({str(w.message).split(" does not have")[0] for w in nondet
+                         if "deterministic" in str(w.message)})
+    resumed_at = steps[-1]
+    frames_run = CKPT_FRAMES - resumed_at
+    expect = {"harris_score_i32": frames_run + 1, "harris_score_mask": 0,
+              "smoothed_intensity": 2 * frames_run, "smoothed_intensity_v1": 0}
+    assert launches == expect, (launches, expect)
+    poses = got.pop("poses")
+    assert np.array_equal(poses, ref.pop("poses")), "[ckpt] resumed trajectory"
+    assert got == ref, (got, ref)
+    assert ref["keyframes"] >= 3 and ref["ba_runs"] >= 1, ref
+    print(f"[ckpt] run_keyframed on {CKPT_FRAMES} VGA frames of the [vo] scene {VO_FLAGS}, a "
+          f"checkpoint every 2 keyframes (steps {steps}): stopped after {CKPT_CRASH_AFTER} "
+          f"frames, resumed at frame {resumed_at} (launches {launches}); trajectory, "
+          f"keyframes {got['keyframes']}, BA runs {got['ba_runs']} and rejects bitwise equal to "
+          f"the uninterrupted run; uninterrupted {ref_s:.2f} s, stopped run {crash_s:.2f} s, "
+          f"resumed run {resume_s:.2f} s; a checkpoint {size / 2**20:.2f} MiB, saved in "
+          f"{save_ms:.1f} ms; under deterministic algorithms (ops without one: "
+          f"{nondet_ops}); two plain runs' poses {repeat_gap:.3g} apart [{kind}; {card}]",
+          flush=True)
+
+
+def dense_window(seed: int, dtype):
+    """tests/test_ba.py's dense window (6 poses along x, 200 landmarks seen
+    from every pose, noisy start) as a BaProblem on the CPU."""
+    import numpy as np
+
+    from ethzasl_brisk_tpu_torch.ba.se3 import so3_exp
+    from ethzasl_brisk_tpu_torch.ba.window import BaProblem
+
+    rng = np.random.default_rng(seed)
+    k, n_lm = 6, 200
+    t_cam = -np.stack([np.linspace(0, 1.0, k), np.zeros(k), np.zeros(k)], 1)
+    pts = rng.uniform([-3, -2, 4], [3, 2, 10], (n_lm, 3))
+    kf, lm = np.repeat(np.arange(k), n_lm), np.tile(np.arange(n_lm), k)
+    x_c = pts[lm] + t_cam[kf]
+    uv = np.stack([400.0 * x_c[:, 0] / x_c[:, 2] + 320, 400.0 * x_c[:, 1] / x_c[:, 2] + 240], 1)
+    w = rng.normal(0, 0.02, (k, 3)).astype(np.float32)
+    w[0] = 0
+    r0 = so3_exp(torch.from_numpy(w)).numpy().astype(np.float64)
+    t0 = t_cam + rng.normal(0, 0.02, (k, 3))
+    t0[0] = t_cam[0]
+    pts0 = pts + rng.normal(0, 0.1, (n_lm, 3))
+    return BaProblem.from_numpy(dict(
+        r=r0.astype(dtype), t=t0.astype(dtype), points=pts0.astype(dtype), kf_idx=kf,
+        lm_idx=lm, uv=uv.astype(dtype), valid=np.ones(len(kf), bool), fu=dtype(400.0),
+        fv=dtype(400.0), cu=dtype(320.0), cv=dtype(240.0)), device="cpu")
+
+
+def dist_phase(dev: torch.device, card: str, kind: str, feature, pipe, frames16) -> None:
+    """The sharded layer on one rank of NCCL, mesh (1, 1): sharded knn, the
+    data-parallel step (counted), distributed BA and pose graph against the
+    single-card ones, the worker's run and the dry run."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from ethzasl_brisk_tpu_torch import (
+        AstFramePipeline,
+        BriskFeatureDetector,
+        FramePipeline,
+        measure,
+    )
+    from ethzasl_brisk_tpu_torch.ba.pose_graph import optimize_pose_graph
+    from ethzasl_brisk_tpu_torch.ba.window import solve_window_ba
+    from ethzasl_brisk_tpu_torch.match.matcher import knn_match
+    from ethzasl_brisk_tpu_torch.parallel import (
+        init_process_group,
+        make_mesh,
+        sharded_knn_match,
+    )
+    from ethzasl_brisk_tpu_torch.parallel.dist_ba import partition_problem, solve_window_ba_sharded
+    from ethzasl_brisk_tpu_torch.parallel.dist_pg import (
+        optimize_pose_graph_sharded,
+        partition_edges,
+    )
+    from ethzasl_brisk_tpu_torch.parallel.multihost import circle_graph, run_dryrun, run_worker
+
+    def close(got, ref, rel):
+        gap = float((got - ref).abs().max())
+        assert gap <= rel * float(ref.abs().max()), (gap, rel)
+        return gap
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rank_dev = init_process_group(0, 1, tmp, dev)
+        try:
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+            assert rank_dev == dev and dist.get_backend() == backend, (rank_dev, backend)
+            mesh = make_mesh(1, 1, dev)
+            kps, desc, midx, mdist = pipe.step(frames16)
+            idx, dk = sharded_knn_match(mesh, desc[1], desc[0], kps.valid[0], k=2)
+            ref_idx, ref_d = knn_match(desc[1], desc[0], torch.ones_like(kps.valid[1]),
+                                       kps.valid[0], k=2)
+            assert torch.equal(idx, ref_idx) and torch.equal(dk, ref_d), "[dist] sharded knn"
+
+            sharded = FramePipeline(feature, dev, mesh)
+            got, launches = counted(lambda: sharded.step(frames16, with_diagnostics=True))
+            assert launches["harris_score_i32"] == 1 and launches["smoothed_intensity"] == 2, \
+                launches
+            assert_same_step(got[:4], (kps, desc, midx, mdist), "[dist] step over the mesh")
+            assert bool(got[4]["detect"].ok.all())
+            ast_det = BriskFeatureDetector(**AST_DETECTOR, device=dev)
+            ast_plain = AstFramePipeline(ast_det, dev, **AST_PIPELINE).step(frames16[:4])
+            ast_got, ast_launches = counted(lambda: AstFramePipeline(
+                ast_det, dev, mesh=mesh, **AST_PIPELINE).step(frames16[:4]))
+            assert ast_launches["smoothed_intensity"] == 2, ast_launches
+            assert_same_step(ast_got, ast_plain, "[dist] AST step over the mesh")
+            step_ms = measure.cuda_time(lambda: sharded.step(frames16))
+            plain_ms = measure.cuda_time(lambda: pipe.step(frames16))
+            print(f"[dist] NCCL, 1 rank, mesh (1, 1): sharded knn bitwise the dense knn; "
+                  f"FramePipeline(mesh=...) B=16 launches {launches}, bitwise the plain step; "
+                  f"AstFramePipeline(mesh=...) B=4 launches {ast_launches}, bitwise the plain "
+                  f"AST step; "
+                  f"step {step_ms:.3f} ms vs plain {plain_ms:.3f} ms (median of 10) "
+                  f"[{kind}; {card}]", flush=True)
+
+            gaps = []
+            for dtype, rel in ((np.float64, 1e-9), (np.float32, None)):
+                prob = dense_window(5, dtype)
+                prob = dataclasses.replace(prob, **{f.name: getattr(prob, f.name).to(dev)
+                                                    for f in dataclasses.fields(prob)})
+                single, s_costs = solve_window_ba(prob, iterations=10, damping=1e-3)
+                solved, d_costs = solve_window_ba_sharded(mesh, partition_problem(prob, 1),
+                                                          iterations=10, damping=1e-3)
+                if rel is not None:
+                    gaps += [close(solved.t, single.t, rel), close(solved.r, single.r, rel),
+                             close(solved.points, single.points, rel),
+                             close(d_costs, s_costs, rel)]
+                else:
+                    ts, td = single.t.cpu().numpy(), solved.t.cpu().numpy()
+                    scale = np.linalg.norm(ts[1:]) / np.linalg.norm(td[1:])
+                    np.testing.assert_allclose(td * scale, ts, rtol=5e-3, atol=5e-3)
+                graph, _ = circle_graph(12, 5.0, np.random.default_rng(7), 0.03, 0.2,
+                                        dtype=dtype)
+                graph = dataclasses.replace(graph, **{f.name: getattr(graph, f.name).to(dev)
+                                                      for f in dataclasses.fields(graph)})
+                pg1, pg1_costs = optimize_pose_graph(graph, iterations=15, damping=1e-5)
+                pgd, pgd_costs = optimize_pose_graph_sharded(mesh, partition_edges(graph, 1),
+                                                             iterations=15, damping=1e-5)
+                if rel is not None:
+                    gaps += [close(pgd.t, pg1.t, rel), close(pgd.r, pg1.r, rel),
+                             close(pgd_costs, pg1_costs, rel)]
+                else:
+                    assert float((pgd.t - pg1.t).abs().max()) <= 1e-4
+                    assert float((pgd.r - pg1.r).abs().max()) <= 1e-4
+                assert float(pgd_costs[-1]) < 1e-6, pgd_costs
+            ba_costs, pg_costs, t_err = run_worker(mesh)
+            assert ba_costs[0] > 100.0 and ba_costs[-1] < 1e-4, ba_costs
+            assert pg_costs[-1] < 1e-6 and t_err < 1e-2, (pg_costs, t_err)
+            t0 = time.perf_counter()
+            info = run_dryrun(mesh)
+            dry_s = time.perf_counter() - t0
+            print(f"[dist] distributed BA (dense window, 10 GN steps) and pose graph (12-node "
+                  f"loop, 15 steps) in float64 within {max(gaps):.2e} of the single-card "
+                  f"solvers (bar 1e-9 relative), float32 within JAX's bars; the worker's run: "
+                  f"BA cost {ba_costs[0]:.3e} -> {ba_costs[-1]:.3e}, pose graph "
+                  f"{pg_costs[-1]:.3e}, translation error {t_err:.2e}; the dry run {info} in "
+                  f"{dry_s:.2f} s [{kind}; {card}]", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+
+def examples_phase(dev: torch.device, card: str, kind: str) -> None:
+    """live_pipeline over bench frames on the card (counted) against a
+    ``--device cpu`` run; cameras_demo on the card."""
+    import contextlib
+    import io
+
+    from ethzasl_brisk_tpu_torch.core.image_io import write_pgm
+    from ethzasl_brisk_tpu_torch.examples import cameras_demo, live_pipeline
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+    from ethzasl_brisk_tpu_torch.utils.timing import Timing
+
+    def run(fn):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            fn()
+        return out.getvalue().splitlines()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, frame in enumerate(bench_frames(LIVE_FRAMES)):
+            write_pgm(os.path.join(tmp, f"{i:03d}.pgm"), frame)
+        argv = [tmp, str(LIVE_BATCH), os.path.join(tmp, "draw")]
+        Timing.reset()
+        t0 = time.perf_counter()
+        card_lines, launches = counted(
+            lambda: run(lambda: live_pipeline.main([*argv, "--device", dev.type])))
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_lines = run(lambda: live_pipeline.main([*argv, "--device", "cpu"]))
+        cpu_s = time.perf_counter() - t0
+        n_drawn = len(os.listdir(os.path.join(tmp, "draw")))
+    n_batches = (LIVE_FRAMES - 1) // LIVE_BATCH
+    assert launches["harris_score_i32"] == n_batches + 1, launches
+    assert launches["smoothed_intensity"] == 2 * n_batches, launches
+    card_batches = [ln for ln in card_lines if ln.startswith("batch ")]
+    assert card_batches == [ln for ln in cpu_lines if ln.startswith("batch ")], \
+        (card_batches, cpu_lines)
+    assert len(card_batches) == n_batches + 1 and n_drawn == n_batches * (LIVE_BATCH - 1)
+    timing_lines = [ln for ln in card_lines if "ms" in ln]
+    print(f"[examples] live_pipeline, {LIVE_FRAMES} VGA bench frames in batches of "
+          f"{LIVE_BATCH}: launches {launches}; batch lines equal to the CPU run's: "
+          f"{card_batches}; {n_drawn} drawings; card {card_s:.2f} s, CPU {cpu_s:.2f} s; "
+          f"registry: {timing_lines} [{kind}; {card}]", flush=True)
+    demo, demo_launches = counted(lambda: run(lambda: cameras_demo.main(["--device", dev.type])))
+    assert demo_launches["harris_score_i32"] == 1 and demo_launches["smoothed_intensity"] == 2
+    print(f"[examples] cameras_demo on the card: {demo}; launches {demo_launches} "
+          f"[{kind}; {card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1095,6 +1462,9 @@ def main() -> int:
     cuda_time = measure.cuda_time
 
     t_start = time.perf_counter()
+    # [ckpt] runs with deterministic algorithms, whose cuBLAS calls need
+    # this set before the first one.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = measure.card_line(dev)
@@ -1267,6 +1637,10 @@ def main() -> int:
     v1_row = v1_phase(dev, card, kind)
     camera_phase(dev, card, kind)
     vo_phase(dev, card, kind)
+    ckpt_phase(dev, card, kind)
+    utils_phase(dev, card, kind, feature, pipe, frames16)
+    dist_phase(dev, card, kind, feature, pipe, frames16)
+    examples_phase(dev, card, kind)
 
     # ---- The gather probes P1, P3 and P2: every call of the 26 pallas_call
     # sites at full size, its kernel counted (once per call) and bitwise

@@ -2,7 +2,7 @@
 
 Mirrors the JAX package module by module (``core/``, ``kernels/``,
 ``detect/``, ``describe/``, ``match/``, ``geometry/``, ``vo/``, ``ba/``,
-``parallel/``, ``pipeline.py``).
+``parallel/``, ``utils/``, ``examples/``, ``pipeline.py``).
 The JAX package stays the reference; this package imports neither it nor
 JAX. Its TPU kernels are hand-written CUDA here (``csrc/``), built with
 ``nvcc`` the first time a CUDA tensor reaches them.
@@ -18,7 +18,11 @@ path (``geometry/camera_aware.py``) and RANSAC (``geometry/ransac.py``);
 VO + window-BA loop (``python -m ethzasl_brisk_tpu_torch.vo``); ``ba`` the
 SE(3) helpers, windowed bundle adjustment and the pose graph; ``probes``
 the TPU gather probes as GPU probes (``python -m
-ethzasl_brisk_tpu_torch.probes``).
+ethzasl_brisk_tpu_torch.probes``); ``utils`` the timing registry,
+checkpoints and roofline accounting; ``parallel`` the steps over a
+``torch.distributed`` device mesh, the sharded knn, BA and pose graph
+(``python -m ethzasl_brisk_tpu_torch.parallel worker|dryrun``);
+``examples`` the JAX package's examples.
 
 Quick start (one image, on the card)::
 

@@ -148,6 +148,12 @@ def describable_count(
     return _describable_mask(pat, h, w, keypoints, scale_invariant).sum(dtype=torch.int32)
 
 
+def describe_budget(per_frame: int, b: int, k: int) -> int:
+    """The describe capacity of a batch of ``b`` frames of ``k`` slots:
+    ``per_frame`` describables a frame, or every slot when it is 0."""
+    return per_frame * b if per_frame else b * k
+
+
 def _stack_frames(imgs: torch.Tensor) -> torch.Tensor:
     """(B, H, W) uint8 -> (B*(H+1), W+1) int32 row-stacked integrals; frame
     b's integral starts at row ``b*(H+1)``."""

@@ -60,6 +60,7 @@ from ethzasl_brisk_tpu_torch.describe.extractor import (
     BriskExtractor,
     DevicePattern,
     check_u8_batch,
+    describe_budget,
     extract_descriptors_compact,
 )
 from ethzasl_brisk_tpu_torch.detect.ast_scale_space import detect_ast_keypoints
@@ -183,8 +184,7 @@ class BriskFeature(nn.Module):
         describe, it does not pass ``v1_rounding`` on: a v1 feature describes
         a batch with the v1 pattern and v2 rounding."""
         dev = self.device
-        b = imgs.shape[0]
-        cap = self.describe_capacity * b if self.describe_capacity else b * kps.capacity
+        cap = describe_budget(self.describe_capacity, imgs.shape[0], kps.capacity)
         return extract_descriptors_compact(
             self.pattern, imgs.to(dev), kps.map(lambda a: a.to(dev)), capacity=cap,
             rotation_invariant=self.extractor.rotation_invariant,

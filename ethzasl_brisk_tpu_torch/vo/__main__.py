@@ -3,10 +3,13 @@
     python -m ethzasl_brisk_tpu_torch.vo <frames_dir> --gt poses.txt \\
         [--gt-format kitti|tum] [--fu F --fv F --cu C --cv C]
         [--max-frames N] [--window W] [--kf-parallax PX] [--no-ba]
-        [--no-refine] [--device cuda|cpu] [--json]
+        [--no-refine] [--checkpoint-dir DIR] [--checkpoint-every N]
+        [--device cuda|cpu] [--json]
 
 The port's ``tools/kitti_eval.py``: the same flags and defaults (KITTI
-00's camera 0), less its checkpoints. ``frames_dir`` holds sorted .pgm
+00's camera 0). With ``--checkpoint-dir`` the run resumes from the
+directory's latest checkpoint and saves one every ``--checkpoint-every``
+keyframes. ``frames_dir`` holds sorted .pgm
 (or .png/.jpg) grayscale frames. Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
@@ -81,6 +84,11 @@ def parse_args(argv=None):
                          "than this fraction of the frame area (0 disables)")
     ap.add_argument("--no-normalize-exposure", action="store_true",
                     help="disable per-frame photometric normalization")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="checkpoint directory; resumes from the latest step if one exists "
+                         "(failure recovery)")
+    ap.add_argument("--checkpoint-every", type=int, default=10,
+                    help="checkpoint every N keyframes")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--json", action="store_true")
     return ap.parse_args(argv)

@@ -8,7 +8,9 @@ verification of keyframe matches, a sliding window of keyframes through
 ``build_ba_problem`` and the ``lm`` / ``trimmed`` / ``gn`` solver, the
 trim-fraction gate, the monocular scale-gauge projection, the divergence
 gate and the propagation of each window's correction to the trajectory.
-Its keywords are kitti_eval's flags, with kitti_eval's defaults.
+Its keywords are kitti_eval's flags, with kitti_eval's defaults, its
+checkpoints included (``checkpoint_dir``, ``checkpoint_every``; kitti_eval's
+crash-consistent rule, ``utils/checkpoint.py``).
 
 Both run on ``device`` (the card unless ``device="cpu"``): detection,
 matching, RANSAC and the BA solve are device tensors; the keyframe rule,
@@ -32,6 +34,11 @@ from ethzasl_brisk_tpu_torch.core.device import resolve_device
 from ethzasl_brisk_tpu_torch.geometry.cameras import PinholeCamera
 from ethzasl_brisk_tpu_torch.match.matcher import match_with_ratio_and_crosscheck
 from ethzasl_brisk_tpu_torch.pipeline import BriskFeature
+from ethzasl_brisk_tpu_torch.utils.checkpoint import (
+    CheckpointManager,
+    pack_vo_loop_state,
+    unpack_vo_loop_state,
+)
 from ethzasl_brisk_tpu_torch.vo.evaluate import ate_rmse, rpe
 from ethzasl_brisk_tpu_torch.vo.frontend import (
     Draw,
@@ -42,14 +49,14 @@ from ethzasl_brisk_tpu_torch.vo.frontend import (
 )
 from ethzasl_brisk_tpu_torch.vo.tracks import build_ba_problem
 
-# kitti_eval's flags and their defaults (tools/kitti_eval.py:60-120), less
-# its camera (a caller's PinholeCamera), frame count and checkpoints.
+# kitti_eval's flags and their defaults (tools/kitti_eval.py:60-125), less
+# its camera (a caller's PinholeCamera) and frame count.
 KEYFRAMED_DEFAULTS = dict(
     window=6, kf_parallax=12.0, kf_min_inliers=60, max_keypoints=1024, threshold=30.0,
     no_ba=False, ba_min_track_len=3, ba_max_obs_residual=8.0, ba_solver="trimmed",
     ba_iters=12, ba_max_shift=0.0, ba_huber=3.0, ba_max_trim_frac=0.08,
     no_ba_scale_projection=False, no_refine=False, min_inlier_spread=0.15,
-    no_normalize_exposure=False,
+    no_normalize_exposure=False, checkpoint_dir=None, checkpoint_every=10,
 )
 # The stages ``run_keyframed`` marks, per frame and per window.
 FRAME_STAGES = ("detect", "match", "ransac", "refine", "kf_verify")
@@ -103,6 +110,17 @@ def run_keyframed(frames, camera: PinholeCamera, gt_poses=None, *,
     per relative pose, in kitti_eval's order. ``mark(stage)`` is called
     after each stage of ``FRAME_STAGES`` and ``WINDOW_STAGES``.
 
+    With ``checkpoint_dir``, the run resumes from the directory's latest
+    checkpoint if it holds one, and saves the loop's state at the top of
+    frame ``i`` once ``checkpoint_every`` keyframes have passed since the
+    last save: the state then holds every effect of the frames before
+    ``i``, their window BA included (kitti_eval's crash-consistent rule,
+    ``tools/kitti_eval.py:257-275``). The RANSAC source's state is saved
+    with it: the generator's, or ``draw.cursor`` when a draw is given
+    (such a draw must replay its samples from its cursor). Beyond
+    kitti_eval's fields the state holds the keyframe count and the BA
+    rejects, so a resumed run's result equals an uninterrupted run's.
+
     Returns kitti_eval's result (frames, keyframes, ba_runs, ba_rejects,
     path_length, and with ground truth ate_rmse, rpe_trans_rmse,
     rpe_rot_rmse_deg), the frame-0 capacity certificate ``capacity_ok``
@@ -141,10 +159,34 @@ def run_keyframed(frames, camera: PinholeCamera, gt_poses=None, *,
         scale_norms = np.linalg.norm(np.diff(gt_pos, axis=0), axis=1)
 
     poses = [np.eye(4)]                 # world-from-camera per frame
-    kf = []                             # keyframe records
-    n_ba_runs = n_ba_rejects = 0
+    kf = []                             # keyframe records (a resumed run's: the tail)
+    n_kf_total = n_ba_runs = n_ba_rejects = 0
     prev = None
+    start_frame = 0
+    ckpt = None
+    if a["checkpoint_dir"]:
+        ckpt = CheckpointManager(a["checkpoint_dir"])
+        saved, step = ckpt.restore_latest()
+        if saved is not None:
+            poses, start_frame, _, prev, kf, n_ba_runs = unpack_vo_loop_state(
+                saved, generator=generator, draw=draw, device=dev)
+            n_kf_total = int(saved.get("n_kf_total", len(kf)))
+            n_ba_rejects = int(saved.get("n_ba_rejects", 0))
+            print(f"resumed from step {step}: frame {start_frame}, {len(poses)} poses, "
+                  f"{len(kf)} tail keyframes", file=sys.stderr)
+    last_saved_kf = n_kf_total
     for i, frame in enumerate(frames):
+        if i < start_frame:
+            continue
+        if (ckpt is not None and n_kf_total - last_saved_kf >= a["checkpoint_every"]
+                and prev is not None and kf):
+            state = pack_vo_loop_state(
+                poses=poses, frame_idx=i, key=_source_state(generator, draw), prev=prev, kf=kf,
+                window=a["window"], n_frames=len(frames), n_ba_runs=n_ba_runs)
+            state["n_kf_total"] = torch.tensor(n_kf_total, dtype=torch.int32)
+            state["n_ba_rejects"] = torch.tensor(n_ba_rejects, dtype=torch.int32)
+            ckpt.save(i, state)
+            last_saved_kf = n_kf_total
         cur = vo.process_frame(torch.as_tensor(frame))
         mark("detect")
         if prev is not None:
@@ -193,9 +235,10 @@ def run_keyframed(frames, camera: PinholeCamera, gt_poses=None, *,
             continue
 
         kf.append(dict(frame=i, kp=cur[0], desc=cur[1], match_to_prev=pair_match))
+        n_kf_total += 1
 
         # --- window BA over the last W keyframes.
-        if a["no_ba"] or len(kf) < 3:
+        if a["no_ba"] or n_kf_total < 3:
             continue
         win = kf[-a["window"]:]
         pair_matches = [k["match_to_prev"] for k in win[1:] if k["match_to_prev"] is not None]
@@ -241,7 +284,7 @@ def run_keyframed(frames, camera: PinholeCamera, gt_poses=None, *,
     positions = np.stack([p[:3, 3] for p in poses])
     result = dict(
         frames=len(frames),
-        keyframes=len(kf),
+        keyframes=n_kf_total,
         ba_runs=n_ba_runs,
         ba_rejects=n_ba_rejects,
         path_length=float(np.linalg.norm(np.diff(positions, axis=0), axis=1).sum()),
@@ -255,6 +298,16 @@ def run_keyframed(frames, camera: PinholeCamera, gt_poses=None, *,
     result["capacity_ok"] = capacity_ok
     result["poses"] = np.stack(poses)
     return result
+
+
+def _source_state(generator, draw) -> torch.Tensor:
+    """The RANSAC source's state for a checkpoint: the draw's cursor, or
+    the generator's state."""
+    if draw is None:
+        return generator.get_state()
+    if not hasattr(draw, "cursor"):
+        raise ValueError("a checkpointed run with a draw needs a draw with a cursor")
+    return torch.tensor(int(draw.cursor), dtype=torch.int64)
 
 
 def _solve_window(prob, n_obs: int, a: dict):

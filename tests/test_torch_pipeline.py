@@ -267,6 +267,7 @@ def test_invalid_slot_angle_outside_parity():
 def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['ethzasl_brisk_tpu'] = None\n"
+        "sys.modules['orbax'] = None\n"
         "import ethzasl_brisk_tpu_torch, ethzasl_brisk_tpu_torch.frames\n"
         "import ethzasl_brisk_tpu_torch.core.image_io, ethzasl_brisk_tpu_torch.match.matcher\n"
         # The golden-set IO and the 16-bit and parity branches' modules.
@@ -290,6 +291,10 @@ def test_port_imports_without_jax():
         "from ethzasl_brisk_tpu_torch.vo import evaluate, frontend, sequence, tracks\n"
         "import ethzasl_brisk_tpu_torch.ba, ethzasl_brisk_tpu_torch.vo\n"
         "import ethzasl_brisk_tpu_torch.vo.__main__\n"
+        # The utilities, the sharded layer and the examples.
+        "from ethzasl_brisk_tpu_torch.utils import checkpoint, roofline, timing\n"
+        "from ethzasl_brisk_tpu_torch.parallel import dist_ba, dist_pg, multihost\n"
+        "from ethzasl_brisk_tpu_torch.examples import cameras_demo, draw, live_pipeline\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'ethzasl_brisk_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
     )

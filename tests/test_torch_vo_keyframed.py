@@ -123,7 +123,7 @@ def test_cli_prints_run_keyframed(tmp_path, capsys):
 
 def test_run_keyframed_rejects_unknown_flags():
     with pytest.raises(TypeError):
-        run_keyframed([], PinholeCamera(*CAM), device="cpu", checkpoint_dir="x")
+        run_keyframed([], PinholeCamera(*CAM), device="cpu", resume_from="x")
     with pytest.raises(ValueError):
         run_keyframed([np.zeros((8, 8), np.uint8)], PinholeCamera(*CAM), device="cpu",
                       ba_solver="newton")
