@@ -44,6 +44,10 @@ LAUNCHES = {
     "harris_score_i32": 0, "harris_score_mask": 0, "smoothed_intensity": 0,
     # K2's v1-rounding variant (the same entry point with its flag set).
     "smoothed_intensity_v1": 0,
+    # The port's own kernels (no TPU counterpart): JAX's float32 angle chain
+    # (csrc/angle.cu) and the BA's ordered segment sums (csrc/segment_sum.cu).
+    "brisk_orientation": 0, "atan2f_elementwise": 0, "sincosf_elementwise": 0,
+    "segment_sum": 0,
     # The gather probes' kernels: G1, G2, C, W (probes/gather.py); T, X, S
     # (probes/mosaic.py).
     "probe_take": 0, "probe_point_gather": 0, "probe_relayout": 0, "probe_window_copy": 0,
@@ -181,6 +185,20 @@ def library() -> ctypes.CDLL:
             lib.brisk_probe_gather_chain.restype = ci
             lib.brisk_probe_window_colsum.argtypes = [vp, vp, vp, vp, ci, ci, vp]
             lib.brisk_probe_window_colsum.restype = ci
+            lib.brisk_orientation.argtypes = [
+                vp, vp, vp, vp,            # d0, d1, given angle, need
+                vp, vp, ci, ci, ci, vp,    # angle, theta, K, n_rot, op_by_op, stream
+            ]
+            lib.brisk_orientation.restype = ci
+            lib.brisk_atan2f_elementwise.argtypes = [vp, vp, vp, ci, vp]  # y, x, out, n, stream
+            lib.brisk_atan2f_elementwise.restype = ci
+            lib.brisk_sincosf_elementwise.argtypes = [vp, vp, vp, ci, vp]  # x, sin, cos, n, stream
+            lib.brisk_sincosf_elementwise.restype = ci
+            lib.brisk_segment_sum.argtypes = [
+                vp, vp, vp, vp,            # values, order, offsets, out
+                ci, ci, ci, vp,            # segments, width, is_double, stream
+            ]
+            lib.brisk_segment_sum.restype = ci
             lib.brisk_error_string.argtypes = [ci]
             lib.brisk_error_string.restype = ctypes.c_char_p
             _lib = lib

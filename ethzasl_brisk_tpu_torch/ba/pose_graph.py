@@ -8,9 +8,11 @@ Batched Gauss-Newton: all edge residuals and Jacobians at once, dense
 
 Jacobians use the small-increment approximation J_i = Ad(T_m^-1),
 J_j = -Ad(T_m^-1 T_i T_j^-1); a fixed damping keeps early iterations
-stable. The blocks are scatter-added with ``index_add_`` on the flat
-(i, j) index of an (N, N, 6, 6) tensor, so a node on two edges keeps both
-of its (i, i) blocks.
+stable. The blocks are segment sums (``ba/segment.py``) on the flat (i, j)
+index of an (N, N, 6, 6) tensor, so a node on two edges keeps both of its
+(i, i) blocks; the CSRs are built once an optimization
+(``pose_graph_plans``), and each segment adds in edge order, as four
+``index_add_`` calls after one another would on the CPU, on either device.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ethzasl_brisk_tpu_torch.ba.se3 import hat, se3_compose, se3_exp, se3_inverse, se3_log, solve
+from ethzasl_brisk_tpu_torch.ba.segment import SegmentPlan, segment_plan, segment_sum
 from ethzasl_brisk_tpu_torch.core.device import resolve_device
 
 
@@ -65,11 +68,22 @@ def _edge_residuals(g: PoseGraph):
     return se3_log(r_err, t_err)  # (E, 6)
 
 
-def assemble_normal_equations(g: PoseGraph, n: int):
+def pose_graph_plans(g: PoseGraph, n: int) -> tuple[SegmentPlan, SegmentPlan]:
+    """The CSRs of H's flat (i, j) index over the four block pairs, one
+    pair's edges after the other, and of b's (i, then j) index."""
+    ei, ej = g.edge_i, g.edge_j
+    h_idx = torch.cat([ei * n + ei, ei * n + ej, ej * n + ei, ej * n + ej])
+    return segment_plan(h_idx, n * n), segment_plan(torch.cat([ei, ej]), n)
+
+
+def assemble_normal_equations(g: PoseGraph, n: int,
+                              plans: tuple[SegmentPlan, SegmentPlan] | None = None):
     """Edge-parallel GN assembly: returns (H (N,6,N,6), b (N,6), cost).
 
     A pure sum over edges; zero-weight edges contribute nothing (padding).
+    ``plans`` (``pose_graph_plans``) is built here unless given.
     """
+    h_plan, b_plan = plans or pose_graph_plans(g, n)
     res = _edge_residuals(g)  # (E, 6)
     w = g.weight
 
@@ -82,14 +96,12 @@ def assemble_normal_equations(g: PoseGraph, n: int):
     r_c, t_c = se3_compose(rm_inv, tm_inv, r_est, t_est)
     ad_j = -_adjoint(r_c, t_c)
 
-    h = torch.zeros((n * n, 6, 6), dtype=res.dtype, device=res.device)
-    b = torch.zeros((n, 6), dtype=res.dtype, device=res.device)
     wb = w[:, None, None]
-    for ja, jb, ia, ib in ((ad_i, ad_i, g.edge_i, g.edge_i), (ad_i, ad_j, g.edge_i, g.edge_j),
-                           (ad_j, ad_i, g.edge_j, g.edge_i), (ad_j, ad_j, g.edge_j, g.edge_j)):
-        h.index_add_(0, ia * n + ib, torch.einsum("eai,eab->eib", ja * wb, jb))
-    b.index_add_(0, g.edge_i, torch.einsum("eai,ea->ei", ad_i * wb, res))
-    b.index_add_(0, g.edge_j, torch.einsum("eai,ea->ei", ad_j * wb, res))
+    h_obs = [torch.einsum("eai,eab->eib", ja * wb, jb)
+             for ja, jb in ((ad_i, ad_i), (ad_i, ad_j), (ad_j, ad_i), (ad_j, ad_j))]
+    h = segment_sum(torch.cat(h_obs), h_plan)
+    b = segment_sum(torch.cat([torch.einsum("eai,ea->ei", ad_i * wb, res),
+                               torch.einsum("eai,ea->ei", ad_j * wb, res)]), b_plan)
     cost = torch.sum(res * res * w[:, None])
     return h.reshape(n, n, 6, 6).permute(0, 2, 1, 3), b, cost
 
@@ -113,16 +125,17 @@ def solve_and_update(g: PoseGraph, h, b, damping):
     return dataclasses.replace(g, r=r_new, t=t_new)
 
 
-def _step(g: PoseGraph, damping):
-    h, b, cost = assemble_normal_equations(g, g.r.shape[0])
+def _step(g: PoseGraph, damping, plans):
+    h, b, cost = assemble_normal_equations(g, g.r.shape[0], plans)
     return solve_and_update(g, h, b, damping), cost
 
 
 def optimize_pose_graph(graph: PoseGraph, iterations: int = 10, damping: float = 1e-6):
     """Fixed-iteration GN. Returns (graph, costs (iterations,))."""
+    plans = pose_graph_plans(graph, graph.r.shape[0])
     costs = []
     for _ in range(iterations):
-        graph, cost = _step(graph, damping)
+        graph, cost = _step(graph, damping, plans)
         costs.append(cost)
     if not costs:
         return graph, torch.zeros((0,), dtype=graph.r.dtype, device=graph.r.device)

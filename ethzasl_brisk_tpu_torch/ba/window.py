@@ -6,11 +6,11 @@ Keyframe-window Gauss-Newton over poses and landmarks, dense-batched:
 * observations are a fixed-capacity structure of arrays (kf_idx, lm_idx,
   uv, valid), ragged windows padded and masked;
 * reprojection Jacobians are closed form, batched over all observations;
-* the normal equations' blocks are scatter-added with ``index_add_``,
-  which keeps repeated indices: B (K, 6, 6) pose blocks, C (L, 3, 3)
-  landmark blocks, E (L, K, 6, 3) on the flat (landmark, keyframe) index
-  (``index_put_(..., accumulate=True)`` sorts its indices on the card: 45 %
-  of a window's device time);
+* the normal equations' blocks are segment sums (``ba/segment.py``) over
+  a CSR built once a solve from the valid observations (``ba_plans``),
+  which keeps repeated indices and adds each segment in observation order
+  on either device: B (K, 6, 6) pose blocks, C (L, 3, 3) landmark blocks,
+  E (L, K, 6, 3) on the flat (landmark, keyframe) index;
 * the Schur complement S = B - E C^-1 E^T comes from a dense (L, K, 6, 3)
   coupling tensor, is solved densely (6K x 6K) and the landmarks are
   back-substituted in parallel;
@@ -18,8 +18,9 @@ Keyframe-window Gauss-Newton over poses and landmarks, dense-batched:
   ``torch.where``: no host sync inside a solve.
 
 A singular system gives NaN (``se3.solve``), which LM rejects as JAX's
-non-finite solve. The scatter-adds on the card add in no fixed order, so
-card and CPU agree to a tolerance, not bit for bit.
+non-finite solve. The segment sums make two runs on the card bitwise
+equal; card and CPU still agree to a tolerance, not bit for bit (the
+batched products and solves round otherwise on the card).
 
 Gauge: the first ``fix_poses`` poses are held fixed.
 """
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ethzasl_brisk_tpu_torch.ba.se3 import hat, se3_exp, solve
+from ethzasl_brisk_tpu_torch.ba.segment import SegmentPlan, segment_plan, segment_sum
 from ethzasl_brisk_tpu_torch.core.device import resolve_device
 
 
@@ -111,12 +113,37 @@ def _residual_and_jacobians(p: BaProblem):
     return res, j_pose, j_point, w
 
 
-def _segment_sum(values: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype, device=values.device)
-    return out.index_add_(0, idx, values)
+@dataclasses.dataclass(frozen=True)
+class BaPlans:
+    """The CSRs a solve scatters by: keyframe, landmark and the flat
+    (landmark, keyframe) index."""
+
+    kf: SegmentPlan
+    lm: SegmentPlan
+    lm_kf: SegmentPlan
 
 
-def _gauss_newton_step(p: BaProblem, damping, fix_poses: int = 1, huber_delta: float = 0.0):
+def ba_plans(kf_idx: torch.Tensor, lm_idx: torch.Tensor, valid: torch.Tensor, k: int,
+             n_lm: int) -> BaPlans:
+    """Built once a solve: its indices and its ``valid`` mask do not change
+    over its iterations. An invalid observation is dropped from every sum
+    (its weight is 0, so its terms are zeros, and adding a zero changes no
+    nonzero sum: the padded slots of a window, all on keyframe 0 and
+    landmark 0, would make those segments thousands of rows long); a
+    landmark index outside ``[0, n_lm)`` from the landmark sums."""
+    lm_ok = valid & (lm_idx >= 0) & (lm_idx < n_lm)
+    return BaPlans(segment_plan(torch.where(valid, kf_idx, -1), k),
+                   segment_plan(torch.where(lm_ok, lm_idx, -1), n_lm),
+                   segment_plan(torch.where(lm_ok, lm_idx * k + kf_idx, -1), n_lm * k))
+
+
+def _plans_of(p: BaProblem) -> BaPlans:
+    return ba_plans(p.kf_idx, p.lm_idx, p.valid, p.r.shape[0], p.points.shape[0])
+
+
+def _gauss_newton_step(p: BaProblem, damping, fix_poses: int = 1, huber_delta: float = 0.0,
+                       plans: BaPlans | None = None):
+    plans = plans or _plans_of(p)
     res, j_po, j_pt, w = _residual_and_jacobians(p)
     if huber_delta > 0.0:
         # IRLS Huber: downweight observations with ||res|| > delta.
@@ -129,11 +156,10 @@ def _gauss_newton_step(p: BaProblem, damping, fix_poses: int = 1, huber_delta: f
     wres = res * w[:, None]
     # Block assembly (segment sums over observations).
     j_po_w = j_po * w[:, None, None]
-    b_blocks = _segment_sum(torch.einsum("oai,oab->oib", j_po_w, j_po), p.kf_idx, k)
-    c_blocks = _segment_sum(
-        torch.einsum("oai,oab->oib", j_pt * w[:, None, None], j_pt), p.lm_idx, n_lm)
-    g_pose = _segment_sum(torch.einsum("oai,oa->oi", j_po, wres), p.kf_idx, k)     # (K, 6)
-    g_pt = _segment_sum(torch.einsum("oai,oa->oi", j_pt, wres), p.lm_idx, n_lm)    # (L, 3)
+    b_blocks = segment_sum(torch.einsum("oai,oab->oib", j_po_w, j_po), plans.kf)
+    c_blocks = segment_sum(torch.einsum("oai,oab->oib", j_pt * w[:, None, None], j_pt), plans.lm)
+    g_pose = segment_sum(torch.einsum("oai,oa->oi", j_po, wres), plans.kf)     # (K, 6)
+    g_pt = segment_sum(torch.einsum("oai,oa->oi", j_pt, wres), plans.lm)       # (L, 3)
     e_obs = torch.einsum("oai,oab->oib", j_po_w, j_pt)   # per observation
 
     # Damp.
@@ -143,7 +169,7 @@ def _gauss_newton_step(p: BaProblem, damping, fix_poses: int = 1, huber_delta: f
 
     # Schur: S = B - sum E C^-1 E^T over landmarks, through a dense
     # (L, K, 6, 3) coupling tensor (windows are small: K ~ 10).
-    e_dense = _segment_sum(e_obs, p.lm_idx * k + p.kf_idx, n_lm * k).reshape(n_lm, k, 6, 3)
+    e_dense = segment_sum(e_obs, plans.lm_kf).reshape(n_lm, k, 6, 3)
     ec = torch.einsum("lkis,lst->lkit", e_dense, c_inv)     # (L, K, 6, 3)
     s_red = torch.einsum("lkit,lmjt->kimj", ec, e_dense)    # (K, 6, K, 6)
 
@@ -180,9 +206,10 @@ def _gauss_newton_step(p: BaProblem, damping, fix_poses: int = 1, huber_delta: f
 def solve_window_ba(problem: BaProblem, iterations: int = 10, damping: float = 1e-4,
                     fix_poses: int = 1, huber_delta: float = 0.0):
     """Run fixed-iteration damped Gauss-Newton. Returns (problem, costs)."""
+    plans = _plans_of(problem)
     costs = []
     for _ in range(iterations):
-        problem, cost = _gauss_newton_step(problem, damping, fix_poses, huber_delta)
+        problem, cost = _gauss_newton_step(problem, damping, fix_poses, huber_delta, plans)
         costs.append(cost)
     return problem, _stack(costs, problem)
 
@@ -210,7 +237,8 @@ def robust_cost(p: BaProblem, huber_delta: float = 0.0) -> torch.Tensor:
 
 def solve_window_ba_lm(problem: BaProblem, iterations: int = 10, damping: float = 1e-3,
                        fix_poses: int = 1, huber_delta: float = 0.0,
-                       lambda_down: float = 1.0 / 3.0, lambda_up: float = 4.0):
+                       lambda_down: float = 1.0 / 3.0, lambda_up: float = 4.0,
+                       plans: BaPlans | None = None):
     """Levenberg-Marquardt with step accept/reject.
 
     Each iteration solves the damped system, re-evaluates the true robust
@@ -220,13 +248,16 @@ def solve_window_ba_lm(problem: BaProblem, iterations: int = 10, damping: float 
     geometry the solver stalls at the incumbent instead of diverging.
 
     Returns (problem, costs, lambdas); costs[i] is the accepted objective
-    after iteration i.
+    after iteration i. ``plans`` (``ba_plans``) is built here unless given;
+    given plans may drop observations this problem still holds valid only
+    if their weight is 0 (the trimmed solver's second stage).
     """
+    plans = plans or _plans_of(problem)
     lam = torch.tensor(damping, dtype=problem.r.dtype, device=problem.r.device)
     cost = robust_cost(problem, huber_delta)
     costs, lams = [], []
     for _ in range(iterations):
-        cand, _ = _gauss_newton_step(problem, lam, fix_poses, huber_delta)
+        cand, _ = _gauss_newton_step(problem, lam, fix_poses, huber_delta, plans)
         cost1 = robust_cost(cand, huber_delta)
         # Reject non-finite candidates outright (singular Schur solve).
         accept = torch.isfinite(cost1) & (cost1 < cost)
@@ -251,17 +282,17 @@ def solve_window_ba_trimmed(problem: BaProblem, iterations: int = 12, damping: f
     surviving set. Returns (problem, costs, n_trimmed).
     """
     half = max(iterations // 2, 1)
+    plans = _plans_of(problem)
     stage1, _, _ = solve_window_ba_lm(problem, iterations=half, damping=damping,
-                                      fix_poses=fix_poses, huber_delta=huber_delta)
+                                      fix_poses=fix_poses, huber_delta=huber_delta, plans=plans)
     res, _, _, w = _residual_and_jacobians(stage1)
     rnorm = torch.sqrt(torch.sum(res * res, -1) + 1e-12)
 
     # Track-level statistic: a landmark on a moving object becomes a
     # phantom point whose observations each keep a moderate residual;
     # the landmark's mean residual separates it.
-    n_lm = problem.points.shape[0]
-    lm_sum = _segment_sum(rnorm * w, problem.lm_idx, n_lm)
-    lm_cnt = _segment_sum(w, problem.lm_idx, n_lm)
+    lm_sum = segment_sum(rnorm * w, plans.lm)
+    lm_cnt = segment_sum(w, plans.lm)
     lm_mean = lm_sum / torch.clamp(lm_cnt, min=1.0)
     observed = lm_cnt > 0
 
@@ -285,5 +316,6 @@ def solve_window_ba_trimmed(problem: BaProblem, iterations: int = 12, damping: f
     # Re-solve from the original iterate with the full iteration budget.
     solved, costs, _ = solve_window_ba_lm(dataclasses.replace(problem, valid=keep),
                                           iterations=iterations, damping=damping,
-                                          fix_poses=fix_poses, huber_delta=huber_delta)
+                                          fix_poses=fix_poses, huber_delta=huber_delta,
+                                          plans=plans)
     return solved, costs, n_trimmed

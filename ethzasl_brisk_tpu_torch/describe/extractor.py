@@ -27,8 +27,9 @@ stack int32 integrals).
 ``angle_exact`` computes angle and theta on the host with a double
 ``atan2`` of the float-cast long-pair sums (``_exact_angle_host``), bit
 for bit the reference's and the JAX package's ``angle_exact``; it syncs
-with the host, so it is for parity runs. The default keeps the float32
-chain on the device.
+with the host, so it is for parity runs. The default keeps the JAX
+package's float32 chain (glibc's ``atan2f``) on the device, bit for bit
+(``describe/orientation.py``).
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ from ethzasl_brisk_tpu_torch.core.pattern import (
     pattern_from_file,
 )
 from ethzasl_brisk_tpu_torch.core.selectors import check_extractor_selectors, check_version
+from ethzasl_brisk_tpu_torch.describe.orientation import orientation
 from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity_fused
 from ethzasl_brisk_tpu_torch.kernels.integral import integral_image_16_f32, integral_image_i32
 
@@ -511,7 +513,9 @@ def _describe_core(
             )
 
     if rotation_invariant:
-        angle, theta = _orientation(pat, keypoints, scale_idx, sample, angle_exact)
+        # The float sampler is held to JAX op by op, and so is its chain.
+        angle, theta = _orientation(pat, keypoints, scale_idx, sample, angle_exact,
+                                    op_by_op=img_f32 is not None)
     else:
         angle, theta = keypoints.angle, torch.zeros_like(scale_idx)
 
@@ -546,9 +550,11 @@ def _exact_angle_host(d0: np.ndarray, d1: np.ndarray, given_angle: np.ndarray,
     return ang, theta.astype(np.int32)
 
 
-def _orientation(pat, keypoints, scale_idx, sample, angle_exact=False):
+def _orientation(pat, keypoints, scale_idx, sample, angle_exact=False, op_by_op=False):
     """Phase 1: angle (degrees) and rotation bin from the unrotated samples
-    and the long pairs (:714-740); with ``angle_exact`` on the host
+    and the long pairs (:714-740): the JAX package's float32 chain
+    (``describe/orientation.py``, kernel ``brisk_orientation`` on the card;
+    ``op_by_op`` for the 16-bit path), or with ``angle_exact`` on the host
     (``_exact_angle_host``)."""
     need_angle = keypoints.angle == -1.0
     vals0 = sample(pat.lut_x[scale_idx, 0], pat.lut_y[scale_idx, 0])
@@ -560,16 +566,8 @@ def _orientation(pat, keypoints, scale_idx, sample, angle_exact=False):
                                        keypoints.angle.cpu().numpy(), need_angle.cpu().numpy())
         dev = d0.device
         return torch.from_numpy(ang).to(dev), torch.from_numpy(theta).to(dev, torch.int64)
-    computed = (
-        torch.atan2(d1.to(torch.float32), d0.to(torch.float32))
-        / float(np.float32(np.pi))
-        * 180.0
-    )
-    angle = torch.where(need_angle, computed, keypoints.angle)
-    theta = torch.trunc(N_ROT * angle / 360.0 + 0.5).to(torch.int64)
-    theta = torch.where(theta < 0, theta + N_ROT, theta)
-    theta = torch.where(theta >= N_ROT, theta - N_ROT, theta)
-    return angle, theta
+    return orientation(d0.contiguous(), d1.contiguous(), keypoints.angle.contiguous(),
+                       need_angle.contiguous(), op_by_op)
 
 
 def _pack_descriptor(pat, keypoints, angle, vals, valid):

@@ -8,7 +8,10 @@ views (the grid size from the corner rays' angles and a distortion
 tolerance, camera-aware-feature.cc:98-114). Keypoints are DETECTED on the
 distorted image, assigned to a view by a model-selection map (:567-583),
 DESCRIBED in that view's undistorted warp, and their angles mapped back
-through the distort maps (:660-672).
+through the distort maps (:660-672). Both angle sites take the JAX
+package's float32 ``atan2`` and the back-transform its ``sin`` and ``cos``
+(glibc's, ``core/atan2f.py`` and ``core/sincosf.py``; kernels
+``atan2f_elementwise`` and ``sincosf_elementwise`` on the card).
 
 The views are built once on the host (NumPy over this package's cameras,
 ``_build_views``); the grid's tables then live on its device: the distort
@@ -30,7 +33,9 @@ import math
 import numpy as np
 import torch
 
+from ethzasl_brisk_tpu_torch.core.atan2f import atan2f
 from ethzasl_brisk_tpu_torch.core.device import resolve_device
+from ethzasl_brisk_tpu_torch.core.sincosf import sincosf
 from ethzasl_brisk_tpu_torch.describe.extractor import extract_descriptors_views
 from ethzasl_brisk_tpu_torch.geometry.cameras import PinholeCamera
 
@@ -410,10 +415,11 @@ class CameraAwareFeatureGrid:
         # The angle back (cc:660-672): walk the size along the view angle,
         # distort both points, take the atan2 in the real image.
         a_rad = out_kp.angle * (math.pi / 180.0)
-        p2x = ux + kps.size * torch.cos(a_rad)
-        p2y = uy + kps.size * torch.sin(a_rad)
+        sin_a, cos_a = sincosf(a_rad)
+        p2x = ux + kps.size * cos_a
+        p2y = uy + kps.size * sin_a
         real2 = self._bilerp_maps(self.dist_maps, vidx, p2x, p2y)
-        angle_real = torch.atan2(real2[..., 1] - kps.y, real2[..., 0] - kps.x) * DEG_PER_RAD
+        angle_real = atan2f(real2[..., 1] - kps.y, real2[..., 0] - kps.x) * DEG_PER_RAD
         mark("angles")
         return dataclasses.replace(kps, angle=angle_real, valid=out_kp.valid), desc
 
@@ -432,5 +438,5 @@ class CameraAwareFeatureGrid:
         e_img = e_img / torch.clamp(length, min=0.1)[..., None]
         uv2 = self._bilerp_maps(self.undist_maps, vidx, kps.x + kps.size * e_img[..., 0],
                                 kps.y + kps.size * e_img[..., 1])
-        ang = torch.atan2(uv2[..., 1] - uy, uv2[..., 0] - ux) * DEG_PER_RAD
+        ang = atan2f(uv2[..., 1] - uy, uv2[..., 0] - ux) * DEG_PER_RAD
         return torch.where(ok, ang, kps.angle)

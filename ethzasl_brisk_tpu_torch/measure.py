@@ -10,8 +10,9 @@ reports them, printed beside every time. ``bound_ms`` is the least time one NVID
 H100 SXM could take for a piece of work: the larger of its bytes over the
 device-memory rate and its operations over the peak rate for their type.
 The peaks are the published ones at the full 700 W limit (NVIDIA's data
-sheet): 3.35 TB/s of HBM3 and 67 TFLOP/s of float32 outside the tensor
-cores, which is 132 SMs x 128 lanes x 2 (a fused multiply-add) x 1.98 GHz.
+sheet): 3.35 TB/s of HBM3, 67 TFLOP/s of float32 outside the tensor
+cores, which is 132 SMs x 128 lanes x 2 (a fused multiply-add) x 1.98 GHz,
+and 34 TFLOP/s of float64 outside them.
 The data sheet gives no int32 rate; the Hopper white paper gives 64 int32
 lanes per SM, so at the same clock and counting a multiply-add as two
 operations, 33.5 Tops/s. Where a gather's traffic depends on its indices,
@@ -27,6 +28,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 INT32_OPS_PER_S = 132 * 64 * 2 * 1.98e9
 SECTOR = 32  # bytes: the unit in which the card moves device memory
 L2_BYTES = 50 * 2**20  # H100's L2 cache
@@ -157,10 +159,12 @@ def device_busy_ms(fn) -> float:
     return busy_ms(prof.profiler.kineto_results.events())
 
 
-def bound_ms(nbytes: float, int32_ops: float = 0.0, fp32_ops: float = 0.0) -> tuple[float, str]:
+def bound_ms(nbytes: float, int32_ops: float = 0.0, fp32_ops: float = 0.0,
+             fp64_ops: float = 0.0) -> tuple[float, str]:
     """(least time in ms, "bytes" or "operations"): what bounds the work."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = int32_ops / INT32_OPS_PER_S + fp32_ops / FP32_OPS_PER_S
+    t_ops = (int32_ops / INT32_OPS_PER_S + fp32_ops / FP32_OPS_PER_S
+             + fp64_ops / FP64_OPS_PER_S)
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 

@@ -23,11 +23,12 @@ import torch
 import torch.distributed as dist
 
 from ethzasl_brisk_tpu_torch.ba.se3 import se3_exp, solve
-from ethzasl_brisk_tpu_torch.ba.window import BaProblem, _residual_and_jacobians, _segment_sum
+from ethzasl_brisk_tpu_torch.ba.segment import segment_sum
+from ethzasl_brisk_tpu_torch.ba.window import BaPlans, BaProblem, _residual_and_jacobians, ba_plans
 from ethzasl_brisk_tpu_torch.parallel.frames import all_gather_cat, mesh_axis, mesh_device
 
 
-def _local_schur(p: BaProblem, damping):
+def _local_schur(p: BaProblem, damping, plans: BaPlans):
     """One rank's contribution: reduced system pieces + local landmark
     solve terms. The math of ba.window._gauss_newton_step with one pose
     fixed and no robust weights, with the pose-space reduction returned
@@ -41,13 +42,12 @@ def _local_schur(p: BaProblem, damping):
 
     wres = res * w[:, None]
     j_po_w = j_po * w[:, None, None]
-    b_blocks = _segment_sum(torch.einsum("oai,oab->oib", j_po_w, j_po), p.kf_idx, k)
-    c_blocks = _segment_sum(
-        torch.einsum("oai,oab->oib", j_pt * w[:, None, None], j_pt), p.lm_idx, n_lm)
-    g_pose = _segment_sum(torch.einsum("oai,oa->oi", j_po, wres), p.kf_idx, k)
-    g_pt = _segment_sum(torch.einsum("oai,oa->oi", j_pt, wres), p.lm_idx, n_lm)
+    b_blocks = segment_sum(torch.einsum("oai,oab->oib", j_po_w, j_po), plans.kf)
+    c_blocks = segment_sum(torch.einsum("oai,oab->oib", j_pt * w[:, None, None], j_pt), plans.lm)
+    g_pose = segment_sum(torch.einsum("oai,oa->oi", j_po, wres), plans.kf)
+    g_pt = segment_sum(torch.einsum("oai,oa->oi", j_pt, wres), plans.lm)
     e_obs = torch.einsum("oai,oab->oib", j_po_w, j_pt)
-    e_dense = _segment_sum(e_obs, p.lm_idx * k + p.kf_idx, n_lm * k).reshape(n_lm, k, 6, 3)
+    e_dense = segment_sum(e_obs, plans.lm_kf).reshape(n_lm, k, 6, 3)
     c_inv = torch.linalg.inv_ex(c_blocks + damping * eye3[None] + 1e-9 * eye3)[0]
     ec = torch.einsum("lkis,lst->lkit", e_dense, c_inv)
     s_red = torch.einsum("lkit,lmjt->kimj", ec, e_dense)
@@ -60,9 +60,9 @@ def _local_schur(p: BaProblem, damping):
     return s_local, rhs_local, (c_inv, e_dense, g_pt), cost_local
 
 
-def _dist_step(p: BaProblem, damping, group):
+def _dist_step(p: BaProblem, damping, group, plans: BaPlans):
     k = p.r.shape[0]
-    s_local, rhs_local, (c_inv, e_dense, g_pt), cost_l = _local_schur(p, damping)
+    s_local, rhs_local, (c_inv, e_dense, g_pt), cost_l = _local_schur(p, damping, plans)
     # The only cross-rank communication: one sum of (S, rhs, cost).
     n_s = 36 * k * k
     flat = torch.cat([s_local.reshape(-1), rhs_local.reshape(-1), cost_l.reshape(1)])
@@ -107,12 +107,14 @@ def solve_window_ba_sharded(mesh, problem: BaProblem, iterations: int = 10,
     obs_rows = slice(coord * obs_l, (coord + 1) * obs_l)
     # lm_idx arrives global; localise it to this rank's block. The padding
     # slots partition_problem adds carry global landmark 0, outside every
-    # block but the first, and weight 0: any index in the block serves them
-    # (the JAX package's scatters drop or wrap it), so take it modulo.
+    # block but the first, and weight 0: the landmark sums drop them (as
+    # the JAX package's scatters drop an out-of-bounds update), and their
+    # gathers read any landmark of the block, so take it modulo there.
+    local = problem.lm_idx[obs_rows].to(dev) - coord * lm_l
     p = BaProblem(
         r=problem.r.to(dev), t=problem.t.to(dev), points=problem.points[lm_rows].to(dev),
         kf_idx=problem.kf_idx[obs_rows].to(dev),
-        lm_idx=torch.remainder(problem.lm_idx[obs_rows].to(dev) - coord * lm_l, lm_l),
+        lm_idx=torch.remainder(local, lm_l),
         uv=problem.uv[obs_rows].to(dev), valid=problem.valid[obs_rows].to(dev),
         fu=problem.fu.to(dev), fv=problem.fv.to(dev), cu=problem.cu.to(dev),
         cv=problem.cv.to(dev),
@@ -122,9 +124,10 @@ def solve_window_ba_sharded(mesh, problem: BaProblem, iterations: int = 10,
     # landmark blocks, which are not summed, carry the divided damping,
     # as in the JAX package).
     eff = torch.tensor(damping / n_shards, dtype=p.r.dtype, device=dev)
+    plans = ba_plans(p.kf_idx, local, p.valid, p.r.shape[0], lm_l)  # once: the indices stay
     costs = []
     for _ in range(iterations):
-        p, cost = _dist_step(p, eff, group)
+        p, cost = _dist_step(p, eff, group, plans)
         costs.append(cost)
     points = all_gather_cat(p.points, group)
     costs = torch.stack(costs) if costs else torch.zeros((0,), dtype=p.r.dtype, device=dev)

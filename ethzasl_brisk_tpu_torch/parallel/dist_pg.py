@@ -23,6 +23,7 @@ import torch.distributed as dist
 from ethzasl_brisk_tpu_torch.ba.pose_graph import (
     PoseGraph,
     assemble_normal_equations,
+    pose_graph_plans,
     solve_and_update,
 )
 from ethzasl_brisk_tpu_torch.parallel.frames import mesh_axis, mesh_device
@@ -72,9 +73,10 @@ def optimize_pose_graph_sharded(mesh, graph: PoseGraph, iterations: int = 10,
         weight=graph.weight[rows].to(dev),
     )
     n_h = 36 * n * n
+    plans = pose_graph_plans(g, n)   # once: the edges stay
     costs = []
     for _ in range(iterations):
-        h, b, cost = assemble_normal_equations(g, n)
+        h, b, cost = assemble_normal_equations(g, n, plans)
         flat = torch.cat([h.reshape(-1), b.reshape(-1), cost.reshape(1)])
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         h = flat[:n_h].reshape(n, 6, n, 6)

@@ -13,10 +13,9 @@ and the angle). The step's sampler ``patch_pallas`` falls back to
 ``patch_ms`` off the TPU; its patches are set to the frame height (a
 patch larger than the frame reads wrong taps, ROADMAP Queue 3 item 1).
 
-Tolerances: keypoints, descriptors and matches bit for bit, except the
-step's ``angle`` on valid slots, within 1e-4 degree: the describe's
-float32 ``atan2`` differs between XLA and torch in the last bits, as on
-the Harris path (``tests/test_torch_pipeline.py``). With
+Tolerances: keypoints, descriptors, matches and the valid slots' angles
+bit for bit (the port takes JAX's float32 ``atan2`` and the chain XLA:CPU
+compiles, as on the Harris path, ``tests/test_torch_pipeline.py``). With
 ``angle_exact=True`` (the host's double ``atan2``) the facade's angles are
 bit for bit too. The ``angle`` of slots that leave describe invalid lies
 outside parity (``_describe_core``).
@@ -79,17 +78,12 @@ def _same(got, ref, what=""):
     np.testing.assert_array_equal(_bits(got), _bits(ref.astype(got.dtype)), err_msg=what)
 
 
-def _same_kps(got, ref, angle="bits"):
-    """Every field bitwise; ``angle`` on valid slots only, bitwise or within
-    1e-4 degree."""
+def _same_kps(got, ref):
+    """Every field bitwise; ``angle`` on valid slots only."""
     valid = np.asarray(ref.valid)
     for f in FIELDS:
         if f == "angle":
-            g, r = got.angle.numpy()[valid], np.asarray(ref.angle)[valid]
-            if angle == "bits":
-                _same(g, r, "angle")
-            else:
-                np.testing.assert_allclose(g, r, rtol=0, atol=1e-4)
+            _same(got.angle.numpy()[valid], np.asarray(ref.angle)[valid], "angle")
         else:
             _same(getattr(got, f), getattr(ref, f), f)
 
@@ -135,7 +129,7 @@ def test_ast_frame_pipeline_step(frames, jax_detector, jax_det, describe_capacit
     pipe = AstFramePipeline(BriskFeatureDetector(**KW, device="cpu"), device="cpu",
                             patch_h=PATCH, patch_w=PATCH, describe_capacity=describe_capacity)
     kps, desc, midx, mdist, diag = pipe.step(torch.from_numpy(frames), with_diagnostics=True)
-    _same_kps(kps, ref[0], angle="close")
+    _same_kps(kps, ref[0])
     _same(desc, np.asarray(ref[1]).view(np.int32), "descriptors")
     _same(midx, ref[2], "match_idx")
     _same(mdist, ref[3], "match_dist")

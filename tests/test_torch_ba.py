@@ -352,3 +352,117 @@ def test_pose_graph(x64):
                                atol=(1e-12 if x64 else 1e-6) * c0)
     assert float(t_costs[-1]) < 1e-6
     np.testing.assert_allclose(t_out.t.numpy(), t_gt, atol=1e-2)
+
+
+# ---------------------------------------------------------------- segment sums
+
+def _index_add(values: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The CPU's ``index_add_`` over the indices in ``[0, n)``."""
+    keep = (idx >= 0) & (idx < n)
+    out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype)
+    return out.index_add_(0, idx[keep], values[keep])
+
+
+def test_segment_plan_is_a_csr():
+    """Segments in ascending observation order, an offset a segment, the
+    dropped indices (negative, or n and above) after the last offset."""
+    from ethzasl_brisk_tpu_torch.ba.segment import segment_plan
+
+    idx = torch.tensor([3, 0, -1, 3, 5, 0, 3, 7, -4, 1])
+    plan = segment_plan(idx, 6)
+    assert plan.n == 6 and plan.offsets.tolist() == [0, 2, 3, 3, 6, 6, 7]
+    assert plan.order[:7].tolist() == [1, 5, 9, 0, 3, 6, 4]
+    assert sorted(plan.order[7:].tolist()) == [2, 7, 8]
+    assert plan.key.tolist() == [3, 0, 6, 3, 5, 0, 3, 6, 6, 1]
+    empty = segment_plan(torch.zeros(0, dtype=torch.int64), 4)
+    assert empty.offsets.tolist() == [0] * 5 and empty.order.numel() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(), (3,), (6, 6)], ids=["scalar", "vector", "block"])
+def test_segment_sum_equals_index_add(dtype, shape):
+    """Repeated, empty and dropped segments; values of mixed magnitude, so
+    another order of adds would round otherwise: bit for bit the CPU's
+    ``index_add_``, and the sums of a permuted copy differ."""
+    from ethzasl_brisk_tpu_torch.ba.segment import segment_plan, segment_sum, segment_sum_plain
+
+    rng = np.random.default_rng(7)
+    n, o = 40, 3000
+    idx = rng.integers(-3, n, o)
+    idx[idx == 17] = 18            # an empty segment
+    idx[rng.random(o) < 0.02] = n + 2   # out of range above: dropped too
+    vals = (rng.normal(0, 1, (o, *shape)) * 10.0 ** rng.integers(-6, 6, (o, *shape)))
+    values = torch.from_numpy(vals).to(dtype)
+    idx_t = torch.from_numpy(idx)
+    plan = segment_plan(idx_t, n)
+    got = segment_sum(values, plan)
+    ref = _index_add(values, idx_t, n)
+    assert got.shape == (n, *shape) and got.dtype == dtype
+    assert torch.equal(got, ref) and torch.equal(segment_sum_plain(values, plan), ref)
+    assert bool((got[17] == 0).all())
+    perm = torch.from_numpy(rng.permutation(o))
+    assert not torch.equal(segment_sum(values[perm], segment_plan(idx_t[perm], n)), ref)
+
+
+def test_segment_sum_cuda_refuses_what_it_cannot_launch():
+    """The kernel's wrapper launches on a card only: CPU tensors, an
+    integer dtype, or a plan of another length raise before any build."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.ba.segment import segment_plan, segment_sum_cuda
+
+    plan = segment_plan(torch.tensor([0, 2, 1, 2]), 3)
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_sum_cuda(torch.ones(4, 6), plan)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_sum_cuda(torch.ones(4, 6, device=meta), plan)
+    assert _kernels.LAUNCHES["segment_sum"] == 0
+
+
+def test_ba_plans_drop_padded_observations():
+    """``ba_plans``: an invalid observation leaves every sum, and a
+    landmark index outside its block the landmark sums, as a window's and
+    ``partition_problem``'s padding need."""
+    lm = torch.tensor([0, 2, -1, 1, 5, 0])
+    kf = torch.tensor([1, 0, 2, 2, 0, 0])
+    valid = torch.tensor([True, True, True, True, True, False])
+    plans = tw.ba_plans(kf, lm, valid, 3, 3)
+    assert plans.lm.key.tolist() == [0, 2, 3, 1, 3, 3]
+    assert plans.lm_kf.key.tolist() == [1, 6, 9, 5, 9, 9]
+    assert plans.kf.key.tolist() == [1, 0, 2, 2, 0, 3]
+
+
+def test_dropping_invalid_observations_keeps_the_step():
+    """A window padded with invalid observations (weight 0): one GN step's
+    outputs bitwise equal with the padded rows added (``index_add_`` over
+    every row) and dropped (the plans)."""
+    from ethzasl_brisk_tpu_torch.ba import segment
+
+    arrays = _arrays(_dense_problem(seed=4))
+    n, pad = len(arrays["kf_idx"]), 700
+    for f, fill in (("kf_idx", 0), ("lm_idx", 0), ("uv", 0.0), ("valid", False)):
+        arrays[f] = np.concatenate([arrays[f], np.full((pad, *arrays[f].shape[1:]), fill,
+                                                       arrays[f].dtype)])
+    p = tw.BaProblem.from_numpy(arrays, "cpu")
+    assert int(p.valid.sum()) == n
+    dropped, _ = tw._gauss_newton_step(p, 1e-3, 2, 3.0)
+    every = tw.BaPlans(*(segment.segment_plan(i, m) for i, m in (
+        (p.kf_idx, 6), (p.lm_idx, p.points.shape[0]),
+        (p.lm_idx * 6 + p.kf_idx, p.points.shape[0] * 6))))
+    assert p.r.shape[0] == 6
+    kept, _ = tw._gauss_newton_step(p, 1e-3, 2, 3.0, every)
+    for f in ("r", "t", "points"):
+        assert torch.equal(getattr(dropped, f), getattr(kept, f)), f
+
+
+def test_window_solve_builds_its_plans_once(monkeypatch):
+    """An LM solve of 5 iterations builds the 3 CSRs once, not per step."""
+    from ethzasl_brisk_tpu_torch.ba import segment
+
+    built = []
+    real = segment.segment_plan
+    monkeypatch.setattr(tw, "segment_plan", lambda idx, n: built.append(n) or real(idx, n))
+    p = tw.BaProblem.from_numpy(_arrays(_dense_problem(seed=2)), "cpu")
+    tw.solve_window_ba_lm(p, iterations=5)
+    assert len(built) == 3

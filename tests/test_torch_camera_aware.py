@@ -11,11 +11,10 @@ and an equidistant one, with ``tests/test_camera_aware_grid.py``'s
   (``install_tables``) and the same detections on both sides (the JAX
   grid detects with a jitted detect, whose float tails XLA:CPU may
   contract; detection itself is held in ``test_torch_facade.py``): every
-  keypoint field and every descriptor bit for bit. The angle is within
-  1e-3 degree (measured 8.2e-4): the view angle differs from JAX's within
-  the facade's 1e-4 degree (float32 ``atan2``), and the back-transform's
-  ``cos``, ``sin`` and ``atan2``, XLA's and torch's, differ in the last
-  bits again.
+  keypoint field, the angle included, and every descriptor bit for bit:
+  the port's view angle and back-transform take glibc's float32 ``atan2``,
+  ``sin`` and ``cos``, which XLA:CPU calls (``core/atan2f.py``,
+  ``core/sincosf.py``).
 * The port's own grid, built on the host from its own cameras, against
   the JAX grid built op by op (``jax.disable_jit()``): the grid size, the
   focal length and the view sizes exactly; the maps within 1e-4 px where
@@ -203,8 +202,7 @@ def test_grid_detect_and_compute_bitwise(grids, features, detections):
         if f != "angle":
             _same(getattr(kps, f), getattr(ref_kps, f), f)
     _same(desc, np.asarray(ref_desc).view(np.int32), "descriptors")
-    np.testing.assert_allclose(kps.angle.numpy()[valid], np.asarray(ref_kps.angle)[valid],
-                               rtol=0, atol=1e-3)
+    _same(kps.angle.numpy()[valid], np.asarray(ref_kps.angle)[valid], "angle")
     assert valid.sum() > 300
 
 
@@ -235,8 +233,7 @@ def test_extract_descriptors_views(features):
     valid = np.asarray(ref_kps.valid)
     _same(kps.valid, valid, "valid")
     _same(desc, np.asarray(ref_desc).view(np.int32), "descriptors")
-    np.testing.assert_allclose(kps.angle.numpy()[valid], np.asarray(ref_kps.angle)[valid],
-                               rtol=0, atol=1e-4)
+    _same(kps.angle.numpy()[valid], np.asarray(ref_kps.angle)[valid], "angle")
     # View 1's true size cuts some keypoints that view 0's would keep.
     full = extract_descriptors_views(
         tf.pattern, torch.from_numpy(views), KeyPoints(**{k: torch.from_numpy(v)

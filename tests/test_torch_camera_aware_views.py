@@ -5,9 +5,9 @@ extraction direction, and the JAX package's functional tests of the grid
 Inputs and tolerances as in ``test_torch_camera_aware.py``: the single
 view's warp maps and warp bit for bit, its keypoints as the facades' (x
 and y within 1 ULP before the distortion maps them back, within 4 ULP
-after), descriptors bit for bit, angles within 1e-4 degree; the extraction
-direction's angles within 1e-3 degree (the Jacobian by forward-mode
-differentiation in both, then ``atan2``).
+after), descriptors and angles bit for bit; the extraction direction's
+angles bit for bit too (the Jacobian by forward-mode differentiation in
+both, then glibc's ``atan2f``).
 """
 import types
 
@@ -71,15 +71,14 @@ def test_single_view_against_jax(features):
                      - _bits(np.asarray(getattr(rk, f))).astype(np.int64))
         assert gap.max() <= 4, f
     _same(desc, np.asarray(rd).view(np.int32), "descriptors")
-    np.testing.assert_allclose(kps.angle.numpy()[valid], np.asarray(rk.angle)[valid],
-                               rtol=0, atol=1e-4)
+    _same(kps.angle.numpy()[valid], np.asarray(rk.angle)[valid], "angle")
     assert valid.sum() > 50
 
 
 def test_extraction_direction(features, detections):
     """setExtractionDirection: against the JAX grid on the same tables and
     detections (the Jacobian by forward-mode differentiation in both:
-    within 1e-3 degree), and e_C = +y gives ~90 degrees near the center of
+    bit for bit), and e_C = +y gives ~90 degrees near the center of
     an undistorted camera (``tests/test_camera_aware_grid.py``)."""
     jf, tf = features
     jc = jgeo.PinholeCamera.create(300.0, 300.0, W / 2.0, H / 2.0, W, H)
@@ -94,8 +93,7 @@ def test_extraction_direction(features, detections):
     valid = np.asarray(rk.valid)
     _same(kps.valid, valid, "valid")
     _same(desc, np.asarray(rd).view(np.int32), "descriptors")
-    np.testing.assert_allclose(kps.angle.numpy()[valid], np.asarray(rk.angle)[valid],
-                               rtol=0, atol=1e-3)
+    _same(kps.angle.numpy()[valid], np.asarray(rk.angle)[valid], "angle")
     x, y, ang = kps.x.numpy()[valid], kps.y.numpy()[valid], kps.angle.numpy()[valid]
     central = (np.abs(x - W / 2.0) < 60) & (np.abs(y - H / 2.0) < 60)
     assert central.sum() > 5

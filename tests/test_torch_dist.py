@@ -25,13 +25,10 @@ and that truncate the batch (30 a frame), and every rank's outputs equal;
 the AST step likewise, with a budget that covers the batch while the first
 shard is over its share. The same frame step against the JAX
 ``FramePipeline`` over a (2, 1) mesh of the virtual devices, at both
-budgets: keypoints, descriptors and matches bitwise, the angle within
-1e-4 degree (atan2 differs between backends by an ULP, as in
-tests/test_torch_pipeline.py). Over a (4, 1) mesh the step is not bitwise on the
-CPU: torch's CPU atan2 gives other last bits in the scalar tail of its
-vector loop than in its lanes, so a slot's angle depends on its position in
-the described batch (2 ULP apart on these frames); on the card each slot's
-atan2 is its own thread's.
+budgets: keypoints, descriptors, matches and the valid slots' angles
+bitwise. Over a (4, 1) mesh, a frame a rank, the step is bitwise the
+one-device step too: the port takes JAX's float32 ``atan2`` lane by lane,
+so a slot's angle does not depend on its place in the described batch.
 """
 import dataclasses
 import pathlib
@@ -115,12 +112,13 @@ def _inputs() -> dict:
 @pytest.fixture(scope="module")
 def runs(request, tmp_path_factory):
     """The port's ranks at world size S (the test's parameter): (S, inputs,
-    every rank's outputs). The frame step runs at S = 2 only."""
+    every rank's outputs). The frame step runs at both budgets at S = 2 and
+    at the first at S = 4."""
     world = request.param
     work = tmp_path_factory.mktemp(f"dist{world}")
     inputs = _inputs()
     np.savez(work / "inputs.npz", **inputs)
-    caps = FRAME_CAPS if world == 2 else ()
+    caps = FRAME_CAPS if world == 2 else FRAME_CAPS[:1]
     spawn(ranks.run_rank, world, (world, str(work / "store"), str(work), caps), timeout=JOIN_S)
     return world, inputs, [dict(np.load(work / f"out_{r}.npz")) for r in range(world)]
 
@@ -260,6 +258,26 @@ def test_frame_step_over_a_data_mesh_is_bitwise(runs, cap):
     assert int(kps.valid.sum()) == min(total, budget)
 
 
+@WORLDS
+def test_frame_step_at_each_world_is_the_one_device_step(runs):
+    """Over a (2, 1) and a (4, 1) mesh (a frame a rank): every rank's step
+    outputs bitwise the one-device step's, the angle included (each slot's
+    ``atan2f`` is its own lane's, wherever the shards put it in the
+    described batch)."""
+    world, inputs, outs = runs
+    cap = FRAME_CAPS[0]
+    frames = torch.from_numpy(inputs["frames"])
+    feature = BriskFeature(**ranks.FEATURE, describe_capacity=cap, device="cpu")
+    kps, desc, midx, mdist = FramePipeline(feature, "cpu").step(frames)
+    assert len(outs) == world and int(kps.valid.sum()) > 100
+    for o in outs:
+        for f in dataclasses.fields(kps):
+            np.testing.assert_array_equal(o[f"step{cap}_kp_{f.name}"],
+                                          getattr(kps, f.name).numpy(), err_msg=f.name)
+        for name, ref in (("desc", desc), ("midx", midx), ("mdist", mdist)):
+            np.testing.assert_array_equal(o[f"step{cap}_{name}"], ref.numpy(), err_msg=name)
+
+
 @WORLD2
 @pytest.mark.parametrize("cap", FRAME_CAPS)
 def test_frame_step_over_a_data_mesh_matches_jax_mesh(runs, cap):
@@ -277,8 +295,8 @@ def test_frame_step_over_a_data_mesh_matches_jax_mesh(runs, cap):
     for f in ("x", "y", "size", "response", "octave", "valid"):
         np.testing.assert_array_equal(o[f"step{cap}_kp_{f}"], np.asarray(getattr(jkp, f)),
                                       err_msg=f)
-    np.testing.assert_allclose(o[f"step{cap}_kp_angle"][valid], np.asarray(jkp.angle)[valid],
-                               rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(o[f"step{cap}_kp_angle"][valid].view(np.int32),
+                                  np.asarray(jkp.angle)[valid].view(np.int32))
     np.testing.assert_array_equal(o[f"step{cap}_desc"], np.asarray(jdesc).view(np.int32))
     np.testing.assert_array_equal(o[f"step{cap}_midx"], np.asarray(jmidx))
     np.testing.assert_array_equal(o[f"step{cap}_mdist"], np.asarray(jmdist))

@@ -11,7 +11,8 @@ FMA-contract the sub-pixel float chain), and the reference-exact
 
 Tolerances: integer outputs and descriptors are bit for bit; x/y within
 1 ULP, the bar the JAX package's TPU-vs-CPU parity uses (NOTES round 4);
-angle within 1e-4 degree, since atan2 differs between backends by an ULP.
+the angle of every valid slot bit for bit (the port takes JAX's float32
+``atan2``, ``core/atan2f.py``).
 """
 import subprocess
 import sys
@@ -223,8 +224,8 @@ def test_step_matches_jax(step_pair):
         np.testing.assert_array_equal(getattr(kps, name).numpy(), np.asarray(getattr(jkp, name)))
     for name in ("x", "y"):
         _assert_ulp(getattr(kps, name).numpy(), np.asarray(getattr(jkp, name)))
-    np.testing.assert_allclose(kps.angle.numpy()[valid], np.asarray(jkp.angle)[valid],
-                               rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(kps.angle.numpy()[valid].view(np.int32),
+                                  np.asarray(jkp.angle)[valid].view(np.int32))
     np.testing.assert_array_equal(desc.numpy(), np.asarray(jdesc).view(np.int32))
     np.testing.assert_array_equal(midx.numpy(), np.asarray(jmidx))
     np.testing.assert_array_equal(mdist.numpy(), np.asarray(jmdist))
@@ -259,8 +260,8 @@ def test_invalid_slot_angle_outside_parity():
     for name in ("x", "y", "size", "response", "octave"):
         np.testing.assert_array_equal(getattr(port_kp, name).numpy().view(np.int32),
                                       np.asarray(getattr(gk, name)).view(np.int32))
-    np.testing.assert_allclose(port_kp.angle.numpy()[valid], np.asarray(gk.angle)[valid],
-                               rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(port_kp.angle.numpy()[valid].view(np.int32),
+                                  np.asarray(gk.angle)[valid].view(np.int32))
     np.testing.assert_array_equal(port_desc.numpy(), np.asarray(gd).view(np.int32))
 
 

@@ -157,9 +157,8 @@ def test_describe_matches_jax():
     np.testing.assert_array_equal(kp.valid.numpy(), valid)
     for name in ("x", "y", "size", "response", "octave"):
         np.testing.assert_array_equal(getattr(kp, name).numpy(), np.asarray(getattr(jkp, name)))
-    # atan2 differs between backends by an ULP: angle within 1e-4 degree.
-    np.testing.assert_allclose(kp.angle.numpy()[valid], np.asarray(jkp.angle)[valid],
-                               rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(kp.angle.numpy()[valid].view(np.int32),
+                                  np.asarray(jkp.angle)[valid].view(np.int32))
     np.testing.assert_array_equal(desc.numpy(), np.asarray(jdesc).view(np.int32))
 
 

@@ -9,8 +9,8 @@ candidates, 1024 keypoints) and exposure normalisation on.
 
 Tolerances. The scene helpers, ``normalize_exposure_u8`` and
 ``process_frame`` are bit for bit (``process_frame`` against the JAX
-front-end run op by op, ``eager_exact=True``; the angle within 1e-4
-degree, since XLA's and torch's float32 atan2 differ). ``relative_pose``
+front-end with ``eager_exact=True``, whose describe is jitted; the angle
+too, the port taking JAX's float32 ``atan2`` and compiled chain). ``relative_pose``
 takes JAX's keypoints and descriptors and JAX's draws: under float64
 (``jax.enable_x64(True)`` and ``dtype=torch.float64``) R within 1e-9, t
 within 1e-7 (forward-mode Jacobians of the refinement in two orders) and
@@ -133,8 +133,8 @@ def test_process_frame_bitwise(frames):
     for name in ("x", "y", "size", "response", "octave"):
         np.testing.assert_array_equal(getattr(tk, name).numpy().view(np.int32),
                                       np.asarray(getattr(jk, name)).view(np.int32), name)
-    np.testing.assert_allclose(tk.angle.numpy()[valid], np.asarray(jk.angle)[valid], rtol=0,
-                               atol=1e-4)
+    np.testing.assert_array_equal(tk.angle.numpy()[valid].view(np.int32),
+                                  np.asarray(jk.angle)[valid].view(np.int32))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd).view(np.int32))
 
 
