@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels (K1 Harris, K2 sampler, K3 Harris +
-2-D maxima, and the port's own: the orientation step and the elementwise
-``atan2f`` and ``sincosf`` of ``angle.cu``, the BA's ordered
-``segment_sum``) from ``ethzasl_brisk_tpu_torch/csrc`` and checks each
+2-D maxima, and the port's own: the orientation step, the elementwise
+``atan2f`` and ``sincosf`` and the camera grid's ``walk_angles`` of
+``angle.cu``, the BA's ordered segment sums, a call site's sums in one
+launch, of ``segment_sum.cu``) from ``ethzasl_brisk_tpu_torch/csrc`` and checks each
 against its plain torch version at the shapes of the path that runs it
 (K1 and K3 on the four pyramid layers in one launch, and on each alone).
 Every comparison of the card with the CPU holds angles, rotation bins,
@@ -50,19 +51,23 @@ the launch counters set to 0 just before it and read just after:
   radial-tangential and an equidistant VGA camera and the single-view
   ``CameraAwareFeature``, with the benchmark's ``BriskFeature``, on a bench
   frame taken as the distorted image (K1 1, K2 2, the orientation 1 an
-  image; the grids' angle back-transform ``atan2f`` 1 and ``sincosf`` 1),
-  against ``device="cpu"`` twins and timed per stage;
+  image; the grids' angle back-transform ``walk_angles`` 1, the elementwise
+  ``atan2f`` and ``sincosf`` 0), against ``device="cpu"`` twins and timed
+  per stage, the angles stage in turns with the torch chain the kernel
+  replaced;
 * the keyframed VO + BA loop (``[vo]``): ``vo.sequence.run_keyframed``, the
   counterpart of ``tools/kitti_eval.py`` with its defaults but the ``lm``
   solver, on 48 VGA frames of the synthetic VO scene, its frame-0 capacity
   certificate first (K1 once a frame and once for the certificate, K2
-  twice a frame, K3 none, ``segment_sum`` 60 a BA solve); the same loop on
+  twice a frame, K3 none, ``segment_sum`` 12 a BA solve); the same loop on
   a ``device="cpu"`` twin with the same RANSAC draws (detection bitwise on
   every frame, keyframes and BA runs equal, poses within tolerance); the
   8-point systems' SVD null vectors on the card; per-stage times a frame
   and a window, ATE and RPE; then the loop's last BA window alone
   (``[vo ba]``): two plain solves bitwise, its ms and kernels with the
-  segment sums and with the ``index_add_`` scatters they replaced, in turns;
+  grouped segment sums, with the earlier staged body (a block a segment,
+  a launch a sum) and with the ``index_add_`` scatters they replaced, in
+  turns; the add-latency probe behind the sums' chain bound;
 * the synthetic-sequence VO tools (``[vo tools]``): ``vo.synthetic``'s clean
   and stressed scenes on 24 frames against ``device="cpu"`` twins with the
   same draws, its command on 8 stressed frames, and ``vo.gen_sequence``'s
@@ -156,7 +161,7 @@ AST_BATCH = 80
 AST_STAGES = ("pyramid", "layers", "candidates", "pass1", "aux", "pass2", "describe", "match")
 SYSTEM_KERNELS = ("harris_score_i32", "harris_score_mask", "smoothed_intensity",
                   "smoothed_intensity_v1", "brisk_orientation", "atan2f_elementwise",
-                  "sincosf_elementwise", "segment_sum")
+                  "sincosf_elementwise", "walk_angles", "segment_sum")
 # The v1 engine on the bench frames. bench.py's AST threshold 70 finds no
 # v1 corner on these smoothed-noise frames (their local contrast stays under
 # 70; v2's threshold map lowers its effective threshold there), so [v1]
@@ -191,9 +196,10 @@ CKPT_CRASH_AFTER = 14
 # few stressed frames, and vo.gen_sequence's sequence through vo.sequence_eval.
 VO_TOOLS_FRAMES = 24
 VO_TOOLS_CLI_FRAMES = 8
-# The BA window's segment sums: five a Gauss-Newton step (B, C, g_pose,
-# g_point, E), one step an LM iteration, kitti_eval's 12 iterations.
-SEGMENT_SUMS_PER_SOLVE = 5 * 12
+# The BA window's segment sums: one launch a Gauss-Newton step for its
+# five sums (B, C, g_pose, g_point, E), one step an LM iteration,
+# kitti_eval's 12 iterations.
+SEGMENT_SUMS_PER_SOLVE = 12
 # [utils]: the published H100 SXM dense TF32 and bfloat16 matmul peaks
 # (NVIDIA's data sheet, 700 W), printed beside the measured ones with the
 # float32 and HBM peaks that measure.bound_ms keeps (datasheet_peaks).
@@ -231,6 +237,76 @@ ORIENTATION_OPS = ATAN2F_OPS + 3
 # sincosf in float64: the reduction 4, r * s and r * r 2, the sine
 # polynomial 8, the cosine polynomial 10.
 SINCOSF_FP64_OPS = 24
+# walk_angles a keypoint (csrc/angle.cu): degrees to radians 1, the walk 4,
+# the fractions 2, six lerps of 3, the offsets 2, atan2f, the scale 1; and
+# sincosf's float64 operations where it walks along an angle.
+WALK_FP32_OPS = 1 + 4 + 2 + 6 * 3 + 2 + ATAN2F_OPS + 1
+# The earlier segment_sum body, the staged one (a block a segment, tiles
+# of rows staged in shared memory, a launch a sum), built beside the
+# kernels as the yardstick [vo ba] times the grouped kernel against; the
+# port never calls it.
+STAGED_SEGMENT_SUM_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTileRows = 128;
+constexpr int kTileBytes = 40 * 1024;  // under the 48 KB a block takes without opting in
+
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+template <typename T>
+__global__ void staged_segment_sum_kernel(const T* __restrict__ values, const int64_t* __restrict__ order,
+                                   const int64_t* __restrict__ offsets, T* __restrict__ out,
+                                   int width, int tile_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tile = reinterpret_cast<T*>(smem);
+  const int64_t seg = blockIdx.x;
+  const int c0 = blockIdx.y * kThreads;                      // this block's first component
+  const int cw = width - c0 < kThreads ? width - c0 : kThreads;  // and its count
+  const int64_t begin = offsets[seg], end = offsets[seg + 1];
+  const int c = threadIdx.x;  // the component this thread adds (c < cw)
+  T acc = T(0);
+  for (int64_t base = begin; base < end; base += tile_rows) {
+    const int rows = static_cast<int>(end - base < tile_rows ? end - base : tile_rows);
+    for (int e = threadIdx.x; e < rows * cw; e += kThreads) {
+      const int r = e / cw;
+      tile[e] = values[order[base + r] * width + c0 + (e - r * cw)];
+    }
+    __syncthreads();
+    if (c < cw) {
+      for (int r = 0; r < rows; ++r) acc = add_rn(acc, tile[r * cw + c]);
+    }
+    __syncthreads();
+  }
+  if (c < cw) out[seg * width + c0 + c] = acc;
+}
+
+}  // namespace
+
+extern "C" int staged_segment_sum(const void* values, const void* order, const void* offsets,
+                                 void* out, int n_seg, int width, int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t* ord = static_cast<const int64_t*>(order);
+  const int64_t* off = static_cast<const int64_t*>(offsets);
+  const int elem = is_double ? 8 : 4;
+  const int cw = width < kThreads ? width : kThreads;
+  const int tile_rows = kTileBytes / (cw * elem) < kTileRows ? kTileBytes / (cw * elem) : kTileRows;
+  const size_t smem = static_cast<size_t>(tile_rows) * cw * elem;
+  const dim3 grid(static_cast<unsigned>(n_seg), static_cast<unsigned>((width + kThreads - 1) / kThreads));
+  if (is_double) {
+    staged_segment_sum_kernel<double><<<grid, kThreads, smem, s>>>(
+        static_cast<const double*>(values), ord, off, static_cast<double*>(out), width, tile_rows);
+  } else {
+    staged_segment_sum_kernel<float><<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(values), ord, off, static_cast<float*>(out), width, tile_rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 # The 6 x 6 tap grid cells (row, column) each K2 branch reads
 # (sampler.cu's tIJ); the box branch's corner c and d columns depend on
 # ``big``.
@@ -853,17 +929,20 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
 
 def own_kernel_row(name: str, source: str, replaces: str, launches: int, run, plain, library,
                    kernel_names: tuple, nbytes: float, fp32_ops: float = 0.0,
-                   fp64_ops: float = 0.0) -> dict:
+                   fp64_ops: float = 0.0, chain_ms: float | None = None) -> dict:
     """A kernels-line row for one of the port's own kernels (no TPU
     counterpart): ``run()`` on the card against ``plain()`` on the CPU,
-    bit for bit (tuples of tensors, NaN equal to NaN), then the kernel,
+    bit for bit (sequences of tensors, NaN equal to NaN), then the kernel,
     the plain version on the card and the library call (or None) timed by
-    CUDA events, the kernel's device time, and the bound of ``nbytes`` and
-    the operations."""
+    CUDA events, the kernel's and the library call's device times, and the
+    bound of ``nbytes`` and the operations; ``chain_ms``, a serial chain's
+    least time, is kept beside it (``chain_bound_ms``), and ``bound_note``
+    names the larger of the two."""
     from ethzasl_brisk_tpu_torch import measure
 
     got, ref = run(), plain(cpu=True)
-    got, ref = (got if isinstance(got, tuple) else (got,)), (ref if isinstance(ref, tuple) else (ref,))
+    got = tuple(got) if isinstance(got, (tuple, list)) else (got,)
+    ref = tuple(ref) if isinstance(ref, (tuple, list)) else (ref,)
     err = 0.0
     for g, r in zip(got, ref):
         g = g.cpu()
@@ -880,17 +959,102 @@ def own_kernel_row(name: str, source: str, replaces: str, launches: int, run, pl
             err = max(err, float((g.double() - r.double()).abs().max()) if g.numel() else 0.0)
     bnd = measure.bound_ms(nbytes, fp32_ops=fp32_ops, fp64_ops=fp64_ops)
     dev = got[0].device
-    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-                max_abs_err=err, ms=measure.cuda_time(run),
-                device_ms=measure.device_time(run, dev, kernel_names),
-                plain_ms=measure.cuda_time(plain), bound_ms=bnd[0], bound_by=bnd[1],
-                library_ms=None if library is None else measure.cuda_time(library))
+    row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+               max_abs_err=err, ms=measure.cuda_time(run),
+               device_ms=measure.device_time(run, dev, kernel_names),
+               plain_ms=measure.cuda_time(plain), bound_ms=bnd[0], bound_by=bnd[1],
+               library_ms=None if library is None else measure.cuda_time(library),
+               library_device_ms=None if library is None else measure.device_time(library, dev))
+    if chain_ms is not None:
+        row.update(chain_bound_ms=chain_ms, bound_note="chain" if chain_ms > bnd[0] else bnd[1])
+    return row
+
+
+def row_text(row: dict) -> str:
+    """An own-kernel row's times: event / device of the kernel, the plain
+    version's event time, the library call's event / device times, the
+    bounds."""
+    lib = ("none" if row["library_ms"] is None
+           else f"{row['library_ms']:.4f} / {row['library_device_ms']:.4f} ms")
+    chain = ("" if "chain_bound_ms" not in row
+             else f", chain {row['chain_bound_ms']:.5f} ms; governs: {row['bound_note']}")
+    return (f"{row['ms']:.4f} / {row['device_ms']:.4f} ms (event / device) vs plain "
+            f"{row['plain_ms']:.4f} ms, library {lib}, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}){chain}")
+
+
+def build_staged_segment_sum():
+    """The staged segment_sum body (``STAGED_SEGMENT_SUM_CU``), built with the
+    kernels' flags beside them; returns its launcher, ``(values, plan) ->
+    sums``, on the current stream. Not counted: it is a yardstick."""
+    import ctypes
+    import hashlib
+    import subprocess
+
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    tag = hashlib.sha256((STAGED_SEGMENT_SUM_CU + " ".join(_kernels.NVCC_FLAGS)).encode())
+    out = _kernels.BUILD_DIR / f"staged_segment_sum_{tag.hexdigest()[:16]}.so"
+    if not out.exists():
+        src = out.with_suffix(".cu")
+        src.write_text(STAGED_SEGMENT_SUM_CU)
+        subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", str(out),
+                        str(src)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.staged_segment_sum.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.staged_segment_sum.restype = ci
+
+    def run(values, plan):
+        values = values.contiguous()
+        out = torch.empty((plan.n, *values.shape[1:]), dtype=values.dtype, device=values.device)
+        width = values[0].numel()
+        if out.numel():
+            err = lib.staged_segment_sum(values.data_ptr(), plan.order.data_ptr(),
+                                       plan.offsets.data_ptr(), out.data_ptr(), plan.n, width,
+                                       int(values.dtype == torch.float64),
+                                       torch.cuda.current_stream().cuda_stream)
+            assert err == 0, f"staged segment_sum: CUDA error {err}"
+        return out
+    return run
+
+
+def grid_stage_times(grid, img, reps: int = 10, warmup: int = 3):
+    """Medians (ms) of ``reps`` grid images, total and per stage, by CUDA
+    events at the stage marks, and the run's peak memory (GiB)."""
+    for _ in range(warmup):
+        grid.detect_and_compute(img)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals, stages = [], {s: [] for s in CAMERA_STAGES}
+    for _ in range(reps):
+        marks = []
+
+        def mark(stage):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((stage, e))
+
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        grid.detect_and_compute(img, mark=mark)
+        torch.cuda.synchronize()
+        prev = start
+        for stage, e in marks:
+            stages[stage].append(prev.elapsed_time(e))
+            prev = e
+        totals.append(start.elapsed_time(marks[-1][1]))
+    return (statistics.median(totals), min(totals),
+            {s: statistics.median(t) for s, t in stages.items()},
+            torch.cuda.max_memory_allocated() / 2**30)
 
 
 def camera_phase(dev: torch.device, card: str, kind: str) -> list:
     """The camera-aware path on a VGA bench frame taken as the distorted
-    image: two grids and the single view, counted, against the CPU, timed.
-    Returns the rows of the angle kernels the radial-tangential grid ran."""
+    image: two grids and the single view, counted, against the CPU, timed,
+    the angles stage in turns with the torch chain the walk-back kernel
+    replaced. Returns the rows of walk_angles and of the elementwise angle
+    kernels at the radial-tangential grid's shapes."""
     from ethzasl_brisk_tpu_torch import BriskFeature, measure
     from ethzasl_brisk_tpu_torch.core import atan2f as atan2f_mod
     from ethzasl_brisk_tpu_torch.core import sincosf as sincosf_mod
@@ -916,55 +1080,63 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
         "equidistant": PinholeCamera(**CAMERA, distortion=EquidistantDistortion(*EQUIDISTANT)),
     }
     expect = launches_of(harris_score_i32=1, smoothed_intensity=2, brisk_orientation=1,
-                         atan2f_elementwise=1, sincosf_elementwise=1)
-    atan2_calls, sincos_calls, grid_launches = [], [], {}
+                         walk_angles=1)
+    walk, old_chain = camera_aware.walk_angles, camera_aware.walk_angles_plain
+    walk_calls, atan2_calls, sincos_calls, grid_launches = [], [], [], {}
+
+    def recording(*args, **kwargs):
+        walk_calls.append((tuple(a.clone() for a in args),
+                           {k: v.clone() for k, v in kwargs.items()}))
+        return walk(*args, **kwargs)
+
     for name, cam in cams.items():
         t0 = time.perf_counter()
         grid = CameraAwareFeatureGrid(cam, feature)
         build_s = time.perf_counter() - t0
         grid_cpu = CameraAwareFeatureGrid(cam, feature_cpu, device="cpu")
-        undo = [record_calls(camera_aware, "atan2f", atan2_calls),
-                record_calls(camera_aware, "sincosf", sincos_calls)]
+        camera_aware.walk_angles = recording
         try:
             got, launches = counted(lambda: grid.detect_and_compute(host))
         finally:
-            for u in undo:
-                u()
+            camera_aware.walk_angles = walk
         assert launches == expect, (name, launches)
         grid_launches[name] = launches
         assert got[1].shape == (got[0].capacity, 12) and bool(torch.isfinite(got[0].angle).all())
-        n = assert_same_image_outputs(got, grid_cpu.detect_and_compute(host), f"[camera] {name} grid")
+        ref = grid_cpu.detect_and_compute(host)
+        n = assert_same_image_outputs(got, ref, f"[camera] {name} grid")
         assert n > 0
-        for _ in range(3):
-            grid.detect_and_compute(img)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        totals, stages = [], {s: [] for s in CAMERA_STAGES}
-        for _ in range(10):
-            marks = []
-
-            def mark(stage):
-                e = torch.cuda.Event(enable_timing=True)
-                e.record()
-                marks.append((stage, e))
-
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-            grid.detect_and_compute(img, mark=mark)
-            torch.cuda.synchronize()
-            prev = start
-            for stage, e in marks:
-                stages[stage].append(prev.elapsed_time(e))
-                prev = e
-            totals.append(start.elapsed_time(marks[-1][1]))
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        stage_txt = ", ".join(f"{s} {statistics.median(t):.3f}" for s, t in stages.items())
+        # The angles stage in turns: the kernel, the torch chain it replaced
+        # (walk_angles_plain on the card: torch ops around the elementwise
+        # atan2f and sincosf kernels), the chain, the kernel. The chain's
+        # first run also records the elementwise kernels' inputs.
+        turns = []
+        for label in ("kernel", "old chain", "old chain", "kernel"):
+            camera_aware.walk_angles = walk if label == "kernel" else old_chain
+            try:
+                if label != "kernel":
+                    undo = ([] if atan2_calls else
+                            [record_calls(camera_aware, "atan2f", atan2_calls),
+                             record_calls(camera_aware, "sincosf", sincos_calls)])
+                    try:
+                        assert_same_image_outputs(grid.detect_and_compute(img), ref,
+                                                  f"[camera] {name} grid, old chain")
+                    finally:
+                        for u in undo:
+                            u()
+                turns.append((label, *grid_stage_times(grid, img)))
+            finally:
+                camera_aware.walk_angles = walk
+        med, low, stages, peak = turns[0][1:]
+        stage_txt = ", ".join(f"{s} {t:.3f}" for s, t in stages.items())
+        turn_txt = "; ".join(f"{label} {st['angles']:.4f} (image {m:.3f})"
+                             for label, m, _, st, _ in turns)
         print(f"[camera] {name} grid: {grid.n_views} views ({grid.n_x} x {grid.n_y}), padded view "
               f"{tuple(grid.dist_maps.shape[1:3])}, views built on the host in {build_s:.2f} s; "
               f"launches {launches}; {n} valid, GPU vs CPU: every field, the angle included, "
-              f"and the descriptors bitwise; detect_and_compute median "
-              f"{statistics.median(totals):.3f} ms, min {min(totals):.3f} of 10 (3 warm-up); "
-              f"stages ms: {stage_txt}; peak mem {peak:.3f} GiB [{kind}; {card}]", flush=True)
+              f"and the descriptors bitwise; detect_and_compute median {med:.3f} ms, min "
+              f"{low:.3f} of 10 (3 warm-up); stages ms: {stage_txt}; peak mem {peak:.3f} GiB; "
+              f"angles stage ms (median of 10) in turns: {turn_txt} [{kind}; {card}]",
+              flush=True)
 
     single = CameraAwareFeature(cams["radtan"], feature)
     got, launches = counted(lambda: single.detect_and_compute(host))
@@ -978,15 +1150,37 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
           f"field, the angle included, and the descriptors bitwise; detect_and_compute median "
           f"{ms:.3f} ms of 10 [{kind}; {card}]", flush=True)
 
-    # The angle kernels at the radial-tangential grid's shapes (its calls come first).
+    # The kernels at the radial-tangential grid's shapes (its calls come
+    # first): walk_angles on the grid's walk back; the public core.atan2f
+    # and core.sincosf, which the grid no longer calls, each launched once
+    # (counted) on the inputs the old chain gave them.
+    args, kw = walk_calls[0]
     (y, x), (a_rad,) = atan2_calls[0], sincos_calls[0]
+    _, elementwise = counted(lambda: (atan2f_mod.atan2f(y, x), sincosf_mod.sincosf(a_rad)))
+    assert elementwise == launches_of(atan2f_elementwise=1, sincosf_elementwise=1), elementwise
     n_el = x.numel()
+
+    def plain_walk(cpu=False):
+        a, k = (([t.cpu() for t in args], {n: v.cpu() for n, v in kw.items()}) if cpu
+                else (args, kw))
+        return old_chain(*a, **k)
+
     rows = [
+        own_kernel_row(
+            "walk_angles", "ethzasl_brisk_tpu_torch/csrc/angle.cu",
+            "none: the port's own (the camera grid's angle back-transform, jnp.sin, jnp.cos, "
+            "the map lookup and jnp.arctan2; ethzasl_brisk_tpu/geometry/camera_aware.py:527-534)",
+            grid_launches["radtan"]["walk_angles"],
+            lambda: camera_aware.walk_angles_cuda(*args, **kw),
+            plain_walk,
+            None, ("walk_angles_kernel",),
+            nbytes=walk_bytes(args, kw), fp32_ops=WALK_FP32_OPS * n_el,
+            fp64_ops=SINCOSF_FP64_OPS * n_el),
         own_kernel_row(
             "atan2f_elementwise", "ethzasl_brisk_tpu_torch/csrc/angle.cu",
             "none: the port's own (glibc's float32 atan2, which jnp.arctan2 takes on the CPU; "
-            "ethzasl_brisk_tpu/geometry/camera_aware.py:533)",
-            grid_launches["radtan"]["atan2f_elementwise"],
+            "core.atan2f on the card)",
+            elementwise["atan2f_elementwise"],
             lambda: atan2f_mod.atan2f_cuda(y, x),
             lambda cpu=False: atan2f_mod.atan2f_plain(*((y.cpu(), x.cpu()) if cpu else (y, x))),
             lambda: torch.atan2(y, x), ("atan2f_elementwise_kernel",),
@@ -994,8 +1188,8 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
         own_kernel_row(
             "sincosf_elementwise", "ethzasl_brisk_tpu_torch/csrc/angle.cu",
             "none: the port's own (glibc's float32 sin and cos, which jnp.sin and jnp.cos take "
-            "on the CPU; ethzasl_brisk_tpu/geometry/camera_aware.py:529-530)",
-            grid_launches["radtan"]["sincosf_elementwise"],
+            "on the CPU; core.sincosf on the card)",
+            elementwise["sincosf_elementwise"],
             lambda: sincosf_mod.sincosf_cuda(a_rad),
             lambda cpu=False: sincosf_mod.sincosf_plain(a_rad.cpu() if cpu else a_rad),
             None, ("sincosf_elementwise_kernel",),
@@ -1003,11 +1197,56 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
     ]
     for row in rows:
         print(f"[camera] {row['name']} on the grid's {n_el} keypoints: bitwise vs plain; "
-              f"{row['ms']:.4f} ms (device {row['device_ms']:.4f} ms) vs plain "
-              f"{row['plain_ms']:.4f} ms, library "
-              f"{'none' if row['library_ms'] is None else format(row['library_ms'], '.4f') + ' ms'}, bound "
-              f"{row['bound_ms']:.6f} ms ({row['bound_by']}) [{kind}; {card}]", flush=True)
+              f"{row_text(row)} [{kind}; {card}]", flush=True)
+    # Where atan2f_cuda's host time goes: the mean host time of a call, the
+    # launches queued (the card keeps up), against torch.atan2's, and its
+    # pieces: the output's allocation, _kernels.launch, the C call alone.
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    out = torch.empty_like(x)
+    ptrs = (y.data_ptr(), x.data_ptr(), out.data_ptr(), n_el)
+    stream = torch.cuda.current_stream().cuda_stream
+    c_call = _kernels._entry("atan2f_elementwise")
+    host = {name: host_us(fn) for name, fn in (
+        ("atan2f_cuda", lambda: atan2f_mod.atan2f_cuda(y, x)),
+        ("torch.atan2", lambda: torch.atan2(y, x)),
+        ("empty_like", lambda: torch.empty_like(x)),
+        ("launch()", lambda: _kernels.launch("atan2f_elementwise", "atan2f_elementwise", dev,
+                                             *ptrs)),
+        ("the C call", lambda: c_call(*ptrs, stream)))}
+    print("[camera] host us a call (mean of 500, launches queued): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f" [{kind}; {card}]", flush=True)
     return rows
+
+
+def host_us(fn, calls: int = 500) -> float:
+    """Mean host time (us) of fn() over ``calls`` calls in a row, after one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def walk_bytes(args, kw) -> int:
+    """walk_angles' bytes: the six float32 inputs, the view index and the
+    output a keypoint, and the distinct 32-byte sectors of the maps that
+    its four taps read."""
+    from ethzasl_brisk_tpu_torch import measure
+    from ethzasl_brisk_tpu_torch.core.sincosf import sincosf_plain
+
+    maps, (vidx, base_x, base_y, size) = args[0], (a.cpu() for a in args[1:5])
+    sin_a, cos_a = sincosf_plain(kw["angle"].cpu() * (torch.pi / 180.0))
+    # The truncation and clamps as the plain lookup takes them (on the CPU).
+    hh, ww = maps.shape[1], maps.shape[2]
+    xi = torch.clamp((base_x + size * cos_a).to(torch.int32), 0, ww - 2).to(torch.int64)
+    yi = torch.clamp((base_y + size * sin_a).to(torch.int32), 0, hh - 2).to(torch.int64)
+    corner = (vidx.to(torch.int64) * hh + yi) * ww + xi
+    taps = torch.stack([corner, corner + 1, corner + ww, corner + ww + 1], -1).to(maps.device)
+    return 32 * vidx.numel() + measure.distinct_sector_bytes(taps, 8, maps.numel() // 2)
 
 
 def shared_draw(seed: int):
@@ -1095,7 +1334,8 @@ def vo_phase(dev: torch.device, card: str, kind: str) -> dict:
         frontend.VoFrontend.process_frame = process
     assert got["capacity_ok"] and ref["capacity_ok"]
     # K1 once a frame and once for the frame-0 certificate, K2 twice and
-    # the orientation once a frame, the segment sums 60 a BA solve.
+    # the orientation once a frame, the segment sums once a Gauss-Newton
+    # step, 12 a BA solve.
     expect = launches_of(harris_score_i32=VO_FRAMES + 1, smoothed_intensity=2 * VO_FRAMES,
                          brisk_orientation=VO_FRAMES,
                          segment_sum=SEGMENT_SUMS_PER_SOLVE * len(windows))
@@ -1179,15 +1419,18 @@ def device_kernels(fn) -> int:
 
 def ba_window(window, segment_launches: int, card: str, kind: str) -> dict:
     """One LM window of the [vo] loop alone: two plain solves bitwise; its
-    ms and kernels with the ordered segment sums and, in turns in this
-    call, with the index_add_ scatters they replaced; the segment_sum
-    kernel against its plain version on one Gauss-Newton step's five sums.
-    Returns its kernels-line row."""
+    ms and kernels with the grouped segment sums and, in turns in this
+    call, with the earlier staged body (a block a segment, a launch a sum)
+    and with the index_add_ scatters the sums replaced; the add-latency
+    probe; the grouped kernel
+    against its plain version on one Gauss-Newton step's five sums, beside
+    the staged body on the same sums. Returns its kernels-line row."""
     from ethzasl_brisk_tpu_torch import measure
     from ethzasl_brisk_tpu_torch.ba import segment, window as bw
 
     (prob,) = window  # the loop passes the problem, and kitti_eval's settings as keywords
     solve_kw = dict(iterations=12, damping=1e-2, fix_poses=2, huber_delta=3.0)
+    dev = prob.r.device
 
     def solve():
         return bw.solve_window_ba_lm(prob, **solve_kw)
@@ -1206,63 +1449,88 @@ def ba_window(window, segment_launches: int, card: str, kind: str) -> dict:
         out = torch.zeros((plan.n, *values.shape[1:]), dtype=values.dtype, device=values.device)
         return out.index_add_(0, raw[plan.n], values)
 
-    real = bw.segment_sum
-    res = {"segment sums": [], "index_add_": []}
-    for label in ("segment sums", "index_add_", "index_add_", "segment sums"):
-        bw.segment_sum = real if label == "segment sums" else index_add
+    staged = build_staged_segment_sum()
+    real = bw.segment_sums
+    bodies = {"grouped": real,
+              "staged body": lambda items: [staged(v, p) for v, p in items],
+              "index_add_": lambda items: [index_add(v, p) for v, p in items]}
+    res = {label: [] for label in bodies}
+    for label in ("grouped", "staged body", "index_add_", "index_add_", "staged body", "grouped"):
+        bw.segment_sums = bodies[label]
         try:
             res[label].append((measure.cuda_time(solve), device_kernels(solve)))
+            if label == "staged body" and len(res[label]) == 1:
+                old_body = solve()
         finally:
-            bw.segment_sum = real
-    bw.segment_sum = index_add
+            bw.segment_sums = real
+    for a, b in zip((old_body[0].r, old_body[0].t, old_body[0].points, old_body[1]),
+                    (runs[0][0].r, runs[0][0].t, runs[0][0].points, runs[0][1])):
+        assert torch.equal(a, b), "[vo ba] the staged body and the grouped kernel differ"
+    bw.segment_sums = bodies["index_add_"]
     try:
         old = [solve() for _ in range(2)]
     finally:
-        bw.segment_sum = real
+        bw.segment_sums = real
     old_gap = float((old[0][0].t - old[1][0].t).abs().max())
     # One Gauss-Newton step's five sums, for the kernel's row.
     calls = []
-    undo = record_calls(bw, "segment_sum", calls)
+    undo = record_calls(bw, "segment_sums", calls)
     try:
         bw._gauss_newton_step(prob, 1e-2, 2, 3.0)
     finally:
         undo()
-    assert len(calls) == 5, len(calls)
+    assert len(calls) == 1 and len(calls[0][0]) == 5, calls
+    items = calls[0][0]
 
     def on_cpu(plan):
         return segment.SegmentPlan(plan.key.cpu(), plan.order.cpu(), plan.offsets.cpu(), plan.n)
 
     # The rows the sums read: the plans' kept observations (the padded,
     # invalid ones are dropped), each with its order entry; the offsets;
-    # the sums written.
-    nbytes = ops = 0
-    for values, plan in calls:
+    # the sums written. The chain: the longest segment's adds.
+    nbytes = ops = longest = 0
+    for values, plan in items:
         width, kept = values[0].numel(), int(plan.offsets[-1])
         nbytes += ((kept * width + plan.n * width) * values.element_size() + 8 * kept
                    + 8 * plan.offsets.numel())
         ops += kept * width
+        longest = max(longest, int((plan.offsets[1:] - plan.offsets[:-1]).max()))
+    dtype = items[0][0].dtype
+    latency = {t: measure.add_latency_cycles(dev, t) for t in (torch.float32, torch.float64)}
+    assert all(1.0 <= c <= 64.0 for c in latency.values()), latency
+    clock = measure.sm_clock_hz(dev)
+    chain_ms = measure.chain_bound_ms(longest, latency[dtype], clock)
+    print(f"[vo ba] add-latency probe: a dependent __fadd_rn {latency[torch.float32]:.3f} "
+          f"cycles, __dadd_rn {latency[torch.float64]:.3f} cycles; SM clock max "
+          f"{clock / 1e6:.0f} MHz; the step's longest segment {longest} rows: chain bound "
+          f"{chain_ms:.6f} ms [{kind}; {card}]", flush=True)
     row = own_kernel_row(
         "segment_sum", "ethzasl_brisk_tpu_torch/csrc/segment_sum.cu",
         "none: the port's own (the BA's scatter-adds, which the JAX package leaves to XLA; "
         "ethzasl_brisk_tpu/ba/window.py)",
         segment_launches,
-        lambda: tuple(segment.segment_sum_cuda(v, p) for v, p in calls),
-        lambda cpu=False: tuple(segment.segment_sum_plain(v.cpu(), on_cpu(p)) if cpu
-                                else segment.segment_sum_plain(v, p) for v, p in calls),
-        lambda: tuple(index_add(v, p) for v, p in calls), ("segment_sum_kernel",),
-        nbytes=nbytes, fp32_ops=ops if calls[0][0].dtype == torch.float32 else 0.0,
-        fp64_ops=ops if calls[0][0].dtype == torch.float64 else 0.0)
+        lambda: segment.segment_sums_cuda(items),
+        lambda cpu=False: [segment.segment_sum_plain(v.cpu(), on_cpu(p)) if cpu
+                           else segment.segment_sum_plain(v, p) for v, p in items],
+        lambda: [index_add(v, p) for v, p in items], ("segment_sums_kernel",),
+        nbytes=nbytes, fp32_ops=ops if dtype == torch.float32 else 0.0,
+        fp64_ops=ops if dtype == torch.float64 else 0.0, chain_ms=chain_ms)
+    # The staged body on the same five sums (five launches), in this call.
+    got_staged = [staged(v, p) for v, p in items]
+    assert all(torch.equal(a, b) for a, b in zip(got_staged, segment.segment_sums_cuda(items)))
+    row["staged_ms"] = measure.cuda_time(lambda: [staged(v, p) for v, p in items])
+    row["staged_device_ms"] = measure.device_time(lambda: [staged(v, p) for v, p in items], dev,
+                                                ("staged_segment_sum_kernel",))
     txt = "; ".join(f"{label} {', '.join(f'{ms:.3f} ms / {n} kernels' for ms, n in v)}"
                     for label, v in res.items())
     print(f"[vo ba] the loop's last LM window ({prob.r.shape[0]} keyframes, "
           f"{prob.points.shape[0]} landmark slots, {prob.kf_idx.shape[0]} observation slots, "
-          f"{prob.r.dtype}, 12 iterations): two plain solves bitwise (deterministic algorithms "
-          f"off; with index_add_ they differ by {old_gap:.3g} in t); a solve by CUDA events "
-          f"(median of 10) and its kernels, in turns: {txt}. segment_sum on one step's five "
-          f"sums: bitwise vs the CPU's index_add_; {row['ms']:.4f} ms (device "
-          f"{row['device_ms']:.4f} ms) vs plain {row['plain_ms']:.4f} ms and index_add_ "
-          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}) "
-          f"[{kind}; {card}]", flush=True)
+          f"{dtype}, 12 iterations): two plain solves bitwise (deterministic algorithms off; "
+          f"with index_add_ they differ by {old_gap:.3g} in t), the staged body bitwise the "
+          f"grouped kernel; a solve by CUDA events (median of 10) and its kernels, in turns: "
+          f"{txt}. segment_sum, one step's five sums in one launch: bitwise vs the CPU's "
+          f"index_add_; {row_text(row)}; the staged body (five launches) {row['staged_ms']:.4f} / "
+          f"{row['staged_device_ms']:.4f} ms [{kind}; {card}]", flush=True)
     return row
 
 
@@ -1968,10 +2236,7 @@ def main() -> int:
         lambda: torch.atan2(o_args[1].float(), o_args[0].float()), ("brisk_orientation_kernel",),
         nbytes=25 * n_kp, fp32_ops=ORIENTATION_OPS * n_kp)
     print(f"[orientation] B=16 step, {n_kp} keypoint slots: bitwise vs plain; "
-          f"{orientation_row['ms']:.4f} ms (device {orientation_row['device_ms']:.4f} ms) vs plain "
-          f"{orientation_row['plain_ms']:.4f} ms and torch.atan2 {orientation_row['library_ms']:.4f} "
-          f"ms, bound {orientation_row['bound_ms']:.6f} ms ({orientation_row['bound_by']}) "
-          f"[{kind}; {card}]", flush=True)
+          f"{row_text(orientation_row)}; library: torch.atan2 [{kind}; {card}]", flush=True)
 
     # ---- Timing.
     stage_names = ["pyramid", "harris", "masks", "candidates", "uniformity", "refine",

@@ -7,11 +7,13 @@ never at import; it lands in ``build/kernels/`` at the root of the
 checkout, keyed on a hash of the sources and flags, so an unchanged tree
 reuses its library and an edited one rebuilds.
 
-Every kernel wrapper launches through ``launch``: it makes the tensors'
-card the current device for the call, passes that card's current stream,
+Every kernel wrapper launches through ``launch``: it calls the C entry
+point, resolved once, on the tensors' card (switching the current device
+only when another card is current), passes that card's current stream,
 raises on a launch error and counts the launch in ``LAUNCHES`` (one per
 launch, nowhere else) so a run can show that its main path went through
-the kernels.
+the kernels. For kernels of a few microseconds the launch path is most of
+a call's time, so it builds no ``torch.cuda.Stream`` and takes no lock.
 """
 from __future__ import annotations
 
@@ -45,9 +47,13 @@ LAUNCHES = {
     # K2's v1-rounding variant (the same entry point with its flag set).
     "smoothed_intensity_v1": 0,
     # The port's own kernels (no TPU counterpart): JAX's float32 angle chain
-    # (csrc/angle.cu) and the BA's ordered segment sums (csrc/segment_sum.cu).
+    # and the camera grid's walk back (csrc/angle.cu), the BA's ordered
+    # segment sums, a call site's items in one launch (csrc/segment_sum.cu).
     "brisk_orientation": 0, "atan2f_elementwise": 0, "sincosf_elementwise": 0,
-    "segment_sum": 0,
+    "walk_angles": 0, "segment_sum": 0,
+    # The dependent-add latency probe behind segment_sum's chain bound
+    # (measure.add_latency_cycles).
+    "add_latency": 0,
     # The gather probes' kernels: G1, G2, C, W (probes/gather.py); T, X, S
     # (probes/mosaic.py).
     "probe_take": 0, "probe_point_gather": 0, "probe_relayout": 0, "probe_window_copy": 0,
@@ -56,6 +62,7 @@ LAUNCHES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_entries: dict = {}  # entry name -> the loaded library's brisk_<entry>
 
 
 def reset_launches() -> None:
@@ -194,31 +201,67 @@ def library() -> ctypes.CDLL:
             lib.brisk_atan2f_elementwise.restype = ci
             lib.brisk_sincosf_elementwise.argtypes = [vp, vp, vp, ci, vp]  # x, sin, cos, n, stream
             lib.brisk_sincosf_elementwise.restype = ci
-            lib.brisk_segment_sum.argtypes = [
-                vp, vp, vp, vp,            # values, order, offsets, out
-                ci, ci, ci, vp,            # segments, width, is_double, stream
+            lib.brisk_walk_angles.argtypes = [
+                vp, ci, ci, vp,            # maps (V, H, W, 2), H, W, view index
+                vp, ci, vp, ci, vp, ci,    # base x, base y, size (pointer, stride each)
+                vp, ci, vp, ci,            # the angle, or the direction's x and y
+                vp, ci, vp, ci,            # reference x, y
+                vp, ci, ci, vp,            # out, n, from_angle, stream
             ]
-            lib.brisk_segment_sum.restype = ci
+            lib.brisk_walk_angles.restype = ci
+            lib.brisk_segment_sums.argtypes = [
+                ctypes.POINTER(ctypes.c_int64), ci, ci, vp,  # items, item count, is_double, stream
+            ]
+            lib.brisk_segment_sums.restype = ci
+            lib.brisk_add_latency.argtypes = [ci, ci, vp, vp, vp]  # is_double, adds, cycles, sink, stream
+            lib.brisk_add_latency.restype = ci
             lib.brisk_error_string.argtypes = [ci]
             lib.brisk_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 
 
+def _entry(entry: str):
+    """The C entry point ``brisk_<entry>`` of the loaded library (loaded,
+    and built, on first use), looked up once."""
+    fn = _entries.get(entry)
+    if fn is None:
+        fn = _entries[entry] = getattr(library(), f"brisk_{entry}")
+    return fn
+
+
+def _current_device() -> int:
+    # torch.cuda.current_device() without its lazy-init check: a launch's
+    # tensors are on a card, so CUDA is initialised.
+    return torch._C._cuda_getDevice()
+
+
+def _raw_stream(index: int) -> int:
+    # torch._C._cuda_getCurrentRawStream: card ``index``'s current stream as
+    # a cudaStream_t integer, without the torch.cuda.Stream object that
+    # torch.cuda.current_stream(index).cuda_stream builds a call.
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch(entry: str, counter: str, device: torch.device, *args) -> None:
     """Launch the C entry point ``brisk_<entry>`` on card ``device``.
 
     The card is the current device for the call (a ctypes launch goes to
-    the runtime's current device), the last argument is that card's
-    current stream, a launch error raises, and ``LAUNCHES[counter]`` counts
-    the launch.
+    the runtime's current device; the device is switched only when another
+    card is current), the last argument is that card's current stream, a
+    launch error raises, and ``LAUNCHES[counter]`` counts the launch.
     """
     if device.type != "cuda":
         raise ValueError(f"{entry}: launches need a CUDA device, got {device}")
-    lib = library()
-    with torch.cuda.device(device):
-        err = getattr(lib, f"brisk_{entry}")(*args, torch.cuda.current_stream(device).cuda_stream)
+    fn = _entry(entry)
+    current = _current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
     if err != 0:
-        msg = lib.brisk_error_string(err).decode()
+        msg = library().brisk_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA launch failed: error {err} ({msg})")
     LAUNCHES[counter] += 1

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ethzasl_brisk_tpu_torch.ba.se3 import hat, se3_compose, se3_exp, se3_inverse, se3_log, solve
-from ethzasl_brisk_tpu_torch.ba.segment import SegmentPlan, segment_plan, segment_sum
+from ethzasl_brisk_tpu_torch.ba.segment import SegmentPlan, segment_plan, segment_sums
 from ethzasl_brisk_tpu_torch.core.device import resolve_device
 
 
@@ -99,9 +99,9 @@ def assemble_normal_equations(g: PoseGraph, n: int,
     wb = w[:, None, None]
     h_obs = [torch.einsum("eai,eab->eib", ja * wb, jb)
              for ja, jb in ((ad_i, ad_i), (ad_i, ad_j), (ad_j, ad_i), (ad_j, ad_j))]
-    h = segment_sum(torch.cat(h_obs), h_plan)
-    b = segment_sum(torch.cat([torch.einsum("eai,ea->ei", ad_i * wb, res),
-                               torch.einsum("eai,ea->ei", ad_j * wb, res)]), b_plan)
+    h, b = segment_sums([(torch.cat(h_obs), h_plan),
+                         (torch.cat([torch.einsum("eai,ea->ei", ad_i * wb, res),
+                                     torch.einsum("eai,ea->ei", ad_j * wb, res)]), b_plan)])
     cost = torch.sum(res * res * w[:, None])
     return h.reshape(n, n, 6, 6).permute(0, 2, 1, 3), b, cost
 

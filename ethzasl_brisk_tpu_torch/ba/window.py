@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ethzasl_brisk_tpu_torch.ba.se3 import hat, se3_exp, solve
-from ethzasl_brisk_tpu_torch.ba.segment import SegmentPlan, segment_plan, segment_sum
+from ethzasl_brisk_tpu_torch.ba.segment import SegmentPlan, segment_plan, segment_sums
 from ethzasl_brisk_tpu_torch.core.device import resolve_device
 
 
@@ -154,22 +154,25 @@ def _gauss_newton_step(p: BaProblem, damping, fix_poses: int = 1, huber_delta: f
     dt, dev = res.dtype, res.device
 
     wres = res * w[:, None]
-    # Block assembly (segment sums over observations).
+    # Block assembly: the five segment sums over observations in one call
+    # (one launch on the card). E is summed through a dense (L, K, 6, 3)
+    # coupling tensor (windows are small: K ~ 10).
     j_po_w = j_po * w[:, None, None]
-    b_blocks = segment_sum(torch.einsum("oai,oab->oib", j_po_w, j_po), plans.kf)
-    c_blocks = segment_sum(torch.einsum("oai,oab->oib", j_pt * w[:, None, None], j_pt), plans.lm)
-    g_pose = segment_sum(torch.einsum("oai,oa->oi", j_po, wres), plans.kf)     # (K, 6)
-    g_pt = segment_sum(torch.einsum("oai,oa->oi", j_pt, wres), plans.lm)       # (L, 3)
-    e_obs = torch.einsum("oai,oab->oib", j_po_w, j_pt)   # per observation
+    b_blocks, c_blocks, g_pose, g_pt, e_dense = segment_sums([
+        (torch.einsum("oai,oab->oib", j_po_w, j_po), plans.kf),
+        (torch.einsum("oai,oab->oib", j_pt * w[:, None, None], j_pt), plans.lm),
+        (torch.einsum("oai,oa->oi", j_po, wres), plans.kf),                  # (K, 6)
+        (torch.einsum("oai,oa->oi", j_pt, wres), plans.lm),                  # (L, 3)
+        (torch.einsum("oai,oab->oib", j_po_w, j_pt), plans.lm_kf),           # per observation
+    ])
+    e_dense = e_dense.reshape(n_lm, k, 6, 3)
 
     # Damp.
     eye6 = torch.eye(6, dtype=dt, device=dev)
     eye3 = torch.eye(3, dtype=dt, device=dev)
     c_inv = torch.linalg.inv_ex(c_blocks + damping * eye3[None] + 1e-9 * eye3[None])[0]
 
-    # Schur: S = B - sum E C^-1 E^T over landmarks, through a dense
-    # (L, K, 6, 3) coupling tensor (windows are small: K ~ 10).
-    e_dense = segment_sum(e_obs, plans.lm_kf).reshape(n_lm, k, 6, 3)
+    # Schur: S = B - sum E C^-1 E^T over landmarks.
     ec = torch.einsum("lkis,lst->lkit", e_dense, c_inv)     # (L, K, 6, 3)
     s_red = torch.einsum("lkit,lmjt->kimj", ec, e_dense)    # (K, 6, K, 6)
 
@@ -291,8 +294,7 @@ def solve_window_ba_trimmed(problem: BaProblem, iterations: int = 12, damping: f
     # Track-level statistic: a landmark on a moving object becomes a
     # phantom point whose observations each keep a moderate residual;
     # the landmark's mean residual separates it.
-    lm_sum = segment_sum(rnorm * w, plans.lm)
-    lm_cnt = segment_sum(w, plans.lm)
+    lm_sum, lm_cnt = segment_sums([(rnorm * w, plans.lm), (w, plans.lm)])
     lm_mean = lm_sum / torch.clamp(lm_cnt, min=1.0)
     observed = lm_cnt > 0
 

@@ -15,7 +15,8 @@ module transcribes the fdlibm chain:
   so a lane's bits never depend on its place in the tensor.
 
 ``atan2f_plain`` is the plain version; ``atan2f_cuda`` launches the same
-chain as a device function (``csrc/angle.cu``, ``atan2f_elementwise``);
+chain as a device function (``csrc/angle.cu``, ``atan2f_elementwise``),
+copying no input that is already contiguous and of one shape;
 ``atan2f`` picks by device. ``describe/orientation.py`` builds BRISK's
 orientation step on the same chain.
 
@@ -135,7 +136,12 @@ def atan2f_cuda(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     dev = x.device
     if dev.type != "cuda" or y.device != dev:
         raise ValueError(f"atan2f_cuda needs CUDA tensors on one card, got {y.device}, {dev}")
-    y, x = (t.contiguous() for t in torch.broadcast_tensors(y, x))
+    if y.shape != x.shape:
+        y, x = torch.broadcast_tensors(y, x)
+    if not y.is_contiguous():
+        y = y.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
     if x.numel() >= 2**31:
         raise ValueError("atan2f_elementwise takes fewer than 2^31 elements")
     out = torch.empty_like(x)

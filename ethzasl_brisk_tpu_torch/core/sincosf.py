@@ -125,7 +125,8 @@ def sincosf_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"sincosf_cuda needs a CUDA tensor, got {dev}")
-    x = x.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
     if x.numel() >= 2**31:
         raise ValueError("sincosf_elementwise takes fewer than 2^31 elements")
     sin_v, cos_v = torch.empty_like(x), torch.empty_like(x)

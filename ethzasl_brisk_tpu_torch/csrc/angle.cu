@@ -12,9 +12,18 @@
 // ethzasl_brisk_tpu_torch/core/atan2f.py, core/sincosf.py and
 // describe/orientation.py.
 //
-// Two kernels, one thread an element:
-//   * atan2f_elementwise: out[i] = atan2f(y[i], x[i]) (the camera grid's
-//     angle sites, geometry/camera_aware.py);
+// Four kernels, one thread an element:
+//   * atan2f_elementwise: out[i] = atan2f(y[i], x[i]) (core/atan2f.py's
+//     atan2f on the card);
+//   * sincosf_elementwise: glibc's sinf and cosf (core/sincosf.py);
+//   * walk_angles: the camera grid's angle sites (geometry/camera_aware.py,
+//     walk_angles_plain), the whole chain of a keypoint in one thread: the
+//     walk of its size from a base point, along the view angle (degrees to
+//     radians, glibc's sincosf) or along a given direction, the bilinear
+//     lookup of the end point in the (V, H, W, 2) maps (the int32
+//     truncation, the clamps, the four taps, the three lerps of each
+//     component), its offset from a reference point, atan2f and the scale
+//     to degrees, op for op as the plain chain rounds them;
 //   * brisk_orientation: from the int32 long-pair gradient sums d0, d1, the
 //     given angle and the need mask, the angle in degrees and the rotation
 //     bin theta, as the JAX package's jitted describe computes them on the
@@ -27,7 +36,8 @@
 //     source's: / float32(pi) * 180 and trunc(n_rot * angle / 360 + 0.5),
 //     true divisions.
 //
-// Bound: bytes (8 B in and 4 out an element; 13 in and 12 out a keypoint),
+// Bound: bytes (8 B in and 4 out an element; 13 in and 12 out a keypoint;
+// walk_angles 28 B in, the four 8-byte taps, 4 out a keypoint),
 // at a few hundred float operations an element. Simple first: the
 // branches are few and a warp's lanes mostly take the same one.
 
@@ -253,6 +263,54 @@ __global__ void sincosf_elementwise_kernel(const float* __restrict__ x, float* _
   if (i < n) sincosf_glibc(x[i], &sin_out[i], &cos_out[i]);
 }
 
+// float -> int32 as torch's CPU conversion (x86's cvttss2si) gives it:
+// truncation, and INT_MIN for NaN and out-of-range values.
+__device__ __forceinline__ int32_t trunc_i32(float x) {
+  return (x >= -2147483648.0f && x < 2147483648.0f) ? __float2int_rz(x) : INT32_MIN;
+}
+
+__device__ __forceinline__ float lerp_rn(float a, float b, float t) {
+  return __fadd_rn(a, __fmul_rn(t, __fsub_rn(b, a)));  // a + t * (b - a)
+}
+
+__global__ void walk_angles_kernel(const float2* __restrict__ maps, int mh, int mw,
+                                   const int32_t* __restrict__ view,
+                                   const float* __restrict__ base_x, int s_bx,
+                                   const float* __restrict__ base_y, int s_by,
+                                   const float* __restrict__ size, int s_size,
+                                   const float* __restrict__ step_a, int s_a,
+                                   const float* __restrict__ step_b, int s_b,
+                                   const float* __restrict__ ref_x, int s_rx,
+                                   const float* __restrict__ ref_y, int s_ry,
+                                   float* __restrict__ out, int n, bool from_angle) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float dx, dy;
+  if (from_angle) {  // angle * float32(pi / 180), then glibc's sincosf
+    const float rad = __fmul_rn(step_a[static_cast<int64_t>(i) * s_a], f32(0x3c8efa35u));
+    sincosf_glibc(rad, &dy, &dx);
+  } else {
+    dx = step_a[static_cast<int64_t>(i) * s_a];
+    dy = step_b[static_cast<int64_t>(i) * s_b];
+  }
+  const float sz = size[static_cast<int64_t>(i) * s_size];
+  const float px = __fadd_rn(base_x[static_cast<int64_t>(i) * s_bx], __fmul_rn(sz, dx));
+  const float py = __fadd_rn(base_y[static_cast<int64_t>(i) * s_by], __fmul_rn(sz, dy));
+  // The lookup: the truncated corner clamped into the map, the fractions
+  // from it, the lerps along x then y.
+  const int32_t xi = min(max(trunc_i32(px), 0), mw - 2);
+  const int32_t yi = min(max(trunc_i32(py), 0), mh - 2);
+  const float fx = __fsub_rn(px, static_cast<float>(xi));
+  const float fy = __fsub_rn(py, static_cast<float>(yi));
+  const float2* m = maps + (static_cast<int64_t>(view[i]) * mh + yi) * mw + xi;
+  const float2 p00 = m[0], p10 = m[1], p01 = m[mw], p11 = m[mw + 1];
+  const float qx = lerp_rn(lerp_rn(p00.x, p10.x, fx), lerp_rn(p01.x, p11.x, fx), fy);
+  const float qy = lerp_rn(lerp_rn(p00.y, p10.y, fx), lerp_rn(p01.y, p11.y, fx), fy);
+  const float a = atan2f_fdlibm(__fsub_rn(qy, ref_y[static_cast<int64_t>(i) * s_ry]),
+                                __fsub_rn(qx, ref_x[static_cast<int64_t>(i) * s_rx]));
+  out[i] = __fmul_rn(a, f32(0x42652ee1u));  // float32(180 / pi)
+}
+
 int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -279,5 +337,20 @@ extern "C" int brisk_orientation(const void* d0, const void* d1, const void* giv
       static_cast<const int32_t*>(d0), static_cast<const int32_t*>(d1),
       static_cast<const float*>(given), static_cast<const uint8_t*>(need),
       static_cast<float*>(angle), static_cast<int64_t*>(theta), n, n_rot, op_by_op != 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int brisk_walk_angles(const void* maps, int mh, int mw, const void* view,
+                                 const void* base_x, int s_bx, const void* base_y, int s_by,
+                                 const void* size, int s_size, const void* step_a, int s_a,
+                                 const void* step_b, int s_b, const void* ref_x, int s_rx,
+                                 const void* ref_y, int s_ry, void* out, int n, int from_angle,
+                                 void* stream) {
+  walk_angles_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(maps), mh, mw, static_cast<const int32_t*>(view),
+      static_cast<const float*>(base_x), s_bx, static_cast<const float*>(base_y), s_by,
+      static_cast<const float*>(size), s_size, static_cast<const float*>(step_a), s_a,
+      static_cast<const float*>(step_b), s_b, static_cast<const float*>(ref_x), s_rx,
+      static_cast<const float*>(ref_y), s_ry, static_cast<float*>(out), n, from_angle != 0);
   return static_cast<int>(cudaGetLastError());
 }

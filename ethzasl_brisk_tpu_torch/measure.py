@@ -17,7 +17,10 @@ The data sheet gives no int32 rate; the Hopper white paper gives 64 int32
 lanes per SM, so at the same clock and counting a multiply-add as two
 operations, 33.5 Tops/s. Where a gather's traffic depends on its indices,
 ``distinct_sector_bytes`` counts the 32-byte sectors the indices touch, the
-least the card can read.
+least the card can read. Where the work is a serial chain of dependent
+adds, as an ordered segment sum is, no rate helps: ``chain_bound_ms`` is
+the longest chain's adds times one add's latency (``add_latency_cycles``,
+timed on the card) over the card's highest SM clock (``sm_clock_hz``).
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ FP64_OPS_PER_S = 34e12
 INT32_OPS_PER_S = 132 * 64 * 2 * 1.98e9
 SECTOR = 32  # bytes: the unit in which the card moves device memory
 L2_BYTES = 50 * 2**20  # H100's L2 cache
-TRACE_ATTEMPTS = 3
+TRACE_ATTEMPTS = 5  # the profiler now and then drops whole traces, several in a row
 LEAD_CALLS = 6  # calls at the start of a trace that are not counted
 
 
@@ -47,6 +50,44 @@ def card_line(device: str | torch.device) -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip()
+
+
+def sm_clock_hz(device: str | torch.device) -> float:
+    """The highest SM clock (Hz) of card ``device``, ``nvidia-smi``'s
+    ``clocks.max.sm``: the clock at which a chain of latencies is
+    shortest."""
+    uuid = str(torch.cuda.get_device_properties(torch.device(device)).uuid).removeprefix("GPU-")
+    out = subprocess.run(
+        ["nvidia-smi", f"--id=GPU-{uuid}", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip()) * 1e6
+
+
+def add_latency_cycles(device: str | torch.device, dtype: torch.dtype) -> float:
+    """SM cycles of one dependent add (``__fadd_rn`` for float32,
+    ``__dadd_rn`` for float64) on card ``device``: one thread's chains of
+    1,024 and 8,192 adds timed by the SM's clock, their difference over
+    7,168 adds, so the chain's fixed cost drops out."""
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    device = torch.device(device)
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    sink = torch.zeros(1, dtype=dtype, device=device)
+
+    def chain(adds: int) -> int:
+        _kernels.launch("add_latency", "add_latency", device, int(dtype == torch.float64), adds,
+                        cycles.data_ptr(), sink.data_ptr())
+        return int(cycles)
+
+    chain(1024)
+    return (chain(8192) - chain(1024)) / 7168
+
+
+def chain_bound_ms(adds: int, cycles_per_add: float, clock_hz: float) -> float:
+    """The least time (ms) of ``adds`` dependent adds."""
+    return 1e3 * adds * cycles_per_add / clock_hz
 
 
 def cuda_time(fn, reps: int = 10, warmup: int = 3) -> float:

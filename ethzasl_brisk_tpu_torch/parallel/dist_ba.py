@@ -23,7 +23,7 @@ import torch
 import torch.distributed as dist
 
 from ethzasl_brisk_tpu_torch.ba.se3 import se3_exp, solve
-from ethzasl_brisk_tpu_torch.ba.segment import segment_sum
+from ethzasl_brisk_tpu_torch.ba.segment import segment_sums
 from ethzasl_brisk_tpu_torch.ba.window import BaPlans, BaProblem, _residual_and_jacobians, ba_plans
 from ethzasl_brisk_tpu_torch.parallel.frames import all_gather_cat, mesh_axis, mesh_device
 
@@ -42,12 +42,14 @@ def _local_schur(p: BaProblem, damping, plans: BaPlans):
 
     wres = res * w[:, None]
     j_po_w = j_po * w[:, None, None]
-    b_blocks = segment_sum(torch.einsum("oai,oab->oib", j_po_w, j_po), plans.kf)
-    c_blocks = segment_sum(torch.einsum("oai,oab->oib", j_pt * w[:, None, None], j_pt), plans.lm)
-    g_pose = segment_sum(torch.einsum("oai,oa->oi", j_po, wres), plans.kf)
-    g_pt = segment_sum(torch.einsum("oai,oa->oi", j_pt, wres), plans.lm)
-    e_obs = torch.einsum("oai,oab->oib", j_po_w, j_pt)
-    e_dense = segment_sum(e_obs, plans.lm_kf).reshape(n_lm, k, 6, 3)
+    b_blocks, c_blocks, g_pose, g_pt, e_dense = segment_sums([
+        (torch.einsum("oai,oab->oib", j_po_w, j_po), plans.kf),
+        (torch.einsum("oai,oab->oib", j_pt * w[:, None, None], j_pt), plans.lm),
+        (torch.einsum("oai,oa->oi", j_po, wres), plans.kf),
+        (torch.einsum("oai,oa->oi", j_pt, wres), plans.lm),
+        (torch.einsum("oai,oab->oib", j_po_w, j_pt), plans.lm_kf),
+    ])
+    e_dense = e_dense.reshape(n_lm, k, 6, 3)
     c_inv = torch.linalg.inv_ex(c_blocks + damping * eye3[None] + 1e-9 * eye3)[0]
     ec = torch.einsum("lkis,lst->lkit", e_dense, c_inv)
     s_red = torch.einsum("lkit,lmjt->kimj", ec, e_dense)

@@ -84,49 +84,58 @@ def test_pipeline_leaves_the_tf32_flag_alone(flag):
 
 
 def test_launch_runs_on_the_tensors_card(monkeypatch):
-    """``_kernels.launch`` makes the given card current around the C call,
-    passes that card's stream last, counts one launch, and raises (without
-    counting) on a launch error."""
+    """``_kernels.launch`` resolves the C entry point once, makes the given
+    card current around the C call only when another card is current,
+    passes that card's raw stream last, counts one launch, and raises
+    (without counting) on a launch error."""
     from ethzasl_brisk_tpu_torch import _kernels
 
     events = []
 
     class FakeLib:
-        def brisk_probe_take(self, *args):
-            events.append(("call", args))
-            return self.err
+        looked_up = 0
+
+        def __getattr__(self, name):
+            assert name == "brisk_probe_take", name
+            FakeLib.looked_up += 1
+
+            def call(*args):
+                events.append(("call", args))
+                return self.err
+            return call
 
         def brisk_error_string(self, err):
             return b"fake error"
 
     class Guard:
-        def __init__(self, dev):
-            self.dev = dev
+        def __init__(self, index):
+            self.index = index
 
         def __enter__(self):
-            events.append(("enter", self.dev))
+            events.append(("enter", self.index))
 
         def __exit__(self, *exc):
-            events.append(("exit", self.dev))
-
-    class Stream:
-        def __init__(self, dev):
-            self.cuda_stream = 1000 + dev.index
+            events.append(("exit", self.index))
 
     lib = FakeLib()
     monkeypatch.setattr(_kernels, "library", lambda: lib)
+    monkeypatch.setattr(_kernels, "_entries", {})
+    monkeypatch.setattr(_kernels, "_current_device", lambda: 0)
+    monkeypatch.setattr(_kernels, "_raw_stream", lambda index: 1000 + index)
     monkeypatch.setattr(torch.cuda, "device", Guard)
-    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
     monkeypatch.setitem(_kernels.LAUNCHES, "probe_take", 0)
-    dev = torch.device("cuda", 1)
     lib.err = 0
-    _kernels.launch("probe_take", "probe_take", dev, 7, 8)
-    assert events == [("enter", dev), ("call", (7, 8, 1001)), ("exit", dev)]
-    assert _kernels.LAUNCHES["probe_take"] == 1
+    _kernels.launch("probe_take", "probe_take", torch.device("cuda", 1), 7, 8)
+    assert events == [("enter", 1), ("call", (7, 8, 1001)), ("exit", 1)]
+    events.clear()
+    for dev in (torch.device("cuda", 0), torch.device("cuda")):
+        _kernels.launch("probe_take", "probe_take", dev, 7, 8)
+    assert events == [("call", (7, 8, 1000))] * 2
+    assert _kernels.LAUNCHES["probe_take"] == 3 and FakeLib.looked_up == 1
     lib.err = 3
     with pytest.raises(RuntimeError, match="fake error"):
-        _kernels.launch("probe_take", "probe_take", dev, 7, 8)
-    assert _kernels.LAUNCHES["probe_take"] == 1
+        _kernels.launch("probe_take", "probe_take", torch.device("cuda", 1), 7, 8)
+    assert _kernels.LAUNCHES["probe_take"] == 3
     with pytest.raises(ValueError, match="CUDA device"):
         _kernels.launch("probe_take", "probe_take", torch.device("cpu"), 7, 8)
 

@@ -895,7 +895,8 @@ def test_v1_facade_on_card_matches_cpu(cuda):
 
 def test_camera_grid_on_card_matches_cpu(cuda):
     """The camera-aware grid on the card: K1 once, K2 twice (v2 rounding),
-    the angle kernels once each; keypoints, the angle included, and
+    the walk-back kernel once and the elementwise angle kernels never;
+    keypoints, the angle included, and
     descriptors bit for bit against the CPU (glibc's float32 ``atan2``,
     ``sin`` and ``cos`` on both)."""
     from ethzasl_brisk_tpu_torch import _kernels
@@ -915,7 +916,8 @@ def test_camera_grid_on_card_matches_cpu(cuda):
     assert _kernels.LAUNCHES["smoothed_intensity"] == 2
     assert _kernels.LAUNCHES["smoothed_intensity_v1"] == 0
     assert _kernels.LAUNCHES["brisk_orientation"] == 1
-    assert _kernels.LAUNCHES["atan2f_elementwise"] == _kernels.LAUNCHES["sincosf_elementwise"] == 1
+    assert _kernels.LAUNCHES["walk_angles"] == 1
+    assert _kernels.LAUNCHES["atan2f_elementwise"] == _kernels.LAUNCHES["sincosf_elementwise"] == 0
     ref = CameraAwareFeatureGrid(cam, BriskFeature(**kw, device="cpu"), margin=40,
                                  device="cpu").detect_and_compute(frame)
     kg, kc = got[0], ref[0]
@@ -1170,3 +1172,93 @@ def test_lm_window_two_card_runs_bitwise(cuda):
     for a, b in zip((runs[0][0].r, runs[0][0].t, runs[0][0].points, runs[0][1]),
                     (runs[1][0].r, runs[1][0].t, runs[1][0].points, runs[1][1])):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sums_kernel_matches_plain(cuda, dtype):
+    """Kernel ``segment_sums`` on a Gauss-Newton step's five sums at the
+    VO window's widths and lengths (8 keyframes of ~600 rows, 1,500
+    landmarks of ~3, 12,000 mostly empty (landmark, keyframe) segments,
+    padded rows dropped): one launch, each sum bit for bit the CPU's
+    ``index_add_``; twice the same."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.ba.segment import segment_plan, segment_sum_plain, segment_sums
+
+    rng = np.random.default_rng(21)
+    k, n_lm, o = 8, 1500, 5200
+    kf, lm = rng.integers(0, k, o), rng.integers(0, n_lm, o)
+    kf[4800:], lm[4800:] = -1, -1   # the padded slots
+    plans = [segment_plan(torch.from_numpy(i), n) for i, n in
+             ((kf, k), (lm, n_lm), (np.where(kf >= 0, lm * k + kf, -1), n_lm * k))]
+    cols = [(36, 0), (9, 1), (6, 0), (3, 1), (18, 2)]
+    values = [torch.from_numpy(rng.normal(0, 1, (o, w)) * 10.0 ** rng.integers(-5, 5, (o, w)))
+              .to(dtype) for w, _ in cols]
+    ref = [segment_sum_plain(v, plans[p]) for v, (_, p) in zip(values, cols)]
+    on_card = [segment_plan(p.key.to(cuda), p.n) for p in plans]
+    items = [(v.to(cuda), on_card[p]) for v, (_, p) in zip(values, cols)]
+    _kernels.reset_launches()
+    got = [segment_sums(items) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["segment_sum"] == 2
+    for g0, g1, r in zip(*got, ref):
+        assert torch.equal(g0.cpu(), r) and torch.equal(g1, g0)
+
+
+def _same_angles(got, ref):
+    """Bit for bit where not NaN (the card's NaN is canonical), NaN where NaN."""
+    got = got.cpu()
+    nan = ref.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan].view(torch.int32), ref[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["angle", "direction"])
+def test_walk_angles_kernel_matches_plain(cuda, mode):
+    """Kernel ``walk_angles`` against ``walk_angles_plain`` on the CPU: the
+    grid's walk back (a view angle) and the extraction direction's tail
+    (a direction), over nine views' maps, keypoints on and off them, NaN
+    and huge lanes; strided inputs as the grid passes them; one launch."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.geometry.camera_aware import walk_angles, walk_angles_plain
+
+    rng = np.random.default_rng(4)
+    k, f = 6000, np.float32
+    maps = torch.from_numpy(np.stack(np.meshgrid(np.arange(187), np.arange(160)), -1)[None]
+                            .repeat(9, 0).astype(f) * 1.3 + rng.normal(0, 2, (9, 160, 187, 2))
+                            .astype(f))
+    pts = rng.uniform(-20, 200, (k, 2)).astype(f)
+    ref_xy = rng.uniform(-10, 250, (k, 2)).astype(f)
+    size = rng.uniform(4, 60, k).astype(f)
+    step = (rng.uniform(-1, 360, k) if mode == "angle" else rng.normal(0, 1, (k, 2))).astype(f)
+    for a in (pts[:, 0], size, step.reshape(k, -1)[:, 0]):
+        a[rng.integers(0, k, 50)] = np.nan
+        a[rng.integers(0, k, 50)] = f(3e9)
+        a[rng.integers(0, k, 50)] = f(-3e9)
+    vidx = torch.from_numpy(rng.integers(0, 9, k).astype(np.int32))
+    pts, ref_xy, size, step = map(torch.from_numpy, (pts, ref_xy, size, step))
+
+    def run(dev, fn):
+        p, r, st = pts.to(dev), ref_xy.to(dev), step.to(dev)
+        kw = dict(angle=st) if mode == "angle" else dict(direction=(st[:, 0], st[:, 1]))
+        return fn(maps.to(dev), vidx.to(dev), p[:, 0], p[:, 1], size.to(dev), r[:, 0], r[:, 1],
+                  **kw)
+
+    ref = run("cpu", walk_angles_plain)
+    _kernels.reset_launches()
+    got = run(cuda, walk_angles)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["walk_angles"] == 1
+    assert _kernels.LAUNCHES["atan2f_elementwise"] == _kernels.LAUNCHES["sincosf_elementwise"] == 0
+    _same_angles(got, ref)
+    assert int(ref.isfinite().sum()) > k - 600
+
+
+def test_add_latency_probe(cuda):
+    """The dependent-add latency behind segment_sum's chain bound: a few
+    SM cycles an add, float64 no faster than float32."""
+    from ethzasl_brisk_tpu_torch import _kernels, measure
+
+    _kernels.reset_launches()
+    f32, f64 = (measure.add_latency_cycles(cuda, t) for t in (torch.float32, torch.float64))
+    assert 1.0 <= f32 <= 64.0 and f32 <= f64 <= 64.0, (f32, f64)
+    assert _kernels.LAUNCHES["add_latency"] == 6
