@@ -3,21 +3,28 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels (K1 Harris, K2 sampler, K3 Harris +
-2-D maxima, and the port's own: the orientation step, the elementwise
-``atan2f`` and ``sincosf`` and the camera grid's ``walk_angles`` of
-``angle.cu``, the BA's ordered segment sums, a call site's sums in one
-launch, of ``segment_sum.cu``) from ``ethzasl_brisk_tpu_torch/csrc`` and checks each
-against its plain torch version at the shapes of the path that runs it
-(K1 and K3 on the four pyramid layers in one launch, and on each alone).
+2-D maxima, and the port's own: ``describe_rotated`` of ``describe.cu``,
+the describe after K2's unrotated samples in one launch; the orientation
+step, the elementwise ``atan2f`` and ``sincosf`` and the camera grid's
+``walk_angles`` of ``angle.cu``; the BA's ordered segment sums, a call
+site's sums in one launch, of ``segment_sum.cu``) from
+``ethzasl_brisk_tpu_torch/csrc`` and checks each against its plain torch
+version at the shapes of the path that runs it (K1 and K3 on the four
+pyramid layers in one launch, and on each alone; K2 on the unrotated
+samples and on the rotated taps ``describe_rotated`` samples, the rotation
+from the plain chain; ``describe_rotated`` in every phase that describes
+uint8 frames).
 Every comparison of the card with the CPU holds angles, rotation bins,
 descriptors and matches bitwise. Then it drives these paths, each with
 the launch counters set to 0 just before it and read just after:
 
 * the main path, ``FramePipeline.step`` with the benchmark configuration
-  on 16 VGA frames (K1 1 launch for the four pyramid layers, K2 2, the
-  orientation 1), compared with the plain CPU step;
+  on 16 VGA frames (K1 1 launch for the four pyramid layers, K2 1 for the
+  unrotated samples, ``describe_rotated`` 1, the orientation kernel 0),
+  compared with the plain CPU step;
 * the fused path, the same step with ``fused_mask=True`` (K3 1 launch for
-  the four layers, K1 0, K2 2), bit-equal to the main path;
+  the four layers, K1 0, K2 1, ``describe_rotated`` 1), bit-equal to the
+  main path;
 * the README quick start: two VGA frames written and read back as PGM,
   ``BriskFeature(octaves=0, ..., fused_mask=True).detect_and_compute`` on
   each host image (the entry point moves it to the card) and
@@ -35,22 +42,25 @@ the launch counters set to 0 just before it and read just after:
   ``device="cpu"`` feature, and a feature built from bench.py's keywords;
 * the classic AST path (``[ast]``): ``AstFramePipeline.step`` with bench.py's
   AST configuration on 80 VGA bench frames, its capacity and describe
-  certificates first (K2 2 launches, K1 and K3 none); 4 frames on the card
+  certificates first (K2 and ``describe_rotated`` 1 launch each, K1 and K3
+  none); 4 frames on the card
   against a ``device="cpu"`` pipeline, ``compute_scale`` of frame 0's
   keypoints and the ``exact`` cache model on frame 0, each against the CPU;
   the step timed at batch 16 and 80 per stage, and K2 at the AST shapes
-  against its plain version and its bound;
+  and ``describe_rotated`` against their plain versions, the latter in turns
+  with the chain it replaced;
 * the v1 engine (``[v1]``): ``BriskFeatureDetector(version="v1")`` on VGA
   bench frames, its caps certified first; ``detect_and_compute`` on 4
-  frames (K2's v1-rounding variant 2 launches each), ``AstFramePipeline`` at
-  batch 16 (K2 with v2 rounding, as the JAX step, and a 512-bit match) and
-  ``BriskFeature(version="v1")`` on one frame (K1 1, K2 v1 2), each against
+  frames (the v1-rounding variants of K2 and ``describe_rotated`` 1 launch
+  each a frame), ``AstFramePipeline`` at batch 16 (both with v2 rounding, as
+  the JAX step, and a 512-bit match) and ``BriskFeature(version="v1")`` on
+  one frame (K1 1, K2 v1 1, ``describe_rotated`` v1 1), each against
   a ``device="cpu"`` twin; K2's v1 variant against its plain version and
   its bound, and the v1 step timed per stage;
 * the camera-aware path (``[camera]``): ``CameraAwareFeatureGrid`` on a
   radial-tangential and an equidistant VGA camera and the single-view
   ``CameraAwareFeature``, with the benchmark's ``BriskFeature``, on a bench
-  frame taken as the distorted image (K1 1, K2 2, the orientation 1 an
+  frame taken as the distorted image (K1 1, K2 1, ``describe_rotated`` 1 an
   image; the grids' angle back-transform ``walk_angles`` 1, the elementwise
   ``atan2f`` and ``sincosf`` 0), against ``device="cpu"`` twins and timed
   per stage, the angles stage in turns with the torch chain the kernel
@@ -58,8 +68,9 @@ the launch counters set to 0 just before it and read just after:
 * the keyframed VO + BA loop (``[vo]``): ``vo.sequence.run_keyframed``, the
   counterpart of ``tools/kitti_eval.py`` with its defaults but the ``lm``
   solver, on 48 VGA frames of the synthetic VO scene, its frame-0 capacity
-  certificate first (K1 once a frame and once for the certificate, K2
-  twice a frame, K3 none, ``segment_sum`` 12 a BA solve); the same loop on
+  certificate first (K1 once a frame and once for the certificate, K2 and
+  ``describe_rotated`` once a frame, K3 none, ``segment_sum`` 12 a BA
+  solve); the same loop on
   a ``device="cpu"`` twin with the same RANSAC draws (detection bitwise on
   every frame, keyframes and BA runs equal, poses within tolerance); the
   8-point systems' SVD null vectors on the card; per-stage times a frame
@@ -84,12 +95,14 @@ the launch counters set to 0 just before it and read just after:
   B=16 step, its sample bracketing the step's CUDA-event time;
 * the sharded layer (``[dist]``): one NCCL rank, a (1, 1) mesh: the sharded
   knn bitwise the dense knn, ``FramePipeline(mesh=...)`` counted (K1 1, K2
-  2) and bitwise the plain step, the AST step over it (K2 2) bitwise the
+  1, ``describe_rotated`` 1) and bitwise the plain step, the AST step over
+  it (K2 1) bitwise the
   plain AST step, the distributed BA and pose graph within
   1e-9 of the single-card solvers in float64 and within the JAX tests' bars
   in float32, the ``worker`` command's run and the dry run;
 * the examples (``[examples]``): ``live_pipeline`` over 9 VGA bench frames
-  written as PGM (K1 3, K2 4), its ``batch`` lines equal to a
+  written as PGM (K1 3, K2 2, ``describe_rotated`` 2), its ``batch`` lines
+  equal to a
   ``--device cpu`` run's, and ``cameras_demo`` on the card;
 * the gather probes (``ethzasl_brisk_tpu_torch.probes``): each of the 39
   calls through the 26 ``pallas_call`` sites of the TPU probes P1, P3 and
@@ -107,6 +120,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -160,8 +174,9 @@ AST_PIPELINE = dict(sampler="patch_pallas", describe_capacity=384)
 AST_BATCH = 80
 AST_STAGES = ("pyramid", "layers", "candidates", "pass1", "aux", "pass2", "describe", "match")
 SYSTEM_KERNELS = ("harris_score_i32", "harris_score_mask", "smoothed_intensity",
-                  "smoothed_intensity_v1", "brisk_orientation", "atan2f_elementwise",
-                  "sincosf_elementwise", "walk_angles", "segment_sum")
+                  "smoothed_intensity_v1", "describe_rotated", "describe_rotated_v1",
+                  "brisk_orientation", "atan2f_elementwise", "sincosf_elementwise",
+                  "walk_angles", "segment_sum")
 # The v1 engine on the bench frames. bench.py's AST threshold 70 finds no
 # v1 corner on these smoothed-noise frames (their local contrast stays under
 # 70; v2's threshold map lowers its effective threshold there), so [v1]
@@ -319,36 +334,94 @@ K2_TAPS = {
 }
 
 
+def k2_work(call) -> tuple[int, int, int]:
+    """One K2 call's (distinct integral sector bytes its taps read, int32
+    operations, float32 operations), from the branch each point takes."""
+    from ethzasl_brisk_tpu_torch import measure
+    from ethzasl_brisk_tpu_torch.describe.sampler import _tap_geometry
+
+    integral, key_x, key_y, pat_x, pat_y, pat_sigma, _, _, row_base, frame_rows, *v1 = call
+    used = {}
+    for name, taps in K2_TAPS.items():
+        used[name] = torch.zeros((6, 6), dtype=torch.bool, device=integral.device)
+        for i, j in taps:
+            used[name][i, j] = True
+    k, p = pat_x.shape
+    cols = integral.shape[1] - 1
+    g = _tap_geometry(key_x, key_y, pat_x, pat_y, pat_sigma)
+    rows = torch.clamp(g["row_coords"], 0, frame_rows).to(torch.int64)
+    rows = (rows + row_base.to(torch.int64)[:, None, None]) * (cols + 1)
+    flat = rows[..., :, None] + torch.clamp(g["col_coords"], 0, cols).to(torch.int64)[..., None, :]
+    small, big = g["small"][..., None, None], g["big"][..., None, None]
+    need = torch.where(small, used["small"], torch.where(big, used["big"], used["box"]))
+    n_small = int(g["small"].sum())
+    int_ops = K2_OPS_SMALL[0] * n_small + K2_OPS_BOX[0] * (k * p - n_small)
+    if v1 and v1[0]:
+        int_ops += K2_V1_EXTRA["small"] * n_small + K2_V1_EXTRA["box"] * (k * p - n_small)
+    fp_ops = K2_OPS_SMALL[1] * n_small + K2_OPS_BOX[1] * (k * p - n_small)
+    return measure.distinct_sector_bytes(flat[need], 4, integral.numel()), int_ops, fp_ops
+
+
 def k2_bound(calls) -> tuple[float, str]:
     """K2's bound over the describe phases' inputs: the integral sectors
     the taps read, the keypoint and pattern inputs and the output, and the
     operations of the branch each point takes."""
     from ethzasl_brisk_tpu_torch import measure
-    from ethzasl_brisk_tpu_torch.describe.sampler import _tap_geometry
 
-    used = {}
-    for name, taps in K2_TAPS.items():
-        used[name] = torch.zeros((6, 6), dtype=torch.bool, device=calls[0][0].device)
-        for i, j in taps:
-            used[name][i, j] = True
     nbytes = int_ops = fp_ops = 0
-    for integral, key_x, key_y, pat_x, pat_y, pat_sigma, _, _, row_base, frame_rows, *v1 in calls:
-        k, p = pat_x.shape
-        cols = integral.shape[1] - 1
-        g = _tap_geometry(key_x, key_y, pat_x, pat_y, pat_sigma)
-        rows = torch.clamp(g["row_coords"], 0, frame_rows).to(torch.int64)
-        rows = (rows + row_base.to(torch.int64)[:, None, None]) * (cols + 1)
-        flat = rows[..., :, None] + torch.clamp(g["col_coords"], 0, cols).to(torch.int64)[..., None, :]
-        small, big = g["small"][..., None, None], g["big"][..., None, None]
-        need = torch.where(small, used["small"], torch.where(big, used["big"], used["box"]))
-        n_small = int(g["small"].sum())
-        nbytes += (3 * 4 * k + 6 * 4 * k * p
-                   + measure.distinct_sector_bytes(flat[need], 4, integral.numel()))
-        int_ops += K2_OPS_SMALL[0] * n_small + K2_OPS_BOX[0] * (k * p - n_small)
-        if v1 and v1[0]:
-            int_ops += K2_V1_EXTRA["small"] * n_small + K2_V1_EXTRA["box"] * (k * p - n_small)
-        fp_ops += K2_OPS_SMALL[1] * n_small + K2_OPS_BOX[1] * (k * p - n_small)
+    for call in calls:
+        k, p = call[3].shape
+        taps, ints, fps = k2_work(call)
+        nbytes += 3 * 4 * k + 6 * 4 * k * p + taps
+        int_ops += ints
+        fp_ops += fps
     return measure.bound_ms(nbytes, int32_ops=int_ops, fp32_ops=fp_ops)
+
+
+def plain_theta(rot):
+    """The rotation bins the plain chain gives a ``describe_rotated`` call's
+    keypoints, on the CPU."""
+    from ethzasl_brisk_tpu_torch.describe.rotated import plain_rotation
+
+    pat, vals0, sidx, angle = to_cpu((rot[0], rot[3], rot[4], rot[6]))
+    return plain_rotation(pat, vals0, sidx, angle)[1]
+
+
+def rotated_k2_args(rot) -> tuple:
+    """K2's arguments at the rotated pattern of a ``describe_rotated`` call,
+    ``lut_x[scale_idx, theta]`` with theta from the plain chain: the taps
+    the kernel samples, for holding K2 against its plain version there."""
+    from ethzasl_brisk_tpu_torch.describe.rotated import rotated_sampler_args
+
+    pat, integral, rows, _, sidx, _, _, key_x, key_y, row_base, v1 = rot
+    return rotated_sampler_args(pat, integral, rows, sidx, plain_theta(rot).to(sidx.device),
+                                key_x, key_y, row_base, v1)
+
+
+def describe_rotated_work(rot) -> tuple[int, int, int]:
+    """``describe_rotated``'s work on a call's inputs, for its bound: bytes of the phase-1
+    values, the keypoints' inputs, the pattern tables, the distinct LUT rows
+    its keypoints take, the distinct integral sectors of the rotated taps
+    (as ``k2_bound`` counts them) and the outputs; operations of the
+    gradient, the sampling (K2's per branch), the comparisons and the angle
+    chain where it runs. Returns (bytes, int32 ops, float32 ops)."""
+    pat, vals0, sidx, angle = rot[0], rot[3], rot[4], rot[6]
+    k = sidx.numel()
+    n_rot, p = pat.lut_x.shape[1:]
+    n_long, n_bits = pat.long_i.numel(), pat.short_i.numel()
+    words = pat.descriptor_words
+    theta = plain_theta(rot)
+    taps, int_ops, fp_ops = k2_work(rotated_k2_args(rot))
+    lut_rows = int(torch.unique(sidx.cpu() * n_rot + theta).numel())
+    scales = int(torch.unique(sidx.cpu()).numel())
+    nbytes = (25 * k + 24 * n_long + 16 * n_bits + 8 * p * lut_rows + 12 * p * scales + taps
+              + (4 + 4 * words) * k)
+    int_ops += n_bits * k  # the comparisons
+    if vals0 is not None:
+        nbytes += 4 * vals0.numel()
+        int_ops += 7 * n_long * k  # a difference, two products, two divisions, two adds
+        fp_ops += ORIENTATION_OPS * int((angle == -1.0).sum())
+    return nbytes, int_ops, fp_ops
 
 
 def record_calls(module, name: str, calls: list):
@@ -364,18 +437,88 @@ def record_calls(module, name: str, calls: list):
     return lambda: setattr(module, name, real)
 
 
-def capture_sampler_inputs(run):
-    """The smoothed_intensity arguments of both describe phases of ``run()``."""
+def capture_describe(run):
+    """The describe of ``run()``: K2's calls, phase 1 as the path launches
+    it and phase 2 at ``rotated_k2_args`` (the taps ``describe_rotated``
+    samples), and the ``describe_rotated`` call's arguments."""
     from ethzasl_brisk_tpu_torch.describe import extractor
 
-    calls = []
-    undo = record_calls(extractor, "smoothed_intensity_fused", calls)
+    calls, rot_calls = [], []
+    undo = [record_calls(extractor, "smoothed_intensity_fused", calls),
+            record_calls(extractor, "describe_rotated", rot_calls)]
     try:
         run()
     finally:
-        undo()
-    assert len(calls) == 2, len(calls)
-    return calls
+        for u in undo:
+            u()
+    assert len(calls) == len(rot_calls) == 1, (len(calls), len(rot_calls))
+    return calls + [rotated_k2_args(rot_calls[0])], rot_calls[0]
+
+
+def old_describe_chain(rot, k2_call):
+    """What ``describe_rotated`` replaced on the card, op for op: the
+    gradient's torch ops, kernel ``brisk_orientation``, the LUT-row gathers,
+    K2's phase 2 and the pack's torch ops (``k2_call``: the phase-1 K2 call,
+    whose per-point tables phase 2 shared)."""
+    from ethzasl_brisk_tpu_torch.describe.orientation import orientation_cuda
+    from ethzasl_brisk_tpu_torch.describe.rotated import long_pair_gradient, pack_words
+    from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity_cuda
+
+    pat, integral, rows, vals0, sidx, valid, angle, key_x, key_y, row_base, v1 = rot
+    d0, d1 = long_pair_gradient(pat, vals0)
+    out_angle, theta = orientation_cuda(d0, d1, angle, angle == -1.0)
+    vals = smoothed_intensity_cuda(integral, key_x, key_y, pat.lut_x[sidx, theta].contiguous(),
+                                   pat.lut_y[sidx, theta].contiguous(), *k2_call[5:8], row_base,
+                                   rows, v1)
+    return out_angle, pack_words(pat, vals, valid)
+
+
+def describe_rotated_vs_plain(rot, what: str) -> int:
+    """``describe_rotated`` on the card against its plain version on the
+    CPU, bit for bit (angle and words). Returns the slots."""
+    from ethzasl_brisk_tpu_torch.describe.rotated import describe_rotated_cuda, describe_rotated_plain
+
+    got = describe_rotated_cuda(*rot)
+    ref = describe_rotated_plain(*to_cpu(rot))
+    assert torch.equal(got[0].cpu().view(torch.int32), ref[0].view(torch.int32)), f"{what}: angle"
+    assert torch.equal(got[1].cpu(), ref[1]), f"{what}: descriptor words"
+    return got[1].shape[0]
+
+
+def to_cpu(args) -> tuple:
+    """A call's arguments on the CPU, the pattern's tables too."""
+    from ethzasl_brisk_tpu_torch.describe.extractor import DevicePattern
+
+    def cpu(a):
+        if isinstance(a, DevicePattern):
+            return dataclasses.replace(a, **{f.name: getattr(a, f.name).cpu()
+                                             for f in dataclasses.fields(a)})
+        return a.cpu() if torch.is_tensor(a) else a
+    return tuple(cpu(a) for a in args)
+
+
+def describe_turns(rot, k2_call, dev) -> dict:
+    """``describe_rotated`` and the old chain it replaced, equal on these
+    inputs, timed in turns (kernel, old chain, old chain, kernel) by CUDA
+    events and by ``measure.device_time`` (all of a call's device work).
+    Returns {label: [(event ms, device ms), ...]}."""
+    from ethzasl_brisk_tpu_torch import measure
+    from ethzasl_brisk_tpu_torch.describe.rotated import describe_rotated_cuda
+
+    new, old = describe_rotated_cuda(*rot), old_describe_chain(rot, k2_call)
+    assert torch.equal(new[0].view(torch.int32), old[0].view(torch.int32))
+    assert torch.equal(new[1], old[1]), "describe_rotated differs from the old chain"
+    fns = {"kernel": lambda: describe_rotated_cuda(*rot),
+           "old chain": lambda: old_describe_chain(rot, k2_call)}
+    turns = {label: [] for label in fns}
+    for label in ("kernel", "old chain", "old chain", "kernel"):
+        turns[label].append((measure.cuda_time(fns[label]), measure.device_time(fns[label], dev)))
+    return turns
+
+
+def turns_text(turns) -> str:
+    return "; ".join(f"{label} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in runs)
+                     for label, runs in turns.items())
 
 
 def assert_same_step(a, b, what: str) -> None:
@@ -438,8 +581,8 @@ def quick_start(dev: torch.device) -> dict:
     assert all(t.device == dev for t in (*out[0][0].fields(), out[0][1], *match)), "outputs"
     assert launches["harris_score_mask"] == 2, launches
     assert launches["harris_score_i32"] == 0, launches
-    assert launches["smoothed_intensity"] == 4, launches
-    assert launches["brisk_orientation"] == 2, launches
+    assert launches["smoothed_intensity"] == launches["describe_rotated"] == 2, launches
+    assert launches["brisk_orientation"] == 0, launches
 
     ref, ref_match = run(BriskFeature(**QUICK_CONFIG, max_candidates=cap, device="cpu"), imgs)
     gap, n_valid = 0, []
@@ -518,8 +661,9 @@ def stage_times(feature, img: torch.Tensor, reps: int = 10, warmup: int = 3):
     return statistics.median(totals), {n: statistics.median(t) for n, t in stages.items()}
 
 
-def u16_phase(dev: torch.device, card: str) -> None:
-    """The 16-bit pipeline on one VGA frame, on the card against the CPU."""
+def u16_phase(dev: torch.device, card: str) -> dict:
+    """The 16-bit pipeline on one VGA frame, on the card against the CPU.
+    Returns its launches (the path that launches ``brisk_orientation``)."""
     import numpy as np
 
     from ethzasl_brisk_tpu_torch import BriskFeature, _kernels
@@ -559,6 +703,7 @@ def u16_phase(dev: torch.device, card: str) -> None:
         f"[{card}]",
         flush=True,
     )
+    return launches
 
 
 def facade_phase(dev: torch.device, card: str) -> None:
@@ -585,8 +730,9 @@ def facade_phase(dev: torch.device, card: str) -> None:
     launches = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
     assert launches["smoothed_intensity"] == 2, launches
     assert launches["harris_score_i32"] == launches["harris_score_mask"] == 0, launches
-    # angle_exact: the host's double atan2, no orientation kernel.
-    assert launches["brisk_orientation"] == 0, launches
+    # angle_exact: the host's double atan2, no orientation kernel, and both
+    # samplings on K2 (describe_rotated takes the float32 chain only).
+    assert launches["brisk_orientation"] == launches["describe_rotated"] == 0, launches
     ref = BriskFeature(**kw, device="cpu").compute(
         frame, KeyPoints.from_numpy(x, y, size, angle, capacity=1024, device="cpu"))
     n_given = assert_same_image_outputs(got, ref, "[facade] from_numpy")
@@ -700,7 +846,7 @@ def ast_phase(dev: torch.device, card: str, kind: str) -> None:
     kps, desc, midx, mdist, diag = pipe.step(frames, with_diagnostics=True)
     torch.cuda.synchronize()
     launches = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
-    assert launches == launches_of(smoothed_intensity=2, brisk_orientation=1), launches
+    assert launches == launches_of(smoothed_intensity=1, describe_rotated=1), launches
     b, k = kps.valid.shape
     n_desc = int(diag["describable"])
     assert bool(diag["detect"].ok.all()), diag["detect"]
@@ -770,19 +916,25 @@ def ast_phase(dev: torch.device, card: str, kind: str) -> None:
               f"peak mem {peak:.2f} GiB; device busy {busy:.3f} ms a step in a profiled step, "
               f"{busy / med:.1%} of the median [{kind}; {card}]", flush=True)
 
-    # ---- K2 at the AST shapes: against its plain version, timed, bounded.
-    calls = capture_sampler_inputs(lambda: pipe.step(frames))
+    # ---- K2 and describe_rotated at the AST shapes: against their plain
+    # versions (K2 also at the rotated taps describe_rotated samples),
+    # timed (K2's phase 1, the path's launch), bounded.
+    calls, rot = capture_describe(lambda: pipe.step(frames))
     for phase, args in enumerate(calls):
         assert torch.equal(smoothed_intensity_cuda(*args), smoothed_intensity(*args)), \
             f"[ast] K2 differs in phase {phase}"
-    k2_ms = measure.cuda_time(lambda: [smoothed_intensity_cuda(*a) for a in calls])
-    k2_plain = measure.cuda_time(lambda: [smoothed_intensity(*a) for a in calls])
-    k2_dev = measure.device_time(lambda: [smoothed_intensity_cuda(*a) for a in calls], dev,
+    n_rot = describe_rotated_vs_plain(rot, "[ast] describe_rotated")
+    k2_ms = measure.cuda_time(lambda: smoothed_intensity_cuda(*calls[0]))
+    k2_plain = measure.cuda_time(lambda: smoothed_intensity(*calls[0]))
+    k2_dev = measure.device_time(lambda: smoothed_intensity_cuda(*calls[0]), dev,
                                  ("k2_sampler_kernel",))
-    k2_bnd = k2_bound(calls)
-    print(f"[ast K2] B={AST_BATCH}, 2 phases, K x P = {tuple(calls[0][3].shape)}: bitwise vs "
-          f"plain; {k2_ms:.3f} ms (device {k2_dev:.4f} ms) vs plain {k2_plain:.3f} ms, bound "
-          f"{k2_bnd[0]:.4f} ms ({k2_bnd[1]}) [{kind}; {card}]", flush=True)
+    k2_bnd = k2_bound(calls[:1])
+    turns = describe_turns(rot, calls[0], dev)
+    print(f"[ast K2] B={AST_BATCH}, K x P = {tuple(calls[0][3].shape)}: bitwise vs plain on "
+          f"phase 1 and on the rotated taps; phase 1 {k2_ms:.3f} ms (device {k2_dev:.4f} ms) vs "
+          f"plain {k2_plain:.3f} ms, bound {k2_bnd[0]:.4f} ms ({k2_bnd[1]}); describe_rotated on "
+          f"{n_rot} slots bitwise vs plain, event / device ms in turns: {turns_text(turns)} "
+          f"[{kind}; {card}]", flush=True)
 
 
 def counted(fn):
@@ -835,7 +987,7 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
 
     # ---- The facade on 4 frames: K2's v1 variant, 2 launches a frame.
     got, launches = counted(lambda: [det.detect_and_compute(host[i]) for i in range(4)])
-    assert launches == launches_of(smoothed_intensity_v1=8, brisk_orientation=4), launches
+    assert launches == launches_of(smoothed_intensity_v1=4, describe_rotated_v1=4), launches
     n_fac = 0
     for i, g in enumerate(got):
         assert g[1].shape == (g[0].capacity, 16), g[1].shape
@@ -847,7 +999,7 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     # v1_rounding), a 512-bit match with sentinel 513.
     pipe = AstFramePipeline(det, **AST_PIPELINE)
     step, launches_step = counted(lambda: pipe.step(frames, with_diagnostics=True))
-    assert launches_step == launches_of(smoothed_intensity=2, brisk_orientation=1), launches_step
+    assert launches_step == launches_of(smoothed_intensity=1, describe_rotated=1), launches_step
     kps, desc, midx, mdist, diag = step
     assert desc.shape[-1] == 16 and bool(diag["detect"].ok.all())
     assert int(diag["describable"]) <= AST_PIPELINE["describe_capacity"] * V1_BATCH
@@ -860,8 +1012,8 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     # ---- The Harris feature with the v1 extractor on one frame.
     feat = BriskFeature(**BENCH_CONFIG, version="v1")
     hg, launches_h = counted(lambda: feat.detect_and_compute(host[0]))
-    assert launches_h == launches_of(harris_score_i32=1, smoothed_intensity_v1=2,
-                                     brisk_orientation=1), launches_h
+    assert launches_h == launches_of(harris_score_i32=1, smoothed_intensity_v1=1,
+                                     describe_rotated_v1=1), launches_h
     n_h = assert_same_image_outputs(
         hg, BriskFeature(**BENCH_CONFIG, version="v1", device="cpu").detect_and_compute(host[0]),
         "[v1] BriskFeature")
@@ -872,14 +1024,20 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
           f"launches {launches_h}, {n_h} valid; each against a device='cpu' twin: every field, "
           f"the angle included, descriptors and matches bitwise [{card}]", flush=True)
 
-    # ---- K2's v1 variant at the facade's shapes, against its plain version.
-    calls = capture_sampler_inputs(lambda: det.detect_and_compute(frames[0]))
-    assert all(c[10] for c in calls), "the facade describes with v1 rounding"
+    # ---- K2's v1 variant and describe_rotated's at the facade's shapes,
+    # against their plain versions (K2 also at the rotated taps); the AST
+    # step's describe (v2 rounding, 16 words) too.
+    calls, rot = capture_describe(lambda: det.detect_and_compute(frames[0]))
+    assert all(c[10] for c in calls) and rot[-1], "the facade describes with v1 rounding"
     err = 0
     for phase, args in enumerate(calls):
         got_k2, ref_k2 = smoothed_intensity_cuda(*args), smoothed_intensity(*args)
         err = max(err, int((got_k2.to(torch.int64) - ref_k2).abs().max()))
         assert torch.equal(got_k2, ref_k2), f"[v1] K2 v1 differs in phase {phase}"
+    n_rot = describe_rotated_vs_plain(rot, "[v1] describe_rotated, v1 rounding")
+    step_calls, step_rot = capture_describe(lambda: pipe.step(frames))
+    assert not step_rot[-1] and det.descriptor_bytes == 64
+    n_step_rot = describe_rotated_vs_plain(step_rot, "[v1] describe_rotated, the AST step")
     small = sum(int((c[5] < 0.5).sum()) for c in calls)
     # The v1 ring's smallest sigma is 0.65 at pattern_scale 1, so the
     # bilinear branch is dead above; at 0.5 it is live.
@@ -895,21 +1053,25 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     # Sizes from 4 px: scale index 0 (size under ~7.5) holds the sigmas < 0.5.
     kps05 = KeyPoints.from_numpy(rng.uniform(0, w, 1024), rng.uniform(0, h, 1024),
                                  rng.uniform(4, 24, 1024))
-    calls05 = capture_sampler_inputs(lambda: half(frames[0], kps05))
+    calls05, rot05 = capture_describe(lambda: half(frames[0], kps05))
     small05 = sum(int((c[5] < 0.5).sum()) for c in calls05)
     assert small05 > 0, "[v1] the bilinear branch is live at pattern_scale 0.5"
     for phase, args in enumerate(calls05):
         assert torch.equal(smoothed_intensity_cuda(*args), smoothed_intensity(*args)), \
             f"[v1] K2 v1 differs at pattern_scale 0.5, phase {phase}"
-    k2_ms = measure.cuda_time(lambda: [smoothed_intensity_cuda(*a) for a in calls])
-    k2_plain = measure.cuda_time(lambda: [smoothed_intensity(*a) for a in calls])
-    k2_dev = measure.device_time(lambda: [smoothed_intensity_cuda(*a) for a in calls], dev,
+    describe_rotated_vs_plain(rot05, "[v1] describe_rotated at pattern_scale 0.5")
+    k2_ms = measure.cuda_time(lambda: smoothed_intensity_cuda(*calls[0]))
+    k2_plain = measure.cuda_time(lambda: smoothed_intensity(*calls[0]))
+    k2_dev = measure.device_time(lambda: smoothed_intensity_cuda(*calls[0]), dev,
                                  ("k2_sampler_kernel",))
-    bnd = k2_bound(calls)
-    print(f"[v1 K2] v1 rounding, 2 phases, K x P = {tuple(calls[0][3].shape)} ({small} "
-          f"small-sigma points; at pattern_scale 0.5 {small05}, bitwise too): bitwise vs plain; "
-          f"{k2_ms:.3f} ms (device {k2_dev:.4f} ms) vs "
-          f"plain {k2_plain:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{kind}; {card}]", flush=True)
+    bnd = k2_bound(calls[:1])
+    print(f"[v1 K2] v1 rounding, K x P = {tuple(calls[0][3].shape)} ({small} small-sigma points "
+          f"over phase 1 and the rotated taps; at pattern_scale 0.5 {small05}, bitwise too): "
+          f"bitwise vs plain; phase 1 {k2_ms:.3f} ms (device {k2_dev:.4f} ms) vs plain "
+          f"{k2_plain:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); describe_rotated bitwise vs "
+          f"plain on the facade's {n_rot} slots (v1 rounding, 16 words), the AST step's "
+          f"{n_step_rot} (v2 rounding, 16 words) and pattern_scale 0.5's [{kind}; {card}]",
+          flush=True)
 
     # ---- The v1 step timed at B=16.
     torch.cuda.reset_peak_memory_stats()
@@ -929,7 +1091,8 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
 
 def own_kernel_row(name: str, source: str, replaces: str, launches: int, run, plain, library,
                    kernel_names: tuple, nbytes: float, fp32_ops: float = 0.0,
-                   fp64_ops: float = 0.0, chain_ms: float | None = None) -> dict:
+                   fp64_ops: float = 0.0, chain_ms: float | None = None,
+                   int32_ops: float = 0.0) -> dict:
     """A kernels-line row for one of the port's own kernels (no TPU
     counterpart): ``run()`` on the card against ``plain()`` on the CPU,
     bit for bit (sequences of tensors, NaN equal to NaN), then the kernel,
@@ -957,7 +1120,7 @@ def own_kernel_row(name: str, source: str, replaces: str, launches: int, run, pl
         else:
             assert bool(eq.all()), f"{name} differs from its plain version"
             err = max(err, float((g.double() - r.double()).abs().max()) if g.numel() else 0.0)
-    bnd = measure.bound_ms(nbytes, fp32_ops=fp32_ops, fp64_ops=fp64_ops)
+    bnd = measure.bound_ms(nbytes, int32_ops=int32_ops, fp32_ops=fp32_ops, fp64_ops=fp64_ops)
     dev = got[0].device
     row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                max_abs_err=err, ms=measure.cuda_time(run),
@@ -1058,6 +1221,7 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
     from ethzasl_brisk_tpu_torch import BriskFeature, measure
     from ethzasl_brisk_tpu_torch.core import atan2f as atan2f_mod
     from ethzasl_brisk_tpu_torch.core import sincosf as sincosf_mod
+    from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity, smoothed_intensity_cuda
     from ethzasl_brisk_tpu_torch.frames import bench_frames
     from ethzasl_brisk_tpu_torch.geometry import (
         EquidistantDistortion,
@@ -1079,7 +1243,7 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
         "radtan": PinholeCamera(**CAMERA, distortion=RadialTangentialDistortion(*RADTAN)),
         "equidistant": PinholeCamera(**CAMERA, distortion=EquidistantDistortion(*EQUIDISTANT)),
     }
-    expect = launches_of(harris_score_i32=1, smoothed_intensity=2, brisk_orientation=1,
+    expect = launches_of(harris_score_i32=1, smoothed_intensity=1, describe_rotated=1,
                          walk_angles=1)
     walk, old_chain = camera_aware.walk_angles, camera_aware.walk_angles_plain
     walk_calls, atan2_calls, sincos_calls, grid_launches = [], [], [], {}
@@ -1105,6 +1269,13 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
         ref = grid_cpu.detect_and_compute(host)
         n = assert_same_image_outputs(got, ref, f"[camera] {name} grid")
         assert n > 0
+        # K2 (phase 1 and the rotated taps) and describe_rotated at the
+        # grid's describe inputs (per-keypoint row_base and view limits).
+        k2_calls, rot = capture_describe(lambda: grid.detect_and_compute(img))
+        for phase, args in enumerate(k2_calls):
+            assert torch.equal(smoothed_intensity_cuda(*args), smoothed_intensity(*args)), \
+                f"[camera] {name} grid: K2 differs in phase {phase}"
+        n_rot = describe_rotated_vs_plain(rot, f"[camera] {name} grid describe_rotated")
         # The angles stage in turns: the kernel, the torch chain it replaced
         # (walk_angles_plain on the card: torch ops around the elementwise
         # atan2f and sincosf kernels), the chain, the kernel. The chain's
@@ -1133,15 +1304,16 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
         print(f"[camera] {name} grid: {grid.n_views} views ({grid.n_x} x {grid.n_y}), padded view "
               f"{tuple(grid.dist_maps.shape[1:3])}, views built on the host in {build_s:.2f} s; "
               f"launches {launches}; {n} valid, GPU vs CPU: every field, the angle included, "
-              f"and the descriptors bitwise; detect_and_compute median {med:.3f} ms, min "
+              f"and the descriptors bitwise; K2 (both phases' taps) and describe_rotated on "
+              f"{n_rot} slots bitwise vs plain; detect_and_compute median {med:.3f} ms, min "
               f"{low:.3f} of 10 (3 warm-up); stages ms: {stage_txt}; peak mem {peak:.3f} GiB; "
               f"angles stage ms (median of 10) in turns: {turn_txt} [{kind}; {card}]",
               flush=True)
 
     single = CameraAwareFeature(cams["radtan"], feature)
     got, launches = counted(lambda: single.detect_and_compute(host))
-    assert launches == launches_of(harris_score_i32=1, smoothed_intensity=2,
-                                   brisk_orientation=1), launches
+    assert launches == launches_of(harris_score_i32=1, smoothed_intensity=1,
+                                   describe_rotated=1), launches
     ref = CameraAwareFeature(cams["radtan"], feature_cpu).detect_and_compute(host)
     assert torch.equal(got[2].cpu(), ref[2]), "[camera] single view warp"
     n = assert_same_image_outputs(got[:2], ref[:2], "[camera] single view")
@@ -1333,11 +1505,11 @@ def vo_phase(dev: torch.device, card: str, kind: str) -> dict:
         undo()
         frontend.VoFrontend.process_frame = process
     assert got["capacity_ok"] and ref["capacity_ok"]
-    # K1 once a frame and once for the frame-0 certificate, K2 twice and
-    # the orientation once a frame, the segment sums once a Gauss-Newton
+    # K1 once a frame and once for the frame-0 certificate, K2 and
+    # describe_rotated once a frame, the segment sums once a Gauss-Newton
     # step, 12 a BA solve.
-    expect = launches_of(harris_score_i32=VO_FRAMES + 1, smoothed_intensity=2 * VO_FRAMES,
-                         brisk_orientation=VO_FRAMES,
+    expect = launches_of(harris_score_i32=VO_FRAMES + 1, smoothed_intensity=VO_FRAMES,
+                         describe_rotated=VO_FRAMES,
                          segment_sum=SEGMENT_SUMS_PER_SOLVE * len(windows))
     assert launches == expect, launches
     assert len(card_frames) == len(cpu_frames) == VO_FRAMES
@@ -1660,8 +1832,8 @@ def ckpt_phase(dev: torch.device, card: str, kind: str) -> None:
         save_ms = (time.perf_counter() - t0) * 1e3
     resumed_at = steps[-1]
     frames_run = CKPT_FRAMES - resumed_at
-    expect = launches_of(harris_score_i32=frames_run + 1, smoothed_intensity=2 * frames_run,
-                         brisk_orientation=frames_run, segment_sum=launches["segment_sum"])
+    expect = launches_of(harris_score_i32=frames_run + 1, smoothed_intensity=frames_run,
+                         describe_rotated=frames_run, segment_sum=launches["segment_sum"])
     assert launches == expect, (launches, expect)
     assert launches["segment_sum"] % SEGMENT_SUMS_PER_SOLVE == 0, launches
     poses = got.pop("poses")
@@ -1754,15 +1926,17 @@ def dist_phase(dev: torch.device, card: str, kind: str, feature, pipe, frames16)
 
             sharded = FramePipeline(feature, dev, mesh)
             got, launches = counted(lambda: sharded.step(frames16, with_diagnostics=True))
-            assert launches["harris_score_i32"] == 1 and launches["smoothed_intensity"] == 2, \
+            assert launches["harris_score_i32"] == 1 and launches["smoothed_intensity"] == 1, \
                 launches
+            assert launches["describe_rotated"] == 1, launches
             assert_same_step(got[:4], (kps, desc, midx, mdist), "[dist] step over the mesh")
             assert bool(got[4]["detect"].ok.all())
             ast_det = BriskFeatureDetector(**AST_DETECTOR, device=dev)
             ast_plain = AstFramePipeline(ast_det, dev, **AST_PIPELINE).step(frames16[:4])
             ast_got, ast_launches = counted(lambda: AstFramePipeline(
                 ast_det, dev, mesh=mesh, **AST_PIPELINE).step(frames16[:4]))
-            assert ast_launches["smoothed_intensity"] == 2, ast_launches
+            assert ast_launches["smoothed_intensity"] == ast_launches["describe_rotated"] == 1, \
+                ast_launches
             assert_same_step(ast_got, ast_plain, "[dist] AST step over the mesh")
             step_ms = measure.cuda_time(lambda: sharded.step(frames16))
             plain_ms = measure.cuda_time(lambda: pipe.step(frames16))
@@ -1871,8 +2045,8 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
             recorded.clear()
         finally:
             frontend.VoFrontend.process_frame = process
-        assert launches == launches_of(harris_score_i32=n, smoothed_intensity=2 * n,
-                                       brisk_orientation=n), launches
+        assert launches == launches_of(harris_score_i32=n, smoothed_intensity=n,
+                                       describe_rotated=n), launches
         assert len(card_frames) == len(cpu_frames) == n
         for i, (g, c) in enumerate(zip(card_frames, cpu_frames)):
             assert_same_image_outputs(g, c, f"[vo tools] {label} frame {i}")
@@ -1951,8 +2125,8 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
         assert evals[1].startswith("ATE RMSE (sim-aligned): "), evals
         assert np.isfinite(float(evals[1].split(": ")[1])), evals
         assert eval_launches == launches_of(
-            harris_score_i32=VO_TOOLS_CLI_FRAMES, smoothed_intensity=2 * VO_TOOLS_CLI_FRAMES,
-            brisk_orientation=VO_TOOLS_CLI_FRAMES), eval_launches
+            harris_score_i32=VO_TOOLS_CLI_FRAMES, smoothed_intensity=VO_TOOLS_CLI_FRAMES,
+            describe_rotated=VO_TOOLS_CLI_FRAMES), eval_launches
     print(f"[vo tools] python -m ethzasl_brisk_tpu_torch.vo.synthetic {' '.join(argv[:3])} on "
           f"the card: {lines[-1]}; vo.gen_sequence {VO_TOOLS_CLI_FRAMES} frames through "
           f"vo.sequence_eval on the card: {evals[0]}; {evals[1]}; launches {eval_launches} "
@@ -1991,7 +2165,7 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
         n_drawn = len(os.listdir(os.path.join(tmp, "draw")))
     n_batches = (LIVE_FRAMES - 1) // LIVE_BATCH
     assert launches["harris_score_i32"] == n_batches + 1, launches
-    assert launches["smoothed_intensity"] == 2 * n_batches, launches
+    assert launches["smoothed_intensity"] == launches["describe_rotated"] == n_batches, launches
     card_batches = [ln for ln in card_lines if ln.startswith("batch ")]
     assert card_batches == [ln for ln in cpu_lines if ln.startswith("batch ")], \
         (card_batches, cpu_lines)
@@ -2002,7 +2176,8 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
           f"{card_batches}; {n_drawn} drawings; card {card_s:.2f} s, CPU {cpu_s:.2f} s; "
           f"registry: {timing_lines} [{kind}; {card}]", flush=True)
     demo, demo_launches = counted(lambda: run(lambda: cameras_demo.main(["--device", dev.type])))
-    assert demo_launches["harris_score_i32"] == 1 and demo_launches["smoothed_intensity"] == 2
+    assert demo_launches["harris_score_i32"] == 1 and demo_launches["smoothed_intensity"] == 1
+    assert demo_launches["describe_rotated"] == 1, demo_launches
     print(f"[examples] cameras_demo on the card: {demo}; launches {demo_launches} "
           f"[{kind}; {card}]", flush=True)
 
@@ -2013,7 +2188,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from ethzasl_brisk_tpu_torch import BriskFeature, FramePipeline, _kernels, measure
-    from ethzasl_brisk_tpu_torch.describe import extractor, orientation
+    from ethzasl_brisk_tpu_torch.describe import orientation
+    from ethzasl_brisk_tpu_torch.describe.rotated import describe_rotated_cuda, describe_rotated_plain
     from ethzasl_brisk_tpu_torch.describe.sampler import (
         smoothed_intensity,
         smoothed_intensity_cuda,
@@ -2089,8 +2265,10 @@ def main() -> int:
     print(f"[K3] scores and mask bitwise equal to plain at thr {thr} on layers "
           f"{[tuple(p.shape) for p in pyramid]} in one launch and each alone", flush=True)
 
-    # ---- K2 against its plain version on both describe phases.
-    k2_calls = capture_sampler_inputs(
+    # ---- K2 against its plain version on the unrotated samples (the
+    # path's launch) and on the rotated taps describe_rotated samples, and
+    # describe_rotated against its plain version, at the B=16 describe.
+    k2_calls, rot16 = capture_describe(
         lambda: feature.describe(frames16, feature.detect(frames16)))
     k2_err = 0
     for phase, args in enumerate(k2_calls):
@@ -2099,23 +2277,20 @@ def main() -> int:
         torch.cuda.synchronize()
         k2_err = max(k2_err, int((got.to(torch.int64) - ref).abs().max()))
         assert torch.equal(got, ref), f"K2 differs in phase {phase}"
-    print(f"[K2] bitwise equal to plain on both phases, K x P = {tuple(k2_calls[0][3].shape)}",
-          flush=True)
+    n_rot = describe_rotated_vs_plain(rot16, "[describe_rotated] B=16")
+    print(f"[K2] bitwise equal to plain on the unrotated samples and the rotated taps, K x P = "
+          f"{tuple(k2_calls[0][3].shape)}; [describe_rotated] bitwise equal to plain (angle and "
+          f"words) on {n_rot} slots", flush=True)
 
-    # ---- The main path, counted; the orientation kernel's inputs kept.
-    orient_calls = []
-    undo = record_calls(extractor, "orientation", orient_calls)
-    try:
-        torch.cuda.synchronize()
-        _kernels.reset_launches()
-        kps, desc, midx, mdist, diag = pipe.step(frames16, with_diagnostics=True)
-        torch.cuda.synchronize()
-        launches = dict(_kernels.LAUNCHES)
-    finally:
-        undo()
+    # ---- The main path, counted.
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    kps, desc, midx, mdist, diag = pipe.step(frames16, with_diagnostics=True)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
     assert launches["harris_score_i32"] == 1, launches
-    assert launches["smoothed_intensity"] == 2, launches
-    assert launches["brisk_orientation"] == 1 and len(orient_calls) == 1, launches
+    assert launches["smoothed_intensity"] == launches["describe_rotated"] == 1, launches
+    assert launches["brisk_orientation"] == 0, launches
     b, k = kps.valid.shape
     print(
         f"[main path] counts per layer, max over frames: candidates "
@@ -2150,7 +2325,8 @@ def main() -> int:
     fused_launches = dict(_kernels.LAUNCHES)
     assert fused_launches["harris_score_mask"] == 1, fused_launches
     assert fused_launches["harris_score_i32"] == 0, fused_launches
-    assert fused_launches["smoothed_intensity"] == 2, fused_launches
+    assert fused_launches["smoothed_intensity"] == fused_launches["describe_rotated"] == 1, \
+        fused_launches
     assert_same_step(fused_out, (kps, desc, midx, mdist), "fused vs default step")
     print(f"[fused path] step B={b}: launches {fused_launches}; keypoints, descriptors "
           f"and matches bitwise equal to the default step", flush=True)
@@ -2198,7 +2374,7 @@ def main() -> int:
     quick_start(dev)
 
     # ---- The 16-bit pipeline, the facade's knobs and the AST path, each counted.
-    u16_phase(dev, card)
+    u16_launches = u16_phase(dev, card)
     facade_phase(dev, card)
     ast_phase(dev, card, kind)
     v1_row = v1_phase(dev, card, kind)
@@ -2222,21 +2398,41 @@ def main() -> int:
                   f"library calls' {lib:.4f} ms ({row['device_ms'] / lib:.3f}x) over "
                   f"{row['launches']} calls [{card}]", flush=True)
 
-    # ---- The orientation kernel at the main path's B=16 shapes.
-    o_args = orient_calls[0]
-    n_kp = o_args[0].numel()
+    # ---- The orientation kernel at the main path's B=16 shapes: the
+    # gradient of its describe's phase-1 values (the [u16] path launches it).
+    from ethzasl_brisk_tpu_torch.describe.rotated import long_pair_gradient
+
+    d0, d1 = long_pair_gradient(rot16[0], rot16[3])
+    o_args = (d0, d1, rot16[6], rot16[6] == -1.0)
+    n_kp = d0.numel()
     orientation_row = own_kernel_row(
         "brisk_orientation", "ethzasl_brisk_tpu_torch/csrc/angle.cu",
         "none: the port's own (the angle chain the JAX package leaves to XLA, jnp.arctan2; "
         "ethzasl_brisk_tpu/describe/extractor.py:1061-1068)",
-        launches["brisk_orientation"],
+        u16_launches["brisk_orientation"],
         lambda: orientation.orientation_cuda(*o_args),
         lambda cpu=False: orientation.orientation_plain(
             *(t.cpu() if cpu and torch.is_tensor(t) else t for t in o_args)),
         lambda: torch.atan2(o_args[1].float(), o_args[0].float()), ("brisk_orientation_kernel",),
         nbytes=25 * n_kp, fp32_ops=ORIENTATION_OPS * n_kp)
-    print(f"[orientation] B=16 step, {n_kp} keypoint slots: bitwise vs plain; "
-          f"{row_text(orientation_row)}; library: torch.atan2 [{kind}; {card}]", flush=True)
+    print(f"[orientation] B=16 step's {n_kp} keypoint slots: bitwise vs plain; "
+          f"{row_text(orientation_row)}; library: torch.atan2; launches: [u16]'s "
+          f"{u16_launches['brisk_orientation']} [{kind}; {card}]", flush=True)
+
+    # ---- describe_rotated at the main path's B=16 shapes.
+    rot_bytes, rot_int, rot_fp = describe_rotated_work(rot16)
+    describe_row = own_kernel_row(
+        "describe_rotated", "ethzasl_brisk_tpu_torch/csrc/describe.cu",
+        "none alone: the rest of the JAX package's describe around the Pallas sampler's second "
+        "call, ethzasl_brisk_tpu/describe/extractor.py:1039-1079 and _pack_descriptor (the "
+        "sampler's rotated call, describe/pallas_sampler.py:443, taken in)",
+        launches["describe_rotated"],
+        lambda: describe_rotated_cuda(*rot16),
+        lambda cpu=False: describe_rotated_plain(*(to_cpu(rot16) if cpu else rot16)),
+        None, ("describe_rotated_kernel",), nbytes=rot_bytes, int32_ops=rot_int, fp32_ops=rot_fp)
+    print(f"[describe_rotated] B=16 step's {n_rot} slots: bitwise vs plain; {row_text(describe_row)} "
+          f"({rot_int:.3g} int32 and {rot_fp:.3g} float32 operations) [{kind}; {card}]",
+          flush=True)
 
     # ---- Timing.
     stage_names = ["pyramid", "harris", "masks", "candidates", "uniformity", "refine",
@@ -2259,7 +2455,10 @@ def main() -> int:
                 flush=True,
             )
         pyr = scale_space.build_pyramid(frames, 4)
-        calls = capture_sampler_inputs(lambda: feature.describe(frames, feature.detect(frames)))
+        # K2's phase 1, the path's one launch a step (describe_rotated
+        # samples the rotated pattern).
+        calls, rot = capture_describe(lambda: feature.describe(frames, feature.detect(frames)))
+        calls = calls[:1]
         k1_ms = cuda_time(lambda: harris_score_i32_layers(pyr))
         k1_plain = cuda_time(lambda: [harris_score_i32(p) for p in pyr])
         k2_ms = cuda_time(lambda: [smoothed_intensity_cuda(*a) for a in calls])
@@ -2280,8 +2479,8 @@ def main() -> int:
         k3_bound = measure.bound_ms(6 * pixels, int32_ops=K3_OPS_PER_PIXEL * pixels)
         k2_bnd = k2_bound(calls)
         print(
-            f"[timing] kernels B={batch}, per step (K1, K3: 4 layers, {pixels} pixels; K2: 2 "
-            f"phases, K={calls[0][3].shape[0]}): K1 {k1_ms:.3f} ms (device {k1_dev:.4f} ms) vs "
+            f"[timing] kernels B={batch}, per step (K1, K3: 4 layers, {pixels} pixels; K2: the "
+            f"unrotated samples, K={calls[0][3].shape[0]}): K1 {k1_ms:.3f} ms (device {k1_dev:.4f} ms) vs "
             f"plain {k1_plain:.3f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 "
             f"{k2_ms:.3f} ms (device {k2_dev:.4f} ms) vs plain {k2_plain:.3f} ms, bound "
             f"{k2_bnd[0]:.4f} ms ({k2_bnd[1]}); K3 {k3_ms:.3f} ms (device {k3_dev:.4f} ms) vs "
@@ -2293,7 +2492,13 @@ def main() -> int:
             kernel_ms = dict(k1=(k1_ms, k1_plain, *k1_bound, k1_dev),
                              k2=(k2_ms, k2_plain, *k2_bnd, k2_dev),
                              k3=(k3_ms, k3_plain, *k3_bound, k3_dev))
-        del frames, pyr, calls
+        # describe_rotated against the chain it replaced, in turns, and its bound.
+        turns = describe_turns(rot, calls[0], dev)
+        rot_bnd = measure.bound_ms(*describe_rotated_work(rot))
+        print(f"[timing] describe_rotated B={batch}, {rot[4].numel()} slots, event / device ms in "
+              f"turns: {turns_text(turns)}; bound {rot_bnd[0]:.5f} ms ({rot_bnd[1]}) "
+              f"[{kind}; {card}]", flush=True)
+        del frames, pyr, calls, rot
         torch.cuda.empty_cache()
 
     # K1-K3 at the main path's B=16 shapes. No one PyTorch call computes
@@ -2313,7 +2518,7 @@ def main() -> int:
              "ethzasl_brisk_tpu/kernels/pallas_harris.py:177",
              fused_launches["harris_score_mask"], k3_err, "k3"),
         )
-    ] + [v1_row, orientation_row] + camera_rows + [segment_row] + probe_rows
+    ] + [v1_row, describe_row, orientation_row] + camera_rows + [segment_row] + probe_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[wall] {time.perf_counter() - t_start:.1f} s from start to the kernels line", flush=True)
     print(f"[card] {card}", flush=True)

@@ -7,7 +7,9 @@ the size list (RoiPredicate, :532-536), smoothed-intensity sampling
 (:714-740), and the short-pair comparisons packed LSB-first into words
 (:538-564): 384 bits in 12 words for v2, 512 in 16 for the v1 ring
 pattern. The words are the JAX package's uint32 descriptors stored as
-int32 bit patterns.
+int32 bit patterns. On uint8 frames everything after K2's unrotated
+samples is ``describe/rotated.py``'s ``describe_rotated``: one launch of
+kernel ``describe_rotated`` on the card.
 
 Entry points: :class:`BriskExtractor` (one image or a batch, every slot),
 ``extract_descriptors`` (one image), ``extract_descriptors_batch`` (a
@@ -53,6 +55,12 @@ from ethzasl_brisk_tpu_torch.core.pattern import (
 )
 from ethzasl_brisk_tpu_torch.core.selectors import check_extractor_selectors, check_version
 from ethzasl_brisk_tpu_torch.describe.orientation import orientation
+from ethzasl_brisk_tpu_torch.describe.rotated import (
+    describe_rotated,
+    long_pair_gradient,
+    pack_words,
+    rotated_sampler_args,
+)
 from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity_fused
 from ethzasl_brisk_tpu_torch.kernels.integral import integral_image_16_f32, integral_image_i32
 
@@ -60,10 +68,6 @@ PATTERN_FIELDS = (
     "lut_x", "lut_y", "lut_sigma", "lut_scaling", "lut_scaling2", "scale_list",
     "size_list", "short_i", "short_j", "long_i", "long_j", "long_wdx", "long_wdy",
 )
-
-
-def _trunc_div(val: torch.Tensor, d: int) -> torch.Tensor:
-    return torch.div(val, d, rounding_mode="trunc")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -470,10 +474,14 @@ def _describe_core(
     filter with each keypoint's own limits (a view's true size).
 
     Without rotation invariance the angle is kept and the pattern is not
-    rotated (theta 0), so only the second sampling runs. With ``img_f32``
-    (one scaled 16-bit image; ``integral`` its float integral) the float
-    sampler serves both samplings, otherwise kernel K2 (its plain version
-    on the CPU).
+    rotated (theta 0), so only the second sampling runs. On uint8 frames
+    kernel K2 samples the unrotated pattern and ``describe_rotated``
+    (``describe/rotated.py``, one launch of ``csrc/describe.cu`` on the
+    card, its plain version on the CPU) the gradient, the angle chain, the
+    rotated pattern and the words. With ``img_f32`` (one scaled 16-bit
+    image; ``integral`` its float integral) the float sampler serves both
+    samplings, and with ``angle_exact`` K2 does, around the orientation
+    step (``_orientation``) and ``pack_words``.
 
     The ``angle`` of a slot that leaves invalid (outside the pattern
     border) lies outside parity with the JAX package: describe computes an
@@ -495,11 +503,23 @@ def _describe_core(
         & (keypoints.y >= bf) & (keypoints.y < h_lim - bf)
     )
     valid = keypoints.valid & inside
+    key_x, key_y = keypoints.x.contiguous(), keypoints.y.contiguous()
+
+    if img_f32 is None and not angle_exact:
+        # K2 samples the unrotated pattern; describe_rotated does the rest.
+        vals0 = None
+        if rotation_invariant:
+            vals0 = smoothed_intensity_fused(*rotated_sampler_args(
+                pat, integral, rows, scale_idx, 0, key_x, key_y, row_base, v1_rounding))
+        angle, desc = describe_rotated(
+            pat, integral, rows, vals0, scale_idx, valid, keypoints.angle.contiguous(), key_x,
+            key_y, row_base, v1_rounding,
+        )
+        return dataclasses.replace(keypoints, angle=angle, valid=valid), desc
+
     sigma = pat.lut_sigma[scale_idx].contiguous()
     scaling = pat.lut_scaling[scale_idx].contiguous()
     scaling2 = pat.lut_scaling2[scale_idx].contiguous()
-    key_x, key_y = keypoints.x.contiguous(), keypoints.y.contiguous()
-
     if img_f32 is not None:
         area = 4.0 * sigma * sigma
 
@@ -521,7 +541,8 @@ def _describe_core(
 
     # Phase 2: rotated samples and the short-pair bits.
     vals = sample(pat.lut_x[scale_idx, theta], pat.lut_y[scale_idx, theta])
-    return _pack_descriptor(pat, keypoints, angle, vals, valid)
+    desc = pack_words(pat, vals, valid)
+    return dataclasses.replace(keypoints, angle=angle, valid=valid), desc
 
 
 def _exact_angle_host(d0: np.ndarray, d1: np.ndarray, given_angle: np.ndarray,
@@ -557,10 +578,7 @@ def _orientation(pat, keypoints, scale_idx, sample, angle_exact=False, op_by_op=
     ``op_by_op`` for the 16-bit path), or with ``angle_exact`` on the host
     (``_exact_angle_host``)."""
     need_angle = keypoints.angle == -1.0
-    vals0 = sample(pat.lut_x[scale_idx, 0], pat.lut_y[scale_idx, 0])
-    delta_t = vals0[:, pat.long_i] - vals0[:, pat.long_j]  # (K, L)
-    d0 = _trunc_div(delta_t * pat.long_wdx[None, :], 1024).sum(dim=1, dtype=torch.int32)
-    d1 = _trunc_div(delta_t * pat.long_wdy[None, :], 1024).sum(dim=1, dtype=torch.int32)
+    d0, d1 = long_pair_gradient(pat, sample(pat.lut_x[scale_idx, 0], pat.lut_y[scale_idx, 0]))
     if angle_exact:
         ang, theta = _exact_angle_host(d0.cpu().numpy(), d1.cpu().numpy(),
                                        keypoints.angle.cpu().numpy(), need_angle.cpu().numpy())
@@ -568,25 +586,6 @@ def _orientation(pat, keypoints, scale_idx, sample, angle_exact=False, op_by_op=
         return torch.from_numpy(ang).to(dev), torch.from_numpy(theta).to(dev, torch.int64)
     return orientation(d0.contiguous(), d1.contiguous(), keypoints.angle.contiguous(),
                        need_angle.contiguous(), op_by_op)
-
-
-def _pack_descriptor(pat, keypoints, angle, vals, valid):
-    """The short-pair comparisons -> words LSB-first (384 -> 12 for v2, 512
-    -> 16 for v1), as int32 bit patterns of the reference's uint32 words
-    (setDescriptorBits, :538-564)."""
-    bits = vals[:, pat.short_i] > vals[:, pat.short_j]  # (K, Sh)
-    k, n_bits = bits.shape
-    n_words = pat.descriptor_words
-    padded = torch.zeros((k, n_words * 32), dtype=torch.int64, device=vals.device)
-    padded[:, :n_bits] = bits.to(torch.int64)
-    weights = torch.bitwise_left_shift(
-        torch.ones(32, dtype=torch.int64, device=vals.device),
-        torch.arange(32, device=vals.device),
-    )
-    words = (padded.reshape(k, n_words, 32) * weights).sum(dim=-1)
-    words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
-    desc = torch.where(valid[:, None], words, torch.zeros_like(words))
-    return dataclasses.replace(keypoints, angle=angle, valid=valid), desc
 
 
 class BriskExtractor(nn.Module):

@@ -24,8 +24,10 @@ ones.
 multiply-add in float64, where a float32 product is exact and, wherever
 the bin can change (``|angle * BINS_PER_DEG| >= 2^-5``), so is the sum,
 so its one rounding to float32 is the FMA's. ``orientation_cuda`` launches
-kernel ``brisk_orientation`` (``csrc/angle.cu``), one thread a keypoint;
-``orientation`` picks by device.
+kernel ``brisk_orientation`` (``csrc/angle.cu``; the chain's device
+functions are ``csrc/angle.cuh``), one thread a keypoint; ``orientation``
+picks by device. It serves the 16-bit path; on uint8 frames the chain runs
+inside kernel ``describe_rotated`` (``describe/rotated.py``).
 """
 from __future__ import annotations
 

@@ -105,6 +105,24 @@ def cuda_time(fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def split_calls(work, kernel_names) -> list[float]:
+    """The device time (ms) of each timed call in a trace's device work,
+    ``(start, ms, name)`` tuples: a call's work follows the marker kernel
+    (``spin_kernel``, ``torch.cuda._sleep``) that ends the L2 flush before
+    it; the flush's own reduction, the kernel just before each marker, is
+    not counted, and a reduction of the timed call is."""
+    work = sorted(work)
+    times = []
+    for i, (_, ms, name) in enumerate(work):
+        if "spin_kernel" in name:
+            times.append(0.0)
+        elif "reduce_kernel" in name and i + 1 < len(work) and "spin_kernel" in work[i + 1][2]:
+            continue
+        elif times and (kernel_names is None or any(k in name for k in kernel_names)):
+            times[-1] += ms
+    return times
+
+
 def _traced_calls(fn, flush: torch.Tensor, kernel_names, calls: int) -> list[float]:
     """Device time (ms) of each of ``calls`` calls of fn(), each after a read
     of ``flush`` on the card it lies on, as one profiler trace shows them
@@ -114,7 +132,9 @@ def _traced_calls(fn, flush: torch.Tensor, kernel_names, calls: int) -> list[flo
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            flush.sum(dim=1)
+            with torch.cuda.device(flush.device):
+                flush.sum(dim=1)
+                torch.cuda._sleep(1)  # marks the flush's end in the trace
             torch.cuda.synchronize(flush.device)
             fn()
             torch.cuda.synchronize(flush.device)
@@ -124,17 +144,7 @@ def _traced_calls(fn, flush: torch.Tensor, kernel_names, calls: int) -> list[flo
             start, ms = ((e.start_ns(), e.duration_ns() / 1e6) if hasattr(e, "start_ns")
                          else (1e3 * e.start_us(), e.duration_us() / 1e3))
             work.append((start, ms, e.name()))
-    times, flushing = [], False
-    for _, ms, name in sorted(work):
-        if "reduce_kernel" in name:
-            if not flushing:
-                times.append(0.0)
-            flushing = True
-            continue
-        flushing = False
-        if times and (kernel_names is None or any(k in name for k in kernel_names)):
-            times[-1] += ms
-    return times
+    return split_calls(work, kernel_names)
 
 
 def device_time(fn, device: str | torch.device, kernel_names: tuple[str, ...] | None = None,
@@ -146,13 +156,14 @@ def device_time(fn, device: str | torch.device, kernel_names: tuple[str, ...] | 
     trace of CUDA activity.
 
     Before each call a row-wise float32 sum (one reduction kernel, no cast)
-    on that card reads a buffer twice its L2's size, and the card is
-    synchronised before and after the call; the sum's kernel marks where
-    each call's work starts in the trace and is not counted, so ``fn`` must
-    launch no reduction of its own. The profiler can miss events, at the start of a
-    trace or all of them: each trace starts with ``LEAD_CALLS`` more calls,
-    not counted, and a trace that still lacks a call is taken again, up to
-    ``TRACE_ATTEMPTS`` times, before this raises."""
+    on that card reads a buffer twice its L2's size, a spin of one cycle
+    (``torch.cuda._sleep``) marks its end, and the card is synchronised
+    before and after the call; neither is counted, so ``fn`` may launch
+    reductions of its own (``split_calls``). The profiler can miss events,
+    at the start of a trace or all of them: each trace starts with
+    ``LEAD_CALLS`` more calls, not counted, and a trace that still lacks a
+    call is taken again, up to ``TRACE_ATTEMPTS`` times, before this
+    raises."""
     for _ in range(warmup):
         fn()
     device = torch.device(device)

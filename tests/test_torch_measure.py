@@ -56,3 +56,21 @@ def test_device_busy_ms_fails_without_a_card():
         pytest.skip("a card is present")
     with pytest.raises((RuntimeError, AssertionError)):
         measure.device_busy_ms(lambda: None)
+
+
+def test_split_calls_counts_the_timed_calls_reductions():
+    """``device_time``'s trace split: each call's work follows a spin
+    marker; the L2 flush's reduction just before a marker is not counted,
+    a reduction of the timed call is (the describe chain sums), and the
+    kernel-name filter picks the kernels summed."""
+    flush, mark = "void at::native::reduce_kernel<512, 1>(float)", "at::cuda::spin_kernel(long)"
+    work = [
+        (0, 9.0, flush), (1, 0.001, mark),
+        (2, 0.5, "k2_sampler_kernel"), (3, 0.2, "void at::native::reduce_kernel<128, 4>(int)"),
+        (4, 9.0, flush), (5, 0.001, mark),
+        (6, 0.3, "describe_rotated_kernel"),
+    ]
+    assert measure.split_calls(list(reversed(work)), None) == pytest.approx([0.7, 0.3])
+    assert measure.split_calls(work, ("k2_sampler",)) == pytest.approx([0.5, 0.0])
+    assert measure.split_calls(work[1:], ("reduce_kernel",)) == pytest.approx([0.2, 0.0])
+    assert measure.split_calls(work[2:4], None) == []  # no marker, no call
