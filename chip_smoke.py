@@ -4,26 +4,29 @@
 
 Builds the hand-written CUDA kernels (K1 Harris, K2 sampler, K3 Harris +
 2-D maxima, and the port's own: ``describe_rotated`` of ``describe.cu``,
-the describe after K2's unrotated samples in one launch; the orientation
+the whole uint8 describe in one launch; the orientation
 step, the elementwise ``atan2f`` and ``sincosf`` and the camera grid's
 ``walk_angles`` of ``angle.cu``; the BA's ordered segment sums, a call
 site's sums in one launch, of ``segment_sum.cu``) from
 ``ethzasl_brisk_tpu_torch/csrc`` and checks each against its plain torch
 version at the shapes of the path that runs it (K1 and K3 on the four
 pyramid layers in one launch, and on each alone; K2 on the unrotated
-samples and on the rotated taps ``describe_rotated`` samples, the rotation
-from the plain chain; ``describe_rotated`` in every phase that describes
-uint8 frames).
+and the rotated taps ``describe_rotated`` samples, the rotation from the
+plain chain; ``describe_rotated`` in every phase that describes uint8
+frames). Beside them it builds two yardsticks that the port never calls:
+the earlier two-launch describe's second kernel (a warp a keypoint, after
+K2's unrotated samples) and ``describe.cu`` with its words a ballot a
+word, each timed in turns against ``describe_rotated``.
 Every comparison of the card with the CPU holds angles, rotation bins,
 descriptors and matches bitwise. Then it drives these paths, each with
 the launch counters set to 0 just before it and read just after:
 
 * the main path, ``FramePipeline.step`` with the benchmark configuration
-  on 16 VGA frames (K1 1 launch for the four pyramid layers, K2 1 for the
-  unrotated samples, ``describe_rotated`` 1, the orientation kernel 0),
-  compared with the plain CPU step;
+  on 16 VGA frames (K1 1 launch for the four pyramid layers,
+  ``describe_rotated`` 1, K2 and the orientation kernel 0), compared with
+  the plain CPU step;
 * the fused path, the same step with ``fused_mask=True`` (K3 1 launch for
-  the four layers, K1 0, K2 1, ``describe_rotated`` 1), bit-equal to the
+  the four layers, K1 0, ``describe_rotated`` 1, K2 0), bit-equal to the
   main path;
 * the README quick start: two VGA frames written and read back as PGM,
   ``BriskFeature(octaves=0, ..., fused_mask=True).detect_and_compute`` on
@@ -42,25 +45,25 @@ the launch counters set to 0 just before it and read just after:
   ``device="cpu"`` feature, and a feature built from bench.py's keywords;
 * the classic AST path (``[ast]``): ``AstFramePipeline.step`` with bench.py's
   AST configuration on 80 VGA bench frames, its capacity and describe
-  certificates first (K2 and ``describe_rotated`` 1 launch each, K1 and K3
-  none); 4 frames on the card
+  certificates first (``describe_rotated`` 1 launch, K1, K2 and K3 none);
+  4 frames on the card
   against a ``device="cpu"`` pipeline, ``compute_scale`` of frame 0's
   keypoints and the ``exact`` cache model on frame 0, each against the CPU;
   the step timed at batch 16 and 80 per stage, and K2 at the AST shapes
   and ``describe_rotated`` against their plain versions, the latter in turns
-  with the chain it replaced;
+  with the two-launch describe it replaced;
 * the v1 engine (``[v1]``): ``BriskFeatureDetector(version="v1")`` on VGA
   bench frames, its caps certified first; ``detect_and_compute`` on 4
-  frames (the v1-rounding variants of K2 and ``describe_rotated`` 1 launch
-  each a frame), ``AstFramePipeline`` at batch 16 (both with v2 rounding, as
-  the JAX step, and a 512-bit match) and ``BriskFeature(version="v1")`` on
-  one frame (K1 1, K2 v1 1, ``describe_rotated`` v1 1), each against
-  a ``device="cpu"`` twin; K2's v1 variant against its plain version and
-  its bound, and the v1 step timed per stage;
+  frames (the v1-rounding variant of ``describe_rotated`` 1 launch a
+  frame), ``AstFramePipeline`` at batch 16 (v2 rounding, as the JAX step,
+  and a 512-bit match), ``BriskFeature(version="v1")`` on one frame (K1 1,
+  ``describe_rotated`` v1 1) and with ``angle_exact=True`` (K2 v1 2), each
+  against a ``device="cpu"`` twin; K2's v1 variant against its plain
+  version and its bound, and the v1 step timed per stage;
 * the camera-aware path (``[camera]``): ``CameraAwareFeatureGrid`` on a
   radial-tangential and an equidistant VGA camera and the single-view
   ``CameraAwareFeature``, with the benchmark's ``BriskFeature``, on a bench
-  frame taken as the distorted image (K1 1, K2 1, ``describe_rotated`` 1 an
+  frame taken as the distorted image (K1 1, ``describe_rotated`` 1 an
   image; the grids' angle back-transform ``walk_angles`` 1, the elementwise
   ``atan2f`` and ``sincosf`` 0), against ``device="cpu"`` twins and timed
   per stage, the angles stage in turns with the torch chain the kernel
@@ -68,9 +71,10 @@ the launch counters set to 0 just before it and read just after:
 * the keyframed VO + BA loop (``[vo]``): ``vo.sequence.run_keyframed``, the
   counterpart of ``tools/kitti_eval.py`` with its defaults but the ``lm``
   solver, on 48 VGA frames of the synthetic VO scene, its frame-0 capacity
-  certificate first (K1 once a frame and once for the certificate, K2 and
-  ``describe_rotated`` once a frame, K3 none, ``segment_sum`` 12 a BA
-  solve); the same loop on
+  certificate first (K1 once a frame and once for the certificate,
+  ``describe_rotated`` once a frame, K2 and K3 none, ``segment_sum`` 12 a
+  BA solve); one frame's describe in turns with the two-launch describe;
+  the same loop on
   a ``device="cpu"`` twin with the same RANSAC draws (detection bitwise on
   every frame, keyframes and BA runs equal, poses within tolerance); the
   8-point systems' SVD null vectors on the card; per-stage times a frame
@@ -94,14 +98,14 @@ the launch counters set to 0 just before it and read just after:
   stages against both, and a ``utils.timing.timer`` in each mode around a
   B=16 step, its sample bracketing the step's CUDA-event time;
 * the sharded layer (``[dist]``): one NCCL rank, a (1, 1) mesh: the sharded
-  knn bitwise the dense knn, ``FramePipeline(mesh=...)`` counted (K1 1, K2
-  1, ``describe_rotated`` 1) and bitwise the plain step, the AST step over
-  it (K2 1) bitwise the
+  knn bitwise the dense knn, ``FramePipeline(mesh=...)`` counted (K1 1,
+  ``describe_rotated`` 1) and bitwise the plain step, the AST step over
+  it (``describe_rotated`` 1) bitwise the
   plain AST step, the distributed BA and pose graph within
   1e-9 of the single-card solvers in float64 and within the JAX tests' bars
   in float32, the ``worker`` command's run and the dry run;
 * the examples (``[examples]``): ``live_pipeline`` over 9 VGA bench frames
-  written as PGM (K1 3, K2 2, ``describe_rotated`` 2), its ``batch`` lines
+  written as PGM (K1 3, ``describe_rotated`` 2), its ``batch`` lines
   equal to a
   ``--device cpu`` run's, and ``cameras_demo`` on the card;
 * the gather probes (``ethzasl_brisk_tpu_torch.probes``): each of the 39
@@ -126,6 +130,7 @@ import os
 import statistics
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -322,6 +327,163 @@ extern "C" int staged_segment_sum(const void* values, const void* order, const v
   return static_cast<int>(cudaGetLastError());
 }
 """
+# The earlier describe's second kernel (a warp a keypoint after K2's
+# unrotated samples, vals0; the int64 pair tables staged by every CTA; a
+# persistent grid of 8 CTAs an SM), built beside the kernels with
+# csrc/ on the include path: with K2's phase-1 launch and its five LUT-row
+# gathers it is the two-launch describe that [timing], [ast] and [vo] time
+# describe_rotated against. The port never calls it.
+WARP_DESCRIBE_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "angle.cuh"
+#include "launch.cuh"
+#include "sampler.cuh"
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSmem = 232448;  // what a block can opt in to on Hopper
+
+size_t smem_bytes(int P, int L, int n_bits) {
+  return sizeof(int32_t) * (2 * (size_t)L + (size_t)kWarps * P) +
+         sizeof(int16_t) * (2 * (size_t)L + 2 * (size_t)n_bits);
+}
+
+template <bool V1>
+__global__ void __launch_bounds__(kThreads) warp_describe_kernel(
+    const int32_t* __restrict__ integral, int cols, int frame_rows,
+    const int32_t* __restrict__ vals0, const int64_t* __restrict__ scale_idx,
+    const uint8_t* __restrict__ valid, const float* __restrict__ given,
+    const float* __restrict__ key_x, const float* __restrict__ key_y,
+    const int32_t* __restrict__ row_base, const float* __restrict__ lut_x,
+    const float* __restrict__ lut_y, const float* __restrict__ lut_sigma,
+    const int32_t* __restrict__ lut_scaling, const int32_t* __restrict__ lut_scaling2,
+    const int64_t* __restrict__ long_i, const int64_t* __restrict__ long_j,
+    const int32_t* __restrict__ long_wdx, const int32_t* __restrict__ long_wdy, int L,
+    const int64_t* __restrict__ short_i, const int64_t* __restrict__ short_j, int n_bits,
+    float* __restrict__ angle_out, int32_t* __restrict__ desc, int K, int P, int n_rot, int W) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* s_wdx = reinterpret_cast<int32_t*>(smem);
+  int32_t* s_wdy = s_wdx + L;
+  int32_t* s_vals = s_wdy + L;
+  int16_t* s_li = reinterpret_cast<int16_t*>(s_vals + kWarps * P);
+  int16_t* s_lj = s_li + L;
+  int16_t* s_si = s_lj + L;
+  int16_t* s_sj = s_si + n_bits;
+  const bool rotate = vals0 != nullptr;
+  if (rotate) {
+    for (int l = threadIdx.x; l < L; l += kThreads) {
+      s_li[l] = static_cast<int16_t>(long_i[l]);
+      s_lj[l] = static_cast<int16_t>(long_j[l]);
+      s_wdx[l] = long_wdx[l];
+      s_wdy[l] = long_wdy[l];
+    }
+  }
+  for (int b = threadIdx.x; b < n_bits; b += kThreads) {
+    s_si[b] = static_cast<int16_t>(short_i[b]);
+    s_sj[b] = static_cast<int16_t>(short_j[b]);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stride = cols + 1;
+  int32_t* buf = s_vals + warp * P;
+  for (int k = blockIdx.x * kWarps + warp; k < K; k += gridDim.x * kWarps) {
+    const float g = given[k];
+    float a = g;
+    int64_t theta = 0;
+    if (rotate) {
+      const int32_t* v0 = vals0 + (size_t)k * P;
+      for (int p = lane; p < P; p += 32) buf[p] = v0[p];
+      __syncwarp();
+      uint32_t s0 = 0, s1 = 0;
+      for (int l = lane; l < L; l += 32) {
+        const uint32_t dt = (uint32_t)buf[s_li[l]] - (uint32_t)buf[s_lj[l]];
+        s0 += (uint32_t)((int32_t)(dt * (uint32_t)s_wdx[l]) / 1024);
+        s1 += (uint32_t)((int32_t)(dt * (uint32_t)s_wdy[l]) / 1024);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s0 += __shfl_xor_sync(kFull, s0, o);
+        s1 += __shfl_xor_sync(kFull, s1, o);
+      }
+      if (g == -1.0f) a = orientation_angle((int32_t)s0, (int32_t)s1, false);
+      theta = rotation_bin(a, n_rot, false);
+      __syncwarp();  // every lane has read the phase-1 values
+    }
+    const int th = (int)(theta < 0 ? 0 : (theta >= n_rot ? n_rot - 1 : theta));
+    const int64_t s = scale_idx[k];
+    const float kx = key_x[k], ky = key_y[k];
+    const int32_t* frame = integral + (size_t)row_base[k] * stride;
+    const float* px = lut_x + ((size_t)s * n_rot + th) * P;
+    const float* py = lut_y + ((size_t)s * n_rot + th) * P;
+    for (int p = lane; p < P; p += 32) {
+      const size_t sp = (size_t)s * P + p;
+      const Geom geo = geometry(kx, ky, __ldg(px + p), __ldg(py + p), __ldg(lut_sigma + sp));
+      buf[p] = point_value<V1>(frame, stride, geo, frame_rows, cols, __ldg(lut_scaling + sp),
+                               __ldg(lut_scaling2 + sp));
+    }
+    __syncwarp();
+    const bool ok = valid[k] != 0;
+    uint32_t mine = 0;
+    for (int w = 0; w < W; ++w) {
+      const int b = 32 * w + lane;
+      const uint32_t word = __ballot_sync(kFull, b < n_bits && buf[s_si[b]] > buf[s_sj[b]]);
+      if (lane == (w & 31)) mine = word;
+      if ((w & 31) == 31 || w == W - 1) {
+        const int first = w & ~31;
+        if (lane <= w - first) desc[(size_t)k * W + first + lane] = ok ? (int32_t)mine : 0;
+      }
+    }
+    if (lane == 0) angle_out[k] = a;
+    __syncwarp();  // every lane has read the rotated values
+  }
+}
+
+int resident_blocks() {
+  static int sms[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return (sms[dev] > 0 ? sms[dev] : 1) * (2048 / kThreads);
+}
+
+}  // namespace
+
+extern "C" int warp_describe_rotated(
+    const void* integral, int cols, int frame_rows, const void* vals0, const void* scale_idx,
+    const void* valid, const void* given, const void* key_x, const void* key_y,
+    const void* row_base, const void* lut_x, const void* lut_y, const void* lut_sigma,
+    const void* lut_scaling, const void* lut_scaling2, const void* long_i, const void* long_j,
+    const void* long_wdx, const void* long_wdy, int L, const void* short_i, const void* short_j,
+    int n_bits, void* angle, void* desc, int K, int P, int n_rot, int W, int v1_rounding,
+    void* stream) {
+  const size_t smem = smem_bytes(P, L, n_bits);
+  if (n_rot != 1024 || P < 1 || P > 32767 || L < 0 || n_bits < 0 || W * 32 < n_bits ||
+      smem > (size_t)kMaxSmem || (long long)(frame_rows + 1) * (cols + 1) > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (K == 0) return 0;
+  const int want = (K + kWarps - 1) / kWarps;
+  const int cap = resident_blocks();
+  const int grid = want < cap ? want : cap;
+  auto kernel = v1_rounding ? warp_describe_kernel<true> : warp_describe_kernel<false>;
+  return (int)launch(kernel, grid, kThreads, (int)smem, (cudaStream_t)stream,
+                     (const int32_t*)integral, cols, frame_rows, (const int32_t*)vals0,
+                     (const int64_t*)scale_idx, (const uint8_t*)valid, (const float*)given,
+                     (const float*)key_x, (const float*)key_y, (const int32_t*)row_base,
+                     (const float*)lut_x, (const float*)lut_y, (const float*)lut_sigma,
+                     (const int32_t*)lut_scaling, (const int32_t*)lut_scaling2,
+                     (const int64_t*)long_i, (const int64_t*)long_j, (const int32_t*)long_wdx,
+                     (const int32_t*)long_wdy, L, (const int64_t*)short_i,
+                     (const int64_t*)short_j, n_bits, (float*)angle, (int32_t*)desc, K, P,
+                     n_rot, W);
+}
+"""
 # The 6 x 6 tap grid cells (row, column) each K2 branch reads
 # (sampler.cu's tIJ); the box branch's corner c and d columns depend on
 # ``big``.
@@ -334,10 +496,10 @@ K2_TAPS = {
 }
 
 
-def k2_work(call) -> tuple[int, int, int]:
-    """One K2 call's (distinct integral sector bytes its taps read, int32
-    operations, float32 operations), from the branch each point takes."""
-    from ethzasl_brisk_tpu_torch import measure
+def k2_taps(call) -> tuple[torch.Tensor, int, int]:
+    """One K2 call's (flat integral indices of the taps its points read,
+    int32 operations, float32 operations), from the branch each point
+    takes."""
     from ethzasl_brisk_tpu_torch.describe.sampler import _tap_geometry
 
     integral, key_x, key_y, pat_x, pat_y, pat_sigma, _, _, row_base, frame_rows, *v1 = call
@@ -359,7 +521,16 @@ def k2_work(call) -> tuple[int, int, int]:
     if v1 and v1[0]:
         int_ops += K2_V1_EXTRA["small"] * n_small + K2_V1_EXTRA["box"] * (k * p - n_small)
     fp_ops = K2_OPS_SMALL[1] * n_small + K2_OPS_BOX[1] * (k * p - n_small)
-    return measure.distinct_sector_bytes(flat[need], 4, integral.numel()), int_ops, fp_ops
+    return flat[need], int_ops, fp_ops
+
+
+def k2_work(call) -> tuple[int, int, int]:
+    """One K2 call's (distinct integral sector bytes its taps read, int32
+    operations, float32 operations)."""
+    from ethzasl_brisk_tpu_torch import measure
+
+    flat, int_ops, fp_ops = k2_taps(call)
+    return measure.distinct_sector_bytes(flat, 4, call[0].numel()), int_ops, fp_ops
 
 
 def k2_bound(calls) -> tuple[float, str]:
@@ -378,13 +549,26 @@ def k2_bound(calls) -> tuple[float, str]:
     return measure.bound_ms(nbytes, int32_ops=int_ops, fp32_ops=fp_ops)
 
 
-def plain_theta(rot):
-    """The rotation bins the plain chain gives a ``describe_rotated`` call's
-    keypoints, on the CPU."""
-    from ethzasl_brisk_tpu_torch.describe.rotated import plain_rotation
+def phase1_args(rot) -> tuple:
+    """K2's arguments at the unrotated pattern of a ``describe_rotated``
+    call, ``lut_x[scale_idx, 0]``: what the two-launch describe's K2 launch
+    sampled, and where ``describe_rotated`` samples phase 1."""
+    from ethzasl_brisk_tpu_torch.describe.rotated import rotated_sampler_args
 
-    pat, vals0, sidx, angle = to_cpu((rot[0], rot[3], rot[4], rot[6]))
-    return plain_rotation(pat, vals0, sidx, angle)[1]
+    pat, integral, rows, _, sidx, _, _, key_x, key_y, row_base, v1 = rot
+    return rotated_sampler_args(pat, integral, rows, sidx, 0, key_x, key_y, row_base, v1)
+
+
+def plain_rotation_of(rot):
+    """The plain chain's (angle, theta) for a ``describe_rotated`` call's
+    keypoints, on the CPU, from the phase-1 values K2 gives on the card
+    (bitwise its plain version's, checked in every phase that calls this)."""
+    from ethzasl_brisk_tpu_torch.describe.rotated import plain_rotation
+    from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity_fused
+
+    vals0 = smoothed_intensity_fused(*phase1_args(rot)) if rot[3] else None
+    pat, vals0, sidx, angle = to_cpu((rot[0], vals0, rot[4], rot[6]))
+    return plain_rotation(pat, vals0, sidx, angle)
 
 
 def rotated_k2_args(rot) -> tuple:
@@ -394,33 +578,43 @@ def rotated_k2_args(rot) -> tuple:
     from ethzasl_brisk_tpu_torch.describe.rotated import rotated_sampler_args
 
     pat, integral, rows, _, sidx, _, _, key_x, key_y, row_base, v1 = rot
-    return rotated_sampler_args(pat, integral, rows, sidx, plain_theta(rot).to(sidx.device),
-                                key_x, key_y, row_base, v1)
+    theta = plain_rotation_of(rot)[1].to(sidx.device)
+    return rotated_sampler_args(pat, integral, rows, sidx, theta, key_x, key_y, row_base, v1)
 
 
 def describe_rotated_work(rot) -> tuple[int, int, int]:
-    """``describe_rotated``'s work on a call's inputs, for its bound: bytes of the phase-1
-    values, the keypoints' inputs, the pattern tables, the distinct LUT rows
-    its keypoints take, the distinct integral sectors of the rotated taps
-    (as ``k2_bound`` counts them) and the outputs; operations of the
-    gradient, the sampling (K2's per branch), the comparisons and the angle
-    chain where it runs. Returns (bytes, int32 ops, float32 ops)."""
-    pat, vals0, sidx, angle = rot[0], rot[3], rot[4], rot[6]
+    """``describe_rotated``'s work on a call's inputs, for its bound: bytes of the keypoints'
+    inputs, the packed pair tables, the distinct LUT rows its keypoints take
+    (theta 0 where phase 1 runs, and theta), the distinct integral sectors
+    both samplings touch (their union, as ``k2_bound`` counts one call's)
+    and the outputs; operations of the sampling (K2's per branch, phase 1
+    only where the angle is computed), the gradient and the chain there, and
+    the comparisons. Returns (bytes, int32 ops, float32 ops)."""
+    from ethzasl_brisk_tpu_torch import measure
+
+    pat, integral, rotate, sidx, angle = rot[0], rot[1], rot[3], rot[4], rot[6]
     k = sidx.numel()
     n_rot, p = pat.lut_x.shape[1:]
     n_long, n_bits = pat.long_i.numel(), pat.short_i.numel()
     words = pat.descriptor_words
-    theta = plain_theta(rot)
-    taps, int_ops, fp_ops = k2_work(rotated_k2_args(rot))
-    lut_rows = int(torch.unique(sidx.cpu() * n_rot + theta).numel())
+    theta = plain_rotation_of(rot)[1]
+    flat, int_ops, fp_ops = k2_taps(rotated_k2_args(rot))
+    rows = sidx.cpu() * n_rot + theta
+    if rotate:
+        need = angle == -1.0
+        p1 = phase1_args(rot)  # the integral, 8 per-keypoint tensors, frame_rows, v1
+        flat1, ints1, fps1 = k2_taps((p1[0], *(a[need] for a in p1[1:9]), *p1[9:]))
+        flat = torch.cat([flat, flat1])
+        n_need = int(need.sum())
+        int_ops += ints1 + 7 * n_long * n_need  # a difference, two products, two divisions, two adds
+        fp_ops += fps1 + ORIENTATION_OPS * n_need
+        rows = torch.cat([rows, sidx[need].cpu() * n_rot])
+    taps = measure.distinct_sector_bytes(flat, 4, integral.numel())
+    lut_rows = int(torch.unique(rows).numel())
     scales = int(torch.unique(sidx.cpu()).numel())
-    nbytes = (25 * k + 24 * n_long + 16 * n_bits + 8 * p * lut_rows + 12 * p * scales + taps
+    nbytes = (25 * k + 4 * (3 * n_long + n_bits) + 8 * p * lut_rows + 12 * p * scales + taps
               + (4 + 4 * words) * k)
     int_ops += n_bits * k  # the comparisons
-    if vals0 is not None:
-        nbytes += 4 * vals0.numel()
-        int_ops += 7 * n_long * k  # a difference, two products, two divisions, two adds
-        fp_ops += ORIENTATION_OPS * int((angle == -1.0).sum())
     return nbytes, int_ops, fp_ops
 
 
@@ -438,39 +632,131 @@ def record_calls(module, name: str, calls: list):
 
 
 def capture_describe(run):
-    """The describe of ``run()``: K2's calls, phase 1 as the path launches
-    it and phase 2 at ``rotated_k2_args`` (the taps ``describe_rotated``
-    samples), and the ``describe_rotated`` call's arguments."""
+    """The ``describe_rotated`` call of ``run()``'s describe (its arguments)
+    and K2's arguments at the taps it samples: phase 1 (``phase1_args``) and
+    the rotated pattern (``rotated_k2_args``)."""
     from ethzasl_brisk_tpu_torch.describe import extractor
 
-    calls, rot_calls = [], []
-    undo = [record_calls(extractor, "smoothed_intensity_fused", calls),
-            record_calls(extractor, "describe_rotated", rot_calls)]
+    rot_calls = []
+    undo = record_calls(extractor, "describe_rotated", rot_calls)
     try:
         run()
     finally:
-        for u in undo:
-            u()
-    assert len(calls) == len(rot_calls) == 1, (len(calls), len(rot_calls))
-    return calls + [rotated_k2_args(rot_calls[0])], rot_calls[0]
+        undo()
+    assert len(rot_calls) == 1, len(rot_calls)
+    rot = rot_calls[0]
+    return [phase1_args(rot), rotated_k2_args(rot)], rot
 
 
-def old_describe_chain(rot, k2_call):
-    """What ``describe_rotated`` replaced on the card, op for op: the
-    gradient's torch ops, kernel ``brisk_orientation``, the LUT-row gathers,
-    K2's phase 2 and the pack's torch ops (``k2_call``: the phase-1 K2 call,
-    whose per-point tables phase 2 shared)."""
-    from ethzasl_brisk_tpu_torch.describe.orientation import orientation_cuda
-    from ethzasl_brisk_tpu_torch.describe.rotated import long_pair_gradient, pack_words
+def build_yardsticks() -> dict:
+    """The yardsticks the port never calls, each built into its own library
+    with the kernels' flags and ``csrc/`` on the include path, all ``nvcc``
+    runs at once: the staged segment_sum body, the two-launch describe's
+    warp kernel, and ``describe.cu`` with its words a ballot a word. Returns
+    {name: (loaded library, ptxas lines)}."""
+    import ctypes
+    import hashlib
+
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    describe_cu = (_kernels._CSRC / "describe.cu").read_text()
+    specs = {"staged_segment_sum": (STAGED_SEGMENT_SUM_CU, ()),
+             "warp_describe": (WARP_DESCRIBE_CU, ()),
+             "describe_words_ballot": (describe_cu, ("-DDESCRIBE_WORDS_BALLOT",))}
+    headers = "".join(h.read_text() for h in sorted(_kernels._CSRC.glob("*.cuh")))
+    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    outs, cmds = {}, []
+    for name, (src, extra) in specs.items():
+        flags = (*_kernels.NVCC_FLAGS, *extra, "-I", str(_kernels._CSRC))
+        tag = hashlib.sha256((src + headers + " ".join(flags)).encode()).hexdigest()[:16]
+        out = _kernels.BUILD_DIR / f"{name}_{tag}.so"
+        outs[name] = out
+        if not out.exists():
+            cu = out.with_suffix(".cu")
+            cu.write_text(src)
+            cmds.append((name, [_kernels._nvcc(), *flags, "-shared", "-o", str(out), str(cu)]))
+    logs = {}
+    for (name, _), (rc, text) in zip(cmds, _kernels._run_all([c for _, c in cmds])):
+        assert rc == 0, f"yardstick {name}: nvcc failed:\n{text}"
+        outs[name].with_suffix(".log").write_text(text)
+    for name, out in outs.items():
+        log = out.with_suffix(".log")
+        logs[name] = (ctypes.CDLL(str(out)), ptxas_lines(log.read_text() if log.exists() else ""))
+    return logs
+
+
+def ptxas_lines(log: str, kernel: str = "") -> list[str]:
+    """``-Xptxas -v``'s lines for the kernels whose mangled names hold
+    ``kernel``: the entry, its stack and spills, its registers."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep and ("registers" in line or "spill" in line or "Compiling entry" in line):
+            out.append(" ".join(line.split()))
+    return out
+
+
+def warp_describe(lib):
+    """The two-launch describe (``WARP_DESCRIBE_CU``): ``(rot) -> (angle,
+    words)`` by K2's phase-1 launch on ``phase1_args`` (its five LUT-row
+    gathers included) and the warp kernel on its values, on the current
+    stream. Not counted: a yardstick."""
+    import ctypes
+
     from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity_cuda
 
-    pat, integral, rows, vals0, sidx, valid, angle, key_x, key_y, row_base, v1 = rot
-    d0, d1 = long_pair_gradient(pat, vals0)
-    out_angle, theta = orientation_cuda(d0, d1, angle, angle == -1.0)
-    vals = smoothed_intensity_cuda(integral, key_x, key_y, pat.lut_x[sidx, theta].contiguous(),
-                                   pat.lut_y[sidx, theta].contiguous(), *k2_call[5:8], row_base,
-                                   rows, v1)
-    return out_angle, pack_words(pat, vals, valid)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.warp_describe_rotated.argtypes = [vp, ci, ci] + [vp] * 12 + [vp, vp, vp, vp, ci, vp, vp, ci,
+                                                                      vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.warp_describe_rotated.restype = ci
+
+    def run(rot):
+        pat, integral, rows, rotate, sidx, valid, angle, key_x, key_y, row_base, v1 = rot
+        vals0 = smoothed_intensity_cuda(*phase1_args(rot)) if rotate else None
+        k, (n_scales, n_rot, p) = sidx.numel(), pat.lut_x.shape
+        out_angle = torch.empty((k,), dtype=torch.float32, device=integral.device)
+        desc = torch.empty((k, pat.descriptor_words), dtype=torch.int32, device=integral.device)
+        err = lib.warp_describe_rotated(
+            integral.data_ptr(), integral.shape[1] - 1, rows,
+            None if vals0 is None else vals0.data_ptr(), sidx.data_ptr(), valid.data_ptr(),
+            angle.data_ptr(), key_x.data_ptr(), key_y.data_ptr(), row_base.data_ptr(),
+            pat.lut_x.data_ptr(), pat.lut_y.data_ptr(), pat.lut_sigma.data_ptr(),
+            pat.lut_scaling.data_ptr(), pat.lut_scaling2.data_ptr(), pat.long_i.data_ptr(),
+            pat.long_j.data_ptr(), pat.long_wdx.data_ptr(), pat.long_wdy.data_ptr(),
+            pat.long_i.numel(), pat.short_i.data_ptr(), pat.short_j.data_ptr(),
+            pat.short_i.numel(), out_angle.data_ptr(), desc.data_ptr(), k, p, n_rot,
+            pat.descriptor_words, int(v1), torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"warp describe: CUDA error {err}"
+        return out_angle, desc
+    return run
+
+
+def words_ballot(lib):
+    """``describe.cu`` built with its words a ballot a word: ``(rot) ->
+    (angle, words)``, launched as ``describe_rotated_cuda`` launches the
+    port's build, on the current stream. Not counted: a yardstick."""
+    import ctypes
+
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    lib.brisk_describe_rotated.argtypes = _kernels.library().brisk_describe_rotated.argtypes
+    lib.brisk_describe_rotated.restype = ctypes.c_int
+
+    def run(rot):
+        pat, integral, rows, rotate, sidx, valid, angle, key_x, key_y, row_base, v1 = rot
+        tables, k = pat.kernel_tables, sidx.numel()
+        out_angle = torch.empty((k,), dtype=torch.float32, device=integral.device)
+        desc = torch.empty((k, tables.layout.n_words), dtype=torch.int32, device=integral.device)
+        err = lib.brisk_describe_rotated(
+            integral.data_ptr(), integral.shape[1] - 1, rows, int(bool(rotate)), sidx.data_ptr(),
+            valid.data_ptr(), angle.data_ptr(), key_x.data_ptr(), key_y.data_ptr(),
+            row_base.data_ptr(), *tables.args, out_angle.data_ptr(), desc.data_ptr(), k,
+            tables.layout.p, pat.lut_x.shape[1], tables.layout.n_words, int(v1),
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"words by ballot: CUDA error {err}"
+        return out_angle, desc
+    return run
 
 
 def describe_rotated_vs_plain(rot, what: str) -> int:
@@ -497,22 +783,21 @@ def to_cpu(args) -> tuple:
     return tuple(cpu(a) for a in args)
 
 
-def describe_turns(rot, k2_call, dev) -> dict:
-    """``describe_rotated`` and the old chain it replaced, equal on these
-    inputs, timed in turns (kernel, old chain, old chain, kernel) by CUDA
-    events and by ``measure.device_time`` (all of a call's device work).
-    Returns {label: [(event ms, device ms), ...]}."""
+def describe_turns(rot, dev, other, label: str = "pair") -> dict:
+    """``describe_rotated`` and ``other`` (a yardstick, ``(rot) -> (angle,
+    words)``), equal bit for bit on these inputs, timed in turns (kernel,
+    other, other, kernel) by CUDA events and by ``measure.device_time`` (all
+    of a call's device work). Returns {label: [(event ms, device ms), ...]}."""
     from ethzasl_brisk_tpu_torch import measure
     from ethzasl_brisk_tpu_torch.describe.rotated import describe_rotated_cuda
 
-    new, old = describe_rotated_cuda(*rot), old_describe_chain(rot, k2_call)
-    assert torch.equal(new[0].view(torch.int32), old[0].view(torch.int32))
-    assert torch.equal(new[1], old[1]), "describe_rotated differs from the old chain"
-    fns = {"kernel": lambda: describe_rotated_cuda(*rot),
-           "old chain": lambda: old_describe_chain(rot, k2_call)}
-    turns = {label: [] for label in fns}
-    for label in ("kernel", "old chain", "old chain", "kernel"):
-        turns[label].append((measure.cuda_time(fns[label]), measure.device_time(fns[label], dev)))
+    new, old = describe_rotated_cuda(*rot), other(rot)
+    assert torch.equal(new[0].view(torch.int32), old[0].view(torch.int32)), f"{label}: angle"
+    assert torch.equal(new[1], old[1]), f"describe_rotated differs from the {label}"
+    fns = {"kernel": lambda: describe_rotated_cuda(*rot), label: lambda: other(rot)}
+    turns = {name: [] for name in fns}
+    for name in ("kernel", label, label, "kernel"):
+        turns[name].append((measure.cuda_time(fns[name]), measure.device_time(fns[name], dev)))
     return turns
 
 
@@ -581,8 +866,8 @@ def quick_start(dev: torch.device) -> dict:
     assert all(t.device == dev for t in (*out[0][0].fields(), out[0][1], *match)), "outputs"
     assert launches["harris_score_mask"] == 2, launches
     assert launches["harris_score_i32"] == 0, launches
-    assert launches["smoothed_intensity"] == launches["describe_rotated"] == 2, launches
-    assert launches["brisk_orientation"] == 0, launches
+    assert launches["describe_rotated"] == 2, launches
+    assert launches["smoothed_intensity"] == launches["brisk_orientation"] == 0, launches
 
     ref, ref_match = run(BriskFeature(**QUICK_CONFIG, max_candidates=cap, device="cpu"), imgs)
     gap, n_valid = 0, []
@@ -706,9 +991,10 @@ def u16_phase(dev: torch.device, card: str) -> dict:
     return launches
 
 
-def facade_phase(dev: torch.device, card: str) -> None:
+def facade_phase(dev: torch.device, card: str) -> dict:
     """Caller keypoints through compute, the float64 refine with exact
-    angles, and bench.py's keywords, on one VGA uint8 frame."""
+    angles, and bench.py's keywords, on one VGA uint8 frame. Returns the
+    launches of the compute call (K2's path: ``angle_exact``)."""
     import numpy as np
 
     from ethzasl_brisk_tpu_torch import BriskFeature, KeyPoints, _kernels
@@ -769,6 +1055,7 @@ def facade_phase(dev: torch.device, card: str) -> None:
         f"selectors' ({int(kb.valid.sum())} valid) [{card}]",
         flush=True,
     )
+    return launches
 
 
 def timed_steps(pipe, frames, stage_names, reps=10, warmup=3):
@@ -811,7 +1098,7 @@ def assert_same_step_outputs(got, ref, what: str) -> int:
     return int(kc.valid.sum())
 
 
-def ast_phase(dev: torch.device, card: str, kind: str) -> None:
+def ast_phase(dev: torch.device, card: str, kind: str, yard: dict) -> None:
     """The classic AST path: bench.py's AST configuration on 80 VGA bench
     frames, certified, counted, against the CPU, and timed."""
     from ethzasl_brisk_tpu_torch import (
@@ -846,7 +1133,7 @@ def ast_phase(dev: torch.device, card: str, kind: str) -> None:
     kps, desc, midx, mdist, diag = pipe.step(frames, with_diagnostics=True)
     torch.cuda.synchronize()
     launches = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
-    assert launches == launches_of(smoothed_intensity=1, describe_rotated=1), launches
+    assert launches == launches_of(describe_rotated=1), launches
     b, k = kps.valid.shape
     n_desc = int(diag["describable"])
     assert bool(diag["detect"].ok.all()), diag["detect"]
@@ -917,8 +1204,8 @@ def ast_phase(dev: torch.device, card: str, kind: str) -> None:
               f"{busy / med:.1%} of the median [{kind}; {card}]", flush=True)
 
     # ---- K2 and describe_rotated at the AST shapes: against their plain
-    # versions (K2 also at the rotated taps describe_rotated samples),
-    # timed (K2's phase 1, the path's launch), bounded.
+    # versions (K2 at both samplings' taps), K2 timed at phase 1, and
+    # describe_rotated in turns with the two-launch describe, bounded.
     calls, rot = capture_describe(lambda: pipe.step(frames))
     for phase, args in enumerate(calls):
         assert torch.equal(smoothed_intensity_cuda(*args), smoothed_intensity(*args)), \
@@ -929,12 +1216,16 @@ def ast_phase(dev: torch.device, card: str, kind: str) -> None:
     k2_dev = measure.device_time(lambda: smoothed_intensity_cuda(*calls[0]), dev,
                                  ("k2_sampler_kernel",))
     k2_bnd = k2_bound(calls[:1])
-    turns = describe_turns(rot, calls[0], dev)
+    turns = describe_turns(rot, dev, warp_describe(yard["warp_describe"][0]))
+    words = describe_turns(rot, dev, words_ballot(yard["describe_words_ballot"][0]),
+                           "a ballot a word")
+    rot_bnd = measure.bound_ms(*describe_rotated_work(rot))
     print(f"[ast K2] B={AST_BATCH}, K x P = {tuple(calls[0][3].shape)}: bitwise vs plain on "
           f"phase 1 and on the rotated taps; phase 1 {k2_ms:.3f} ms (device {k2_dev:.4f} ms) vs "
           f"plain {k2_plain:.3f} ms, bound {k2_bnd[0]:.4f} ms ({k2_bnd[1]}); describe_rotated on "
-          f"{n_rot} slots bitwise vs plain, event / device ms in turns: {turns_text(turns)} "
-          f"[{kind}; {card}]", flush=True)
+          f"{n_rot} slots bitwise vs plain and the pair, event / device ms in turns: "
+          f"{turns_text(turns)}; bound {rot_bnd[0]:.5f} ms ({rot_bnd[1]}); the words a thread a "
+          f"word (kernel) or a ballot a word: {turns_text(words)} [{kind}; {card}]", flush=True)
 
 
 def counted(fn):
@@ -985,9 +1276,9 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
           f"threshold 70 {at70}; at {V1_THRESHOLD} {counts}, certified under caps {list(caps)}",
           flush=True)
 
-    # ---- The facade on 4 frames: K2's v1 variant, 2 launches a frame.
+    # ---- The facade on 4 frames: describe_rotated's v1 variant, 1 launch a frame.
     got, launches = counted(lambda: [det.detect_and_compute(host[i]) for i in range(4)])
-    assert launches == launches_of(smoothed_intensity_v1=4, describe_rotated_v1=4), launches
+    assert launches == launches_of(describe_rotated_v1=4), launches
     n_fac = 0
     for i, g in enumerate(got):
         assert g[1].shape == (g[0].capacity, 16), g[1].shape
@@ -999,7 +1290,7 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     # v1_rounding), a 512-bit match with sentinel 513.
     pipe = AstFramePipeline(det, **AST_PIPELINE)
     step, launches_step = counted(lambda: pipe.step(frames, with_diagnostics=True))
-    assert launches_step == launches_of(smoothed_intensity=1, describe_rotated=1), launches_step
+    assert launches_step == launches_of(describe_rotated=1), launches_step
     kps, desc, midx, mdist, diag = step
     assert desc.shape[-1] == 16 and bool(diag["detect"].ok.all())
     assert int(diag["describable"]) <= AST_PIPELINE["describe_capacity"] * V1_BATCH
@@ -1012,17 +1303,25 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     # ---- The Harris feature with the v1 extractor on one frame.
     feat = BriskFeature(**BENCH_CONFIG, version="v1")
     hg, launches_h = counted(lambda: feat.detect_and_compute(host[0]))
-    assert launches_h == launches_of(harris_score_i32=1, smoothed_intensity_v1=1,
-                                     describe_rotated_v1=1), launches_h
+    assert launches_h == launches_of(harris_score_i32=1, describe_rotated_v1=1), launches_h
     n_h = assert_same_image_outputs(
         hg, BriskFeature(**BENCH_CONFIG, version="v1", device="cpu").detect_and_compute(host[0]),
         "[v1] BriskFeature")
     assert n_h > 0
+    # K2's v1 variant's path: the exact angles keep both samplings on K2.
+    exact = dict(BENCH_CONFIG, version="v1", angle_exact=True)
+    he, launches_e = counted(lambda: BriskFeature(**exact).detect_and_compute(host[0]))
+    assert launches_e == launches_of(harris_score_i32=1, smoothed_intensity_v1=2), launches_e
+    n_e = assert_same_image_outputs(
+        he, BriskFeature(**exact, device="cpu").detect_and_compute(host[0]),
+        "[v1] BriskFeature, angle_exact")
+    assert n_e > 0
     print(f"[v1] detect_and_compute on 4 frames: launches {launches}, {n_fac} valid; "
           f"AstFramePipeline B={V1_BATCH}: launches {launches_step}, {n_step} valid, describable "
           f"{int(diag['describable'])}, 512-bit match; BriskFeature(version='v1') on frame 0: "
-          f"launches {launches_h}, {n_h} valid; each against a device='cpu' twin: every field, "
-          f"the angle included, descriptors and matches bitwise [{card}]", flush=True)
+          f"launches {launches_h}, {n_h} valid; with angle_exact: launches {launches_e}, {n_e} "
+          f"valid; each against a device='cpu' twin: every field, the angle included, "
+          f"descriptors and matches bitwise [{card}]", flush=True)
 
     # ---- K2's v1 variant and describe_rotated's at the facade's shapes,
     # against their plain versions (K2 also at the rotated taps); the AST
@@ -1084,7 +1383,7 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     return dict(name="smoothed_intensity_v1", route="cuda",
                 source="ethzasl_brisk_tpu_torch/csrc/sampler.cu",
                 replaces="ethzasl_brisk_tpu/describe/pallas_sampler.py:46",
-                launches=launches["smoothed_intensity_v1"], max_abs_err=err, ms=k2_ms,
+                launches=launches_e["smoothed_intensity_v1"], max_abs_err=err, ms=k2_ms,
                 device_ms=k2_dev, plain_ms=k2_plain, bound_ms=bnd[0], bound_by=bnd[1],
                 library_ms=None)
 
@@ -1146,24 +1445,12 @@ def row_text(row: dict) -> str:
             f"({row['bound_by']}){chain}")
 
 
-def build_staged_segment_sum():
-    """The staged segment_sum body (``STAGED_SEGMENT_SUM_CU``), built with the
-    kernels' flags beside them; returns its launcher, ``(values, plan) ->
-    sums``, on the current stream. Not counted: it is a yardstick."""
+def staged_segment_sum(lib):
+    """The staged segment_sum body (``STAGED_SEGMENT_SUM_CU``, built by
+    ``build_yardsticks``): its launcher, ``(values, plan) -> sums``, on the
+    current stream. Not counted: it is a yardstick."""
     import ctypes
-    import hashlib
-    import subprocess
 
-    from ethzasl_brisk_tpu_torch import _kernels
-
-    tag = hashlib.sha256((STAGED_SEGMENT_SUM_CU + " ".join(_kernels.NVCC_FLAGS)).encode())
-    out = _kernels.BUILD_DIR / f"staged_segment_sum_{tag.hexdigest()[:16]}.so"
-    if not out.exists():
-        src = out.with_suffix(".cu")
-        src.write_text(STAGED_SEGMENT_SUM_CU)
-        subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", str(out),
-                        str(src)], check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(str(out))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.staged_segment_sum.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
     lib.staged_segment_sum.restype = ci
@@ -1243,8 +1530,7 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
         "radtan": PinholeCamera(**CAMERA, distortion=RadialTangentialDistortion(*RADTAN)),
         "equidistant": PinholeCamera(**CAMERA, distortion=EquidistantDistortion(*EQUIDISTANT)),
     }
-    expect = launches_of(harris_score_i32=1, smoothed_intensity=1, describe_rotated=1,
-                         walk_angles=1)
+    expect = launches_of(harris_score_i32=1, describe_rotated=1, walk_angles=1)
     walk, old_chain = camera_aware.walk_angles, camera_aware.walk_angles_plain
     walk_calls, atan2_calls, sincos_calls, grid_launches = [], [], [], {}
 
@@ -1312,8 +1598,7 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
 
     single = CameraAwareFeature(cams["radtan"], feature)
     got, launches = counted(lambda: single.detect_and_compute(host))
-    assert launches == launches_of(harris_score_i32=1, smoothed_intensity=1,
-                                   describe_rotated=1), launches
+    assert launches == launches_of(harris_score_i32=1, describe_rotated=1), launches
     ref = CameraAwareFeature(cams["radtan"], feature_cpu).detect_and_compute(host)
     assert torch.equal(got[2].cpu(), ref[2]), "[camera] single view warp"
     n = assert_same_image_outputs(got[:2], ref[:2], "[camera] single view")
@@ -1435,7 +1720,7 @@ def shared_draw(seed: int):
     return draw
 
 
-def vo_phase(dev: torch.device, card: str, kind: str) -> dict:
+def vo_phase(dev: torch.device, card: str, kind: str, yard: dict) -> dict:
     """The keyframed VO + window-BA loop on a VGA synthetic sequence,
     counted, against a CPU twin, timed per stage; then one of its BA windows
     alone (``ba_window``). Returns the segment_sum kernel's row."""
@@ -1463,12 +1748,13 @@ def vo_phase(dev: torch.device, card: str, kind: str) -> dict:
     frames, cam, gt = vo_scene(VO_FRAMES)
     render_s = time.perf_counter() - t0
 
-    recorded = []
+    recorded, features = [], []
     process = frontend.VoFrontend.process_frame
 
     def recording(self, img):
         out = process(self, img)
         recorded.append(out)
+        features.append(self.feature)
         return out
 
     # Warm-up on the first frames (first calls of cuSOLVER and the jvp),
@@ -1505,11 +1791,10 @@ def vo_phase(dev: torch.device, card: str, kind: str) -> dict:
         undo()
         frontend.VoFrontend.process_frame = process
     assert got["capacity_ok"] and ref["capacity_ok"]
-    # K1 once a frame and once for the frame-0 certificate, K2 and
+    # K1 once a frame and once for the frame-0 certificate,
     # describe_rotated once a frame, the segment sums once a Gauss-Newton
     # step, 12 a BA solve.
-    expect = launches_of(harris_score_i32=VO_FRAMES + 1, smoothed_intensity=VO_FRAMES,
-                         describe_rotated=VO_FRAMES,
+    expect = launches_of(harris_score_i32=VO_FRAMES + 1, describe_rotated=VO_FRAMES,
                          segment_sum=SEGMENT_SUMS_PER_SOLVE * len(windows))
     assert launches == expect, launches
     assert len(card_frames) == len(cpu_frames) == VO_FRAMES
@@ -1570,7 +1855,19 @@ def vo_phase(dev: torch.device, card: str, kind: str) -> dict:
           f"kf_verify) and a window (build_ba on the host, ba_solve) by CUDA events: "
           f"{stage_txt}; first 16 frames {head_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"(idle {1 - busy_ms / head_ms:.1%}) [{kind}; {card}]", flush=True)
-    return ba_window(windows[-1], launches["segment_sum"], card, kind)
+
+    # One frame's describe (the card's feature, frame 1): describe_rotated
+    # against its plain version, and in turns with the two-launch describe.
+    card_feature = features[0]
+    assert card_feature.device == dev
+    _, rot = capture_describe(lambda: card_feature.detect_and_compute(torch.as_tensor(frames[1])))
+    n_rot = describe_rotated_vs_plain(rot, "[vo] describe_rotated")
+    turns = describe_turns(rot, dev, warp_describe(yard["warp_describe"][0]))
+    rot_bnd = measure.bound_ms(*describe_rotated_work(rot))
+    print(f"[vo describe] one frame's {n_rot} slots: describe_rotated bitwise vs plain and the "
+          f"pair, event / device ms in turns: {turns_text(turns)}; bound {rot_bnd[0]:.5f} ms "
+          f"({rot_bnd[1]}) [{kind}; {card}]", flush=True)
+    return ba_window(windows[-1], launches["segment_sum"], card, kind, yard)
 
 
 def device_kernels(fn) -> int:
@@ -1589,7 +1886,7 @@ def device_kernels(fn) -> int:
     return sum(1 for n in names if not n.startswith(("Memcpy", "Memset")))
 
 
-def ba_window(window, segment_launches: int, card: str, kind: str) -> dict:
+def ba_window(window, segment_launches: int, card: str, kind: str, yard: dict) -> dict:
     """One LM window of the [vo] loop alone: two plain solves bitwise; its
     ms and kernels with the grouped segment sums and, in turns in this
     call, with the earlier staged body (a block a segment, a launch a sum)
@@ -1621,7 +1918,7 @@ def ba_window(window, segment_launches: int, card: str, kind: str) -> dict:
         out = torch.zeros((plan.n, *values.shape[1:]), dtype=values.dtype, device=values.device)
         return out.index_add_(0, raw[plan.n], values)
 
-    staged = build_staged_segment_sum()
+    staged = staged_segment_sum(yard["staged_segment_sum"][0])
     real = bw.segment_sums
     bodies = {"grouped": real,
               "staged body": lambda items: [staged(v, p) for v, p in items],
@@ -1832,8 +2129,8 @@ def ckpt_phase(dev: torch.device, card: str, kind: str) -> None:
         save_ms = (time.perf_counter() - t0) * 1e3
     resumed_at = steps[-1]
     frames_run = CKPT_FRAMES - resumed_at
-    expect = launches_of(harris_score_i32=frames_run + 1, smoothed_intensity=frames_run,
-                         describe_rotated=frames_run, segment_sum=launches["segment_sum"])
+    expect = launches_of(harris_score_i32=frames_run + 1, describe_rotated=frames_run,
+                         segment_sum=launches["segment_sum"])
     assert launches == expect, (launches, expect)
     assert launches["segment_sum"] % SEGMENT_SUMS_PER_SOLVE == 0, launches
     poses = got.pop("poses")
@@ -1926,17 +2223,15 @@ def dist_phase(dev: torch.device, card: str, kind: str, feature, pipe, frames16)
 
             sharded = FramePipeline(feature, dev, mesh)
             got, launches = counted(lambda: sharded.step(frames16, with_diagnostics=True))
-            assert launches["harris_score_i32"] == 1 and launches["smoothed_intensity"] == 1, \
-                launches
-            assert launches["describe_rotated"] == 1, launches
+            assert launches["harris_score_i32"] == launches["describe_rotated"] == 1, launches
+            assert launches["smoothed_intensity"] == 0, launches
             assert_same_step(got[:4], (kps, desc, midx, mdist), "[dist] step over the mesh")
             assert bool(got[4]["detect"].ok.all())
             ast_det = BriskFeatureDetector(**AST_DETECTOR, device=dev)
             ast_plain = AstFramePipeline(ast_det, dev, **AST_PIPELINE).step(frames16[:4])
             ast_got, ast_launches = counted(lambda: AstFramePipeline(
                 ast_det, dev, mesh=mesh, **AST_PIPELINE).step(frames16[:4]))
-            assert ast_launches["smoothed_intensity"] == ast_launches["describe_rotated"] == 1, \
-                ast_launches
+            assert ast_launches == launches_of(describe_rotated=1), ast_launches
             assert_same_step(ast_got, ast_plain, "[dist] AST step over the mesh")
             step_ms = measure.cuda_time(lambda: sharded.step(frames16))
             plain_ms = measure.cuda_time(lambda: pipe.step(frames16))
@@ -2045,8 +2340,7 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
             recorded.clear()
         finally:
             frontend.VoFrontend.process_frame = process
-        assert launches == launches_of(harris_score_i32=n, smoothed_intensity=n,
-                                       describe_rotated=n), launches
+        assert launches == launches_of(harris_score_i32=n, describe_rotated=n), launches
         assert len(card_frames) == len(cpu_frames) == n
         for i, (g, c) in enumerate(zip(card_frames, cpu_frames)):
             assert_same_image_outputs(g, c, f"[vo tools] {label} frame {i}")
@@ -2125,8 +2419,8 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
         assert evals[1].startswith("ATE RMSE (sim-aligned): "), evals
         assert np.isfinite(float(evals[1].split(": ")[1])), evals
         assert eval_launches == launches_of(
-            harris_score_i32=VO_TOOLS_CLI_FRAMES, smoothed_intensity=VO_TOOLS_CLI_FRAMES,
-            describe_rotated=VO_TOOLS_CLI_FRAMES), eval_launches
+            harris_score_i32=VO_TOOLS_CLI_FRAMES, describe_rotated=VO_TOOLS_CLI_FRAMES), \
+            eval_launches
     print(f"[vo tools] python -m ethzasl_brisk_tpu_torch.vo.synthetic {' '.join(argv[:3])} on "
           f"the card: {lines[-1]}; vo.gen_sequence {VO_TOOLS_CLI_FRAMES} frames through "
           f"vo.sequence_eval on the card: {evals[0]}; {evals[1]}; launches {eval_launches} "
@@ -2165,7 +2459,8 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
         n_drawn = len(os.listdir(os.path.join(tmp, "draw")))
     n_batches = (LIVE_FRAMES - 1) // LIVE_BATCH
     assert launches["harris_score_i32"] == n_batches + 1, launches
-    assert launches["smoothed_intensity"] == launches["describe_rotated"] == n_batches, launches
+    assert launches["describe_rotated"] == n_batches, launches
+    assert launches["smoothed_intensity"] == 0, launches
     card_batches = [ln for ln in card_lines if ln.startswith("batch ")]
     assert card_batches == [ln for ln in cpu_lines if ln.startswith("batch ")], \
         (card_batches, cpu_lines)
@@ -2176,8 +2471,9 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
           f"{card_batches}; {n_drawn} drawings; card {card_s:.2f} s, CPU {cpu_s:.2f} s; "
           f"registry: {timing_lines} [{kind}; {card}]", flush=True)
     demo, demo_launches = counted(lambda: run(lambda: cameras_demo.main(["--device", dev.type])))
-    assert demo_launches["harris_score_i32"] == 1 and demo_launches["smoothed_intensity"] == 1
-    assert demo_launches["describe_rotated"] == 1, demo_launches
+    assert demo_launches["harris_score_i32"] == demo_launches["describe_rotated"] == 1, \
+        demo_launches
+    assert demo_launches["smoothed_intensity"] == 0, demo_launches
     print(f"[examples] cameras_demo on the card: {demo}; launches {demo_launches} "
           f"[{kind}; {card}]", flush=True)
 
@@ -2215,10 +2511,21 @@ def main() -> int:
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     print(f"[card] {card}", flush=True)
 
+    # The kernels and the yardsticks, every nvcc run at once.
     t0 = time.perf_counter()
+    yard = {}
+    builder = threading.Thread(target=lambda: yard.update(build_yardsticks()))
+    builder.start()
     lib_path = _kernels.build()
     _kernels.library()
-    print(f"[build] {lib_path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    builder.join()
+    assert set(yard) == {"staged_segment_sum", "warp_describe", "describe_words_ballot"}, yard
+    log = lib_path.with_suffix(".log")
+    regs = ptxas_lines(log.read_text() if log.exists() else "", "describe_rotated_kernel")
+    print(f"[build] {lib_path.name} and {len(yard)} yardsticks in "
+          f"{time.perf_counter() - t0:.2f} s; describe_rotated's ptxas: {regs}; the words a "
+          f"ballot a word: {yard['describe_words_ballot'][1]}; the warp kernel: "
+          f"{yard['warp_describe'][1]}", flush=True)
 
     frames16 = torch.from_numpy(bench_frames(16)).to(dev)
     # The entry points run on the card by default.
@@ -2265,9 +2572,10 @@ def main() -> int:
     print(f"[K3] scores and mask bitwise equal to plain at thr {thr} on layers "
           f"{[tuple(p.shape) for p in pyramid]} in one launch and each alone", flush=True)
 
-    # ---- K2 against its plain version on the unrotated samples (the
-    # path's launch) and on the rotated taps describe_rotated samples, and
-    # describe_rotated against its plain version, at the B=16 describe.
+    # ---- K2 against its plain version at the taps of both samplings
+    # describe_rotated takes at the B=16 describe (the unrotated pattern, and
+    # the rotated one at the plain chain's theta), and describe_rotated
+    # against its plain version there.
     k2_calls, rot16 = capture_describe(
         lambda: feature.describe(frames16, feature.detect(frames16)))
     k2_err = 0
@@ -2278,9 +2586,9 @@ def main() -> int:
         k2_err = max(k2_err, int((got.to(torch.int64) - ref).abs().max()))
         assert torch.equal(got, ref), f"K2 differs in phase {phase}"
     n_rot = describe_rotated_vs_plain(rot16, "[describe_rotated] B=16")
-    print(f"[K2] bitwise equal to plain on the unrotated samples and the rotated taps, K x P = "
-          f"{tuple(k2_calls[0][3].shape)}; [describe_rotated] bitwise equal to plain (angle and "
-          f"words) on {n_rot} slots", flush=True)
+    print(f"[K2] bitwise equal to plain on the unrotated and the rotated taps of the main "
+          f"step's describe, K x P = {tuple(k2_calls[0][3].shape)}; [describe_rotated] bitwise "
+          f"equal to plain (angle and words) on {n_rot} slots", flush=True)
 
     # ---- The main path, counted.
     torch.cuda.synchronize()
@@ -2289,8 +2597,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(_kernels.LAUNCHES)
     assert launches["harris_score_i32"] == 1, launches
-    assert launches["smoothed_intensity"] == launches["describe_rotated"] == 1, launches
-    assert launches["brisk_orientation"] == 0, launches
+    assert launches["describe_rotated"] == 1, launches
+    assert launches["smoothed_intensity"] == launches["brisk_orientation"] == 0, launches
     b, k = kps.valid.shape
     print(
         f"[main path] counts per layer, max over frames: candidates "
@@ -2325,8 +2633,8 @@ def main() -> int:
     fused_launches = dict(_kernels.LAUNCHES)
     assert fused_launches["harris_score_mask"] == 1, fused_launches
     assert fused_launches["harris_score_i32"] == 0, fused_launches
-    assert fused_launches["smoothed_intensity"] == fused_launches["describe_rotated"] == 1, \
-        fused_launches
+    assert fused_launches["describe_rotated"] == 1, fused_launches
+    assert fused_launches["smoothed_intensity"] == 0, fused_launches
     assert_same_step(fused_out, (kps, desc, midx, mdist), "fused vs default step")
     print(f"[fused path] step B={b}: launches {fused_launches}; keypoints, descriptors "
           f"and matches bitwise equal to the default step", flush=True)
@@ -2375,11 +2683,11 @@ def main() -> int:
 
     # ---- The 16-bit pipeline, the facade's knobs and the AST path, each counted.
     u16_launches = u16_phase(dev, card)
-    facade_phase(dev, card)
-    ast_phase(dev, card, kind)
+    facade_launches = facade_phase(dev, card)
+    ast_phase(dev, card, kind, yard)
     v1_row = v1_phase(dev, card, kind)
     camera_rows = camera_phase(dev, card, kind)
-    segment_row = vo_phase(dev, card, kind)
+    segment_row = vo_phase(dev, card, kind, yard)
     vo_tools_phase(dev, card, kind)
     ckpt_phase(dev, card, kind)
     utils_phase(dev, card, kind, feature, pipe, frames16)
@@ -2402,7 +2710,7 @@ def main() -> int:
     # gradient of its describe's phase-1 values (the [u16] path launches it).
     from ethzasl_brisk_tpu_torch.describe.rotated import long_pair_gradient
 
-    d0, d1 = long_pair_gradient(rot16[0], rot16[3])
+    d0, d1 = long_pair_gradient(rot16[0], smoothed_intensity_cuda(*k2_calls[0]))
     o_args = (d0, d1, rot16[6], rot16[6] == -1.0)
     n_kp = d0.numel()
     orientation_row = own_kernel_row(
@@ -2423,16 +2731,20 @@ def main() -> int:
     rot_bytes, rot_int, rot_fp = describe_rotated_work(rot16)
     describe_row = own_kernel_row(
         "describe_rotated", "ethzasl_brisk_tpu_torch/csrc/describe.cu",
-        "none alone: the rest of the JAX package's describe around the Pallas sampler's second "
-        "call, ethzasl_brisk_tpu/describe/extractor.py:1039-1079 and _pack_descriptor (the "
-        "sampler's rotated call, describe/pallas_sampler.py:443, taken in)",
+        "ethzasl_brisk_tpu/describe/extractor.py:890-1081 (_describe_core on the Pallas route: "
+        "both calls of describe/pallas_sampler.py:443, the gradient, jnp.arctan2 and the chain, "
+        "_pack_descriptor)",
         launches["describe_rotated"],
         lambda: describe_rotated_cuda(*rot16),
         lambda cpu=False: describe_rotated_plain(*(to_cpu(rot16) if cpu else rot16)),
         None, ("describe_rotated_kernel",), nbytes=rot_bytes, int32_ops=rot_int, fp32_ops=rot_fp)
+    pair = warp_describe(yard["warp_describe"][0])
+    host = {"kernel": host_us(lambda: describe_rotated_cuda(*rot16), 200),
+            "pair": host_us(lambda: pair(rot16), 200)}
     print(f"[describe_rotated] B=16 step's {n_rot} slots: bitwise vs plain; {row_text(describe_row)} "
-          f"({rot_int:.3g} int32 and {rot_fp:.3g} float32 operations) [{kind}; {card}]",
-          flush=True)
+          f"({rot_int:.3g} int32 and {rot_fp:.3g} float32 operations); host us a call (mean of "
+          f"200, launches queued): kernel {host['kernel']:.2f}, pair {host['pair']:.2f} "
+          f"[{kind}; {card}]", flush=True)
 
     # ---- Timing.
     stage_names = ["pyramid", "harris", "masks", "candidates", "uniformity", "refine",
@@ -2455,8 +2767,8 @@ def main() -> int:
                 flush=True,
             )
         pyr = scale_space.build_pyramid(frames, 4)
-        # K2's phase 1, the path's one launch a step (describe_rotated
-        # samples the rotated pattern).
+        # K2 at the step's phase-1 taps (describe_rotated samples both
+        # phases; K2 runs on angle_exact's path).
         calls, rot = capture_describe(lambda: feature.describe(frames, feature.detect(frames)))
         calls = calls[:1]
         k1_ms = cuda_time(lambda: harris_score_i32_layers(pyr))
@@ -2492,12 +2804,21 @@ def main() -> int:
             kernel_ms = dict(k1=(k1_ms, k1_plain, *k1_bound, k1_dev),
                              k2=(k2_ms, k2_plain, *k2_bnd, k2_dev),
                              k3=(k3_ms, k3_plain, *k3_bound, k3_dev))
-        # describe_rotated against the chain it replaced, in turns, and its bound.
-        turns = describe_turns(rot, calls[0], dev)
+        # describe_rotated against its plain version, and in turns with the
+        # two-launch describe it replaced (K2's phase 1 with its gathers and
+        # the warp kernel), and its bound.
+        if batch != 16:
+            describe_rotated_vs_plain(rot, f"[timing] describe_rotated B={batch}")
+        turns = describe_turns(rot, dev, warp_describe(yard["warp_describe"][0]))
         rot_bnd = measure.bound_ms(*describe_rotated_work(rot))
-        print(f"[timing] describe_rotated B={batch}, {rot[4].numel()} slots, event / device ms in "
-              f"turns: {turns_text(turns)}; bound {rot_bnd[0]:.5f} ms ({rot_bnd[1]}) "
-              f"[{kind}; {card}]", flush=True)
+        # Its words a thread a word, against the same source built with a
+        # ballot a (keypoint, word).
+        words = describe_turns(rot, dev, words_ballot(yard["describe_words_ballot"][0]),
+                               "a ballot a word")
+        print(f"[timing] describe_rotated B={batch}, {rot[4].numel()} slots, bitwise vs plain and "
+              f"the pair, event / device ms in turns: {turns_text(turns)}; bound "
+              f"{rot_bnd[0]:.5f} ms ({rot_bnd[1]}); the words a thread a word (kernel) or a "
+              f"ballot a word: {turns_text(words)} [{kind}; {card}]", flush=True)
         del frames, pyr, calls, rot
         torch.cuda.empty_cache()
 
@@ -2513,7 +2834,7 @@ def main() -> int:
              launches["harris_score_i32"], k1_err, "k1"),
             ("smoothed_intensity", "sampler.cu",
              "ethzasl_brisk_tpu/describe/pallas_sampler.py:46",
-             launches["smoothed_intensity"], k2_err, "k2"),
+             facade_launches["smoothed_intensity"], k2_err, "k2"),
             ("harris_score_mask", "harris.cu",
              "ethzasl_brisk_tpu/kernels/pallas_harris.py:177",
              fused_launches["harris_score_mask"], k3_err, "k3"),

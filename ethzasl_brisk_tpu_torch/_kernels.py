@@ -46,9 +46,9 @@ LAUNCHES = {
     "harris_score_i32": 0, "harris_score_mask": 0, "smoothed_intensity": 0,
     # K2's v1-rounding variant (the same entry point with its flag set).
     "smoothed_intensity_v1": 0,
-    # The describe after K2's first phase: the long-pair gradient, the angle
-    # chain, the rotated samples and the descriptor words in one launch
-    # (csrc/describe.cu), and its v1-rounding variant.
+    # The uint8 describe in one launch: both samplings, the long-pair
+    # gradient, the angle chain and the descriptor words (csrc/describe.cu),
+    # and its v1-rounding variant.
     "describe_rotated": 0, "describe_rotated_v1": 0,
     # The port's own kernels (no TPU counterpart): JAX's float32 angle chain
     # and the camera grid's walk back (csrc/angle.cu), the BA's ordered
@@ -172,12 +172,11 @@ def library() -> ctypes.CDLL:
             ]
             lib.brisk_smoothed_intensity.restype = ci
             lib.brisk_describe_rotated.argtypes = [
-                vp, ci, ci,                # integral, cols, frame_rows
-                vp, vp, vp, vp,            # phase-1 values (or null), scale index, valid, angle
+                vp, ci, ci, ci,            # integral, cols, frame_rows, rotate
+                vp, vp, vp,                # scale index, valid, given angle
                 vp, vp, vp,                # key_x, key_y, row_base
                 vp, vp, vp, vp, vp,        # lut_x, lut_y, lut_sigma, lut_scaling, lut_scaling2
-                vp, vp, vp, vp, ci,        # long pairs: i, j, wdx, wdy, L
-                vp, vp, ci,                # short pairs: i, j, n_bits
+                vp, ci, ci,                # packed pair tables, L, n_bits
                 vp, vp,                    # angle, desc
                 ci, ci, ci, ci, ci, vp,    # K, P, n_rot, W, v1_rounding, stream
             ]

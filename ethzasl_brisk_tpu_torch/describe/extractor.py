@@ -7,8 +7,8 @@ the size list (RoiPredicate, :532-536), smoothed-intensity sampling
 (:714-740), and the short-pair comparisons packed LSB-first into words
 (:538-564): 384 bits in 12 words for v2, 512 in 16 for the v1 ring
 pattern. The words are the JAX package's uint32 descriptors stored as
-int32 bit patterns. On uint8 frames everything after K2's unrotated
-samples is ``describe/rotated.py``'s ``describe_rotated``: one launch of
+int32 bit patterns. On uint8 frames the whole describe, both samplings
+included, is ``describe/rotated.py``'s ``describe_rotated``: one launch of
 kernel ``describe_rotated`` on the card.
 
 Entry points: :class:`BriskExtractor` (one image or a batch, every slot),
@@ -36,6 +36,7 @@ package's float32 chain (glibc's ``atan2f``) on the device, bit for bit
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -56,10 +57,11 @@ from ethzasl_brisk_tpu_torch.core.pattern import (
 from ethzasl_brisk_tpu_torch.core.selectors import check_extractor_selectors, check_version
 from ethzasl_brisk_tpu_torch.describe.orientation import orientation
 from ethzasl_brisk_tpu_torch.describe.rotated import (
+    KernelTables,
+    PatternLayout,
     describe_rotated,
     long_pair_gradient,
     pack_words,
-    rotated_sampler_args,
 )
 from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity_fused
 from ethzasl_brisk_tpu_torch.kernels.integral import integral_image_16_f32, integral_image_i32
@@ -91,6 +93,18 @@ class DevicePattern:
     @property
     def descriptor_words(self) -> int:
         return -(-self.short_i.shape[0] // 128) * 4
+
+    @functools.cached_property
+    def kernel_layout(self) -> PatternLayout:
+        """The tables' shapes checked against kernel ``describe_rotated``'s,
+        once a pattern (``describe/rotated.py``)."""
+        return PatternLayout.of(self)
+
+    @functools.cached_property
+    def kernel_tables(self) -> KernelTables:
+        """The pair tables packed for kernel ``describe_rotated``, checked
+        and packed once a pattern, on its device (``describe/rotated.py``)."""
+        return KernelTables.of(self)
 
     @staticmethod
     def from_host(p: BriskPattern) -> "DevicePattern":
@@ -475,13 +489,13 @@ def _describe_core(
 
     Without rotation invariance the angle is kept and the pattern is not
     rotated (theta 0), so only the second sampling runs. On uint8 frames
-    kernel K2 samples the unrotated pattern and ``describe_rotated``
-    (``describe/rotated.py``, one launch of ``csrc/describe.cu`` on the
-    card, its plain version on the CPU) the gradient, the angle chain, the
-    rotated pattern and the words. With ``img_f32`` (one scaled 16-bit
-    image; ``integral`` its float integral) the float sampler serves both
-    samplings, and with ``angle_exact`` K2 does, around the orientation
-    step (``_orientation``) and ``pack_words``.
+    ``describe_rotated`` (``describe/rotated.py``, one launch of
+    ``csrc/describe.cu`` on the card, its plain version on the CPU) does it
+    all: both samplings, the gradient, the angle chain and the words. With
+    ``img_f32`` (one scaled 16-bit image; ``integral`` its float integral)
+    the float sampler serves both samplings, and with ``angle_exact`` K2
+    does, around the orientation step (``_orientation``) and
+    ``pack_words``.
 
     The ``angle`` of a slot that leaves invalid (outside the pattern
     border) lies outside parity with the JAX package: describe computes an
@@ -506,14 +520,9 @@ def _describe_core(
     key_x, key_y = keypoints.x.contiguous(), keypoints.y.contiguous()
 
     if img_f32 is None and not angle_exact:
-        # K2 samples the unrotated pattern; describe_rotated does the rest.
-        vals0 = None
-        if rotation_invariant:
-            vals0 = smoothed_intensity_fused(*rotated_sampler_args(
-                pat, integral, rows, scale_idx, 0, key_x, key_y, row_base, v1_rounding))
         angle, desc = describe_rotated(
-            pat, integral, rows, vals0, scale_idx, valid, keypoints.angle.contiguous(), key_x,
-            key_y, row_base, v1_rounding,
+            pat, integral, rows, rotation_invariant, scale_idx, valid,
+            keypoints.angle.contiguous(), key_x, key_y, row_base, v1_rounding,
         )
         return dataclasses.replace(keypoints, angle=angle, valid=valid), desc
 
@@ -648,7 +657,15 @@ class BriskExtractor(nn.Module):
 
     @property
     def pattern(self) -> DevicePattern:
-        return DevicePattern(**{name: getattr(self, name) for name in PATTERN_FIELDS})
+        """The buffers as a ``DevicePattern``, built once for the buffers the
+        module holds (again after ``.to()`` or a reassigned buffer), so what
+        it caches, the describe kernel's packed tables, is built once."""
+        cached = self.__dict__.get("_pattern")
+        if cached is None or any(getattr(cached, n) is not getattr(self, n)
+                                 for n in PATTERN_FIELDS):
+            cached = DevicePattern(**{name: getattr(self, name) for name in PATTERN_FIELDS})
+            self.__dict__["_pattern"] = cached
+        return cached
 
     @property
     def descriptor_bytes(self) -> int:

@@ -18,7 +18,8 @@ Two parts:
   equals the JAX row for the same shapes. The JAX ``describe`` row models
   the TPU's one-hot bf16 contraction, work the port never does, so a share
   of the bf16 matmul peak would be fiction here. The port's row counts
-  kernel K2's work at the same shapes instead (``csrc/sampler.cu``): per
+  the two samplings at kernel K2's work a point instead (``csrc/sampler.cu``,
+  whose point code kernel ``describe_rotated`` runs for both): per
   slot and phase, each pattern point's integral taps (22 of the box
   branch, 4 bytes each), the keypoint's inputs (x, y, frame row), each
   point's pattern inputs and output (6 words), and the box branch's 149
@@ -150,7 +151,7 @@ def stage_model(
         gbytes=9 * 4e-9 * kk * n_layers * batch,
         kind="bw",
     )
-    # Describe: kernel K2's work, two phases per slot (module docstring).
+    # Describe: two samplings at K2's work a point, per slot (module docstring).
     slots = describe_slots * batch
     words = K2_WORDS_PER_SLOT + pattern_points * (K2_TAPS_PER_POINT + K2_WORDS_PER_POINT)
     stages["describe"] = dict(

@@ -1,6 +1,7 @@
-"""Port parity: ``describe/rotated.py``, the describe after K2's unrotated
-samples (kernel ``describe_rotated``'s plain version), and
-``_describe_core`` on the K2 route, against the JAX package.
+"""Port parity: ``describe/rotated.py``, the uint8 describe in one kernel
+(kernel ``describe_rotated``'s plain version: both samplings, the
+gradient, the chain and the words), and ``_describe_core`` on that route,
+against the JAX package; the pattern tables the kernel takes, packed.
 
 Each case runs the JAX ``extract_descriptors_compact`` and the port's on
 the same smoothed-noise frames and random keypoints: v2; v1 with its
@@ -176,9 +177,9 @@ def test_describe_core_matches_jax(name, ptn_dir):
 @pytest.mark.parametrize("name", list(CASES))
 def test_describe_rotated_plain_matches_jax(name, ptn_dir, monkeypatch):
     """``describe_rotated_plain`` on the inputs ``_describe_core`` hands it
-    (recorded), against the JAX package's angle and words at the described
-    slots; ``describe_rotated`` on CPU tensors is the plain version, and the
-    K2 arguments of the rotated pattern give the same values."""
+    (recorded: the integral and the keypoints, no phase-1 values), against
+    the JAX package's angle and words at the described slots;
+    ``describe_rotated`` on CPU tensors is the plain version."""
     calls = []
     real = extractor.describe_rotated
 
@@ -192,7 +193,7 @@ def test_describe_rotated_plain_matches_jax(name, ptn_dir, monkeypatch):
     (args,) = calls
     angle, desc = rotated.describe_rotated_plain(*args)
     kind, scale, v1, rot, given = CASES[name]
-    assert (args[3] is None) == (not rot) and args[-1] == v1
+    assert args[3] is rot and args[-1] == v1
     f = _fields(given, scale)
     flat = KeyPoints(**{n: torch.from_numpy(v.reshape(-1)) for n, v in f.items()})
     describable = _describable_mask(pat, H, W, flat)
@@ -242,8 +243,7 @@ def test_describe_rotated_cuda_checks_its_inputs():
 
     def args(p, k=10, angle_dtype=torch.float32):
         m = dict(device="meta")
-        return (torch.empty((100, 51), dtype=torch.int32, **m), 49,
-                torch.empty((k, p), dtype=torch.int32, **m),
+        return (torch.empty((100, 51), dtype=torch.int32, **m), 49, True,
                 torch.empty((k,), dtype=torch.int64, **m), torch.empty((k,), dtype=torch.bool, **m),
                 torch.empty((k,), dtype=angle_dtype, **m), torch.empty((k,), **m),
                 torch.empty((k,), **m), torch.empty((k,), dtype=torch.int32, **m))
@@ -265,17 +265,29 @@ def test_describe_rotated_cuda_checks_its_inputs():
 
 
 def test_describe_rotated_constants_match_the_kernel():
-    """The wrapper's shared-memory sizing uses the kernel's warps a block
-    and its opt-in limit (``csrc/describe.cu``)."""
+    """The wrapper's shared-memory sizing uses the kernel's largest tile,
+    its opt-in limit, the room it keeps for its static arrays and its
+    padding of the packed tables (``csrc/describe.cu``)."""
     src = open(CSRC).read()
     assert int(re.search(r"constexpr int kWarps = (\d+);", src).group(1)) == rotated.WARPS
     assert int(re.search(r"constexpr int kMaxSmem = (\d+);", src).group(1)) == rotated.MAX_SMEM
+    assert int(re.search(r"constexpr int kStaticSmem = (\d+);", src).group(1)) == \
+        rotated.STATIC_SMEM
+    assert "return (3 * L + n_bits + 3) & ~3;" in src
+    assert [rotated.table_ints(n, b) for n, b in ((856, 384), (870, 512), (1, 0), (0, 0))] == \
+        [2952, 3124, 4, 0]
+    # The static arrays: three tiles' keypoint inputs, the partial sums and
+    # their counts, the bins and the mbarrier.
+    assert 3 * 6 * 4 * rotated.WARPS + 3 * 4 * rotated.WARPS + 4 * rotated.WARPS + 8 <= \
+        rotated.STATIC_SMEM
+    assert "return sizeof(int32_t) * ((size_t)table_ints(L, n_bits) + 2 * (size_t)T * P);" in src
+    assert rotated.dynamic_smem(4, 66, 856, 384) == 4 * (2952 + 2 * 4 * 66)
 
 
 def test_describe_routes(monkeypatch):
     """The uint8 describe goes through ``describe_rotated`` once a call and
-    K2 once (none without rotation invariance); ``angle_exact`` and the
-    16-bit image keep the orientation step and two samplings."""
+    K2 never (both samplings are the kernel's); ``angle_exact`` keeps K2's
+    two samplings, and the 16-bit image the orientation step."""
     seen = {"rotated": 0, "k2": 0, "orientation": 0}
 
     def counting(key, fn):
@@ -294,7 +306,7 @@ def test_describe_routes(monkeypatch):
     kps = KeyPoints.from_numpy(rng.uniform(20, 140, 30), rng.uniform(20, 100, 30),
                                rng.choice([12.0, 18.0], 30), device="cpu")
     want = {
-        (True, False, "u8"): (1, 1, 0),
+        (True, False, "u8"): (1, 0, 0),
         (False, False, "u8"): (1, 0, 0),
         (True, True, "u8"): (0, 2, 0),
         (True, False, "u16"): (0, 0, 1),
@@ -307,3 +319,65 @@ def test_describe_routes(monkeypatch):
         ext(frame, kps)
         assert (seen["rotated"], seen["k2"], seen["orientation"]) == (n_rot, n_k2, n_orient), \
             (rot, exact, kind, seen)
+
+
+@pytest.mark.parametrize("kind", ["v2", "v1", "ptn"])
+def test_packed_tables_hold_the_pattern_pairs(kind, ptn_dir):
+    """``pack_tables`` against the pattern's int64 index and int32 weight
+    tables: (wdx, wdy) of each long pair, then each long and short pair as
+    ``i | j << 16``, zero-padded to 16 bytes; cached on the pattern."""
+    pat, _ = _patterns(kind, 1.0, ptn_dir)
+    n_long, n_bits = pat.long_i.shape[0], pat.short_i.shape[0]
+    packed = rotated.pack_tables(pat)
+    assert packed.dtype == torch.int32 and packed.numel() == rotated.table_ints(n_long, n_bits)
+    assert packed.numel() % 4 == 0 and packed.numel() - (3 * n_long + n_bits) < 4
+    got = packed.numpy()
+    w = got[:2 * n_long].reshape(n_long, 2)
+    np.testing.assert_array_equal(w[:, 0], pat.long_wdx.numpy())
+    np.testing.assert_array_equal(w[:, 1], pat.long_wdy.numpy())
+    for block, (i, j) in ((got[2 * n_long:3 * n_long], (pat.long_i, pat.long_j)),
+                          (got[3 * n_long:3 * n_long + n_bits], (pat.short_i, pat.short_j))):
+        np.testing.assert_array_equal(block & 0xFFFF, i.numpy())
+        np.testing.assert_array_equal(block >> 16, j.numpy())
+    assert not got[3 * n_long + n_bits:].any()
+    tables = pat.kernel_tables
+    assert pat.kernel_tables is tables and torch.equal(tables.packed, packed)
+    assert tables.args[-2:] == (n_long, n_bits) and pat.kernel_layout.p == pat.lut_x.shape[2]
+    if kind == "v2":
+        assert (n_long, n_bits, 4 * packed.numel()) == (856, 384, 11808)
+    if kind == "v1":
+        assert (n_long, n_bits, 4 * packed.numel()) == (870, 512, 12496)
+
+
+def test_packed_tables_refuse_indices_past_int16():
+    """A pattern with an index over 32767 (or outside its points) is
+    refused when its tables are packed, before any launch."""
+    import dataclasses
+
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    pat = DevicePattern.from_host(tpat.brisk_v2_pattern())
+    p = pat.lut_x.shape[2]
+    _kernels.reset_launches()
+    for name, bad in (("long_j", 40_000), ("short_i", 32_768), ("short_j", p), ("long_i", -1)):
+        idx = getattr(pat, name).clone()
+        idx[3] = bad
+        broken = dataclasses.replace(pat, **{name: idx})
+        with pytest.raises(ValueError, match=f"{name}: indices must lie in"):
+            rotated.pack_tables(broken)
+        with pytest.raises(ValueError, match="int16"):
+            broken.kernel_tables
+    assert not any(_kernels.LAUNCHES.values())
+
+
+def test_extractor_builds_its_pattern_once():
+    """``BriskExtractor.pattern`` is one ``DevicePattern`` for the buffers
+    it holds, so the packed tables it caches are built once; a reassigned
+    buffer gives a new one."""
+    ext = extractor.BriskExtractor(device="cpu")
+    pat = ext.pattern
+    assert ext.pattern is pat and pat.kernel_tables is ext.pattern.kernel_tables
+    ext.long_wdx = ext.long_wdx.clone()
+    assert ext.pattern is not pat and ext.pattern.long_wdx is ext.long_wdx
+    ext2 = ext.to("cpu")
+    assert ext2.pattern.lut_x is ext2.lut_x

@@ -236,7 +236,7 @@ def test_step_launches_both_kernels(cuda):
     got = FramePipeline(feature, device="cuda").step(frames.to(cuda))
     assert _kernels.LAUNCHES["harris_score_i32"] == 1  # one launch for the 4 layers
     assert _kernels.LAUNCHES["harris_score_mask"] == 0
-    assert _kernels.LAUNCHES["smoothed_intensity"] == 1  # the unrotated samples
+    assert _kernels.LAUNCHES["smoothed_intensity"] == 0  # both samplings are describe_rotated's
     assert _kernels.LAUNCHES["describe_rotated"] == 1
     assert _kernels.LAUNCHES["brisk_orientation"] == 0
     ref = FramePipeline(BriskFeature(**STEP_CONFIG, device="cpu"), device="cpu").step(frames)
@@ -245,8 +245,8 @@ def test_step_launches_both_kernels(cuda):
 
 
 def test_fused_step_launches_k3_and_equals_default(cuda):
-    """fused_mask=True: K3 once for the four layers, K1 never, K2 and
-    describe_rotated once;
+    """fused_mask=True: K3 once for the four layers, K1 never,
+    describe_rotated once and K2 never;
     every output bit-equal to the default step on the card."""
     from ethzasl_brisk_tpu_torch import FramePipeline, _kernels
 
@@ -257,7 +257,8 @@ def test_fused_step_launches_k3_and_equals_default(cuda):
                           device="cuda").step(frames)
     assert _kernels.LAUNCHES["harris_score_mask"] == 1
     assert _kernels.LAUNCHES["harris_score_i32"] == 0
-    assert _kernels.LAUNCHES["smoothed_intensity"] == _kernels.LAUNCHES["describe_rotated"] == 1
+    assert _kernels.LAUNCHES["smoothed_intensity"] == 0
+    assert _kernels.LAUNCHES["describe_rotated"] == 1
     for a, b in zip(default[0].fields(), fused[0].fields()):
         assert torch.equal(a, b)
     for a, b in zip(default[1:], fused[1:]):
@@ -803,7 +804,7 @@ def _assert_ast_outputs(got, ref):
 
 @pytest.mark.parametrize("model", ["emulated", "exact"])
 def test_ast_step_on_card_matches_cpu(cuda, model):
-    """The AST step on the card: K2 and describe_rotated once, K1 and K3
+    """The AST step on the card: describe_rotated once, K1, K2 and K3
     never; its outputs
     against the same step on the CPU."""
     from ethzasl_brisk_tpu_torch import AstFramePipeline, BriskFeatureDetector, _kernels
@@ -815,7 +816,8 @@ def test_ast_step_on_card_matches_cpu(cuda, model):
     _kernels.reset_launches()
     got = pipe.step(frames)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["smoothed_intensity"] == _kernels.LAUNCHES["describe_rotated"] == 1
+    assert _kernels.LAUNCHES["smoothed_intensity"] == 0
+    assert _kernels.LAUNCHES["describe_rotated"] == 1
     assert _kernels.LAUNCHES["harris_score_i32"] == _kernels.LAUNCHES["harris_score_mask"] == 0
     ref = AstFramePipeline(BriskFeatureDetector(**cfg, device="cpu"), device="cpu",
                            describe_capacity=200).step(frames)
@@ -877,8 +879,8 @@ def test_sampler_v1_cuda_matches_plain(cuda, pattern_scale):
 
 
 def test_v1_facade_on_card_matches_cpu(cuda):
-    """``BriskFeatureDetector(version="v1")`` on the card: K2's v1 variant
-    and describe_rotated's once each; every field, the angle included, and every descriptor bit for
+    """``BriskFeatureDetector(version="v1")`` on the card: describe_rotated's
+    v1 variant once, K2 never; every field, the angle included, and every descriptor bit for
     bit against the CPU."""
     from ethzasl_brisk_tpu_torch import BriskFeatureDetector, _kernels
 
@@ -887,7 +889,7 @@ def test_v1_facade_on_card_matches_cpu(cuda):
     _kernels.reset_launches()
     got = BriskFeatureDetector(**cfg, device="cuda").detect_and_compute(frame)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["smoothed_intensity_v1"] == 1
+    assert _kernels.LAUNCHES["smoothed_intensity_v1"] == 0
     assert _kernels.LAUNCHES["describe_rotated_v1"] == 1
     assert _kernels.LAUNCHES["smoothed_intensity"] == _kernels.LAUNCHES["describe_rotated"] == 0
     ref = BriskFeatureDetector(**cfg, device="cpu").detect_and_compute(frame)
@@ -899,8 +901,8 @@ def test_v1_facade_on_card_matches_cpu(cuda):
 
 
 def test_camera_grid_on_card_matches_cpu(cuda):
-    """The camera-aware grid on the card: K1 once, K2 and describe_rotated
-    once (v2 rounding), the walk-back kernel once and the elementwise angle kernels never;
+    """The camera-aware grid on the card: K1 once, describe_rotated once (v2
+    rounding), K2 never, the walk-back kernel once and the elementwise angle kernels never;
     keypoints, the angle included, and
     descriptors bit for bit against the CPU (glibc's float32 ``atan2``,
     ``sin`` and ``cos`` on both)."""
@@ -918,7 +920,8 @@ def test_camera_grid_on_card_matches_cpu(cuda):
     got = grid.detect_and_compute(frame)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["harris_score_i32"] == 1
-    assert _kernels.LAUNCHES["smoothed_intensity"] == _kernels.LAUNCHES["describe_rotated"] == 1
+    assert _kernels.LAUNCHES["smoothed_intensity"] == 0
+    assert _kernels.LAUNCHES["describe_rotated"] == 1
     assert _kernels.LAUNCHES["smoothed_intensity_v1"] == 0
     assert _kernels.LAUNCHES["brisk_orientation"] == 0
     assert _kernels.LAUNCHES["walk_angles"] == 1
@@ -1135,25 +1138,17 @@ def test_orientation_kernel_matches_plain(cuda, op_by_op):
     assert torch.equal(gt.cpu(), rt)
 
 
-@pytest.mark.parametrize("rotate", [True, False])
-@pytest.mark.parametrize("kind", ["v2", "v1", "v2_half", "subset"])
-def test_describe_rotated_kernel_matches_plain(cuda, kind, rotate):
-    """Kernel ``describe_rotated`` against its plain version on the CPU, bit
-    for bit (angle and words), one launch counted under its variant: the
-    v2 and v1 patterns (v1 rounding), v2 at pattern scale 0.5 (the bilinear
-    branch live), a pattern of 300 short and 428 long pairs (a partial last
-    word); keypoints whose pattern leaves the frame, given angles one ULP
-    around the bin edges beside computed ones; without phase-1 values,
-    theta 0 and the given angle."""
+def _describe_inputs(kind, k, b, h, w, seed=18):
+    """A pattern of ``kind`` and a ``describe_rotated`` call's inputs after
+    the pattern on the CPU: K keypoints over B frames, some whose pattern
+    leaves the frame, half with given angles one ULP around the bin edges
+    beside computed ones, the integral and the flags."""
     import dataclasses
 
-    from ethzasl_brisk_tpu_torch import _kernels
     from ethzasl_brisk_tpu_torch.core.pattern import brisk_v1_pattern
     from ethzasl_brisk_tpu_torch.describe.extractor import DevicePattern
-    from ethzasl_brisk_tpu_torch.describe.rotated import describe_rotated_cuda, describe_rotated_plain
 
-    rng = np.random.default_rng(18)
-    b, h, w, k = 3, 120, 160, 700
+    rng = np.random.default_rng(seed)
     v1 = kind == "v1"
     host = (brisk_v1_pattern() if v1 else brisk_v2_pattern(0.5 if kind == "v2_half" else 1.0))
     pat = DevicePattern.from_host(host)
@@ -1162,35 +1157,71 @@ def test_describe_rotated_kernel_matches_plain(cuda, kind, rotate):
             pat, short_i=pat.short_i[:300].clone(), short_j=pat.short_j[:300].clone(),
             long_i=pat.long_i[::2].clone(), long_j=pat.long_j[::2].clone(),
             long_wdx=pat.long_wdx[::2].clone(), long_wdy=pat.long_wdy[::2].clone())
-    imgs = torch.from_numpy(bench_frames(b, h, w, seed=18))
+    imgs = torch.from_numpy(bench_frames(b, h, w, seed=seed))
     sizes = torch.from_numpy(rng.choice([6.0, 8.0, 12.0, 24.0, 54.0], k).astype(np.float32))
-    sidx = scale_index(sizes)
     edges = ((np.arange(-1024, 1024) - 0.5) * 360.0 / 1024).astype(np.float32).view(np.int32)
     near = np.concatenate([(edges + d).view(np.float32) for d in (-1, 0, 1)])
     angle = np.where(rng.random(k) < 0.5, rng.choice(near, k), np.float32(-1.0))
-    integral = _stack_frames(imgs)
     key_x = torch.from_numpy(rng.uniform(-5, w + 5, k).astype(np.float32))
     key_y = torch.from_numpy(rng.uniform(-5, h + 5, k).astype(np.float32))
     row_base = torch.from_numpy(rng.integers(0, b, k).astype(np.int32) * (h + 1))
-    vals0 = None
-    if rotate:
-        vals0 = smoothed_intensity(integral, key_x, key_y, pat.lut_x[sidx, 0].contiguous(),
-                                   pat.lut_y[sidx, 0].contiguous(), pat.lut_sigma[sidx],
-                                   pat.lut_scaling[sidx], pat.lut_scaling2[sidx], row_base, h, v1)
-    args = (h, vals0, sidx, torch.from_numpy(rng.random(k) < 0.8),
+    args = (_stack_frames(imgs), h, scale_index(sizes), torch.from_numpy(rng.random(k) < 0.8),
             torch.from_numpy(angle.astype(np.float32)), key_x, key_y, row_base, v1)
+    return pat, args
+
+
+def _describe_on_card(pat, args, rotate, cuda):
+    """``describe_rotated_cuda`` on the card and ``describe_rotated_plain`` on
+    the CPU for the same inputs, and the launches of the card's call."""
+    import dataclasses
+
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.describe.extractor import DevicePattern
+    from ethzasl_brisk_tpu_torch.describe.rotated import describe_rotated_cuda, describe_rotated_plain
+
+    integral, h, *rest = args
     pat_gpu = DevicePattern(**{f.name: getattr(pat, f.name).to(cuda)
                                for f in dataclasses.fields(pat)})
     _kernels.reset_launches()
-    got = describe_rotated_cuda(pat_gpu, integral.to(cuda),
-                                *(a.to(cuda) if torch.is_tensor(a) else a for a in args))
+    got = describe_rotated_cuda(pat_gpu, integral.to(cuda), h, rotate,
+                                *(a.to(cuda) if torch.is_tensor(a) else a for a in rest))
     torch.cuda.synchronize()
     counted = {n: c for n, c in _kernels.LAUNCHES.items() if c}
+    return got, describe_rotated_plain(pat, integral, h, rotate, *rest), counted
+
+
+@pytest.mark.parametrize("rotate", [True, False])
+@pytest.mark.parametrize("kind", ["v2", "v1", "v2_half", "subset"])
+def test_describe_rotated_kernel_matches_plain(cuda, kind, rotate):
+    """Kernel ``describe_rotated`` against its plain version on the CPU, bit
+    for bit (angle and words), one launch counted under its variant: the
+    v2 and v1 patterns (v1 rounding), v2 at pattern scale 0.5 (the bilinear
+    branch live), a pattern of 300 short and 428 long pairs (a partial last
+    word); keypoints whose pattern leaves the frame, given angles one ULP
+    around the bin edges beside computed ones; without rotation invariance,
+    theta 0 and the given angle."""
+    k = 700
+    pat, args = _describe_inputs(kind, k, 3, 120, 160)
+    v1 = kind == "v1"
+    got, ref, counted = _describe_on_card(pat, args, rotate, cuda)
     assert counted == {"describe_rotated_v1" if v1 else "describe_rotated": 1}, counted
-    ref = describe_rotated_plain(pat, integral, *args)
     assert torch.equal(got[0].cpu().view(torch.int32), ref[0].view(torch.int32))
     assert torch.equal(got[1].cpu(), ref[1])
     assert got[1].shape == (k, 16 if v1 else 12) and int((ref[1] != 0).sum()) > k
+
+
+@pytest.mark.parametrize("k", [1, 300, 2000, 10240])
+def test_describe_rotated_kernel_tiles(cuda, k):
+    """The kernel's tile follows K: one keypoint, a K below one wave of
+    resident CTAs (small tiles), a middle one, and the B=16 step's 10,240
+    slots on VGA frames (the largest tile over a persistent grid); each
+    bitwise against the plain version, angle and words."""
+    b = 16 if k == 10240 else 2
+    pat, args = _describe_inputs("v2", k, b, 480, 640, seed=19)
+    got, ref, counted = _describe_on_card(pat, args, True, cuda)
+    assert counted == {"describe_rotated": 1}, counted
+    assert torch.equal(got[0].cpu().view(torch.int32), ref[0].view(torch.int32))
+    assert torch.equal(got[1].cpu(), ref[1]) and got[1].shape == (k, 12)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
