@@ -7,13 +7,17 @@ Builds the hand-written CUDA kernels (K1 Harris, K2 sampler, K3 Harris +
 the whole uint8 describe in one launch; the orientation
 step, the elementwise ``atan2f`` and ``sincosf`` and the camera grid's
 ``walk_angles`` of ``angle.cu``; the BA's ordered segment sums, a call
-site's sums in one launch, of ``segment_sum.cu``) from
+site's sums in one launch, of ``segment_sum.cu``; greedy uniformity,
+every layer of a detection in one launch, ``enforce_uniformity`` of
+``uniformity.cu``) from
 ``ethzasl_brisk_tpu_torch/csrc`` and checks each against its plain torch
 version at the shapes of the path that runs it (K1 and K3 on the four
 pyramid layers in one launch, and on each alone; K2 on the unrotated
 and the rotated taps ``describe_rotated`` samples, the rotation from the
 plain chain; ``describe_rotated`` in every phase that describes uint8
-frames). Beside them it builds two yardsticks that the port never calls:
+frames; ``enforce_uniformity`` in every counted run that detects with a
+uniformity radius, against its blocked plain version on the card). Beside
+them it builds two yardsticks that the port never calls:
 the earlier two-launch describe's second kernel (a warp a keypoint, after
 K2's unrotated samples) and ``describe.cu`` with its words a ballot a
 word, each timed in turns against ``describe_rotated``.
@@ -23,8 +27,8 @@ the launch counters set to 0 just before it and read just after:
 
 * the main path, ``FramePipeline.step`` with the benchmark configuration
   on 16 VGA frames (K1 1 launch for the four pyramid layers,
-  ``describe_rotated`` 1, K2 and the orientation kernel 0), compared with
-  the plain CPU step;
+  ``enforce_uniformity`` 1, ``describe_rotated`` 1, K2 and the orientation
+  kernel 0), compared with the plain CPU step;
 * the fused path, the same step with ``fused_mask=True`` (K3 1 launch for
   the four layers, K1 0, ``describe_rotated`` 1, K2 0), bit-equal to the
   main path;
@@ -117,13 +121,18 @@ the launch counters set to 0 just before it and read just after:
   ``.clone()`` and ``torch.gather``).
 
 Both steps are timed at batch 16 and 128 with per-stage CUDA events, in
-turns (default, fused, fused, default), and each kernel against its plain
-version and beside its bound, by CUDA events and by its own device time. Any failed check raises; the last line is a
+turns (default, fused, blocked, blocked, fused, default; "blocked" is the
+default step with the blocked uniformity path in the kernel's place), and
+each kernel against its plain version and beside its bound, by CUDA events
+and by its own device time; ``[uniformity]`` sets the kernel against the
+blocked path in turns at B=16, B=128, ``[u16]`` and a camera-grid image,
+with its rounds, the round-latency probe and the chain bound. Any failed check raises; the last line is a
 JSON object with ``"ok": true``. Needs one CUDA card; without one it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -181,7 +190,7 @@ AST_STAGES = ("pyramid", "layers", "candidates", "pass1", "aux", "pass2", "descr
 SYSTEM_KERNELS = ("harris_score_i32", "harris_score_mask", "smoothed_intensity",
                   "smoothed_intensity_v1", "describe_rotated", "describe_rotated_v1",
                   "brisk_orientation", "atan2f_elementwise", "sincosf_elementwise",
-                  "walk_angles", "segment_sum")
+                  "walk_angles", "segment_sum", "enforce_uniformity")
 # The v1 engine on the bench frames. bench.py's AST threshold 70 finds no
 # v1 corner on these smoothed-noise frames (their local contrast stays under
 # 70; v2's threshold map lowers its effective threshold there), so [v1]
@@ -224,6 +233,17 @@ SEGMENT_SUMS_PER_SOLVE = 12
 # (NVIDIA's data sheet, 700 W), printed beside the measured ones with the
 # float32 and HBM peaks that measure.bound_ms keeps (datasheet_peaks).
 DATASHEET_TENSOR_GFLOPS = dict(peak_gflops_tf32=495e3, peak_gflops_bf16=989e3)
+# [uniformity]: the bound's operations, the reference's paint of an
+# accepted candidate (uniformity-enforcement-inl.h): over the 31 x 31
+# patch, the LUT product and its ceil in float32, the saturating add in
+# int32 (two each a cell).
+UNIFORMITY_PAINT_FP32_OPS = 2 * 31 * 31
+UNIFORMITY_PAINT_INT32_OPS = 2 * 31 * 31
+# Every enforce_uniformity launch inside a counted run is held bitwise
+# against enforce_uniformity_plain on the card (install_uniformity_check);
+# one detection's problem sets a configuration, for the [uniformity] turns.
+UNIFORMITY_CHECKS = {"on": False, "launches": 0, "masks": 0}
+UNIFORMITY_INPUTS = {}
 # [examples]: live_pipeline over 9 bench frames in batches of 4 (two
 # batches, the second with its boundary pair).
 LIVE_FRAMES = 9
@@ -648,6 +668,164 @@ def capture_describe(run):
     return [phase1_args(rot), rotated_k2_args(rot)], rot
 
 
+def install_uniformity_check():
+    """Wrap ``detect.uniformity.enforce_uniformity_cuda`` so that, while
+    ``uniformity_checked()`` is on, each call's masks are held bitwise
+    against ``enforce_uniformity_plain`` on the same inputs on the card.
+    Returns the kernel's own wrapper, which the timings call."""
+    from ethzasl_brisk_tpu_torch.detect import uniformity
+
+    real = uniformity.enforce_uniformity_cuda
+
+    def checked(problems, *, radius, rounds=False):
+        problems = list(problems)
+        out = real(problems, radius=radius, rounds=rounds)
+        if UNIFORMITY_CHECKS["on"]:
+            for mask, (xs, ys, scores, valid, cap) in zip(out[0] if rounds else out, problems):
+                ref = uniformity.enforce_uniformity_plain(xs, ys, scores, valid, radius=radius,
+                                                          max_num_kpt=cap)
+                assert torch.equal(mask, ref), "enforce_uniformity differs from its plain version"
+                UNIFORMITY_CHECKS["masks"] += 1
+            UNIFORMITY_CHECKS["launches"] += 1
+        return out
+
+    uniformity.enforce_uniformity_cuda = checked
+    return real
+
+
+@contextlib.contextmanager
+def uniformity_checked():
+    """Hold every ``enforce_uniformity`` launch of the block against its
+    plain version (``install_uniformity_check``)."""
+    UNIFORMITY_CHECKS["on"] = True
+    try:
+        yield
+    finally:
+        UNIFORMITY_CHECKS["on"] = False
+
+
+def capture_uniformity(run):
+    """(problem sets, cloned; radius) of the one uniformity call of
+    ``run()``'s detection (``scale_space.enforce_uniformity_layers``)."""
+    from ethzasl_brisk_tpu_torch.detect import scale_space
+
+    calls = []
+    real = scale_space.enforce_uniformity_layers
+
+    def record(problems, *, radius, block=256):
+        problems = list(problems)
+        calls.append(([tuple(t.clone() if torch.is_tensor(t) else t for t in p)
+                       for p in problems], radius))
+        return real(problems, radius=radius, block=block)
+
+    scale_space.enforce_uniformity_layers = record
+    try:
+        run()
+    finally:
+        scale_space.enforce_uniformity_layers = real
+    assert len(calls) == 1, len(calls)
+    return calls[0]
+
+
+def blocked_uniformity(problems, *, radius, block=256):
+    """The blocked plain version in ``enforce_uniformity_layers``' place:
+    the step as it ran before the kernel, for the timing turns."""
+    from ethzasl_brisk_tpu_torch.detect import uniformity
+
+    return [uniformity.enforce_uniformity_plain(xs, ys, sc, v, radius=radius, max_num_kpt=cap,
+                                                block=block)
+            for xs, ys, sc, v, cap in problems]
+
+
+def uniformity_work(problems, masks) -> tuple[int, int, int, int, int]:
+    """(bytes, int32 ops, float32 ops, candidates, accepts) of one call:
+    each candidate's cx, cy, nsc1 and valid read and its mask byte written
+    once; the reference's paint of each accept."""
+    from ethzasl_brisk_tpu_torch.utils.roofline import UNIFORMITY_BYTES_PER_CANDIDATE
+
+    cands = sum(p[0].numel() for p in problems)
+    accepts = sum(int(m.sum()) for m in masks)
+    return (UNIFORMITY_BYTES_PER_CANDIDATE * cands, UNIFORMITY_PAINT_INT32_OPS * accepts,
+            UNIFORMITY_PAINT_FP32_OPS * accepts, cands, accepts)
+
+
+def uniformity_turns(kernel, problems, radius, dev) -> dict:
+    """The kernel (one launch) and the blocked plain version on the card on
+    one detection's problem sets: bitwise, then event / device ms of each in
+    turns (kernel, plain, plain, kernel); the longest CTA's rounds, the
+    dynamic shared memory, the work and its bound."""
+    from ethzasl_brisk_tpu_torch import measure
+    from ethzasl_brisk_tpu_torch.detect import uniformity
+
+    def run():
+        return kernel(problems, radius=radius)
+
+    def plain():
+        return blocked_uniformity(problems, radius=radius)
+
+    masks, rounds = kernel(problems, radius=radius, rounds=True)
+    assert all(torch.equal(a, b) for a, b in zip(masks, plain())), \
+        "enforce_uniformity differs from its plain version"
+    times = {"kernel": [], "blocked": []}
+    for label in ("kernel", "blocked", "blocked", "kernel"):
+        fn, names = (run, ("uniformity_kernel",)) if label == "kernel" else (plain, None)
+        times[label].append((measure.cuda_time(fn, reps=5, warmup=2),
+                             measure.device_time(fn, dev, names, reps=5, warmup=1)))
+    nbytes, int_ops, fp_ops, cands, accepts = uniformity_work(problems, masks)
+    shared_k = max([p[0].shape[1] for p in problems
+                    if p[0].shape[1] <= uniformity.MAX_SHARED_CANDIDATES] or [0])
+    return dict(times=times, rounds=int(rounds.max()), cands=cands, accepts=accepts,
+                ks=[p[0].shape[1] for p in problems], frames=problems[0][0].shape[0],
+                shared=31 * 31 * 4 + 2 * (uniformity.WINDOW // 32) * 4 + 9 * shared_k,
+                bound=measure.bound_ms(nbytes, int32_ops=int_ops, fp32_ops=fp_ops))
+
+
+def uniformity_phase(dev, card: str, kind: str, kernel, launches: int, regs: list) -> dict:
+    """[uniformity]: the kernel against the blocked path in turns at each
+    captured configuration (B=16, B=128, [u16], a camera-grid image), the
+    round-latency probe and the chain bound, the checks made in the
+    counted runs; returns the kernel's row at the B=16 step's shapes."""
+    from ethzasl_brisk_tpu_torch import measure
+    from ethzasl_brisk_tpu_torch.detect import uniformity
+
+    cycles = measure.round_latency_cycles(dev)
+    assert 1.0 <= cycles <= 5000.0, cycles
+    clock = measure.sm_clock_hz(dev)
+    print(f"[uniformity] kernel enforce_uniformity ({uniformity.WINDOW} threads a CTA) ptxas: "
+          f"{regs}; round-latency probe: {cycles:.2f} SM cycles a round with no accept (a "
+          f"shared read, the ballot, a barrier, the reduction), SM clock max "
+          f"{clock / 1e6:.0f} MHz; held bitwise against enforce_uniformity_plain on the card in "
+          f"{UNIFORMITY_CHECKS['launches']} counted launches ({UNIFORMITY_CHECKS['masks']} "
+          f"layer masks) [{kind}; {card}]", flush=True)
+    for label in ("B=16", "B=128", "[u16]", "[camera] radtan grid"):
+        problems, radius = UNIFORMITY_INPUTS[label]
+        t = uniformity_turns(kernel, problems, radius, dev)
+        chain = measure.chain_bound_ms(t["rounds"], cycles, clock)
+        txt = "; ".join(f"{lab} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in v)
+                        for lab, v in t["times"].items())
+        print(f"[uniformity] {label}: {len(problems)} layers x {t['frames']} frames, K {t['ks']}, "
+              f"{t['cands']} candidates, {t['accepts']} accepted; longest CTA {t['rounds']} "
+              f"rounds; dynamic shared {t['shared']} B; bitwise vs blocked; event / device ms "
+              f"in turns: {txt}; bound {t['bound'][0]:.6f} ms ({t['bound'][1]}), chain "
+              f"{chain:.6f} ms [{kind}; {card}]", flush=True)
+        if label == "B=16":
+            work, chain16 = uniformity_work(problems, kernel(problems, radius=radius)), chain
+            problems16, radius16 = problems, radius
+
+    def on_cpu(problems):
+        return [tuple(t.cpu() if torch.is_tensor(t) else t for t in p) for p in problems]
+
+    return own_kernel_row(
+        "enforce_uniformity", "ethzasl_brisk_tpu_torch/csrc/uniformity.cu",
+        "none: the port's own (greedy uniformity, which the JAX package does in XLA: "
+        "ethzasl_brisk_tpu/detect/uniformity.py:69-318)",
+        launches, lambda: kernel(problems16, radius=radius16),
+        lambda cpu=False: blocked_uniformity(on_cpu(problems16) if cpu else problems16,
+                                             radius=radius16),
+        None, ("uniformity_kernel",), nbytes=work[0], int32_ops=work[1], fp32_ops=work[2],
+        chain_ms=chain16)
+
+
 def build_yardsticks() -> dict:
     """The yardsticks the port never calls, each built into its own library
     with the kernels' flags and ``csrc/`` on the include path, all ``nvcc``
@@ -860,9 +1038,11 @@ def quick_start(dev: torch.device) -> dict:
 
     torch.cuda.synchronize()
     _kernels.reset_launches()
-    out, match = run(feature, imgs)  # host images, as the README passes them
+    with uniformity_checked():
+        out, match = run(feature, imgs)  # host images, as the README passes them
     torch.cuda.synchronize()
     launches = dict(_kernels.LAUNCHES)
+    assert launches["enforce_uniformity"] == 2, launches
     assert all(t.device == dev for t in (*out[0][0].fields(), out[0][1], *match)), "outputs"
     assert launches["harris_score_mask"] == 2, launches
     assert launches["harris_score_i32"] == 0, launches
@@ -964,20 +1144,20 @@ def u16_phase(dev: torch.device, card: str) -> dict:
     diag = feature.detect_with_diagnostics(img)[1]
     assert bool(diag.ok), f"[u16] cap {cap}: {diag.cand_counts.tolist()}"
 
-    torch.cuda.synchronize()
-    _kernels.reset_launches()
-    got = feature.detect_and_compute(frame)  # the host image, as a user passes it
-    torch.cuda.synchronize()
-    launches = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
-    # No K1-K3 (float maps, the float sampler): the orientation kernel only,
-    # on the op-by-op chain.
-    assert launches == launches_of(brisk_orientation=1), f"[u16] launches: {launches}"
-    assert not any(v for k, v in _kernels.LAUNCHES.items() if k != "brisk_orientation")
+    # The host image, as a user passes it.
+    got, launches = counted(lambda: feature.detect_and_compute(frame))
+    # No K1-K3 (float maps, the float sampler): the orientation kernel, on
+    # the op-by-op chain, and uniformity's.
+    assert launches == launches_of(brisk_orientation=1, enforce_uniformity=1), \
+        f"[u16] launches: {launches}"
+    assert not any(v for k, v in _kernels.LAUNCHES.items()
+                   if k not in ("brisk_orientation", "enforce_uniformity"))
     assert got[0].x.device == dev and got[1].shape == (got[0].capacity, 12)
     assert bool(torch.isfinite(got[0].x).all())
     ref = BriskFeature(**U16_CONFIG, max_candidates=cap, device="cpu").detect_and_compute(frame)
     n_valid = assert_same_image_outputs(got, ref, "[u16]")
     assert n_valid > 0
+    UNIFORMITY_INPUTS["[u16]"] = capture_uniformity(lambda: feature.detect(img))
     ms, stages = stage_times(feature, img)
     stage_txt = ", ".join(f"{n} {t:.3f}" for n, t in stages.items())
     print(
@@ -997,7 +1177,7 @@ def facade_phase(dev: torch.device, card: str) -> dict:
     launches of the compute call (K2's path: ``angle_exact``)."""
     import numpy as np
 
-    from ethzasl_brisk_tpu_torch import BriskFeature, KeyPoints, _kernels
+    from ethzasl_brisk_tpu_torch import BriskFeature, KeyPoints
     from ethzasl_brisk_tpu_torch.frames import bench_frames
 
     frame = torch.from_numpy(bench_frames(1, seed=11)[0])
@@ -1009,12 +1189,10 @@ def facade_phase(dev: torch.device, card: str) -> dict:
     kw = dict(uniformity_radius=30.0, absolute_threshold=20.0, angle_exact=True)
 
     feature = BriskFeature(**kw)
-    torch.cuda.synchronize()
-    _kernels.reset_launches()
-    got = feature.compute(frame, KeyPoints.from_numpy(x, y, size, angle, capacity=1024))
-    torch.cuda.synchronize()
-    launches = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
+    got, launches = counted(
+        lambda: feature.compute(frame, KeyPoints.from_numpy(x, y, size, angle, capacity=1024)))
     assert launches["smoothed_intensity"] == 2, launches
+    assert launches["enforce_uniformity"] == 0, launches
     assert launches["harris_score_i32"] == launches["harris_score_mask"] == 0, launches
     # angle_exact: the host's double atan2, no orientation kernel, and both
     # samplings on K2 (describe_rotated takes the float32 chain only).
@@ -1026,12 +1204,9 @@ def facade_phase(dev: torch.device, card: str) -> dict:
 
     parity = dict(kw, octaves=2, refine_dtype="float64")
     parity["max_candidates"] = certified_cap(parity, frame.to(dev))
-    torch.cuda.synchronize()
-    _kernels.reset_launches()
-    got = BriskFeature(**parity).detect_and_compute(frame)
-    torch.cuda.synchronize()
-    launches64 = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
+    got, launches64 = counted(lambda: BriskFeature(**parity).detect_and_compute(frame))
     assert launches64["harris_score_i32"] == 1, launches64
+    assert launches64["enforce_uniformity"] == 1, launches64
     assert launches64["smoothed_intensity"] == 2, launches64
     ref = BriskFeature(**parity, device="cpu").detect_and_compute(frame)
     n64 = assert_same_image_outputs(got, ref, "[facade] float64")
@@ -1230,12 +1405,14 @@ def ast_phase(dev: torch.device, card: str, kind: str, yard: dict) -> None:
 
 def counted(fn):
     """fn()'s result and the system kernels' launches during it, the
-    counters set to 0 just before and read just after."""
+    counters set to 0 just before and read just after; every
+    ``enforce_uniformity`` launch in it held against its plain version."""
     from ethzasl_brisk_tpu_torch import _kernels
 
     torch.cuda.synchronize()
     _kernels.reset_launches()
-    out = fn()
+    with uniformity_checked():
+        out = fn()
     torch.cuda.synchronize()
     return out, {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
 
@@ -1303,7 +1480,8 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     # ---- The Harris feature with the v1 extractor on one frame.
     feat = BriskFeature(**BENCH_CONFIG, version="v1")
     hg, launches_h = counted(lambda: feat.detect_and_compute(host[0]))
-    assert launches_h == launches_of(harris_score_i32=1, describe_rotated_v1=1), launches_h
+    assert launches_h == launches_of(harris_score_i32=1, describe_rotated_v1=1,
+                                     enforce_uniformity=1), launches_h
     n_h = assert_same_image_outputs(
         hg, BriskFeature(**BENCH_CONFIG, version="v1", device="cpu").detect_and_compute(host[0]),
         "[v1] BriskFeature")
@@ -1311,7 +1489,8 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     # K2's v1 variant's path: the exact angles keep both samplings on K2.
     exact = dict(BENCH_CONFIG, version="v1", angle_exact=True)
     he, launches_e = counted(lambda: BriskFeature(**exact).detect_and_compute(host[0]))
-    assert launches_e == launches_of(harris_score_i32=1, smoothed_intensity_v1=2), launches_e
+    assert launches_e == launches_of(harris_score_i32=1, smoothed_intensity_v1=2,
+                                     enforce_uniformity=1), launches_e
     n_e = assert_same_image_outputs(
         he, BriskFeature(**exact, device="cpu").detect_and_compute(host[0]),
         "[v1] BriskFeature, angle_exact")
@@ -1530,7 +1709,8 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
         "radtan": PinholeCamera(**CAMERA, distortion=RadialTangentialDistortion(*RADTAN)),
         "equidistant": PinholeCamera(**CAMERA, distortion=EquidistantDistortion(*EQUIDISTANT)),
     }
-    expect = launches_of(harris_score_i32=1, describe_rotated=1, walk_angles=1)
+    expect = launches_of(harris_score_i32=1, describe_rotated=1, walk_angles=1,
+                         enforce_uniformity=1)
     walk, old_chain = camera_aware.walk_angles, camera_aware.walk_angles_plain
     walk_calls, atan2_calls, sincos_calls, grid_launches = [], [], [], {}
 
@@ -1555,6 +1735,9 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
         ref = grid_cpu.detect_and_compute(host)
         n = assert_same_image_outputs(got, ref, f"[camera] {name} grid")
         assert n > 0
+        if name == "radtan":
+            UNIFORMITY_INPUTS["[camera] radtan grid"] = capture_uniformity(
+                lambda: grid.detect_and_compute(img))
         # K2 (phase 1 and the rotated taps) and describe_rotated at the
         # grid's describe inputs (per-keypoint row_base and view limits).
         k2_calls, rot = capture_describe(lambda: grid.detect_and_compute(img))
@@ -1598,7 +1781,8 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
 
     single = CameraAwareFeature(cams["radtan"], feature)
     got, launches = counted(lambda: single.detect_and_compute(host))
-    assert launches == launches_of(harris_score_i32=1, describe_rotated=1), launches
+    assert launches == launches_of(harris_score_i32=1, describe_rotated=1,
+                                   enforce_uniformity=1), launches
     ref = CameraAwareFeature(cams["radtan"], feature_cpu).detect_and_compute(host)
     assert torch.equal(got[2].cpu(), ref[2]), "[camera] single view warp"
     n = assert_same_image_outputs(got[:2], ref[:2], "[camera] single view")
@@ -2224,6 +2408,7 @@ def dist_phase(dev: torch.device, card: str, kind: str, feature, pipe, frames16)
             sharded = FramePipeline(feature, dev, mesh)
             got, launches = counted(lambda: sharded.step(frames16, with_diagnostics=True))
             assert launches["harris_score_i32"] == launches["describe_rotated"] == 1, launches
+            assert launches["enforce_uniformity"] == 1, launches
             assert launches["smoothed_intensity"] == 0, launches
             assert_same_step(got[:4], (kps, desc, midx, mdist), "[dist] step over the mesh")
             assert bool(got[4]["detect"].ok.all())
@@ -2460,7 +2645,7 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
     n_batches = (LIVE_FRAMES - 1) // LIVE_BATCH
     assert launches["harris_score_i32"] == n_batches + 1, launches
     assert launches["describe_rotated"] == n_batches, launches
-    assert launches["smoothed_intensity"] == 0, launches
+    assert launches["smoothed_intensity"] == launches["enforce_uniformity"] == 0, launches
     card_batches = [ln for ln in card_lines if ln.startswith("batch ")]
     assert card_batches == [ln for ln in cpu_lines if ln.startswith("batch ")], \
         (card_batches, cpu_lines)
@@ -2473,7 +2658,8 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
     demo, demo_launches = counted(lambda: run(lambda: cameras_demo.main(["--device", dev.type])))
     assert demo_launches["harris_score_i32"] == demo_launches["describe_rotated"] == 1, \
         demo_launches
-    assert demo_launches["smoothed_intensity"] == 0, demo_launches
+    assert demo_launches["smoothed_intensity"] == demo_launches["enforce_uniformity"] == 0, \
+        demo_launches
     print(f"[examples] cameras_demo on the card: {demo}; launches {demo_launches} "
           f"[{kind}; {card}]", flush=True)
 
@@ -2490,7 +2676,7 @@ def main() -> int:
         smoothed_intensity,
         smoothed_intensity_cuda,
     )
-    from ethzasl_brisk_tpu_torch.detect import scale_space
+    from ethzasl_brisk_tpu_torch.detect import scale_space, uniformity
     from ethzasl_brisk_tpu_torch.frames import bench_frames
     from ethzasl_brisk_tpu_torch.kernels.harris import (
         harris_score_i32,
@@ -2522,10 +2708,12 @@ def main() -> int:
     assert set(yard) == {"staged_segment_sum", "warp_describe", "describe_words_ballot"}, yard
     log = lib_path.with_suffix(".log")
     regs = ptxas_lines(log.read_text() if log.exists() else "", "describe_rotated_kernel")
+    uniformity_regs = ptxas_lines(log.read_text() if log.exists() else "", "uniformity_kernel")
+    uniformity_kernel = install_uniformity_check()
     print(f"[build] {lib_path.name} and {len(yard)} yardsticks in "
           f"{time.perf_counter() - t0:.2f} s; describe_rotated's ptxas: {regs}; the words a "
           f"ballot a word: {yard['describe_words_ballot'][1]}; the warp kernel: "
-          f"{yard['warp_describe'][1]}", flush=True)
+          f"{yard['warp_describe'][1]}; enforce_uniformity's: {uniformity_regs}", flush=True)
 
     frames16 = torch.from_numpy(bench_frames(16)).to(dev)
     # The entry points run on the card by default.
@@ -2593,11 +2781,13 @@ def main() -> int:
     # ---- The main path, counted.
     torch.cuda.synchronize()
     _kernels.reset_launches()
-    kps, desc, midx, mdist, diag = pipe.step(frames16, with_diagnostics=True)
+    with uniformity_checked():
+        kps, desc, midx, mdist, diag = pipe.step(frames16, with_diagnostics=True)
     torch.cuda.synchronize()
     launches = dict(_kernels.LAUNCHES)
     assert launches["harris_score_i32"] == 1, launches
     assert launches["describe_rotated"] == 1, launches
+    assert launches["enforce_uniformity"] == 1, launches  # the four layers
     assert launches["smoothed_intensity"] == launches["brisk_orientation"] == 0, launches
     b, k = kps.valid.shape
     print(
@@ -2628,16 +2818,19 @@ def main() -> int:
     fused_pipe = FramePipeline(fused_feature)
     torch.cuda.synchronize()
     _kernels.reset_launches()
-    fused_out = fused_pipe.step(frames16)
+    with uniformity_checked():
+        fused_out = fused_pipe.step(frames16)
     torch.cuda.synchronize()
     fused_launches = dict(_kernels.LAUNCHES)
     assert fused_launches["harris_score_mask"] == 1, fused_launches
+    assert fused_launches["enforce_uniformity"] == 1, fused_launches
     assert fused_launches["harris_score_i32"] == 0, fused_launches
     assert fused_launches["describe_rotated"] == 1, fused_launches
     assert fused_launches["smoothed_intensity"] == 0, fused_launches
     assert_same_step(fused_out, (kps, desc, midx, mdist), "fused vs default step")
     print(f"[fused path] step B={b}: launches {fused_launches}; keypoints, descriptors "
           f"and matches bitwise equal to the default step", flush=True)
+    UNIFORMITY_INPUTS["B=16"] = capture_uniformity(lambda: feature.detect(frames16))
 
     # ---- GPU step against the plain CPU step on the first 4 frames.
     f4 = frames16[:4]
@@ -2655,9 +2848,10 @@ def main() -> int:
         cc = scale_space._layer_candidates(sc_c[i], mk_c[i], cfg.layer_cap(i))
         for a, c in zip(cg, cc):
             assert torch.equal(a.cpu(), c), f"candidates layer {i}"
-        assert torch.equal(
-            scale_space._layer_accept(cg, cfg).cpu(), scale_space._layer_accept(cc, cfg)
-        ), f"accept layer {i}"
+        with uniformity_checked():
+            accept_g = scale_space._layer_accept(cg, cfg)
+        assert torch.equal(accept_g.cpu(), scale_space._layer_accept(cc, cfg)), \
+            f"accept layer {i}"
     out_g = FramePipeline(feature).step(f4)
     out_c = FramePipeline(feature_cpu, device="cpu").step(f4c)
     kg, kc = out_g[0], out_c[0]
@@ -2749,14 +2943,24 @@ def main() -> int:
     # ---- Timing.
     stage_names = ["pyramid", "harris", "masks", "candidates", "uniformity", "refine",
                    "describe", "match"]
+    real_uniformity_layers = scale_space.enforce_uniformity_layers
 
     for batch in (16, 128):
         frames = torch.from_numpy(bench_frames(batch)).to(dev)
-        # In turns (default, fused, fused, default), so the two compare in one call.
-        for label, p in (("step", pipe), ("fused step", fused_pipe),
-                         ("fused step", fused_pipe), ("step", pipe)):
+        if batch == 128:
+            UNIFORMITY_INPUTS["B=128"] = capture_uniformity(lambda: feature.detect(frames))
+        # In turns (default, fused, blocked, blocked, fused, default), so the
+        # three compare in one call; "blocked step" is the default step with
+        # the blocked uniformity path (the plain version) in the kernel's place.
+        for label, p in (("step", pipe), ("fused step", fused_pipe), ("blocked step", pipe),
+                         ("blocked step", pipe), ("fused step", fused_pipe), ("step", pipe)):
             torch.cuda.reset_peak_memory_stats()
-            ms, _, stages = timed_steps(p, frames, stage_names)
+            if label == "blocked step":
+                scale_space.enforce_uniformity_layers = blocked_uniformity
+            try:
+                ms, _, stages = timed_steps(p, frames, stage_names)
+            finally:
+                scale_space.enforce_uniformity_layers = real_uniformity_layers
             peak = torch.cuda.max_memory_allocated() / 2**30
             stage_txt = ", ".join(f"{n} {t:.3f}" for n, t in stages.items())
             print(
@@ -2822,6 +3026,17 @@ def main() -> int:
         del frames, pyr, calls, rot
         torch.cuda.empty_cache()
 
+    # ---- enforce_uniformity against the blocked path in turns, its bounds.
+    uniformity_row = uniformity_phase(dev, card, kind, uniformity_kernel,
+                                      launches["enforce_uniformity"], uniformity_regs)
+    problems16, radius16 = UNIFORMITY_INPUTS["B=16"]
+    host = {"call": host_us(lambda: uniformity_kernel(problems16, radius=radius16), 200),
+            "cells": host_us(lambda: [uniformity._cells(xs, ys, sc, v, radius16)
+                                      for xs, ys, sc, v, _ in problems16], 200)}
+    print(f"[uniformity] B=16 step's four layers: bitwise vs plain; {row_text(uniformity_row)}; "
+          f"host us a call (mean of 200, launches queued): {host['call']:.1f}, of which the "
+          f"four layers' _cells in torch {host['cells']:.1f} [{kind}; {card}]", flush=True)
+
     # K1-K3 at the main path's B=16 shapes. No one PyTorch call computes
     # any of them (library_ms null).
     kernels = [
@@ -2839,7 +3054,8 @@ def main() -> int:
              "ethzasl_brisk_tpu/kernels/pallas_harris.py:177",
              fused_launches["harris_score_mask"], k3_err, "k3"),
         )
-    ] + [v1_row, describe_row, orientation_row] + camera_rows + [segment_row] + probe_rows
+    ] + [v1_row, describe_row, orientation_row] + camera_rows + [segment_row, uniformity_row] \
+        + probe_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[wall] {time.perf_counter() - t_start:.1f} s from start to the kernels line", flush=True)
     print(f"[card] {card}", flush=True)

@@ -55,9 +55,12 @@ LAUNCHES = {
     # segment sums, a call site's items in one launch (csrc/segment_sum.cu).
     "brisk_orientation": 0, "atan2f_elementwise": 0, "sincosf_elementwise": 0,
     "walk_angles": 0, "segment_sum": 0,
-    # The dependent-add latency probe behind segment_sum's chain bound
-    # (measure.add_latency_cycles).
-    "add_latency": 0,
+    # Greedy uniformity, every layer of a detection in one launch
+    # (csrc/uniformity.cu).
+    "enforce_uniformity": 0,
+    # The latency probes behind segment_sum's and enforce_uniformity's chain
+    # bounds (measure.add_latency_cycles, measure.round_latency_cycles).
+    "add_latency": 0, "round_latency": 0,
     # The gather probes' kernels: G1, G2, C, W (probes/gather.py); T, X, S
     # (probes/mosaic.py).
     "probe_take": 0, "probe_point_gather": 0, "probe_relayout": 0, "probe_window_copy": 0,
@@ -229,6 +232,12 @@ def library() -> ctypes.CDLL:
             lib.brisk_segment_sums.restype = ci
             lib.brisk_add_latency.argtypes = [ci, ci, vp, vp, vp]  # is_double, adds, cycles, sink, stream
             lib.brisk_add_latency.restype = ci
+            lib.brisk_enforce_uniformity.argtypes = [
+                ctypes.POINTER(ctypes.c_int64), ci, vp, vp, vp,  # layers, layer count, lut, rounds, stream
+            ]
+            lib.brisk_enforce_uniformity.restype = ci
+            lib.brisk_round_latency.argtypes = [ci, vp, vp, vp]  # rounds, cycles, sink, stream
+            lib.brisk_round_latency.restype = ci
             lib.brisk_error_string.argtypes = [ci]
             lib.brisk_error_string.restype = ctypes.c_char_p
             _lib = lib

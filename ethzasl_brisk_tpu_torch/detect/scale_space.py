@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from ethzasl_brisk_tpu_torch.core.keypoints import KeyPoints
 from ethzasl_brisk_tpu_torch.detect.subpixel import subpixel2d
-from ethzasl_brisk_tpu_torch.detect.uniformity import bucket_keypoints, enforce_uniformity
+from ethzasl_brisk_tpu_torch.detect.uniformity import bucket_keypoints, enforce_uniformity_layers
 from ethzasl_brisk_tpu_torch.kernels.downsample import (
     halfsample8,
     halfsample16,
@@ -205,6 +205,8 @@ class DetectorConfig:
     max_candidates: "int | tuple" = 4096
     max_keypoints: int = 4096
     refine_capacity: "int | tuple | None" = None
+    # The blocked uniformity form's block (the CPU route); kernel
+    # enforce_uniformity on the card takes no block. Equal masks either way.
     uniformity_block: int = 256
     # Scores and 2-D maxima masks from one kernel (K3) instead of K1 then
     # maxima2d_mask; bit-identical either way. uint8 only.
@@ -336,17 +338,23 @@ def _layer_candidates(sc: torch.Tensor, mask: torch.Tensor, cap: int):
     return xs, ys, top_scores, valid
 
 
-def _layer_accept(cand, config: DetectorConfig) -> torch.Tensor:
-    xs, ys, top_scores, valid = cand
-    cap = min(config.max_num_kpt, xs.shape[1])
+def _layer_accepts(cands, config: DetectorConfig) -> list[torch.Tensor]:
+    """The accept mask of every layer's candidates: greedy uniformity (one
+    kernel launch for all layers on the card) or, at radius 0, the
+    single-bucket cap."""
+    caps = [min(config.max_num_kpt, c[0].shape[1]) for c in cands]
     if config.uniformity_radius > 0.0:
-        return enforce_uniformity(
-            xs, ys, top_scores, valid,
+        return enforce_uniformity_layers(
+            [(*c, cap) for c, cap in zip(cands, caps)],
             radius=float(config.uniformity_radius),
-            max_num_kpt=cap,
             block=config.uniformity_block,
         )
-    return bucket_keypoints(valid, cap)
+    return [bucket_keypoints(c[3], cap) for c, cap in zip(cands, caps)]
+
+
+def _layer_accept(cand, config: DetectorConfig) -> torch.Tensor:
+    """One layer's accept mask (``_layer_accepts`` of that layer alone)."""
+    return _layer_accepts([cand], config)[0]
 
 
 def compact_accepted(xs, ys, top_scores, valid, accept, config, cap=None):
@@ -432,7 +440,7 @@ def detect_keypoints(
         _layer_candidates(scores[i], masks[i], config.layer_cap(i)) for i in range(n_layers)
     ]
     mark("candidates")
-    accepts = [_layer_accept(c, config) for c in cands]
+    accepts = _layer_accepts(cands, config)
     mark("uniformity")
 
     diag = None

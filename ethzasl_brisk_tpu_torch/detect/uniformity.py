@@ -6,22 +6,45 @@ paints a saturating uint8 occupancy grid with a 31x31 radial LUT and
 rejects candidates whose cell already exceeds
 ``sqrt(sqrt(score/max_score)) * 255``.
 
-``enforce_uniformity`` ports the JAX package's blocked, exact formulation
-(see that module's docstring): candidates go in blocks of ``block``; a
-block's occupancy reading against earlier blocks is a pairwise reduction
-against the list of accepted candidates; inside the block, an
-interval-bound fixpoint resolves the greedy recurrence. The batch axis is
-written out: every problem of the batch advances block by block, and the
-Python loops stop when every problem is done. That formulation exists
-because scatter is slow on the TPU; a CUDA kernel running the sequential
-greedy per (frame, layer) is queued as later work.
+Three forms of one mask, bit for bit the JAX package's
+``enforce_uniformity_sequential`` (and so its blocked ``enforce_uniformity``):
+
+* ``enforce_uniformity_cuda`` launches kernel ``enforce_uniformity``
+  (``csrc/uniformity.cu``) once for every layer of a detection: a CTA a
+  (frame, layer) runs the sequential greedy in rounds (a window of
+  ``WINDOW`` candidates tested against a per-candidate occupancy, the first
+  that passes accepted, its paint added to every later candidate in its
+  patch), with no host sync;
+* ``enforce_uniformity_scan_plain`` is its line-by-line torch twin over a
+  batch of problems (the same rounds, window and updates);
+* ``enforce_uniformity_plain`` is the JAX package's blocked, exact
+  formulation: candidates go in blocks of ``block``; a block's occupancy
+  reading against earlier blocks is a pairwise reduction against the list
+  of accepted candidates; inside the block, an interval-bound fixpoint
+  resolves the greedy recurrence. That formulation exists because scatter
+  is slow on the TPU; it syncs the host per block and round, so it is the
+  CPU's route and the kernel's plain version on the card.
+
+``enforce_uniformity_layers`` picks by device (one launch for all layers on
+the card, the blocked form layer by layer on the CPU); ``enforce_uniformity``
+is its one-layer call. ``block`` is read by the blocked form only.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 import torch
+
+from ethzasl_brisk_tpu_torch import _kernels
+
+# csrc/uniformity.cu: kThreads (the window), kMaxLayers, and the problems
+# whose cells and occupancy fit in a CTA's shared memory (kMaxShared less
+# the LUT and the warp slots, 9 bytes a candidate).
+WINDOW = 512
+MAX_LAYERS = 16
+MAX_SHARED_CANDIDATES = (232448 - (31 * 31 * 4 + 2 * (WINDOW // 32) * 4)) // 9
 
 
 def radial_lut() -> np.ndarray:
@@ -55,7 +78,7 @@ def _pair_paint(px, py, pn, qx, qy):
     return torch.ceil(lutv * (0.99 * pn[..., :, None])).to(torch.int32)
 
 
-def enforce_uniformity(
+def enforce_uniformity_plain(
     xs: torch.Tensor,
     ys: torch.Tensor,
     scores: torch.Tensor,
@@ -152,6 +175,133 @@ def enforce_uniformity(
     accept = accept[:, :k]
     # Acceptance cap: capped greedy == first-cap prefix of the uncapped list.
     return accept & (accept.to(torch.int32).cumsum(dim=1) <= max_num_kpt)
+
+
+def enforce_uniformity_scan_plain(xs, ys, scores, valid, *, radius: float, max_num_kpt: int,
+                                  window: int = WINDOW) -> torch.Tensor:
+    """Kernel ``enforce_uniformity``'s rounds in torch, every problem of
+    the (N, K) batch advancing together: from each problem's cursor, a
+    window of ``window`` candidates is tested against the per-candidate
+    occupancy; the first that passes is accepted and paints every later
+    candidate in its 31x31 patch (saturating at 255), and the cursor moves
+    past it; a window with none moves the cursor by ``window``. A problem
+    stops at its cap or at K."""
+    n, k = xs.shape
+    dev = xs.device
+    nsc1, cx, cy = _cells(xs, ys, scores, valid, radius)
+    cap = min(max_num_kpt, k)
+    lut = torch.from_numpy(radial_lut()).reshape(-1).to(dev)
+    occ = torch.zeros((n, k), dtype=torch.int32, device=dev)
+    accept = torch.zeros((n, k), dtype=torch.bool, device=dev)
+    cursor = torch.zeros((n,), dtype=torch.int64, device=dev)
+    n_acc = torch.zeros((n,), dtype=torch.int64, device=dev)
+    rows = torch.arange(n, device=dev)
+    lanes = torch.arange(window, device=dev)
+    later = torch.arange(k, device=dev)
+    while True:
+        live = (cursor < k) & (n_acc < cap)
+        if not bool(live.any()):
+            break
+        i = cursor[:, None] + lanes[None, :]
+        inside = (i < k) & live[:, None]
+        ic = i.clamp(max=k - 1)
+        ok = inside & valid.gather(1, ic) & ~(nsc1.gather(1, ic) < occ.gather(1, ic).to(torch.float32))
+        hit = ok.any(dim=1)
+        j = cursor + ok.to(torch.int8).argmax(dim=1)  # the first that passes
+        jc = j.clamp(max=k - 1)
+        accept[rows[hit], j[hit]] = True
+        pn = (0.99 * nsc1[rows, jc]).to(torch.float32)
+        dx = cx - cx[rows, jc][:, None] + 15
+        dy = cy - cy[rows, jc][:, None] + 15
+        near = (hit[:, None] & (later[None, :] > j[:, None])
+                & (dx >= 0) & (dx < 31) & (dy >= 0) & (dy < 31))
+        tap = (dy.clamp(0, 30) * 31 + dx.clamp(0, 30)).to(torch.int64)
+        paint = torch.ceil(lut[tap] * pn[:, None]).to(torch.int32)
+        occ = torch.where(near, torch.clamp(occ + paint, max=255), occ)
+        n_acc = n_acc + hit.to(torch.int64)
+        cursor = torch.where(live, torch.where(hit, j + 1, cursor + window), cursor)
+    return accept
+
+
+_LUTS: dict = {}  # device -> the LUT on it
+
+
+def _device_lut(dev: torch.device) -> torch.Tensor:
+    """``radial_lut()`` on card ``dev``, built there (float64, then cast to
+    float32, as on the host) once, so a launch copies nothing."""
+    lut = _LUTS.get(dev)
+    if lut is None:
+        xs = torch.arange(31, dtype=torch.float64, device=dev)
+        d2 = (15.0 - xs[None, :]) ** 2 + (15.0 - xs[:, None]) ** 2
+        lut = _LUTS[dev] = torch.clamp(1.0 - d2 / 225.0, min=0.0).to(torch.float32).contiguous()
+    return lut
+
+
+def enforce_uniformity_cuda(problems, *, radius: float, rounds: bool = False):
+    """Kernel ``enforce_uniformity``: the accept mask of every problem set,
+    ``(xs, ys, scores, valid, max_num_kpt)`` with (N, K) tensors on one
+    card, in one launch, with no host sync. Returns the (N, K) bool masks
+    and, with ``rounds``, the rounds each CTA made (int32, the problem sets'
+    rows in order)."""
+    problems = list(problems)
+    if len(problems) > MAX_LAYERS:  # more layers than a launch takes: one launch each chunk
+        outs = [enforce_uniformity_cuda(problems[i:i + MAX_LAYERS], radius=radius, rounds=rounds)
+                for i in range(0, len(problems), MAX_LAYERS)]
+        if not rounds:
+            return [m for part in outs for m in part]
+        return ([m for part, _ in outs for m in part], torch.cat([r for _, r in outs]))
+    dev = problems[0][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"enforce_uniformity_cuda needs CUDA tensors, got {dev}")
+    fields, accepts, keep = [], [], []
+    for xs, ys, scores, valid, max_num_kpt in problems:
+        n, k = xs.shape
+        for name, t in (("xs", xs), ("ys", ys), ("scores", scores), ("valid", valid)):
+            if t.device != dev or tuple(t.shape) != (n, k):
+                raise ValueError(f"{name}: expected ({n}, {k}) on {dev}, got "
+                                 f"{tuple(t.shape)} on {t.device}")
+        if valid.dtype != torch.bool:
+            raise ValueError(f"valid: expected bool, got {valid.dtype}")
+        if k >= 2**31:
+            raise ValueError("enforce_uniformity takes fewer than 2^31 candidates a problem")
+        nsc1, cx, cy, valid = (t.contiguous() for t in (*_cells(xs, ys, scores, valid, radius),
+                                                          valid))
+        accept = torch.empty((n, k), dtype=torch.bool, device=dev)
+        occ = (torch.empty((n, k), dtype=torch.uint8, device=dev)
+               if k > MAX_SHARED_CANDIDATES else None)
+        keep += [nsc1, cx, cy, valid, occ]  # alive until the launch: the table holds raw pointers
+        accepts.append(accept)
+        fields += (cx.data_ptr(), cy.data_ptr(), nsc1.data_ptr(), valid.data_ptr(),
+                   accept.data_ptr(), 0 if occ is None else occ.data_ptr(), n, k,
+                   max(0, min(int(max_num_kpt), k)))
+    n_ctas = sum(a.shape[0] for a in accepts if a.shape[1])
+    counts = torch.empty((n_ctas,), dtype=torch.int32, device=dev)
+    if n_ctas:
+        table = (ctypes.c_int64 * len(fields))(*fields)
+        _kernels.launch("enforce_uniformity", "enforce_uniformity", dev, table, len(problems),
+                        _device_lut(dev).data_ptr(), counts.data_ptr() if rounds else None)
+    return (accepts, counts) if rounds else accepts
+
+
+def enforce_uniformity_layers(problems, *, radius: float, block: int = 256) -> list:
+    """The accept masks of ``(xs, ys, scores, valid, max_num_kpt)`` problem
+    sets (a detection's layers) on one device: one kernel launch for all of
+    them for CUDA tensors (``block`` unread), the blocked plain version set
+    by set for CPU tensors."""
+    problems = list(problems)
+    if problems[0][0].device.type != "cpu":
+        return enforce_uniformity_cuda(problems, radius=radius)
+    return [enforce_uniformity_plain(xs, ys, scores, valid, radius=radius,
+                                     max_num_kpt=cap, block=block)
+            for xs, ys, scores, valid, cap in problems]
+
+
+def enforce_uniformity(xs, ys, scores, valid, *, radius: float, max_num_kpt: int,
+                       block: int = 256) -> torch.Tensor:
+    """Greedy uniformity mask over score-descending (N, K) candidates: the
+    kernel for CUDA tensors, the blocked plain version for CPU tensors."""
+    return enforce_uniformity_layers([(xs, ys, scores, valid, max_num_kpt)], radius=radius,
+                                     block=block)[0]
 
 
 def enforce_uniformity_sequential(

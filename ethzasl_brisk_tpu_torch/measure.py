@@ -20,7 +20,9 @@ operations, 33.5 Tops/s. Where a gather's traffic depends on its indices,
 least the card can read. Where the work is a serial chain of dependent
 adds, as an ordered segment sum is, no rate helps: ``chain_bound_ms`` is
 the longest chain's adds times one add's latency (``add_latency_cycles``,
-timed on the card) over the card's highest SM clock (``sm_clock_hz``).
+timed on the card) over the card's highest SM clock (``sm_clock_hz``);
+greedy uniformity's rounds are such a chain too, each a round's latency
+(``round_latency_cycles``).
 """
 from __future__ import annotations
 
@@ -83,6 +85,26 @@ def add_latency_cycles(device: str | torch.device, dtype: torch.dtype) -> float:
 
     chain(1024)
     return (chain(8192) - chain(1024)) / 7168
+
+
+def round_latency_cycles(device: str | torch.device) -> float:
+    """SM cycles of one round of kernel ``enforce_uniformity`` that accepts
+    nothing (a shared-memory read, the ballot, the slot write, a barrier,
+    the reduction) on card ``device``: a CTA's chains of 256 and 2,048
+    rounds timed by the SM's clock, their difference over 1,792 rounds."""
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    device = torch.device(device)
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    sink = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def chain(rounds: int) -> int:
+        _kernels.launch("round_latency", "round_latency", device, rounds, cycles.data_ptr(),
+                        sink.data_ptr())
+        return int(cycles)
+
+    chain(256)
+    return (chain(2048) - chain(256)) / 1792
 
 
 def chain_bound_ms(adds: int, cycles_per_add: float, clock_hz: float) -> float:

@@ -12,7 +12,8 @@ outputs there.
 bench.py's config dict builds one as it is. Ported knobs: octaves,
 uniformity_radius, absolute_threshold, max_num_kpt, rotation_invariant,
 scale_invariant, max_candidates, max_keypoints, refine_capacity,
-uniformity_block, fused_mask (kernel K3 for the scores and 2-D maxima),
+uniformity_block (the CPU's blocked uniformity; the card's kernel
+takes none), fused_mask (kernel K3 for the scores and 2-D maxima),
 describe_capacity, refine_dtype ("float64" refines in double),
 angle_exact (the host's double atan2) and version (``"v1"``: the v1 ring
 pattern, 16-word descriptors and K2's v1 rounding on the Harris

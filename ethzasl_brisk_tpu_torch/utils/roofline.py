@@ -15,7 +15,13 @@ Two parts:
   matmul, order-of-magnitude op counts for the stencil stages, byte
   counts the MINIMUM traffic (inputs read once, outputs written once).
   Sort-bound stages (top_k) get bytes only. Every row but ``describe``
-  equals the JAX row for the same shapes. The JAX ``describe`` row models
+  and ``uniformity`` equals the JAX row for the same shapes. The JAX
+  ``uniformity`` row models the TPU's blocked pairwise suppression; the
+  port's counts kernel ``enforce_uniformity`` (``csrc/uniformity.cu``):
+  per candidate its cell, score and flag in and its mask byte out, and per
+  accept the update test of the later candidates (half the list on
+  average), with at most ``max_keypoints`` accepts a (frame, layer).
+  The JAX ``describe`` row models
   the TPU's one-hot bf16 contraction, work the port never does, so a share
   of the bf16 matmul peak would be fiction here. The port's row counts
   the two samplings at kernel K2's work a point instead (``csrc/sampler.cu``,
@@ -41,6 +47,11 @@ K2_TAPS_PER_POINT = 22
 K2_OPS_PER_POINT = 119 + 30
 K2_WORDS_PER_POINT = 6   # pattern x, y, sigma, scaling, scaling2 in; the value out
 K2_WORDS_PER_SLOT = 3    # key x, key y, frame row
+# enforce_uniformity per candidate: cx, cy, nsc1 (4 B each) and valid in,
+# the mask byte out; int32 operations of one update test (two offsets, two
+# range tests, the loop's step and compare).
+UNIFORMITY_BYTES_PER_CANDIDATE = 14
+UNIFORMITY_OPS_PER_UPDATE = 6
 
 
 def _timed_ms(fn, device: torch.device, reps: int, iters: int = 4) -> float:
@@ -137,11 +148,13 @@ def stage_model(
     # Candidates in score order: a sort of the masked maps; one read of
     # the (value, index) pairs is the algorithmic minimum.
     stages["top_k"] = dict(gflops=0.0, gbytes=8e-9 * px, kind="sort")
-    # Uniformity: blocked pairwise suppression over max_candidates.
+    # Uniformity: kernel enforce_uniformity over max_candidates a (frame,
+    # layer) (module docstring).
     k = max_candidates
+    accepts = min(max_keypoints, k)
     stages["uniformity"] = dict(
-        gflops=10e-9 * k * 256 * n_layers * batch,
-        gbytes=4e-9 * k * n_layers * batch * 4,
+        gflops=1e-9 * UNIFORMITY_OPS_PER_UPDATE * accepts * (k / 2) * n_layers * batch,
+        gbytes=1e-9 * UNIFORMITY_BYTES_PER_CANDIDATE * k * n_layers * batch,
         kind="bw",
     )
     # Refine: 9 flat gathers over the accepted prefix + quadratic fit.

@@ -14,6 +14,12 @@ from ethzasl_brisk_tpu_torch import BriskFeature
 from ethzasl_brisk_tpu_torch.core.pattern import brisk_v2_pattern
 from ethzasl_brisk_tpu_torch.describe.extractor import _stack_frames, scale_index
 from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity, smoothed_intensity_cuda
+from ethzasl_brisk_tpu_torch.detect.uniformity import (
+    WINDOW,
+    enforce_uniformity_cuda,
+    enforce_uniformity_plain,
+    enforce_uniformity_scan_plain,
+)
 from ethzasl_brisk_tpu_torch.frames import bench_frames
 from ethzasl_brisk_tpu_torch.kernels.harris import (
     harris_score_i32,
@@ -22,6 +28,7 @@ from ethzasl_brisk_tpu_torch.kernels.harris import (
     harris_score_mask_i32,
     harris_score_mask_layers,
 )
+from tests._uniformity_cases import CASES as UNIFORMITY_CASES, case as uniformity_case
 
 pytestmark = pytest.mark.gpu
 
@@ -188,7 +195,8 @@ def test_match_exact_with_tf32(cuda):
 
 
 def test_kernels_on_the_second_card(cuda):
-    """K1, K3, K2 and a probe kernel on cuda:1 while cuda:0 is current:
+    """K1, K3, K2, a probe kernel and enforce_uniformity on cuda:1 while
+    cuda:0 is current:
     each launches on the tensors' card, bitwise against plain."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
@@ -216,6 +224,10 @@ def test_kernels_on_the_second_card(cuda):
     src = torch.arange(64 * 128, dtype=torch.int32, device=dev).view(64, 128)
     idx = torch.randint(0, 64, (32, 128), dtype=torch.int32, device=dev)
     assert torch.equal(gather.take_along_axis(src, idx, 0), gather.take_along_axis_plain(src, idx, 0))
+    u_args = [torch.from_numpy(a) for a in uniformity_case("r10_int_uncapped")[:4]]
+    u_got = enforce_uniformity_cuda([(*(a.to(dev) for a in u_args), 2**31 - 1)], radius=10.0)[0]
+    assert torch.equal(u_got.cpu(), enforce_uniformity_plain(*u_args, radius=10.0,
+                                                             max_num_kpt=2**31 - 1))
     torch.cuda.synchronize(dev)
     assert torch.cuda.current_device() == 0
 
@@ -239,6 +251,7 @@ def test_step_launches_both_kernels(cuda):
     assert _kernels.LAUNCHES["smoothed_intensity"] == 0  # both samplings are describe_rotated's
     assert _kernels.LAUNCHES["describe_rotated"] == 1
     assert _kernels.LAUNCHES["brisk_orientation"] == 0
+    assert _kernels.LAUNCHES["enforce_uniformity"] == 1  # one launch for the 4 layers
     ref = FramePipeline(BriskFeature(**STEP_CONFIG, device="cpu"), device="cpu").step(frames)
     assert torch.equal(got[0].valid.cpu(), ref[0].valid)
     assert torch.equal(got[0].response.cpu(), ref[0].response)
@@ -259,6 +272,7 @@ def test_fused_step_launches_k3_and_equals_default(cuda):
     assert _kernels.LAUNCHES["harris_score_i32"] == 0
     assert _kernels.LAUNCHES["smoothed_intensity"] == 0
     assert _kernels.LAUNCHES["describe_rotated"] == 1
+    assert _kernels.LAUNCHES["enforce_uniformity"] == 1
     for a, b in zip(default[0].fields(), fused[0].fields()):
         assert torch.equal(a, b)
     for a, b in zip(default[1:], fused[1:]):
@@ -1356,3 +1370,84 @@ def test_add_latency_probe(cuda):
     f32, f64 = (measure.add_latency_cycles(cuda, t) for t in (torch.float32, torch.float64))
     assert 1.0 <= f32 <= 64.0 and f32 <= f64 <= 64.0, (f32, f64)
     assert _kernels.LAUNCHES["add_latency"] == 6
+
+
+@pytest.mark.parametrize("name", UNIFORMITY_CASES)
+def test_uniformity_kernel_matches_plain(cuda, name):
+    """Kernel ``enforce_uniformity`` against both plain versions, the
+    blocked one on the CPU and on the card and the scan twin on the CPU, bit
+    for bit, over the CPU parity tests' problems (the last beyond the shared
+    memory: its device-memory route); one launch; each CTA's rounds between
+    its accepts and its accepts plus its windows."""
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    xs, ys, scores, valid, _, _, radius, cap = uniformity_case(name)
+    args = [torch.from_numpy(a) for a in (xs, ys, scores, valid)]
+    kw = dict(radius=radius, max_num_kpt=cap)
+    _kernels.reset_launches()
+    (got,), rounds = enforce_uniformity_cuda([(*(a.to(cuda) for a in args), cap)], radius=radius,
+                                             rounds=True)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["enforce_uniformity"] == 1
+    ref = enforce_uniformity_plain(*args, **kw)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(got.cpu(), enforce_uniformity_scan_plain(*args, **kw))
+    assert torch.equal(got, enforce_uniformity_plain(*(a.to(cuda) for a in args), **kw))
+    acc = ref.sum(dim=1).to(torch.int32)
+    k = xs.shape[1]
+    assert bool((rounds.cpu() >= acc).all()) and bool((rounds.cpu() <= acc + -(-k // WINDOW)).all())
+
+
+def test_uniformity_kernel_layers_in_one_launch(cuda):
+    """Four problem sets of one radius, one of them beyond the shared
+    memory, in one launch: each set's mask bitwise its plain version."""
+    from ethzasl_brisk_tpu_torch import _kernels
+
+    names = ["r30_int_cap1", "no_valid_first_invalid", "straddle", "beyond_shared_memory"]
+    sets = [uniformity_case(n) for n in names]
+    assert {s[6] for s in sets} == {30.0}
+    host = [([torch.from_numpy(a) for a in s[:4]], s[7]) for s in sets]
+    _kernels.reset_launches()
+    got = enforce_uniformity_cuda([(*(a.to(cuda) for a in args), cap) for args, cap in host],
+                                  radius=30.0)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["enforce_uniformity"] == 1
+    for name, g, (args, cap) in zip(names, got, host):
+        assert torch.equal(g.cpu(), enforce_uniformity_plain(*args, radius=30.0, max_num_kpt=cap)), name
+
+
+def test_uniformity_kernel_makes_no_host_sync(cuda):
+    """``enforce_uniformity_cuda`` on the B=16 step's layer-0 shapes under
+    ``torch.cuda.set_sync_debug_mode("error")``: no call of the wrapper
+    synchronises the host (after one warm call that builds the library)."""
+    from ethzasl_brisk_tpu_torch.detect import scale_space
+
+    frames = torch.from_numpy(bench_frames(4)).to(cuda)
+    feature = BriskFeature(**STEP_CONFIG, device="cuda")
+    cfg = feature.config
+    scores, masks = scale_space.layer_score_masks(scale_space.build_pyramid(frames, 4), cfg)
+    cands = [scale_space._layer_candidates(scores[i], masks[i], cfg.layer_cap(i))
+             for i in range(4)]
+    problems = [(*c, min(cfg.max_num_kpt, c[0].shape[1])) for c in cands]
+    enforce_uniformity_cuda(problems, radius=30.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = enforce_uniformity_cuda(problems, radius=30.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, (xs, ys, sc, v, cap) in zip(got, problems):
+        assert torch.equal(g, enforce_uniformity_plain(xs, ys, sc, v, radius=30.0,
+                                                       max_num_kpt=cap))
+
+
+def test_round_latency_probe(cuda):
+    """The round latency behind enforce_uniformity's chain bound: a round
+    (a shared read, a ballot, a barrier, a reduction) takes tens to a few
+    hundred SM cycles."""
+    from ethzasl_brisk_tpu_torch import _kernels, measure
+
+    _kernels.reset_launches()
+    cycles = measure.round_latency_cycles(cuda)
+    assert 10.0 <= cycles <= 2000.0, cycles
+    assert _kernels.LAUNCHES["round_latency"] == 3

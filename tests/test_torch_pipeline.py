@@ -204,6 +204,29 @@ def test_layers_match_jax(step_pair):
         np.testing.assert_array_equal(tss._layer_accept(tc, tcfg)[0].numpy(), np.asarray(ja))
 
 
+def test_detect_accepts_match_jax(step_pair):
+    """detect_keypoints on the CPU: the certificate's accepted counts equal
+    the JAX detection's, and every layer's accept mask of all frames (one
+    ``_layer_accepts`` call for the four layers) equals JAX's per frame."""
+    frames, _, ref = step_pair
+    diag = ref[1]
+    cfg = JaxBriskFeature(**CONFIG).config
+    tcfg = BriskFeature(**CONFIG, device="cpu").config
+    _, tdiag = tss.detect_keypoints(torch.from_numpy(frames), tcfg, with_diagnostics=True)
+    np.testing.assert_array_equal(tdiag.accepted_counts.numpy(), np.asarray(diag.accepted_counts))
+    scores, masks = tss.layer_score_masks(tss.build_pyramid(torch.from_numpy(frames), 4), tcfg)
+    cands = [tss._layer_candidates(scores[i], masks[i], tcfg.layer_cap(i)) for i in range(4)]
+    accepts = tss._layer_accepts(cands, tcfg)
+    for f, frame in enumerate(frames):
+        jscores, jmasks = jss.layer_score_masks(jnp.asarray(frame), cfg)
+        for i in range(4):
+            jc = jss._layer_candidates(jscores[i], jmasks[i], cfg, cfg.layer_cap(i))
+            ja = np.asarray(jss._layer_accept(jc, jscores[i].shape, cfg))
+            np.testing.assert_array_equal(accepts[i][f].numpy(), ja, err_msg=f"frame {f} layer {i}")
+            assert int(tdiag.accepted_counts[f, i]) == int(ja.sum())
+    assert int(tdiag.accepted_counts.sum()) > 0
+
+
 def test_step_matches_jax(step_pair):
     _, port, ref = step_pair
     kps, desc, midx, mdist, dg = port

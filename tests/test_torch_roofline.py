@@ -1,10 +1,11 @@
 """Port parity: ``utils/roofline.py`` against the JAX package's.
 
-``stage_model`` is static shape math: every row but ``describe`` equals
-the JAX row exactly on three shape sets (bench.py's VGA step at B=16, a
-B=128 step with the certified caps, a small single frame). The port's
-``describe`` row counts kernel K2's work (its module docstring) and is
-checked against that count. ``report`` equals JAX's on the same inputs.
+``stage_model`` is static shape math: every row but ``describe`` and
+``uniformity`` equals the JAX row exactly on three shape sets (bench.py's
+VGA step at B=16, a B=128 step with the certified caps, a small single
+frame). The port's ``describe`` row counts kernel K2's work and its
+``uniformity`` row kernel ``enforce_uniformity``'s (the module docstring);
+each is checked against that count. ``report`` equals JAX's on the same inputs.
 ``measure_peaks`` runs on the card only (chip_smoke.py ``[utils]``): here
 it is checked that it refuses a card it cannot have.
 """
@@ -31,8 +32,14 @@ def test_stage_model_equals_jax_but_describe(shape):
     got, want = tr.stage_model(**shape), jr.stage_model(**shape)
     assert got.keys() == want.keys()
     for name in want:
-        if name != "describe":
+        if name not in ("describe", "uniformity"):
             assert got[name] == want[name], name
+    k, problems = shape["max_candidates"], shape["n_layers"] * shape["batch"]
+    u = got["uniformity"]
+    assert u["kind"] == "bw"
+    assert u["gbytes"] == pytest.approx(1e-9 * 14 * k * problems)
+    assert u["gflops"] == pytest.approx(1e-9 * 6 * min(shape["max_keypoints"], k) * k / 2
+                                        * problems)
     p = shape.get("pattern_points", 66)
     slots = shape["describe_slots"] * shape["batch"]
     d = got["describe"]
