@@ -124,9 +124,14 @@ Both steps are timed at batch 16 and 128 with per-stage CUDA events, in
 turns (default, fused, blocked, blocked, fused, default; "blocked" is the
 default step with the blocked uniformity path in the kernel's place), and
 each kernel against its plain version and beside its bound, by CUDA events
-and by its own device time; ``[uniformity]`` sets the kernel against the
-blocked path in turns at B=16, B=128, ``[u16]`` and a camera-grid image,
-with its rounds, the round-latency probe and the chain bound. Any failed check raises; the last line is a
+and by its own device time; ``[uniformity]`` sets the kernel's routes
+(the grid route as the main path takes it, the candidates route it
+replaced) against the
+blocked path in turns at B=16, B=128, B=16 at radius 10 (the candidates
+route's own traffic), ``[u16]`` and a camera-grid image,
+each bitwise (and the grid twin on the card too), with each route's
+rounds, cycles a round, shared memory and CTAs an SM, the round-latency
+probe, the chain bound and the host time of a call. Any failed check raises; the last line is a
 JSON object with ``"ok": true``. Needs one CUDA card; without one it exits
 non-zero and prints no result.
 """
@@ -233,16 +238,10 @@ SEGMENT_SUMS_PER_SOLVE = 12
 # (NVIDIA's data sheet, 700 W), printed beside the measured ones with the
 # float32 and HBM peaks that measure.bound_ms keeps (datasheet_peaks).
 DATASHEET_TENSOR_GFLOPS = dict(peak_gflops_tf32=495e3, peak_gflops_bf16=989e3)
-# [uniformity]: the bound's operations, the reference's paint of an
-# accepted candidate (uniformity-enforcement-inl.h): over the 31 x 31
-# patch, the LUT product and its ceil in float32, the saturating add in
-# int32 (two each a cell).
-UNIFORMITY_PAINT_FP32_OPS = 2 * 31 * 31
-UNIFORMITY_PAINT_INT32_OPS = 2 * 31 * 31
 # Every enforce_uniformity launch inside a counted run is held bitwise
 # against enforce_uniformity_plain on the card (install_uniformity_check);
 # one detection's problem sets a configuration, for the [uniformity] turns.
-UNIFORMITY_CHECKS = {"on": False, "launches": 0, "masks": 0}
+UNIFORMITY_CHECKS = {"on": False, "launches": 0, "masks": 0, "grid layers": 0}
 UNIFORMITY_INPUTS = {}
 # [examples]: live_pipeline over 9 bench frames in batches of 4 (two
 # batches, the second with its boundary pair).
@@ -677,9 +676,9 @@ def install_uniformity_check():
 
     real = uniformity.enforce_uniformity_cuda
 
-    def checked(problems, *, radius, rounds=False):
+    def checked(problems, *, radius, shapes=None, rounds=False, route="auto"):
         problems = list(problems)
-        out = real(problems, radius=radius, rounds=rounds)
+        out = real(problems, radius=radius, shapes=shapes, rounds=rounds, route=route)
         if UNIFORMITY_CHECKS["on"]:
             for mask, (xs, ys, scores, valid, cap) in zip(out[0] if rounds else out, problems):
                 ref = uniformity.enforce_uniformity_plain(xs, ys, scores, valid, radius=radius,
@@ -687,6 +686,10 @@ def install_uniformity_check():
                 assert torch.equal(mask, ref), "enforce_uniformity differs from its plain version"
                 UNIFORMITY_CHECKS["masks"] += 1
             UNIFORMITY_CHECKS["launches"] += 1
+            UNIFORMITY_CHECKS["grid layers"] += sum(
+                uniformity.layer_plan(p[0].shape[1], shape, radius, route,
+                                      uniformity.launch_staging(problems))[0] == "grid"
+                for p, shape in zip(problems, shapes or [None] * len(problems)))
         return out
 
     uniformity.enforce_uniformity_cuda = checked
@@ -705,18 +708,19 @@ def uniformity_checked():
 
 
 def capture_uniformity(run):
-    """(problem sets, cloned; radius) of the one uniformity call of
-    ``run()``'s detection (``scale_space.enforce_uniformity_layers``)."""
+    """(problem sets, cloned; radius; the layers' shapes) of the one
+    uniformity call of ``run()``'s detection
+    (``scale_space.enforce_uniformity_layers``)."""
     from ethzasl_brisk_tpu_torch.detect import scale_space
 
     calls = []
     real = scale_space.enforce_uniformity_layers
 
-    def record(problems, *, radius, block=256):
+    def record(problems, *, radius, block=256, shapes=None):
         problems = list(problems)
         calls.append(([tuple(t.clone() if torch.is_tensor(t) else t for t in p)
-                       for p in problems], radius))
-        return real(problems, radius=radius, block=block)
+                       for p in problems], radius, shapes))
+        return real(problems, radius=radius, block=block, shapes=shapes)
 
     scale_space.enforce_uniformity_layers = record
     try:
@@ -727,7 +731,7 @@ def capture_uniformity(run):
     return calls[0]
 
 
-def blocked_uniformity(problems, *, radius, block=256):
+def blocked_uniformity(problems, *, radius, block=256, shapes=None):
     """The blocked plain version in ``enforce_uniformity_layers``' place:
     the step as it ran before the kernel, for the timing turns."""
     from ethzasl_brisk_tpu_torch.detect import uniformity
@@ -739,9 +743,13 @@ def blocked_uniformity(problems, *, radius, block=256):
 
 def uniformity_work(problems, masks) -> tuple[int, int, int, int, int]:
     """(bytes, int32 ops, float32 ops, candidates, accepts) of one call:
-    each candidate's cx, cy, nsc1 and valid read and its mask byte written
+    each candidate's x, y, score and valid read and its mask byte written
     once; the reference's paint of each accept."""
-    from ethzasl_brisk_tpu_torch.utils.roofline import UNIFORMITY_BYTES_PER_CANDIDATE
+    from ethzasl_brisk_tpu_torch.utils.roofline import (
+        UNIFORMITY_BYTES_PER_CANDIDATE,
+        UNIFORMITY_PAINT_FP32_OPS,
+        UNIFORMITY_PAINT_INT32_OPS,
+    )
 
     cands = sum(p[0].numel() for p in problems)
     accepts = sum(int(m.sum()) for m in masks)
@@ -749,88 +757,146 @@ def uniformity_work(problems, masks) -> tuple[int, int, int, int, int]:
             UNIFORMITY_PAINT_FP32_OPS * accepts, cands, accepts)
 
 
-def uniformity_turns(kernel, problems, radius, dev) -> dict:
-    """The kernel (one launch) and the blocked plain version on the card on
-    one detection's problem sets: bitwise, then event / device ms of each in
-    turns (kernel, plain, plain, kernel); the longest CTA's rounds, the
-    dynamic shared memory, the work and its bound."""
+# The kernel's routes in the [uniformity] turns, by the wrapper's keywords:
+# the grid route as the main path takes it (its candidates staged in shared
+# memory while the launch's CTAs fit the SMs, as at B=16, in device memory
+# past that, as at B=128: launch_staging), and the candidates route, the
+# kernel's earlier design, which the grid replaced.
+UNIFORMITY_LAYOUTS = {"grid": dict(), "candidates": dict(route="candidates")}
+
+
+def ctas_an_sm(shared: int, regs: int, dev) -> int:
+    """Resident CTAs of kernel enforce_uniformity an SM: its threads, its
+    registers and its dynamic shared memory (plus the 1 KB the card keeps
+    a CTA) against the SM's."""
+    from ethzasl_brisk_tpu_torch.detect import uniformity
+
+    props = torch.cuda.get_device_properties(dev)
+    smem_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    limits = [props.max_threads_per_multi_processor // uniformity.WINDOW,
+              smem_sm // (shared + 1024)]
+    if regs:
+        limits.append(65536 // (regs * uniformity.WINDOW))
+    return min(limits)
+
+
+def uniformity_turns(kernel, problems, radius, shapes, dev, regs: int) -> dict:
+    """The kernel (one launch) on each route and the blocked plain version
+    on the card on one detection's problem sets: bitwise (and against the
+    grid twin on the card), then event / device ms of each in turns; each
+    route's longest CTA's rounds, dynamic shared memory and CTAs an SM;
+    the work and its bound."""
     from ethzasl_brisk_tpu_torch import measure
     from ethzasl_brisk_tpu_torch.detect import uniformity
 
-    def run():
-        return kernel(problems, radius=radius)
-
-    def plain():
-        return blocked_uniformity(problems, radius=radius)
-
-    masks, rounds = kernel(problems, radius=radius, rounds=True)
-    assert all(torch.equal(a, b) for a, b in zip(masks, plain())), \
-        "enforce_uniformity differs from its plain version"
-    times = {"kernel": [], "blocked": []}
-    for label in ("kernel", "blocked", "blocked", "kernel"):
-        fn, names = (run, ("uniformity_kernel",)) if label == "kernel" else (plain, None)
-        times[label].append((measure.cuda_time(fn, reps=5, warmup=2),
-                             measure.device_time(fn, dev, names, reps=5, warmup=1)))
-    nbytes, int_ops, fp_ops, cands, accepts = uniformity_work(problems, masks)
-    shared_k = max([p[0].shape[1] for p in problems
-                    if p[0].shape[1] <= uniformity.MAX_SHARED_CANDIDATES] or [0])
-    return dict(times=times, rounds=int(rounds.max()), cands=cands, accepts=accepts,
+    ref = blocked_uniformity(problems, radius=radius)
+    for (xs, ys, sc, v, cap), shape, r in zip(problems, shapes, ref):
+        twin = uniformity.enforce_uniformity_grid_plain(xs, ys, sc, v, rows=shape[0],
+                                                        cols=shape[1], radius=radius,
+                                                        max_num_kpt=cap)
+        assert torch.equal(twin, r), "the grid twin differs from the blocked plain version"
+    layouts, runs = {}, {}
+    staging = uniformity.launch_staging(problems)
+    for label, kw in UNIFORMITY_LAYOUTS.items():
+        masks, rounds = kernel(problems, radius=radius, shapes=shapes, rounds=True, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(masks, ref)), \
+            f"enforce_uniformity ({label}) differs from its plain version"
+        plans = [uniformity.layer_plan(p[0].shape[1], shape, radius, kw.get("route", "auto"),
+                                       staging) for p, shape in zip(problems, shapes)]
+        shared = max(p[4] for p in plans)
+        layouts[label] = dict(rounds=int(rounds.max()), shared=shared,
+                              routes=[p[0] + ("" if p[3] else " (device-staged)") for p in plans],
+                              ctas=ctas_an_sm(shared, regs, dev))
+        runs[label] = lambda kw=kw: kernel(problems, radius=radius, shapes=shapes, **kw)
+    runs["blocked"] = lambda: blocked_uniformity(problems, radius=radius)
+    order = [*UNIFORMITY_LAYOUTS, "blocked"]
+    times = {label: [] for label in order}
+    for label in order + order[::-1]:
+        names = None if label == "blocked" else ("uniformity_kernel",)
+        times[label].append((measure.cuda_time(runs[label], reps=5, warmup=2),
+                             measure.device_time(runs[label], dev, names, reps=5, warmup=1)))
+    nbytes, int_ops, fp_ops, cands, accepts = uniformity_work(problems, ref)
+    return dict(times=times, layouts=layouts, cands=cands, accepts=accepts,
                 ks=[p[0].shape[1] for p in problems], frames=problems[0][0].shape[0],
-                shared=31 * 31 * 4 + 2 * (uniformity.WINDOW // 32) * 4 + 9 * shared_k,
                 bound=measure.bound_ms(nbytes, int32_ops=int_ops, fp32_ops=fp_ops))
 
 
 def uniformity_phase(dev, card: str, kind: str, kernel, launches: int, regs: list) -> dict:
-    """[uniformity]: the kernel against the blocked path in turns at each
-    captured configuration (B=16, B=128, [u16], a camera-grid image), the
-    round-latency probe and the chain bound, the checks made in the
-    counted runs; returns the kernel's row at the B=16 step's shapes."""
+    """[uniformity]: the kernel on each route against the blocked path in
+    turns at each captured configuration (B=16, B=128, B=16 at radius 10,
+    [u16], a camera-grid image), the round-latency probe and the chain bound, cycles a round, the
+    checks made in the counted runs, the host time of a call; returns the
+    kernel's row at the B=16 step's shapes."""
+    import re
+
     from ethzasl_brisk_tpu_torch import measure
     from ethzasl_brisk_tpu_torch.detect import uniformity
 
     cycles = measure.round_latency_cycles(dev)
     assert 1.0 <= cycles <= 5000.0, cycles
     clock = measure.sm_clock_hz(dev)
+    n_regs = max([int(m) for line in regs for m in re.findall(r"Used (\d+) registers", line)]
+                 or [0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"[uniformity] kernel enforce_uniformity ({uniformity.WINDOW} threads a CTA) ptxas: "
           f"{regs}; round-latency probe: {cycles:.2f} SM cycles a round with no accept (a "
           f"shared read, the ballot, a barrier, the reduction), SM clock max "
-          f"{clock / 1e6:.0f} MHz; held bitwise against enforce_uniformity_plain on the card in "
-          f"{UNIFORMITY_CHECKS['launches']} counted launches ({UNIFORMITY_CHECKS['masks']} "
-          f"layer masks) [{kind}; {card}]", flush=True)
-    for label in ("B=16", "B=128", "[u16]", "[camera] radtan grid"):
-        problems, radius = UNIFORMITY_INPUTS[label]
-        t = uniformity_turns(kernel, problems, radius, dev)
-        chain = measure.chain_bound_ms(t["rounds"], cycles, clock)
+          f"{clock / 1e6:.0f} MHz, {sms} SMs; held bitwise against enforce_uniformity_plain on "
+          f"the card in {UNIFORMITY_CHECKS['launches']} counted launches "
+          f"({UNIFORMITY_CHECKS['masks']} layer masks, {UNIFORMITY_CHECKS['grid layers']} on "
+          f"the grid route) [{kind}; {card}]", flush=True)
+    assert UNIFORMITY_CHECKS["grid layers"] > 0, "no counted launch took the grid route"
+    for label in ("B=16", "B=128", "B=16, radius 10", "[u16]", "[camera] radtan grid"):
+        problems, radius, shapes = UNIFORMITY_INPUTS[label]
+        t = uniformity_turns(kernel, problems, radius, shapes, dev, n_regs)
         txt = "; ".join(f"{lab} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in v)
                         for lab, v in t["times"].items())
-        print(f"[uniformity] {label}: {len(problems)} layers x {t['frames']} frames, K {t['ks']}, "
-              f"{t['cands']} candidates, {t['accepts']} accepted; longest CTA {t['rounds']} "
-              f"rounds; dynamic shared {t['shared']} B; bitwise vs blocked; event / device ms "
-              f"in turns: {txt}; bound {t['bound'][0]:.6f} ms ({t['bound'][1]}), chain "
-              f"{chain:.6f} ms [{kind}; {card}]", flush=True)
+        lay = "; ".join(
+            f"{lab}: longest CTA {v['rounds']} rounds, "
+            f"{statistics.median(d for _, d in t['times'][lab]) * 1e-3 * clock / v['rounds']:.0f} "
+            f"cycles a round (median device ms x clock / rounds), chain "
+            f"{measure.chain_bound_ms(v['rounds'], cycles, clock):.6f} ms, dynamic shared "
+            f"{v['shared']} B, {v['ctas']} CTAs an SM, routes {v['routes']}"
+            for lab, v in t["layouts"].items())
+        print(f"[uniformity] {label}: {len(problems)} layers x {t['frames']} frames "
+              f"({len(problems) * t['frames']} CTAs), shapes {shapes}, K {t['ks']}, "
+              f"{t['cands']} candidates, {t['accepts']} accepted; every layout and the grid twin "
+              f"bitwise vs blocked; {lay}; event / device ms in turns: {txt}; bound "
+              f"{t['bound'][0]:.6f} ms ({t['bound'][1]}) [{kind}; {card}]", flush=True)
         if label == "B=16":
-            work, chain16 = uniformity_work(problems, kernel(problems, radius=radius)), chain
-            problems16, radius16 = problems, radius
+            rounds16 = t["layouts"]["grid"]["rounds"]
+            chain16 = measure.chain_bound_ms(rounds16, cycles, clock)
+            problems16, radius16, shapes16 = problems, radius, shapes
+            work = uniformity_work(problems16, kernel(problems16, radius=radius16,
+                                                      shapes=shapes16))
 
     def on_cpu(problems):
         return [tuple(t.cpu() if torch.is_tensor(t) else t for t in p) for p in problems]
 
-    return own_kernel_row(
+    row = own_kernel_row(
         "enforce_uniformity", "ethzasl_brisk_tpu_torch/csrc/uniformity.cu",
         "none: the port's own (greedy uniformity, which the JAX package does in XLA: "
         "ethzasl_brisk_tpu/detect/uniformity.py:69-318)",
-        launches, lambda: kernel(problems16, radius=radius16),
+        launches, lambda: kernel(problems16, radius=radius16, shapes=shapes16),
         lambda cpu=False: blocked_uniformity(on_cpu(problems16) if cpu else problems16,
                                              radius=radius16),
         None, ("uniformity_kernel",), nbytes=work[0], int32_ops=work[1], fp32_ops=work[2],
         chain_ms=chain16)
+    host = {lab: host_us(lambda kw=kw: kernel(problems16, radius=radius16, shapes=shapes16,
+                                               **kw), 200)
+            for lab, kw in UNIFORMITY_LAYOUTS.items()}
+    print(f"[uniformity] B=16 step's four layers: bitwise vs plain; {row_text(row)}; host us a "
+          f"call (mean of 200, launches queued; the cells computed in the kernel): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in host.items()) + f" [{kind}; {card}]",
+          flush=True)
+    return row
 
 
 def build_yardsticks() -> dict:
     """The yardsticks the port never calls, each built into its own library
     with the kernels' flags and ``csrc/`` on the include path, all ``nvcc``
     runs at once: the staged segment_sum body, the two-launch describe's
-    warp kernel, and ``describe.cu`` with its words a ballot a word. Returns
+    warp kernel and ``describe.cu`` with its words a ballot a word. Returns
     {name: (loaded library, ptxas lines)}."""
     import ctypes
     import hashlib
@@ -1914,19 +1980,35 @@ def vo_phase(dev: torch.device, card: str, kind: str, yard: dict) -> dict:
     from ethzasl_brisk_tpu_torch.vo import frontend, sequence
     from ethzasl_brisk_tpu_torch.vo.sequence import FRAME_STAGES, WINDOW_STAGES, run_keyframed
 
-    # The 8-point systems' null vectors: cuSOLVER's batched SVD must hand
-    # back the 9th right singular vector of RANSAC's (512, 8, 9) and
-    # (256, 8, 9) systems.
+    # The 8-point systems' null vectors as RANSAC takes them on the card
+    # (on the host's LAPACK, geometry/ransac.py's _svd): the 9th right
+    # singular vector of its (512, 8, 9) and (256, 8, 9) systems, back on
+    # the card; timed by CUDA events beside the card's own cuSOLVER in
+    # float32 and in float64 (rounded to float32), the routes the host's
+    # replaced.
+    from ethzasl_brisk_tpu_torch.geometry import ransac
+
     rng = np.random.default_rng(VO_SEED)
     for shape in ((512, 8, 9), (256, 8, 9)):
         a = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
-        v = torch.linalg.svd(a.to(dev), full_matrices=True)[2][..., -1, :].cpu()
+        a_dev = a.to(dev)
+        v = ransac._null_vector(a_dev, host=True)
+        assert v.device == a_dev.device
+        v = v.cpu()
         ref = torch.linalg.svd(a.double(), full_matrices=True)[2][..., -1, :]
         resid = float(torch.linalg.vector_norm(a @ v[..., None], dim=(-2, -1)).max())
         align = float((v.double() * ref).sum(-1).abs().min())
         assert resid < 1e-4 and align > 1 - 1e-4, (shape, resid, align)
-        print(f"[vo] SVD {shape} on the card: |A v| <= {resid:.2e}, |v . v_cpu64| >= "
-              f"{align:.6f}", flush=True)
+        forms = {"host LAPACK float32": lambda: ransac._null_vector(a_dev, host=True),
+                 "card cuSOLVER float32": lambda: ransac._null_vector(a_dev),
+                 "card cuSOLVER float64": lambda: ransac._null_vector(a_dev.double()).float()}
+        ms = {k: [] for k in forms}
+        for k in [*forms, *reversed(forms)]:
+            ms[k].append(measure.cuda_time(forms[k], reps=10, warmup=3))
+        print(f"[vo] SVD {shape} of the card's systems: |A v| <= {resid:.2e}, |v . v_cpu64| >= "
+              f"{align:.6f}; event ms in turns: "
+              + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v) for k, v in ms.items())
+              + f" [{kind}; {card}]", flush=True)
 
     t0 = time.perf_counter()
     frames, cam, gt = vo_scene(VO_FRAMES)
@@ -2480,14 +2562,13 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
     command.
 
     Detection, angles and descriptors are held bitwise on every frame and
-    every step's rotation within the [vo] phase's 0.02; both runs are held
-    to the rest of that bar (aligned centres within 5 % of the path, the
-    ATE within 1 %). On a weak pair of the stressed run the card's and the
-    CPU's float32 SVDs (cuSOLVER, LAPACK), apart in the last digits, lead
-    to another translation (step 11 of 24, measured: the sign flipped and
-    0.25 off the CPU's step negated). So one step may be apart: its
-    translation is printed, not bounded, and the bar holds the card's
-    trajectory with the CPU's translation put in at that step alone."""
+    every step's rotation within the [vo] phase's 0.02; no step's
+    translation may leave the CPU's by more than 0.01 (the rays and the
+    8-point hypotheses' SVD run on the host on both devices, so a weak
+    pair, step 11 of the stressed run, no longer takes another translation
+    on the card), and
+    both runs are held to the rest of that bar (aligned centres within 5 %
+    of the path, the ATE within 1 %)."""
     import contextlib
     import io
 
@@ -2545,35 +2626,19 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
         rel = [np.linalg.inv(a[:-1]) @ a[1:] for a in (est_a, ref_a)]
         rot_gap = float(np.abs(rel[0][:, :3, :3] - rel[1][:, :3, :3]).max())
         t_gap = np.linalg.norm(rel[0][:, :3, 3] - rel[1][:, :3, 3], axis=1)
-        flips = [int(i) + 1 for i in np.flatnonzero(t_gap > 0.1)]
+        flips = [int(i) + 1 for i in np.flatnonzero(t_gap > 0.01)]
         assert rot_gap <= 0.02, (label, rot_gap)
-        assert len(flips) <= int(stress), (label, flips)
-        held, held_ate, neg = centre_gap, got["ate"], []
-        if flips:
-            # Every other step is held: the card's trajectory with the
-            # CPU's translation at the step apart, to the bar.
-            (j,) = [s - 1 for s in flips]
-            neg = [round(float(np.linalg.norm(rel[0][j, :3, 3] + rel[1][j, :3, 3])), 4)]
-            steps = rel[0].copy()
-            steps[j, :3, 3] = rel[1][j, :3, 3]
-            fixed = [est_a[0]]
-            for m in steps:
-                fixed.append(fixed[-1] @ m)
-            sc, rot, tr = umeyama_alignment(np.stack(fixed)[:, :3, 3], gt_c)
-            held = float(np.abs((sc * (rot @ np.stack(fixed)[:, :3, 3].T)).T + tr
-                                - aligned[1]).max())
-            held_ate = synthetic.evaluate(fixed, poses)["ate"]
+        assert not flips, (label, flips, t_gap.tolist())
         # The [vo] phase's bar.
-        assert held <= 0.05 * path, (label, held, flips)
-        assert abs(held_ate - exp["ate"]) <= 0.01 * path, (label, held_ate, exp["ate"], flips)
+        assert centre_gap <= 0.05 * path, (label, centre_gap)
+        assert abs(got["ate"] - exp["ate"]) <= 0.01 * path, (label, got["ate"], exp["ate"])
         print(f"[vo tools] vo.synthetic {label}, {n} VGA frames (rendered on the host in "
               f"{render_s:.2f} s): launches {launches}; detection, angles and descriptors "
               f"bitwise the CPU twin's (same draws) on every frame; steps' rotations within "
               f"{rot_gap:.2e}, translation directions within {float(t_gap.max()):.3g} "
-              f"(steps apart by more than 0.1: {flips}, from the CPU's step negated {neg}); "
-              f"aligned camera centres within {centre_gap:.2e}, {held:.2e} with the CPU's "
-              f"translation at those steps; ATE "
-              f"{got['ate']:.5f}, {held_ate:.5f} so (CPU {exp['ate']:.5f}) on a {path:.3f} "
+              f"(step 11 {float(t_gap[10]) if len(t_gap) > 10 else float('nan'):.3g}; none "
+              f"apart by more than 0.01); aligned camera centres within {centre_gap:.2e}; ATE "
+              f"{got['ate']:.5f} (CPU {exp['ate']:.5f}) on a {path:.3f} "
               f"path, RPE-t {got['rpe_t']:.5f}; {card_s / n * 1e3:.1f} ms a frame on the card, "
               f"CPU twin {cpu_s:.2f} s [{kind}; {card}]", flush=True)
 
@@ -2831,6 +2896,12 @@ def main() -> int:
     print(f"[fused path] step B={b}: launches {fused_launches}; keypoints, descriptors "
           f"and matches bitwise equal to the default step", flush=True)
     UNIFORMITY_INPUTS["B=16"] = capture_uniformity(lambda: feature.detect(frames16))
+    # The candidates route's own traffic: radius 10, whose grids at VGA's
+    # two largest layers exceed a CTA's shared memory.
+    feature_r10 = BriskFeature(**{**BENCH_CONFIG, "uniformity_radius": 10.0})
+    UNIFORMITY_INPUTS["B=16, radius 10"] = capture_uniformity(
+        lambda: feature_r10.detect(frames16))
+    del feature_r10
 
     # ---- GPU step against the plain CPU step on the first 4 frames.
     f4 = frames16[:4]
@@ -2849,7 +2920,7 @@ def main() -> int:
         for a, c in zip(cg, cc):
             assert torch.equal(a.cpu(), c), f"candidates layer {i}"
         with uniformity_checked():
-            accept_g = scale_space._layer_accept(cg, cfg)
+            accept_g = scale_space._layer_accept(cg, cfg, tuple(sc_g[i].shape[-2:]))
         assert torch.equal(accept_g.cpu(), scale_space._layer_accept(cc, cfg)), \
             f"accept layer {i}"
     out_g = FramePipeline(feature).step(f4)
@@ -3029,14 +3100,6 @@ def main() -> int:
     # ---- enforce_uniformity against the blocked path in turns, its bounds.
     uniformity_row = uniformity_phase(dev, card, kind, uniformity_kernel,
                                       launches["enforce_uniformity"], uniformity_regs)
-    problems16, radius16 = UNIFORMITY_INPUTS["B=16"]
-    host = {"call": host_us(lambda: uniformity_kernel(problems16, radius=radius16), 200),
-            "cells": host_us(lambda: [uniformity._cells(xs, ys, sc, v, radius16)
-                                      for xs, ys, sc, v, _ in problems16], 200)}
-    print(f"[uniformity] B=16 step's four layers: bitwise vs plain; {row_text(uniformity_row)}; "
-          f"host us a call (mean of 200, launches queued): {host['call']:.1f}, of which the "
-          f"four layers' _cells in torch {host['cells']:.1f} [{kind}; {card}]", flush=True)
-
     # K1-K3 at the main path's B=16 shapes. No one PyTorch call computes
     # any of them (library_ms null).
     kernels = [

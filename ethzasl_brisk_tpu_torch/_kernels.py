@@ -233,7 +233,8 @@ def library() -> ctypes.CDLL:
             lib.brisk_add_latency.argtypes = [ci, ci, vp, vp, vp]  # is_double, adds, cycles, sink, stream
             lib.brisk_add_latency.restype = ci
             lib.brisk_enforce_uniformity.argtypes = [
-                ctypes.POINTER(ctypes.c_int64), ci, vp, vp, vp,  # layers, layer count, lut, rounds, stream
+                ctypes.POINTER(ctypes.c_int64), ci, ctypes.c_float,  # layers, layer count, scaling
+                vp, vp, vp,                                          # lut, rounds, stream
             ]
             lib.brisk_enforce_uniformity.restype = ci
             lib.brisk_round_latency.argtypes = [ci, vp, vp, vp]  # rounds, cycles, sink, stream

@@ -338,9 +338,10 @@ def _layer_candidates(sc: torch.Tensor, mask: torch.Tensor, cap: int):
     return xs, ys, top_scores, valid
 
 
-def _layer_accepts(cands, config: DetectorConfig) -> list[torch.Tensor]:
+def _layer_accepts(cands, config: DetectorConfig, shapes=None) -> list[torch.Tensor]:
     """The accept mask of every layer's candidates: greedy uniformity (one
-    kernel launch for all layers on the card) or, at radius 0, the
+    kernel launch for all layers on the card, each layer's (rows, cols) in
+    ``shapes`` choosing its route there) or, at radius 0, the
     single-bucket cap."""
     caps = [min(config.max_num_kpt, c[0].shape[1]) for c in cands]
     if config.uniformity_radius > 0.0:
@@ -348,13 +349,14 @@ def _layer_accepts(cands, config: DetectorConfig) -> list[torch.Tensor]:
             [(*c, cap) for c, cap in zip(cands, caps)],
             radius=float(config.uniformity_radius),
             block=config.uniformity_block,
+            shapes=shapes,
         )
     return [bucket_keypoints(c[3], cap) for c, cap in zip(cands, caps)]
 
 
-def _layer_accept(cand, config: DetectorConfig) -> torch.Tensor:
+def _layer_accept(cand, config: DetectorConfig, shape=None) -> torch.Tensor:
     """One layer's accept mask (``_layer_accepts`` of that layer alone)."""
-    return _layer_accepts([cand], config)[0]
+    return _layer_accepts([cand], config, [shape])[0]
 
 
 def compact_accepted(xs, ys, top_scores, valid, accept, config, cap=None):
@@ -440,7 +442,7 @@ def detect_keypoints(
         _layer_candidates(scores[i], masks[i], config.layer_cap(i)) for i in range(n_layers)
     ]
     mark("candidates")
-    accepts = _layer_accepts(cands, config)
+    accepts = _layer_accepts(cands, config, [tuple(sc.shape[-2:]) for sc in scores])
     mark("uniformity")
 
     diag = None

@@ -6,17 +6,23 @@ paints a saturating uint8 occupancy grid with a 31x31 radial LUT and
 rejects candidates whose cell already exceeds
 ``sqrt(sqrt(score/max_score)) * 255``.
 
-Three forms of one mask, bit for bit the JAX package's
+Four forms of one mask, bit for bit the JAX package's
 ``enforce_uniformity_sequential`` (and so its blocked ``enforce_uniformity``):
 
 * ``enforce_uniformity_cuda`` launches kernel ``enforce_uniformity``
   (``csrc/uniformity.cu``) once for every layer of a detection: a CTA a
-  (frame, layer) runs the sequential greedy in rounds (a window of
-  ``WINDOW`` candidates tested against a per-candidate occupancy, the first
-  that passes accepted, its paint added to every later candidate in its
-  patch), with no host sync;
-* ``enforce_uniformity_scan_plain`` is its line-by-line torch twin over a
-  batch of problems (the same rounds, window and updates);
+  (frame, layer) computes the cells itself and runs the sequential greedy
+  in rounds (a window of ``WINDOW`` candidates tested, the first that
+  passes accepted and painted), with no host sync. Each layer takes one of
+  two routes, chosen from its shape, the radius and K (``layer_plan``):
+  ``grid``, the reference's occupancy grid in shared memory, an accept
+  painting its 31x31 patch; or ``candidates``, where the grid does not fit
+  (or no shape is given), a per-candidate occupancy that each accept
+  updates at every later candidate in its patch;
+* ``enforce_uniformity_grid_plain`` is the grid route's line-by-line torch
+  twin over a batch of problems (the same rounds, window, grid extent and
+  cell arithmetic);
+* ``enforce_uniformity_scan_plain`` is the candidates route's twin;
 * ``enforce_uniformity_plain`` is the JAX package's blocked, exact
   formulation: candidates go in blocks of ``block``; a block's occupancy
   reading against earlier blocks is a pairwise reduction against the list
@@ -39,12 +45,28 @@ import torch
 
 from ethzasl_brisk_tpu_torch import _kernels
 
-# csrc/uniformity.cu: kThreads (the window), kMaxLayers, and the problems
-# whose cells and occupancy fit in a CTA's shared memory (kMaxShared less
-# the LUT and the warp slots, 9 bytes a candidate).
+# csrc/uniformity.cu: kThreads (the window), kMaxLayers, a CTA's shared
+# memory (kMaxShared) and each route's layout in it. The candidates route:
+# the LUT and two sets of warp slots (kFixedShared), then 13 bytes a
+# candidate (cx, cy, test value, occ); the problems whose candidates fit
+# stage there (kMaxSharedCandidates). The grid route: two sets of warp slots
+# of three words rounded up to 16 bytes (kGridFixedShared), the grid
+# rounded up to 16 bytes, and 8 bytes a candidate (cell, test value) where
+# they fit; a grid of more than kMaxGridBytes takes the candidates route. A
+# layer staged in device memory takes 13 bytes a candidate of scratch
+# (kScratchBytesPerCandidate).
 WINDOW = 512
 MAX_LAYERS = 16
-MAX_SHARED_CANDIDATES = (232448 - (31 * 31 * 4 + 2 * (WINDOW // 32) * 4)) // 9
+MAX_SHARED = 232448
+FIXED_SHARED = 31 * 31 * 4 + 2 * (WINDOW // 32) * 4
+SHARED_BYTES_PER_CANDIDATE = 13
+MAX_SHARED_CANDIDATES = (MAX_SHARED - FIXED_SHARED) // SHARED_BYTES_PER_CANDIDATE
+GRID_FIXED_SHARED = -(-2 * 3 * (WINDOW // 32) * 4 // 16) * 16
+GRID_STAGED_BYTES_PER_CANDIDATE = 8
+MAX_GRID_BYTES = MAX_SHARED - GRID_FIXED_SHARED
+SCRATCH_BYTES_PER_CANDIDATE = 13
+ROUTES = ("auto", "candidates")
+STAGINGS = ("shared", "device")
 
 
 def radial_lut() -> np.ndarray:
@@ -63,6 +85,63 @@ def _cells(xs, ys, scores, valid, radius):
     cx = (xs.to(torch.float32) * scaling + 16.0).to(torch.int32)
     cy = (ys.to(torch.float32) * scaling + 16.0).to(torch.int32)
     return nsc1, cx, cy
+
+
+def grid_shape(rows: int, cols: int, radius: float) -> tuple[int, int]:
+    """The grid route's occupancy grid (rows, cols) for a (rows, cols)
+    layer: the largest cell (``_cells``' float32 arithmetic at the last row
+    and column) plus the patch's 15 and one."""
+    scaling = np.float32(15.0 / radius)
+
+    def extent(n):
+        return int(np.float32(np.float32(n - 1) * scaling) + np.float32(16.0)) + 16
+
+    return extent(rows), extent(cols)
+
+
+def layer_plan(k: int, shape, radius: float, route: str = "auto",
+               staging: str = "shared") -> tuple[str, int, int, bool, int]:
+    """(route, grid rows, grid cols, staged in shared memory, shared bytes)
+    of one layer of K candidates a problem, from Python ints alone: the grid
+    route where a ``shape`` (rows, cols) is given, ``route`` is "auto" and
+    the grid fits a CTA's shared memory, its cells and test values staged
+    behind it where they fit if the launch stages in shared memory
+    (``staging`` "shared", as a layer launched alone does), in device
+    memory if it stages there ("device", ``launch_staging``); else the
+    candidates route (staged in shared memory where K fits, whatever
+    ``staging`` is)."""
+    if route not in ROUTES:
+        raise ValueError(f"route: expected one of {ROUTES}, got {route!r}")
+    if staging not in STAGINGS:
+        raise ValueError(f"staging: expected one of {STAGINGS}, got {staging!r}")
+    if route == "auto" and shape is not None:
+        gh, gw = grid_shape(int(shape[0]), int(shape[1]), radius)
+        if gh * gw <= MAX_GRID_BYTES:
+            grid = GRID_FIXED_SHARED + -(-gh * gw // 16) * 16
+            staged = GRID_STAGED_BYTES_PER_CANDIDATE * k
+            shared = staging == "shared" and grid + staged <= MAX_SHARED
+            return "grid", gh, gw, shared, grid + (staged if shared else 0)
+    shared = k <= MAX_SHARED_CANDIDATES
+    return ("candidates", 0, 0, shared,
+            FIXED_SHARED + (SHARED_BYTES_PER_CANDIDATE * k if shared else 0))
+
+
+_SMS: dict = {}  # device -> its SM count
+
+
+def launch_staging(problems) -> str:
+    """Where a launch's grid-route layers stage their candidates: in shared
+    memory ("shared") when the launch's CTAs (a problem each) fit the
+    card's SMs one an SM, and in device memory ("device") when they do not,
+    so that a CTA takes about half an SM's shared memory and two run on
+    each (the layer-0 grid of a VGA frame at radius 30 is 95 KB, its staged
+    candidates another 80 KB)."""
+    dev = problems[0][0].device
+    sms = _SMS.get(dev)
+    if sms is None:
+        sms = _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctas = sum(p[0].shape[0] for p in problems if p[0].shape[1])
+    return "shared" if ctas <= sms else "device"
 
 
 def _pair_paint(px, py, pn, qx, qy):
@@ -223,6 +302,59 @@ def enforce_uniformity_scan_plain(xs, ys, scores, valid, *, radius: float, max_n
     return accept
 
 
+def enforce_uniformity_grid_plain(xs, ys, scores, valid, *, rows: int, cols: int,
+                                  radius: float, max_num_kpt: int,
+                                  window: int = WINDOW) -> torch.Tensor:
+    """Kernel ``enforce_uniformity``'s grid route in torch, every problem
+    of the (N, K) batch advancing together on its own (rows, cols) layer's
+    ``grid_shape`` occupancy grid: from each problem's cursor, a window of
+    ``window`` candidates reads the grid at their cells; the first that
+    passes is accepted and paints its 31x31 patch (saturating at 255; a
+    zero LUT tap paints nothing, and a NaN paint converts to 0 as on the
+    card), and the cursor moves past it; a window with none moves the
+    cursor by ``window``. A problem stops at its cap or at K."""
+    n, k = xs.shape
+    dev = xs.device
+    nsc1, cx, cy = _cells(xs, ys, scores, valid, radius)
+    gh, gw = grid_shape(rows, cols, radius)
+    cell = torch.where(valid, cy.clamp(15, gh - 16) * gw + cx.clamp(15, gw - 16), 0).to(torch.int64)
+    val = torch.where(valid, nsc1, torch.full_like(nsc1, float("-inf")))
+    cap = min(max_num_kpt, k)
+    lut = torch.from_numpy(radial_lut()).reshape(-1).to(dev)
+    taps = torch.arange(31 * 31, device=dev)
+    rel = (taps // 31 - 15) * gw + taps % 31 - 15
+    grid = torch.zeros((n, gh * gw), dtype=torch.int32, device=dev)
+    accept = torch.zeros((n, k), dtype=torch.bool, device=dev)
+    cursor = torch.zeros((n,), dtype=torch.int64, device=dev)
+    n_acc = torch.zeros((n,), dtype=torch.int64, device=dev)
+    rows_ = torch.arange(n, device=dev)
+    lanes = torch.arange(window, device=dev)
+    while True:
+        live = (cursor < k) & (n_acc < cap)
+        if not bool(live.any()):
+            break
+        i = cursor[:, None] + lanes[None, :]
+        inside = (i < k) & live[:, None]
+        ic = i.clamp(max=k - 1)
+        occ = grid.gather(1, cell.gather(1, ic))
+        ok = inside & ~(val.gather(1, ic) < occ.to(torch.float32))
+        hit = ok.any(dim=1)
+        j = cursor + ok.to(torch.int8).argmax(dim=1)  # the first that passes
+        jc = j.clamp(max=k - 1)
+        accept[rows_[hit], j[hit]] = True
+        centre = torch.where(hit, cell[rows_, jc], 15 * gw + 15)  # a patch inside the grid
+        pn = torch.where(hit, 0.99 * val[rows_, jc], 0.0).to(torch.float32)
+        paint = torch.ceil(lut[None, :] * pn[:, None])
+        paint = torch.where(torch.isnan(paint), 0.0, paint).to(torch.int32)
+        idx = centre[:, None] + rel[None, :]
+        cur = grid.gather(1, idx)
+        grid.scatter_(1, idx, torch.where(hit[:, None] & (lut > 0)[None, :],
+                                          torch.clamp(cur + paint, max=255), cur))
+        n_acc = n_acc + hit.to(torch.int64)
+        cursor = torch.where(live, torch.where(hit, j + 1, cursor + window), cursor)
+    return accept
+
+
 _LUTS: dict = {}  # device -> the LUT on it
 
 
@@ -237,15 +369,25 @@ def _device_lut(dev: torch.device) -> torch.Tensor:
     return lut
 
 
-def enforce_uniformity_cuda(problems, *, radius: float, rounds: bool = False):
+def enforce_uniformity_cuda(problems, *, radius: float, shapes=None, rounds: bool = False,
+                            route: str = "auto"):
     """Kernel ``enforce_uniformity``: the accept mask of every problem set,
     ``(xs, ys, scores, valid, max_num_kpt)`` with (N, K) tensors on one
-    card, in one launch, with no host sync. Returns the (N, K) bool masks
-    and, with ``rounds``, the rounds each CTA made (int32, the problem sets'
-    rows in order)."""
+    card, in one launch, with no host sync. ``shapes`` gives each set's
+    layer (rows, cols), which the grid route needs (None: the candidates
+    route for all); ``launch_staging`` places the grid route's staged
+    candidates. ``route="candidates"`` forces the candidates route where
+    the wrapper would choose the grid (to time and check it). Returns the
+    (N, K) bool masks and, with ``rounds``, the rounds each CTA made (int32, the
+    problem sets' rows in order)."""
     problems = list(problems)
+    shapes = [None] * len(problems) if shapes is None else list(shapes)
+    if len(shapes) != len(problems):
+        raise ValueError(f"shapes: expected {len(problems)}, got {len(shapes)}")
     if len(problems) > MAX_LAYERS:  # more layers than a launch takes: one launch each chunk
-        outs = [enforce_uniformity_cuda(problems[i:i + MAX_LAYERS], radius=radius, rounds=rounds)
+        outs = [enforce_uniformity_cuda(problems[i:i + MAX_LAYERS], radius=radius,
+                                        shapes=shapes[i:i + MAX_LAYERS], rounds=rounds,
+                                        route=route)
                 for i in range(0, len(problems), MAX_LAYERS)]
         if not rounds:
             return [m for part in outs for m in part]
@@ -253,8 +395,11 @@ def enforce_uniformity_cuda(problems, *, radius: float, rounds: bool = False):
     dev = problems[0][0].device
     if dev.type != "cuda":
         raise ValueError(f"enforce_uniformity_cuda needs CUDA tensors, got {dev}")
+    if not radius > 0.0:
+        raise ValueError(f"enforce_uniformity_cuda takes a radius above 0, got {radius}")
+    staging = launch_staging(problems)
     fields, accepts, keep = [], [], []
-    for xs, ys, scores, valid, max_num_kpt in problems:
+    for (xs, ys, scores, valid, max_num_kpt), shape in zip(problems, shapes):
         n, k = xs.shape
         for name, t in (("xs", xs), ("ys", ys), ("scores", scores), ("valid", valid)):
             if t.device != dev or tuple(t.shape) != (n, k):
@@ -264,44 +409,51 @@ def enforce_uniformity_cuda(problems, *, radius: float, rounds: bool = False):
             raise ValueError(f"valid: expected bool, got {valid.dtype}")
         if k >= 2**31:
             raise ValueError("enforce_uniformity takes fewer than 2^31 candidates a problem")
-        nsc1, cx, cy, valid = (t.contiguous() for t in (*_cells(xs, ys, scores, valid, radius),
-                                                          valid))
+        if scores.dtype not in (torch.int32, torch.float32):
+            scores = scores.to(torch.float32)  # _cells' conversion
+        xs, ys, scores, valid = (t.contiguous() for t in (xs.to(torch.int32), ys.to(torch.int32),
+                                                          scores, valid))
+        plan, gh, gw, shared, _ = layer_plan(k, shape, radius, route, staging)
         accept = torch.empty((n, k), dtype=torch.bool, device=dev)
-        occ = (torch.empty((n, k), dtype=torch.uint8, device=dev)
-               if k > MAX_SHARED_CANDIDATES else None)
-        keep += [nsc1, cx, cy, valid, occ]  # alive until the launch: the table holds raw pointers
+        scratch = (None if shared or k == 0 else
+                   torch.empty((n * k * SCRATCH_BYTES_PER_CANDIDATE,), dtype=torch.uint8,
+                               device=dev))
+        keep += [xs, ys, scores, valid, scratch]  # alive until the launch: the table holds raw pointers
         accepts.append(accept)
-        fields += (cx.data_ptr(), cy.data_ptr(), nsc1.data_ptr(), valid.data_ptr(),
-                   accept.data_ptr(), 0 if occ is None else occ.data_ptr(), n, k,
-                   max(0, min(int(max_num_kpt), k)))
+        fields += (xs.data_ptr(), ys.data_ptr(), scores.data_ptr(), valid.data_ptr(),
+                   accept.data_ptr(), 0 if scratch is None else scratch.data_ptr(), n, k,
+                   max(0, min(int(max_num_kpt), k)), int(scores.dtype == torch.int32), gh, gw)
     n_ctas = sum(a.shape[0] for a in accepts if a.shape[1])
     counts = torch.empty((n_ctas,), dtype=torch.int32, device=dev)
     if n_ctas:
         table = (ctypes.c_int64 * len(fields))(*fields)
         _kernels.launch("enforce_uniformity", "enforce_uniformity", dev, table, len(problems),
-                        _device_lut(dev).data_ptr(), counts.data_ptr() if rounds else None)
+                        float(np.float32(15.0 / radius)), _device_lut(dev).data_ptr(),
+                        counts.data_ptr() if rounds else None)
     return (accepts, counts) if rounds else accepts
 
 
-def enforce_uniformity_layers(problems, *, radius: float, block: int = 256) -> list:
+def enforce_uniformity_layers(problems, *, radius: float, block: int = 256, shapes=None) -> list:
     """The accept masks of ``(xs, ys, scores, valid, max_num_kpt)`` problem
-    sets (a detection's layers) on one device: one kernel launch for all of
-    them for CUDA tensors (``block`` unread), the blocked plain version set
-    by set for CPU tensors."""
+    sets (a detection's layers, of (rows, cols) ``shapes``) on one device:
+    one kernel launch for all of them for CUDA tensors (``block`` unread),
+    the blocked plain version set by set for CPU tensors (``shapes``
+    unread)."""
     problems = list(problems)
     if problems[0][0].device.type != "cpu":
-        return enforce_uniformity_cuda(problems, radius=radius)
+        return enforce_uniformity_cuda(problems, radius=radius, shapes=shapes)
     return [enforce_uniformity_plain(xs, ys, scores, valid, radius=radius,
                                      max_num_kpt=cap, block=block)
             for xs, ys, scores, valid, cap in problems]
 
 
 def enforce_uniformity(xs, ys, scores, valid, *, radius: float, max_num_kpt: int,
-                       block: int = 256) -> torch.Tensor:
-    """Greedy uniformity mask over score-descending (N, K) candidates: the
-    kernel for CUDA tensors, the blocked plain version for CPU tensors."""
+                       block: int = 256, shape=None) -> torch.Tensor:
+    """Greedy uniformity mask over score-descending (N, K) candidates of a
+    (rows, cols) ``shape`` layer: the kernel for CUDA tensors, the blocked
+    plain version for CPU tensors."""
     return enforce_uniformity_layers([(xs, ys, scores, valid, max_num_kpt)], radius=radius,
-                                     block=block)[0]
+                                     block=block, shapes=[shape])[0]
 
 
 def enforce_uniformity_sequential(

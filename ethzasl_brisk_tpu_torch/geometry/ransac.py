@@ -4,7 +4,13 @@
 Every hypothesis is drawn, fitted and scored in one batched pass: the
 minimal samples are one (n_hypotheses, k) index tensor, the fits are
 batched SVDs over the hypothesis axis and inlier counting is one (H, N)
-comparison. Nothing syncs the host.
+comparison. The 8-point hypotheses' null vectors are the one exception
+to running where the points lie: they run on the host's LAPACK on every
+device (``_svd`` with ``host``), because on a weak pair cuSOLVER's and
+LAPACK's float32 null vectors lead to different hypotheses, and so to
+another pose on the card than on the CPU (``vo.synthetic --stress``, step
+11; ``tests/test_torch_gpu.py`` prints each SVD site's part). That step is
+the only host sync.
 
 Where the JAX functions take a PRNG key, these take a ``torch.Generator``
 on the points' device, and an optional ``samples`` tensor that replaces
@@ -77,9 +83,19 @@ def _dlt_rows(p1n, p2n):
     return row1, row2
 
 
-def _null_vector(a):
-    """The last right singular vector of each (..., M, 9) system."""
-    return torch.linalg.svd(a, full_matrices=True)[2][..., -1, :]
+def _svd(a, full_matrices: bool = True, host: bool = False):
+    """``torch.linalg.svd`` of ``a`` where it lies or, with ``host``, on
+    the host's LAPACK with the factors moved back to ``a``'s device (so the
+    card takes the CPU's singular vectors)."""
+    if not host or a.device.type == "cpu":
+        return torch.linalg.svd(a, full_matrices=full_matrices)
+    return tuple(f.to(a.device) for f in torch.linalg.svd(a.cpu(), full_matrices=full_matrices))
+
+
+def _null_vector(a, host: bool = False):
+    """The last right singular vector of each (..., M, 9) system (on the
+    host's LAPACK with ``host``)."""
+    return _svd(a, full_matrices=True, host=host)[2][..., -1, :]
 
 
 def _h_normalize(h):
@@ -171,7 +187,7 @@ def _essential_rows(r1, r2):
 
 def _project_essential(e):
     """Project to the essential manifold: singular values (s, s, 0)."""
-    u, s, vh = torch.linalg.svd(e)
+    u, s, vh = _svd(e)
     s_mean = (s[..., 0] + s[..., 1]) * 0.5
     s_new = torch.stack([s_mean, s_mean, torch.zeros_like(s_mean)], -1)
     return u @ (s_new[..., None] * vh)
@@ -184,7 +200,7 @@ def fit_essential_8pt(r1, r2):
     -value constraint projected.
     """
     a = _essential_rows(r1, r2)  # (..., K, 9)
-    e = _null_vector(a).reshape(*a.shape[:-2], 3, 3)
+    e = _null_vector(a, host=True).reshape(*a.shape[:-2], 3, 3)
     return _project_essential(e)
 
 
@@ -238,7 +254,7 @@ def decompose_essential(e, r1, r2, valid):
 
     Returns (R (3,3), t (3,) unit, n_in_front).
     """
-    u, _, vh = torch.linalg.svd(e)
+    u, _, vh = _svd(e)
     # Ensure proper rotations.
     u = u * torch.sign(torch.linalg.det(u))
     vh = vh * torch.sign(torch.linalg.det(vh))[..., None]

@@ -17,10 +17,13 @@ Two parts:
   Sort-bound stages (top_k) get bytes only. Every row but ``describe``
   and ``uniformity`` equals the JAX row for the same shapes. The JAX
   ``uniformity`` row models the TPU's blocked pairwise suppression; the
-  port's counts kernel ``enforce_uniformity`` (``csrc/uniformity.cu``):
-  per candidate its cell, score and flag in and its mask byte out, and per
-  accept the update test of the later candidates (half the list on
-  average), with at most ``max_keypoints`` accepts a (frame, layer).
+  port's counts the reference's own work, which kernel
+  ``enforce_uniformity`` (``csrc/uniformity.cu``) does on its grid route:
+  per candidate its x, y, score and flag read once and its mask byte
+  written once, and per accept the paint of its 31x31 patch (the LUT
+  product and its ceil in float32, the saturating add in int32: four
+  operations a cell), with at most ``max_keypoints`` accepts a (frame,
+  layer). So the yardstick does not move with the kernel's design.
   The JAX ``describe`` row models
   the TPU's one-hot bf16 contraction, work the port never does, so a share
   of the bf16 matmul peak would be fiction here. The port's row counts
@@ -47,11 +50,13 @@ K2_TAPS_PER_POINT = 22
 K2_OPS_PER_POINT = 119 + 30
 K2_WORDS_PER_POINT = 6   # pattern x, y, sigma, scaling, scaling2 in; the value out
 K2_WORDS_PER_SLOT = 3    # key x, key y, frame row
-# enforce_uniformity per candidate: cx, cy, nsc1 (4 B each) and valid in,
-# the mask byte out; int32 operations of one update test (two offsets, two
-# range tests, the loop's step and compare).
+# Greedy uniformity per candidate: x, y, score (4 B each) and valid in, the
+# mask byte out; per accept, the reference's paint of its 31 x 31 patch
+# (uniformity-enforcement-inl.h): the LUT product and its ceil in float32,
+# the saturating add in int32, two operations each a cell.
 UNIFORMITY_BYTES_PER_CANDIDATE = 14
-UNIFORMITY_OPS_PER_UPDATE = 6
+UNIFORMITY_PAINT_FP32_OPS = 2 * 31 * 31
+UNIFORMITY_PAINT_INT32_OPS = 2 * 31 * 31
 
 
 def _timed_ms(fn, device: torch.device, reps: int, iters: int = 4) -> float:
@@ -153,7 +158,8 @@ def stage_model(
     k = max_candidates
     accepts = min(max_keypoints, k)
     stages["uniformity"] = dict(
-        gflops=1e-9 * UNIFORMITY_OPS_PER_UPDATE * accepts * (k / 2) * n_layers * batch,
+        gflops=1e-9 * (UNIFORMITY_PAINT_FP32_OPS + UNIFORMITY_PAINT_INT32_OPS) * accepts
+        * n_layers * batch,
         gbytes=1e-9 * UNIFORMITY_BYTES_PER_CANDIDATE * k * n_layers * batch,
         kind="bw",
     )

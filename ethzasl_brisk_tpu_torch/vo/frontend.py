@@ -14,9 +14,12 @@ Monocular scale is unobservable; translation is left at unit norm
 norms for a benchmark's ATE, or the BA layer).
 
 The front-end runs on its feature's device (the card unless the feature
-was built with ``device="cpu"``). Where the JAX methods take a PRNG key,
-these take a ``torch.Generator`` on that device; an optional
-``draw(n_hyp, k, weights) -> samples`` callable replaces the RANSAC draw.
+was built with ``device="cpu"``), but for the matches' rays and the
+8-point hypotheses' SVD, which run on the host on every device so that the
+card takes the CPU's hypotheses (``relative_pose``). Where the JAX methods
+take a PRNG key, these take a ``torch.Generator`` on that device; an
+optional ``draw(n_hyp, k, weights) -> samples`` callable replaces the
+RANSAC draw.
 """
 from __future__ import annotations
 
@@ -134,8 +137,12 @@ class VoFrontend:
         best = best.to(torch.int64)
         pa = torch.stack([kp_a.x, kp_a.y], dim=-1)
         pb = torch.stack([kp_b.x[best], kp_b.y[best]], dim=-1)
-        ra3 = self.camera.unproject(pa.to(dtype))
-        rb3 = self.camera.unproject(pb.to(dtype))
+        # The rays on the host on every device: the card's vector norm rounds
+        # otherwise than the CPU's in the last bit, and on a weak pair that
+        # bit picks another RANSAC hypothesis (geometry/ransac.py's docstring).
+        dev = pa.device
+        ra3 = self.camera.unproject(pa.to(dtype).cpu()).to(dev)
+        rb3 = self.camera.unproject(pb.to(dtype).cpu()).to(dev)
         ra = ra3[..., :2] / ra3[..., 2:3]
         rb = rb3[..., :2] / rb3[..., 2:3]
         mark("match")

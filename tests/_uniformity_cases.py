@@ -74,8 +74,22 @@ def case(name):
         k = tu.MAX_SHARED_CANDIDATES + 100
         return (*_candidates(rng, 1, k, 480, 640, np.int32, [k - 50]), 480, 640, 30.0,
                 UNCAPPED)
+    if name == "int_above_2_24":
+        # int32 scores from 2^24 to 2^31 - 1: their float32 conversion
+        # rounds, so neighbouring scores share a float.
+        xs, ys, _, valid = _candidates(rng, 2, 600, 120, 160, np.int32, [600, 520])
+        scores = -np.sort(-rng.integers(2**24, 2**31 - 1, (2, 600)), axis=1).astype(np.int32)
+        scores[:, 100:140] = scores[:, 100:101] - np.arange(40)  # a run one apart
+        scores = np.where(valid, scores, INT32_MIN).astype(np.int32)
+        return xs, ys, scores, valid, 120, 160, 19.0, UNCAPPED
+    if name == "r10_vga_candidates":
+        # Radius 10 on a VGA layer: the grid (750 x 990 bytes) exceeds a
+        # CTA's shared memory, so the kernel takes the candidates route.
+        return (*_candidates(rng, 2, 900, 480, 640, np.int32, [900, 700]), 480, 640, 10.0,
+                UNCAPPED)
     raise KeyError(name)
 
 
 CASES = ["r10_int_uncapped", "r19_f32_cap40", "r30_int_cap1", "r45_f32_uncapped",
-         "no_valid_first_invalid", "border_duplicates", "straddle", "beyond_shared_memory"]
+         "no_valid_first_invalid", "border_duplicates", "straddle", "beyond_shared_memory",
+         "int_above_2_24", "r10_vga_candidates"]

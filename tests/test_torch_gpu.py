@@ -17,8 +17,10 @@ from ethzasl_brisk_tpu_torch.describe.sampler import smoothed_intensity, smoothe
 from ethzasl_brisk_tpu_torch.detect.uniformity import (
     WINDOW,
     enforce_uniformity_cuda,
+    enforce_uniformity_grid_plain,
     enforce_uniformity_plain,
     enforce_uniformity_scan_plain,
+    layer_plan,
 )
 from ethzasl_brisk_tpu_torch.frames import bench_frames
 from ethzasl_brisk_tpu_torch.kernels.harris import (
@@ -973,7 +975,8 @@ def test_relative_pose_on_card_matches_cpu(cuda):
     """``VoFrontend`` on the card against a ``device="cpu"`` twin on two
     240 x 320 frames: detection, angles and descriptors bitwise, and with
     the same draws the relative pose within 1e-3
-    (the card's and the CPU's float32 SVDs differ in the last digits) and
+    (the card's Sampson scores, projections and refinement differ from the
+    CPU's in the last digits) and
     the inlier counts within 2 % and 2. The default draw (a
     generator on the card) runs without a host sync error."""
     from ethzasl_brisk_tpu_torch.geometry.ransac import sample_indices
@@ -1374,42 +1377,66 @@ def test_add_latency_probe(cuda):
 
 @pytest.mark.parametrize("name", UNIFORMITY_CASES)
 def test_uniformity_kernel_matches_plain(cuda, name):
-    """Kernel ``enforce_uniformity`` against both plain versions, the
-    blocked one on the CPU and on the card and the scan twin on the CPU, bit
-    for bit, over the CPU parity tests' problems (the last beyond the shared
-    memory: its device-memory route); one launch; each CTA's rounds between
-    its accepts and its accepts plus its windows."""
+    """Kernel ``enforce_uniformity`` on each route it can take for the
+    problem (the grid where the layer's grid fits, its candidates staged as
+    the wrapper stages them: in shared memory for the case's few problems
+    where they fit, in device memory for the case's problems repeated past
+    the card's SM count; the candidates route always) against every plain
+    version, the blocked one on the CPU and on the card and the grid and
+    scan twins on the CPU, bit for bit, over the CPU parity tests'
+    problems; one launch a call; each CTA's rounds between its accepts and
+    its accepts plus its windows."""
     from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.detect.uniformity import launch_staging
 
-    xs, ys, scores, valid, _, _, radius, cap = uniformity_case(name)
+    xs, ys, scores, valid, rows, cols, radius, cap = uniformity_case(name)
     args = [torch.from_numpy(a) for a in (xs, ys, scores, valid)]
     kw = dict(radius=radius, max_num_kpt=cap)
-    _kernels.reset_launches()
-    (got,), rounds = enforce_uniformity_cuda([(*(a.to(cuda) for a in args), cap)], radius=radius,
-                                             rounds=True)
-    torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["enforce_uniformity"] == 1
-    ref = enforce_uniformity_plain(*args, **kw)
-    assert torch.equal(got.cpu(), ref)
-    assert torch.equal(got.cpu(), enforce_uniformity_scan_plain(*args, **kw))
-    assert torch.equal(got, enforce_uniformity_plain(*(a.to(cuda) for a in args), **kw))
-    acc = ref.sum(dim=1).to(torch.int32)
     k = xs.shape[1]
-    assert bool((rounds.cpu() >= acc).all()) and bool((rounds.cpu() <= acc + -(-k // WINDOW)).all())
+    ref = enforce_uniformity_plain(*args, **kw)
+    assert torch.equal(ref, enforce_uniformity_scan_plain(*args, **kw))
+    assert torch.equal(ref, enforce_uniformity_grid_plain(*args, rows=rows, cols=cols, **kw))
+    assert torch.equal(ref.to(cuda), enforce_uniformity_plain(*(a.to(cuda) for a in args), **kw))
+    grid_fits = layer_plan(k, (rows, cols), radius)[0] == "grid"
+    assert grid_fits == (name != "r10_vga_candidates")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    wide = np.arange(sms + 1) % xs.shape[0]  # more CTAs than SMs: device-staged
+    runs = [("candidates", None)] + ([("auto", None), ("auto", wide)] if grid_fits else [])
+    for route, rows_ in runs:
+        a_, ref_ = (args, ref) if rows_ is None else ([a[rows_] for a in args], ref[rows_])
+        problems = [(*(a.to(cuda) for a in a_), cap)]
+        assert launch_staging(problems) == ("shared" if rows_ is None else "device")
+        _kernels.reset_launches()
+        (got,), rounds = enforce_uniformity_cuda(problems, radius=radius, shapes=[(rows, cols)],
+                                                 rounds=True, route=route)
+        torch.cuda.synchronize()
+        run = (route, "shared" if rows_ is None else "device")
+        assert _kernels.LAUNCHES["enforce_uniformity"] == 1
+        assert torch.equal(got.cpu(), ref_), run
+        acc = ref_.sum(dim=1).to(torch.int32)
+        assert bool((rounds.cpu() >= acc).all()), run
+        assert bool((rounds.cpu() <= acc + -(-k // WINDOW)).all()), run
 
 
 def test_uniformity_kernel_layers_in_one_launch(cuda):
-    """Four problem sets of one radius, one of them beyond the shared
-    memory, in one launch: each set's mask bitwise its plain version."""
+    """Four problem sets of one radius in one launch, the routes mixed:
+    three on the grid (the last with more candidates than fit beside its
+    grid, so staged in device memory), one on the candidates route for want
+    of a shape; each set's mask bitwise its plain version."""
     from ethzasl_brisk_tpu_torch import _kernels
 
     names = ["r30_int_cap1", "no_valid_first_invalid", "straddle", "beyond_shared_memory"]
     sets = [uniformity_case(n) for n in names]
     assert {s[6] for s in sets} == {30.0}
     host = [([torch.from_numpy(a) for a in s[:4]], s[7]) for s in sets]
+    shapes = [s[4:6] for s in sets]
+    shapes[1] = None
+    plans = [layer_plan(s[0].shape[1], shape, 30.0) for s, shape in zip(sets, shapes)]
+    assert [p[0] for p in plans] == ["grid", "candidates", "grid", "grid"]
+    assert [p[3] for p in plans] == [True, True, True, False]
     _kernels.reset_launches()
     got = enforce_uniformity_cuda([(*(a.to(cuda) for a in args), cap) for args, cap in host],
-                                  radius=30.0)
+                                  radius=30.0, shapes=shapes)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["enforce_uniformity"] == 1
     for name, g, (args, cap) in zip(names, got, host):
@@ -1417,9 +1444,11 @@ def test_uniformity_kernel_layers_in_one_launch(cuda):
 
 
 def test_uniformity_kernel_makes_no_host_sync(cuda):
-    """``enforce_uniformity_cuda`` on the B=16 step's layer-0 shapes under
-    ``torch.cuda.set_sync_debug_mode("error")``: no call of the wrapper
-    synchronises the host (after one warm call that builds the library)."""
+    """``enforce_uniformity_cuda`` on the B=16 step's layer shapes under
+    ``torch.cuda.set_sync_debug_mode("error")``, on the grid route (the
+    layers' shapes given) and on the candidates route: no call of the
+    wrapper synchronises the host (after one warm call that builds the
+    library)."""
     from ethzasl_brisk_tpu_torch.detect import scale_space
 
     frames = torch.from_numpy(bench_frames(4)).to(cuda)
@@ -1429,16 +1458,19 @@ def test_uniformity_kernel_makes_no_host_sync(cuda):
     cands = [scale_space._layer_candidates(scores[i], masks[i], cfg.layer_cap(i))
              for i in range(4)]
     problems = [(*c, min(cfg.max_num_kpt, c[0].shape[1])) for c in cands]
-    enforce_uniformity_cuda(problems, radius=30.0)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        got = enforce_uniformity_cuda(problems, radius=30.0)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    for g, (xs, ys, sc, v, cap) in zip(got, problems):
-        assert torch.equal(g, enforce_uniformity_plain(xs, ys, sc, v, radius=30.0,
-                                                       max_num_kpt=cap))
+    shapes = [tuple(sc.shape[-2:]) for sc in scores]
+    assert all(layer_plan(p[0].shape[1], s, 30.0)[0] == "grid" for p, s in zip(problems, shapes))
+    for route in ("auto", "candidates"):
+        enforce_uniformity_cuda(problems, radius=30.0, shapes=shapes, route=route)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = enforce_uniformity_cuda(problems, radius=30.0, shapes=shapes, route=route)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for g, (xs, ys, sc, v, cap) in zip(got, problems):
+            assert torch.equal(g, enforce_uniformity_plain(xs, ys, sc, v, radius=30.0,
+                                                           max_num_kpt=cap)), route
 
 
 def test_round_latency_probe(cuda):
@@ -1451,3 +1483,160 @@ def test_round_latency_probe(cuda):
     cycles = measure.round_latency_cycles(cuda)
     assert 10.0 <= cycles <= 2000.0, cycles
     assert _kernels.LAUNCHES["round_latency"] == 3
+
+
+VO_STEP = 11  # the stressed synthetic scene's step where the card once took another translation
+
+
+def _shared_draw(seed: int):
+    """RANSAC draws that hand the card and the CPU the same samples (as
+    ``chip_smoke.py``'s ``shared_draw``)."""
+    from ethzasl_brisk_tpu_torch.geometry.ransac import sample_indices
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(n_hyp, k, weights):
+        u = torch.rand((n_hyp, k), generator=gen, dtype=torch.float64)
+        return sample_indices(u.to(weights.device), weights)
+    return draw
+
+
+def _recorded_vo_steps(frames, device):
+    """``vo.synthetic``'s stressed run on ``device`` with the shared draws:
+    its poses and, for each step, the pixels its rays came from and the
+    inputs and outputs of its RANSAC and its decomposition."""
+    from ethzasl_brisk_tpu_torch.geometry.cameras import PinholeCamera
+    from ethzasl_brisk_tpu_torch.vo import frontend, synthetic
+
+    steps, pixels = [], []
+    ransac, decompose = frontend.ransac_essential, frontend.decompose_essential
+    unproject = PinholeCamera.unproject
+
+    def rec_unproject(self, kp):
+        pixels.append(kp.clone())
+        return unproject(self, kp)
+
+    def rec_ransac(*args, **kw):
+        out = ransac(*args, **kw)
+        steps.append(dict(pixels=pixels[-2:], ransac=(args, kw, out)))
+        return out
+
+    def rec_decompose(*args, **kw):
+        out = decompose(*args, **kw)
+        steps[-1]["decompose"] = (args, out)
+        return out
+
+    frontend.ransac_essential, frontend.decompose_essential = rec_ransac, rec_decompose
+    PinholeCamera.unproject = rec_unproject
+    try:
+        poses = synthetic.run(frames, True, device, draw=_shared_draw(3))
+    finally:
+        frontend.ransac_essential, frontend.decompose_essential = ransac, decompose
+        PinholeCamera.unproject = unproject
+    return poses, steps
+
+
+def _svd_sites(card: set, card64: set = frozenset()):
+    """A stand-in for ``geometry.ransac._svd`` that runs the RANSAC sites
+    named in ``card`` on the card's cuSOLVER, those in ``card64`` on the
+    card's cuSOLVER in float64 (the factors rounded to float32), and the
+    rest on the host's LAPACK: "hypotheses" (the 8-point systems' null
+    vectors, on the host in the port), "refit" (the inlier system's),
+    "project" (E onto the essential manifold) and "decompose" (the last
+    three on the card in the port)."""
+    import sys
+
+    from ethzasl_brisk_tpu_torch.geometry import ransac
+
+    svd = ransac._svd
+
+    def site_svd(a, full_matrices=True, host=False):
+        caller = sys._getframe(1).f_code.co_name
+        site = {"_null_vector": "hypotheses" if a.dim() == 3 else "refit",
+                "_project_essential": "project",
+                "decompose_essential": "decompose"}[caller]
+        if site in card64:
+            return tuple(f.to(a.dtype) for f in svd(a.double(), full_matrices=full_matrices))
+        return svd(a, full_matrices=full_matrices, host=site not in card)
+    return site_svd
+
+
+def test_stressed_vo_step_11_matches_the_cpu(cuda, capsys):
+    """``vo.synthetic --stress``'s step 11 on the card against the CPU, with
+    the same draws. The step's matches, samples and rays (made on the host)
+    are bitwise the CPU's, and its translation is the CPU's. The evidence
+    for that route is printed: the RANSAC and decomposition on the card
+    from the rays the card makes itself or from the host's, with each
+    float32 SVD site on the card's cuSOLVER or on the host's LAPACK, and
+    the translation each gives beside the CPU's; it takes both the host's
+    rays and the host's SVD of the 8-point systems, and no other site. The
+    card's own float64 route is printed too: the rays and the 8-point
+    systems' null vectors in float64 on the card, rounded to float32."""
+    from ethzasl_brisk_tpu_torch.geometry import PinholeCamera, ransac
+    from ethzasl_brisk_tpu_torch.vo import synthetic
+
+    frames, _ = synthetic.render_frames(VO_STEP + 1, stress=True)
+    est_g, steps_g = _recorded_vo_steps(frames, cuda)
+    est_c, steps_c = _recorded_vo_steps(frames, "cpu")
+    j = VO_STEP - 1
+    (args_g, kw_g, out_g), (args_c, kw_c, out_c) = steps_g[j]["ransac"], steps_c[j]["ransac"]
+    for g, c in zip((*args_g[1:4], kw_g["samples"]), (*args_c[1:4], kw_c["samples"])):
+        assert torch.equal(g.cpu(), c), "the step's rays, matches or samples differ"
+    r_cpu, t_cpu, n_cpu = steps_c[j]["decompose"][1]
+    lines = [f"CPU: n_inliers {int(out_c[2])}, in front {int(n_cpu)}, t {t_cpu.tolist()}",
+             f"card: n_inliers {int(out_g[2])}, t {steps_g[j]['decompose'][1][1].cpu().tolist()}"]
+    cam = PinholeCamera(*synthetic.CAMERA)
+    made = {"card": [], "card64": []}
+    for name, px, host_ray in zip(("ra", "rb"), steps_g[j]["pixels"], args_g[1:3]):
+        for rays, dtype in (("card", torch.float32), ("card64", torch.float64)):
+            r3 = cam.unproject(px.to(cuda, dtype))
+            made[rays].append((r3[..., :2] / r3[..., 2:3]).to(torch.float32))
+            d = (made[rays][-1] - host_ray).abs()
+            lines.append(f"{name} made on the card in {dtype}: {int((d > 0).sum())} of "
+                         f"{d.numel()} apart from the host's, max {float(d.max()):.3e}")
+    made["host"] = list(args_g[1:3])
+    sites = ["hypotheses", "refit", "project", "decompose"]
+    runs = [(rays, card, ()) for rays in ("card", "host")
+            for card in (sites, *[[s] for s in sites], [])]
+    runs += [("card64", sites[1:], ("hypotheses",)), ("host", sites[1:], ("hypotheses",))]
+    svd = ransac._svd
+    for rays, card, card64 in runs:
+        ra, rb = made[rays]
+        ransac._svd = _svd_sites(set(card), set(card64))
+        try:
+            e, inl, n_inl = ransac.ransac_essential(None, ra, rb, args_g[3], **kw_g)
+            r, t, n_front = ransac.decompose_essential(e, ra, rb, inl)
+        finally:
+            ransac._svd = svd
+        e_gap = min(float((e.cpu() - out_c[0]).abs().max()),
+                    float((e.cpu() + out_c[0]).abs().max()))
+        lines.append(
+            f"{rays} rays, cuSOLVER at {card or 'no site'}"
+            f"{', in float64 at ' + str(list(card64)) if card64 else ''}: n_inliers "
+            f"{int(n_inl)} (mask equal {bool(torch.equal(inl.cpu(), out_c[1]))}), in front "
+            f"{int(n_front)}, |t - t_cpu| {float((t.cpu() - t_cpu).norm()):.3e}, "
+            f"|E -+ E_cpu| {e_gap:.3e}")
+    rel = [np.linalg.inv(np.asarray(e_[j])) @ np.asarray(e_[j + 1]) for e_ in (est_g, est_c)]
+    gap = float(np.linalg.norm(rel[0][:3, 3] - rel[1][:3, 3]))
+    lines.append(f"the port's step {VO_STEP}: |t_card - t_cpu| {gap:.3e}")
+    with capsys.disabled():
+        print("\n[vo step 11] " + "\n[vo step 11] ".join(lines))
+    assert gap < 1e-3, lines
+
+
+def test_uniformity_launch_staging_follows_the_sm_count(cuda):
+    """A launch with more CTAs than the card has SMs stages its grid-route
+    candidates in device memory, one that fits stages them in shared
+    memory; both bitwise the blocked plain version."""
+    from ethzasl_brisk_tpu_torch.detect.uniformity import launch_staging
+
+    xs, ys, scores, valid, rows, cols, radius, cap = uniformity_case("r30_int_cap1")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n, want in ((sms, "shared"), (sms + 1, "device")):
+        rows_ = np.arange(n) % xs.shape[0]
+        args = [torch.from_numpy(a[rows_]) for a in (xs, ys, scores, valid)]
+        problems = [(*(a.to(cuda) for a in args), 40)]
+        assert launch_staging(problems) == want
+        (got,) = enforce_uniformity_cuda(problems, radius=radius, shapes=[(rows, cols)])
+        assert torch.equal(got.cpu(), enforce_uniformity_plain(*args, radius=radius,
+                                                               max_num_kpt=40)), want

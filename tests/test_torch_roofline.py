@@ -4,7 +4,7 @@
 ``uniformity`` equals the JAX row exactly on three shape sets (bench.py's
 VGA step at B=16, a B=128 step with the certified caps, a small single
 frame). The port's ``describe`` row counts kernel K2's work and its
-``uniformity`` row kernel ``enforce_uniformity``'s (the module docstring);
+``uniformity`` row the reference's paint of each accept (the module docstring);
 each is checked against that count. ``report`` equals JAX's on the same inputs.
 ``measure_peaks`` runs on the card only (chip_smoke.py ``[utils]``): here
 it is checked that it refuses a card it cannot have.
@@ -38,7 +38,9 @@ def test_stage_model_equals_jax_but_describe(shape):
     u = got["uniformity"]
     assert u["kind"] == "bw"
     assert u["gbytes"] == pytest.approx(1e-9 * 14 * k * problems)
-    assert u["gflops"] == pytest.approx(1e-9 * 6 * min(shape["max_keypoints"], k) * k / 2
+    # The reference's work: each accept paints its 31 x 31 patch, four
+    # operations a cell, whatever K is.
+    assert u["gflops"] == pytest.approx(1e-9 * 4 * 31 * 31 * min(shape["max_keypoints"], k)
                                         * problems)
     p = shape.get("pattern_points", 66)
     slots = shape["describe_slots"] * shape["batch"]
