@@ -9,15 +9,18 @@ step, the elementwise ``atan2f`` and ``sincosf`` and the camera grid's
 ``walk_angles`` of ``angle.cu``; the BA's ordered segment sums, a call
 site's sums in one launch, of ``segment_sum.cu``; greedy uniformity,
 every layer of a detection in one launch, ``enforce_uniformity`` of
-``uniformity.cu``) from
+``uniformity.cu``; the integer candidate masks, the 2-D maxima and the
+3-D checks of every layer of a detection in one launch, ``score_masks`` of
+``masks.cu``) from
 ``ethzasl_brisk_tpu_torch/csrc`` and checks each against its plain torch
 version at the shapes of the path that runs it (K1 and K3 on the four
 pyramid layers in one launch, and on each alone; K2 on the unrotated
 and the rotated taps ``describe_rotated`` samples, the rotation from the
 plain chain; ``describe_rotated`` in every phase that describes uint8
 frames; ``enforce_uniformity`` in every counted run that detects with a
-uniformity radius, against its blocked plain version on the card). Beside
-them it builds two yardsticks that the port never calls:
+uniformity radius, against its blocked plain version on the card;
+``score_masks`` at odd shapes and at the main step's layers, default and
+fused). Beside them it builds yardsticks that the port never calls:
 the earlier two-launch describe's second kernel (a warp a keypoint, after
 K2's unrotated samples) and ``describe.cu`` with its words a ballot a
 word, each timed in turns against ``describe_rotated``.
@@ -27,16 +30,17 @@ the launch counters set to 0 just before it and read just after:
 
 * the main path, ``FramePipeline.step`` with the benchmark configuration
   on 16 VGA frames (K1 1 launch for the four pyramid layers,
-  ``enforce_uniformity`` 1, ``describe_rotated`` 1, K2 and the orientation
-  kernel 0), compared with the plain CPU step;
+  ``score_masks`` 1, ``enforce_uniformity`` 1, ``describe_rotated`` 1, K2
+  and the orientation kernel 0), compared with the plain CPU step;
 * the fused path, the same step with ``fused_mask=True`` (K3 1 launch for
-  the four layers, K1 0, ``describe_rotated`` 1, K2 0), bit-equal to the
-  main path;
+  the four layers, ``score_masks`` 1 on K3's masks, K1 0,
+  ``describe_rotated`` 1, K2 0), bit-equal to the main path;
 * the README quick start: two VGA frames written and read back as PGM,
   ``BriskFeature(octaves=0, ..., fused_mask=True).detect_and_compute`` on
   each host image (the entry point moves it to the card) and
-  ``radius_match_best`` (K3 once per image), compared with the same calls
-  on a ``device="cpu"`` feature;
+  ``radius_match_best`` (K3 once per image; ``score_masks`` none: one
+  layer, K3's mask is the answer), compared with the same calls on a
+  ``device="cpu"`` feature;
 * the 16-bit pipeline: ``detect_and_compute`` on one VGA uint16 frame (a
   bench frame in the high byte, a seeded low byte) with float Harris
   scores, float warps, the float integral and the float sampler, torch ops
@@ -120,6 +124,13 @@ the launch counters set to 0 just before it and read just after:
   and the kernels T, C and G1 summed against theirs (``t + 8``,
   ``.clone()`` and ``torch.gather``).
 
+Every uint8 Harris detection in these paths launches ``score_masks``
+once, beside its K1 or K3 launch (the VO loop's, the tools', the
+examples', the camera grid's and the facades' too); the 16-bit and AST
+paths launch it never. ``[masks]`` holds it bitwise against the plain chain
+at 61 x 83 and 96 x 130 (noise, flat, sharp boxes; thresholds 0 and 20)
+and at the B=16 and B=128 step's layers, default and fused, and times the
+two in turns beside the bound.
 Both steps are timed at batch 16 and 128 with per-stage CUDA events, in
 turns (default, fused, blocked, blocked, fused, default; "blocked" is the
 default step with the blocked uniformity path in the kernel's place), and
@@ -195,7 +206,7 @@ AST_STAGES = ("pyramid", "layers", "candidates", "pass1", "aux", "pass2", "descr
 SYSTEM_KERNELS = ("harris_score_i32", "harris_score_mask", "smoothed_intensity",
                   "smoothed_intensity_v1", "describe_rotated", "describe_rotated_v1",
                   "brisk_orientation", "atan2f_elementwise", "sincosf_elementwise",
-                  "walk_angles", "segment_sum", "enforce_uniformity")
+                  "walk_angles", "segment_sum", "enforce_uniformity", "score_masks")
 # The v1 engine on the bench frames. bench.py's AST threshold 70 finds no
 # v1 corner on these smoothed-noise frames (their local contrast stays under
 # 70; v2's threshold map lowers its effective threshold there), so [v1]
@@ -280,6 +291,14 @@ SINCOSF_FP64_OPS = 24
 # the fractions 2, six lerps of 3, the offsets 2, atan2f, the scale 1; and
 # sincosf's float64 operations where it walks along an angle.
 WALK_FP32_OPS = 1 + 4 + 2 + 6 * 3 + 2 + ATAN2F_OPS + 1
+# Integer operations of kernel score_masks (csrc/masks.cu): a pixel's 2-D
+# test 25 (the threshold and four border compares, 8 neighbour compares,
+# their 12 ands); a 2-D survivor's probes 275 (six axis terms of 7: multiply,
+# add, divide, multiply-subtract, two compares, and; ten bilinear sums of 11
+# int64 operations, each counted as 2; the maximum of 9; two scalings and
+# compares 4).
+MASKS_OPS_PER_PIXEL = 25
+MASKS_OPS_PER_SURVIVOR = 6 * 7 + 10 * 11 * 2 + 9 + 4
 # The earlier segment_sum body, the staged one (a block a segment, tiles
 # of rows staged in shared memory, a launch a sum), built beside the
 # kernels as the yardstick [vo ba] times the grouped kernel against; the
@@ -814,7 +833,8 @@ def uniformity_turns(kernel, problems, radius, shapes, dev, regs: int) -> dict:
     for label in order + order[::-1]:
         names = None if label == "blocked" else ("uniformity_kernel",)
         times[label].append((measure.cuda_time(runs[label], reps=5, warmup=2),
-                             measure.device_time(runs[label], dev, names, reps=5, warmup=1)))
+                             measure.device_time(runs[label], dev, names, reps=5, warmup=1,
+                                                 per_call=names and 1)))
     nbytes, int_ops, fp_ops, cands, accepts = uniformity_work(problems, ref)
     return dict(times=times, layouts=layouts, cands=cands, accepts=accepts,
                 ks=[p[0].shape[1] for p in problems], frames=problems[0][0].shape[0],
@@ -889,6 +909,118 @@ def uniformity_phase(dev, card: str, kind: str, kernel, launches: int, regs: lis
           f"call (mean of 200, launches queued; the cells computed in the kernel): "
           + ", ".join(f"{k} {v:.1f}" for k, v in host.items()) + f" [{kind}; {card}]",
           flush=True)
+    return row
+
+
+def mask_frames(b: int, h: int, w: int) -> torch.Tensor:
+    """(b, h, w) uint8, b >= 3: smoothed noise, then a flat frame (ties; at
+    threshold 0 the zero fill decides) and sharp boxes (large negative
+    scores along their edges)."""
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+
+    frames = bench_frames(b, h, w, seed=h + w)
+    frames[1] = 77
+    frames[2] = 40
+    for k in range(4):
+        y, x = (h * (2 * k + 1)) // 9, (w * (3 * k + 1)) // 13
+        frames[2, y : y + 4 + 3 * k, x : x + 5 + 2 * k] = 220
+    return torch.from_numpy(frames)
+
+
+def masks_phase(dev, card: str, kind: str, launches: int, regs: list) -> dict:
+    """[masks]: kernel score_masks bitwise against its plain version on the
+    card, at odd shapes (61 x 83, 96 x 130; noise, flat, boxes; thresholds
+    0 and 20) and at the main step's four layers at B=16 and B=128,
+    default and fused, one counted launch each; at the step's shapes the
+    kernel and the plain chain in turns (kernel, plain, plain, kernel),
+    event and device ms, beside the bound. Returns the kernel's row at the
+    B=16 step's shapes (default path)."""
+    from ethzasl_brisk_tpu_torch import _kernels, measure
+    from ethzasl_brisk_tpu_torch.detect import scale_space
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+    from ethzasl_brisk_tpu_torch.kernels import masks
+    from ethzasl_brisk_tpu_torch.kernels.harris import (
+        harris_score_i32_layers,
+        harris_score_mask_layers,
+    )
+    from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
+
+    def inputs(frames, thr, fused, n_layers=4):
+        pyr = scale_space.build_pyramid(frames, n_layers)
+        maps = [(g.above_map, g.below_map)
+                for g in map(scale_space.layer_geometry, range(n_layers))]
+        if fused:
+            pairs = harris_score_mask_layers(pyr, thr)
+            return [p[0] for p in pairs], thr, maps, [p[1] for p in pairs]
+        return harris_score_i32_layers(pyr), thr, maps, None
+
+    def plain(scores, thr, maps, base):
+        # The plain chain ANDs into K3's masks in place: it takes a copy.
+        return masks.score_masks_plain(scores, thr, maps,
+                                       None if base is None else [m.clone() for m in base])
+
+    def check(args, what: str) -> int:
+        _kernels.reset_launches()
+        got = masks.score_masks_cuda(*args)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["score_masks"] == 1, (what, _kernels.LAUNCHES)
+        ref = plain(*args)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert torch.equal(g, r), f"[masks] {what}: layer {i} differs from plain"
+            assert int(g.view(torch.uint8).max()) <= 1, f"[masks] {what}: mask bytes"
+        return sum(int(g.sum()) for g in got)
+
+    odd = []
+    for h, w in ((61, 83), (96, 130)):
+        frames = mask_frames(3, h, w).to(dev)
+        for thr in (0, 20):
+            for fused in (False, True):
+                what = f"{h}x{w} thr {thr} {'fused' if fused else '2-D'}"
+                odd.append(f"{what} {check(inputs(frames, thr, fused), what)}")
+    print(f"[masks] kernel score_masks ptxas: {regs}; bitwise vs plain, one launch each, "
+          f"candidates: {'; '.join(odd)} [{kind}; {card}]", flush=True)
+
+    thr = int(BENCH_CONFIG["absolute_threshold"])
+    row = None
+    for batch in (16, 128):
+        frames = torch.from_numpy(bench_frames(batch)).to(dev)
+        for fused in (False, True):
+            args = inputs(frames, thr, fused)
+            scores, base = args[0], args[3]
+            n_cand = check(args, f"B={batch} {'fused' if fused else '2-D'}")
+            survivors = sum(int((base[i] if fused else maxima2d_mask(sc, thr)).sum())
+                            for i, sc in enumerate(scores))
+            pixels = sum(sc.numel() for sc in scores)
+            bnd = measure.bound_ms((6 if fused else 5) * pixels,
+                                   int32_ops=MASKS_OPS_PER_PIXEL * pixels
+                                   + MASKS_OPS_PER_SURVIVOR * survivors)
+            turns = {"kernel": [], "plain": []}
+            runs = {"kernel": lambda: masks.score_masks_cuda(*args),
+                    "plain": lambda: plain(*args)}
+            for label in ("kernel", "plain", "plain", "kernel"):
+                fn = runs[label]
+                names = None if label == "plain" else ("score_masks_kernel",)
+                turns[label].append((measure.cuda_time(fn),
+                                     measure.device_time(fn, dev, names, per_call=names and 1)))
+            txt = "; ".join(f"{lab} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in v)
+                            for lab, v in turns.items())
+            host = host_us(runs["kernel"], 200)
+            print(f"[masks] B={batch} {'fused (K3 masks in)' if fused else 'default'}: "
+                  f"{pixels} pixels, {survivors} pass the 2-D test, {n_cand} candidates; "
+                  f"bitwise vs plain; event / device ms in turns: {txt}; bound "
+                  f"{bnd[0]:.4f} ms ({bnd[1]}); host us a call (mean of 200, launches "
+                  f"queued) {host:.1f} [{kind}; {card}]", flush=True)
+            if batch == 16 and not fused:
+                (ev, dv), plain_ev = turns["kernel"][0], turns["plain"][0][0]
+                row = dict(name="score_masks", route="cuda",
+                           source="ethzasl_brisk_tpu_torch/csrc/masks.cu",
+                           replaces="none: the port's own (the integer 2-D and 3-D masks, which "
+                                    "the JAX package does in XLA: ethzasl_brisk_tpu/detect/"
+                                    "scale_space.py:429-550, kernels/nms.py:29-37)",
+                           launches=launches, max_abs_err=0.0, ms=ev, device_ms=dv,
+                           plain_ms=plain_ev, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        del frames, args, scores, base
+        torch.cuda.empty_cache()
     return row
 
 
@@ -1112,6 +1244,8 @@ def quick_start(dev: torch.device) -> dict:
     assert all(t.device == dev for t in (*out[0][0].fields(), out[0][1], *match)), "outputs"
     assert launches["harris_score_mask"] == 2, launches
     assert launches["harris_score_i32"] == 0, launches
+    # octaves 0 with K3: its mask is already the answer.
+    assert launches["score_masks"] == 0, launches
     assert launches["describe_rotated"] == 2, launches
     assert launches["smoothed_intensity"] == launches["brisk_orientation"] == 0, launches
 
@@ -1260,6 +1394,7 @@ def facade_phase(dev: torch.device, card: str) -> dict:
     assert launches["smoothed_intensity"] == 2, launches
     assert launches["enforce_uniformity"] == 0, launches
     assert launches["harris_score_i32"] == launches["harris_score_mask"] == 0, launches
+    assert launches["score_masks"] == 0, launches
     # angle_exact: the host's double atan2, no orientation kernel, and both
     # samplings on K2 (describe_rotated takes the float32 chain only).
     assert launches["brisk_orientation"] == launches["describe_rotated"] == 0, launches
@@ -1271,7 +1406,7 @@ def facade_phase(dev: torch.device, card: str) -> dict:
     parity = dict(kw, octaves=2, refine_dtype="float64")
     parity["max_candidates"] = certified_cap(parity, frame.to(dev))
     got, launches64 = counted(lambda: BriskFeature(**parity).detect_and_compute(frame))
-    assert launches64["harris_score_i32"] == 1, launches64
+    assert launches64["harris_score_i32"] == launches64["score_masks"] == 1, launches64
     assert launches64["enforce_uniformity"] == 1, launches64
     assert launches64["smoothed_intensity"] == 2, launches64
     ref = BriskFeature(**parity, device="cpu").detect_and_compute(frame)
@@ -1455,7 +1590,7 @@ def ast_phase(dev: torch.device, card: str, kind: str, yard: dict) -> None:
     k2_ms = measure.cuda_time(lambda: smoothed_intensity_cuda(*calls[0]))
     k2_plain = measure.cuda_time(lambda: smoothed_intensity(*calls[0]))
     k2_dev = measure.device_time(lambda: smoothed_intensity_cuda(*calls[0]), dev,
-                                 ("k2_sampler_kernel",))
+                                 ("k2_sampler_kernel",), per_call=1)
     k2_bnd = k2_bound(calls[:1])
     turns = describe_turns(rot, dev, warp_describe(yard["warp_describe"][0]))
     words = describe_turns(rot, dev, words_ballot(yard["describe_words_ballot"][0]),
@@ -1547,7 +1682,7 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     feat = BriskFeature(**BENCH_CONFIG, version="v1")
     hg, launches_h = counted(lambda: feat.detect_and_compute(host[0]))
     assert launches_h == launches_of(harris_score_i32=1, describe_rotated_v1=1,
-                                     enforce_uniformity=1), launches_h
+                                     enforce_uniformity=1, score_masks=1), launches_h
     n_h = assert_same_image_outputs(
         hg, BriskFeature(**BENCH_CONFIG, version="v1", device="cpu").detect_and_compute(host[0]),
         "[v1] BriskFeature")
@@ -1556,7 +1691,7 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     exact = dict(BENCH_CONFIG, version="v1", angle_exact=True)
     he, launches_e = counted(lambda: BriskFeature(**exact).detect_and_compute(host[0]))
     assert launches_e == launches_of(harris_score_i32=1, smoothed_intensity_v1=2,
-                                     enforce_uniformity=1), launches_e
+                                     enforce_uniformity=1, score_masks=1), launches_e
     n_e = assert_same_image_outputs(
         he, BriskFeature(**exact, device="cpu").detect_and_compute(host[0]),
         "[v1] BriskFeature, angle_exact")
@@ -1607,7 +1742,7 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     k2_ms = measure.cuda_time(lambda: smoothed_intensity_cuda(*calls[0]))
     k2_plain = measure.cuda_time(lambda: smoothed_intensity(*calls[0]))
     k2_dev = measure.device_time(lambda: smoothed_intensity_cuda(*calls[0]), dev,
-                                 ("k2_sampler_kernel",))
+                                 ("k2_sampler_kernel",), per_call=1)
     bnd = k2_bound(calls[:1])
     print(f"[v1 K2] v1 rounding, K x P = {tuple(calls[0][3].shape)} ({small} small-sigma points "
           f"over phase 1 and the rotated taps; at pattern_scale 0.5 {small05}, bitwise too): "
@@ -1641,10 +1776,10 @@ def own_kernel_row(name: str, source: str, replaces: str, launches: int, run, pl
     counterpart): ``run()`` on the card against ``plain()`` on the CPU,
     bit for bit (sequences of tensors, NaN equal to NaN), then the kernel,
     the plain version on the card and the library call (or None) timed by
-    CUDA events, the kernel's and the library call's device times, and the
-    bound of ``nbytes`` and the operations; ``chain_ms``, a serial chain's
-    least time, is kept beside it (``chain_bound_ms``), and ``bound_note``
-    names the larger of the two."""
+    CUDA events, the kernel's (one launch a call) and the library call's
+    device times, and the bound of ``nbytes`` and the operations;
+    ``chain_ms``, a serial chain's least time, is kept beside it
+    (``chain_bound_ms``), and ``bound_note`` names the larger of the two."""
     from ethzasl_brisk_tpu_torch import measure
 
     got, ref = run(), plain(cpu=True)
@@ -1668,7 +1803,7 @@ def own_kernel_row(name: str, source: str, replaces: str, launches: int, run, pl
     dev = got[0].device
     row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                max_abs_err=err, ms=measure.cuda_time(run),
-               device_ms=measure.device_time(run, dev, kernel_names),
+               device_ms=measure.device_time(run, dev, kernel_names, per_call=1),
                plain_ms=measure.cuda_time(plain), bound_ms=bnd[0], bound_by=bnd[1],
                library_ms=None if library is None else measure.cuda_time(library),
                library_device_ms=None if library is None else measure.device_time(library, dev))
@@ -1776,7 +1911,7 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
         "equidistant": PinholeCamera(**CAMERA, distortion=EquidistantDistortion(*EQUIDISTANT)),
     }
     expect = launches_of(harris_score_i32=1, describe_rotated=1, walk_angles=1,
-                         enforce_uniformity=1)
+                         enforce_uniformity=1, score_masks=1)
     walk, old_chain = camera_aware.walk_angles, camera_aware.walk_angles_plain
     walk_calls, atan2_calls, sincos_calls, grid_launches = [], [], [], {}
 
@@ -1848,7 +1983,7 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
     single = CameraAwareFeature(cams["radtan"], feature)
     got, launches = counted(lambda: single.detect_and_compute(host))
     assert launches == launches_of(harris_score_i32=1, describe_rotated=1,
-                                   enforce_uniformity=1), launches
+                                   enforce_uniformity=1, score_masks=1), launches
     ref = CameraAwareFeature(cams["radtan"], feature_cpu).detect_and_compute(host)
     assert torch.equal(got[2].cpu(), ref[2]), "[camera] single view warp"
     n = assert_same_image_outputs(got[:2], ref[:2], "[camera] single view")
@@ -2057,10 +2192,11 @@ def vo_phase(dev: torch.device, card: str, kind: str, yard: dict) -> dict:
         undo()
         frontend.VoFrontend.process_frame = process
     assert got["capacity_ok"] and ref["capacity_ok"]
-    # K1 once a frame and once for the frame-0 certificate,
+    # K1 and score_masks once a frame and once for the frame-0 certificate,
     # describe_rotated once a frame, the segment sums once a Gauss-Newton
     # step, 12 a BA solve.
-    expect = launches_of(harris_score_i32=VO_FRAMES + 1, describe_rotated=VO_FRAMES,
+    expect = launches_of(harris_score_i32=VO_FRAMES + 1, score_masks=VO_FRAMES + 1,
+                         describe_rotated=VO_FRAMES,
                          segment_sum=SEGMENT_SUMS_PER_SOLVE * len(windows))
     assert launches == expect, launches
     assert len(card_frames) == len(cpu_frames) == VO_FRAMES
@@ -2255,7 +2391,8 @@ def ba_window(window, segment_launches: int, card: str, kind: str, yard: dict) -
     assert all(torch.equal(a, b) for a, b in zip(got_staged, segment.segment_sums_cuda(items)))
     row["staged_ms"] = measure.cuda_time(lambda: [staged(v, p) for v, p in items])
     row["staged_device_ms"] = measure.device_time(lambda: [staged(v, p) for v, p in items], dev,
-                                                ("staged_segment_sum_kernel",))
+                                                ("staged_segment_sum_kernel",),
+                                                per_call=len(items))
     txt = "; ".join(f"{label} {', '.join(f'{ms:.3f} ms / {n} kernels' for ms, n in v)}"
                     for label, v in res.items())
     print(f"[vo ba] the loop's last LM window ({prob.r.shape[0]} keyframes, "
@@ -2395,8 +2532,8 @@ def ckpt_phase(dev: torch.device, card: str, kind: str) -> None:
         save_ms = (time.perf_counter() - t0) * 1e3
     resumed_at = steps[-1]
     frames_run = CKPT_FRAMES - resumed_at
-    expect = launches_of(harris_score_i32=frames_run + 1, describe_rotated=frames_run,
-                         segment_sum=launches["segment_sum"])
+    expect = launches_of(harris_score_i32=frames_run + 1, score_masks=frames_run + 1,
+                         describe_rotated=frames_run, segment_sum=launches["segment_sum"])
     assert launches == expect, (launches, expect)
     assert launches["segment_sum"] % SEGMENT_SUMS_PER_SOLVE == 0, launches
     poses = got.pop("poses")
@@ -2490,7 +2627,7 @@ def dist_phase(dev: torch.device, card: str, kind: str, feature, pipe, frames16)
             sharded = FramePipeline(feature, dev, mesh)
             got, launches = counted(lambda: sharded.step(frames16, with_diagnostics=True))
             assert launches["harris_score_i32"] == launches["describe_rotated"] == 1, launches
-            assert launches["enforce_uniformity"] == 1, launches
+            assert launches["enforce_uniformity"] == launches["score_masks"] == 1, launches
             assert launches["smoothed_intensity"] == 0, launches
             assert_same_step(got[:4], (kps, desc, midx, mdist), "[dist] step over the mesh")
             assert bool(got[4]["detect"].ok.all())
@@ -2606,7 +2743,8 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
             recorded.clear()
         finally:
             frontend.VoFrontend.process_frame = process
-        assert launches == launches_of(harris_score_i32=n, describe_rotated=n), launches
+        assert launches == launches_of(harris_score_i32=n, score_masks=n,
+                                       describe_rotated=n), launches
         assert len(card_frames) == len(cpu_frames) == n
         for i, (g, c) in enumerate(zip(card_frames, cpu_frames)):
             assert_same_image_outputs(g, c, f"[vo tools] {label} frame {i}")
@@ -2669,8 +2807,8 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
         assert evals[1].startswith("ATE RMSE (sim-aligned): "), evals
         assert np.isfinite(float(evals[1].split(": ")[1])), evals
         assert eval_launches == launches_of(
-            harris_score_i32=VO_TOOLS_CLI_FRAMES, describe_rotated=VO_TOOLS_CLI_FRAMES), \
-            eval_launches
+            harris_score_i32=VO_TOOLS_CLI_FRAMES, score_masks=VO_TOOLS_CLI_FRAMES,
+            describe_rotated=VO_TOOLS_CLI_FRAMES), eval_launches
     print(f"[vo tools] python -m ethzasl_brisk_tpu_torch.vo.synthetic {' '.join(argv[:3])} on "
           f"the card: {lines[-1]}; vo.gen_sequence {VO_TOOLS_CLI_FRAMES} frames through "
           f"vo.sequence_eval on the card: {evals[0]}; {evals[1]}; launches {eval_launches} "
@@ -2708,7 +2846,7 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
         cpu_s = time.perf_counter() - t0
         n_drawn = len(os.listdir(os.path.join(tmp, "draw")))
     n_batches = (LIVE_FRAMES - 1) // LIVE_BATCH
-    assert launches["harris_score_i32"] == n_batches + 1, launches
+    assert launches["harris_score_i32"] == launches["score_masks"] == n_batches + 1, launches
     assert launches["describe_rotated"] == n_batches, launches
     assert launches["smoothed_intensity"] == launches["enforce_uniformity"] == 0, launches
     card_batches = [ln for ln in card_lines if ln.startswith("batch ")]
@@ -2721,8 +2859,8 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
           f"{card_batches}; {n_drawn} drawings; card {card_s:.2f} s, CPU {cpu_s:.2f} s; "
           f"registry: {timing_lines} [{kind}; {card}]", flush=True)
     demo, demo_launches = counted(lambda: run(lambda: cameras_demo.main(["--device", dev.type])))
-    assert demo_launches["harris_score_i32"] == demo_launches["describe_rotated"] == 1, \
-        demo_launches
+    assert (demo_launches["harris_score_i32"] == demo_launches["describe_rotated"]
+            == demo_launches["score_masks"] == 1), demo_launches
     assert demo_launches["smoothed_intensity"] == demo_launches["enforce_uniformity"] == 0, \
         demo_launches
     print(f"[examples] cameras_demo on the card: {demo}; launches {demo_launches} "
@@ -2774,11 +2912,13 @@ def main() -> int:
     log = lib_path.with_suffix(".log")
     regs = ptxas_lines(log.read_text() if log.exists() else "", "describe_rotated_kernel")
     uniformity_regs = ptxas_lines(log.read_text() if log.exists() else "", "uniformity_kernel")
+    masks_regs = ptxas_lines(log.read_text() if log.exists() else "", "score_masks_kernel")
     uniformity_kernel = install_uniformity_check()
     print(f"[build] {lib_path.name} and {len(yard)} yardsticks in "
           f"{time.perf_counter() - t0:.2f} s; describe_rotated's ptxas: {regs}; the words a "
           f"ballot a word: {yard['describe_words_ballot'][1]}; the warp kernel: "
-          f"{yard['warp_describe'][1]}; enforce_uniformity's: {uniformity_regs}", flush=True)
+          f"{yard['warp_describe'][1]}; enforce_uniformity's: {uniformity_regs}; score_masks': "
+          f"{masks_regs}", flush=True)
 
     frames16 = torch.from_numpy(bench_frames(16)).to(dev)
     # The entry points run on the card by default.
@@ -2853,6 +2993,7 @@ def main() -> int:
     assert launches["harris_score_i32"] == 1, launches
     assert launches["describe_rotated"] == 1, launches
     assert launches["enforce_uniformity"] == 1, launches  # the four layers
+    assert launches["score_masks"] == 1, launches  # the four layers
     assert launches["smoothed_intensity"] == launches["brisk_orientation"] == 0, launches
     b, k = kps.valid.shape
     print(
@@ -2889,6 +3030,7 @@ def main() -> int:
     fused_launches = dict(_kernels.LAUNCHES)
     assert fused_launches["harris_score_mask"] == 1, fused_launches
     assert fused_launches["enforce_uniformity"] == 1, fused_launches
+    assert fused_launches["score_masks"] == 1, fused_launches  # on K3's masks
     assert fused_launches["harris_score_i32"] == 0, fused_launches
     assert fused_launches["describe_rotated"] == 1, fused_launches
     assert fused_launches["smoothed_intensity"] == 0, fused_launches
@@ -2909,7 +3051,9 @@ def main() -> int:
     feature_cpu = BriskFeature(**BENCH_CONFIG, device="cpu")
     cfg = feature.config
     pyr_g, pyr_c = scale_space.build_pyramid(f4, 4), scale_space.build_pyramid(f4c, 4)
+    _kernels.reset_launches()
     sc_g, mk_g = scale_space.layer_score_masks(pyr_g, cfg)
+    assert _kernels.LAUNCHES["score_masks"] == 1, _kernels.LAUNCHES
     sc_c, mk_c = scale_space.layer_score_masks(pyr_c, cfg)
     for i in range(4):
         assert torch.equal(pyr_g[i].cpu(), pyr_c[i]), f"pyramid layer {i}"
@@ -2937,7 +3081,8 @@ def main() -> int:
     for i, name in ((1, "descriptors"), (2, "match index"), (3, "match distance")):
         assert torch.equal(out_g[i].cpu(), out_c[i]), name
     print(
-        f"[gpu vs cpu] B=4: pyramid, scores, masks, candidates, accepts, valid bitwise; "
+        f"[gpu vs cpu] B=4: pyramid, scores, masks (score_masks, 1 launch), candidates, "
+        f"accepts, valid bitwise; "
         f"x/y within {max(gx, gy)} ULP; the angles of all {n_desc} described keypoints, "
         f"descriptors and matches bitwise",
         flush=True,
@@ -3011,6 +3156,11 @@ def main() -> int:
           f"200, launches queued): kernel {host['kernel']:.2f}, pair {host['pair']:.2f} "
           f"[{kind}; {card}]", flush=True)
 
+    # ---- score_masks against its plain version, in turns, at the step's shapes.
+    masks_row = masks_phase(dev, card, kind, launches["score_masks"], masks_regs)
+    print(f"[masks] B=16 step's four layers: {row_text(masks_row)}; "
+          f"launches: the main path's {launches['score_masks']} [{kind}; {card}]", flush=True)
+
     # ---- Timing.
     stage_names = ["pyramid", "harris", "masks", "candidates", "uniformity", "refine",
                    "describe", "match"]
@@ -3055,11 +3205,11 @@ def main() -> int:
         k1_nms = cuda_time(lambda: [maxima2d_mask(s, thr) for s in harris_score_i32_layers(pyr)])
         # The kernels' own time on the card, each step's launches from a cold L2.
         k1_dev = measure.device_time(lambda: harris_score_i32_layers(pyr), dev,
-                                     ("harris_rows_kernel",))
+                                     ("harris_rows_kernel",), per_call=1)
         k2_dev = measure.device_time(lambda: [smoothed_intensity_cuda(*a) for a in calls], dev,
-                                     ("k2_sampler_kernel",))
+                                     ("k2_sampler_kernel",), per_call=len(calls))
         k3_dev = measure.device_time(lambda: harris_score_mask_layers(pyr, thr), dev,
-                                     ("harris_mask_rows_kernel",))
+                                     ("harris_mask_rows_kernel",), per_call=1)
         # Bounds: K1 reads 1 B and writes 4 B per pixel, K3 one more byte.
         pixels = sum(p.numel() for p in pyr)
         k1_bound = measure.bound_ms(5 * pixels, int32_ops=K1_OPS_PER_PIXEL * pixels)
@@ -3117,8 +3267,8 @@ def main() -> int:
              "ethzasl_brisk_tpu/kernels/pallas_harris.py:177",
              fused_launches["harris_score_mask"], k3_err, "k3"),
         )
-    ] + [v1_row, describe_row, orientation_row] + camera_rows + [segment_row, uniformity_row] \
-        + probe_rows
+    ] + [v1_row, describe_row, orientation_row] + camera_rows + [segment_row, uniformity_row,
+                                                                  masks_row] + probe_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[wall] {time.perf_counter() - t_start:.1f} s from start to the kernels line", flush=True)
     print(f"[card] {card}", flush=True)

@@ -55,9 +55,10 @@ LAUNCHES = {
     # segment sums, a call site's items in one launch (csrc/segment_sum.cu).
     "brisk_orientation": 0, "atan2f_elementwise": 0, "sincosf_elementwise": 0,
     "walk_angles": 0, "segment_sum": 0,
-    # Greedy uniformity, every layer of a detection in one launch
-    # (csrc/uniformity.cu).
-    "enforce_uniformity": 0,
+    # Greedy uniformity and the integer candidate masks (2-D maxima and the
+    # 3-D checks), each every layer of a detection in one launch
+    # (csrc/uniformity.cu, csrc/masks.cu).
+    "enforce_uniformity": 0, "score_masks": 0,
     # The latency probes behind segment_sum's and enforce_uniformity's chain
     # bounds (measure.add_latency_cycles, measure.round_latency_cycles).
     "add_latency": 0, "round_latency": 0,
@@ -237,6 +238,10 @@ def library() -> ctypes.CDLL:
                 vp, vp, vp,                                          # lut, rounds, stream
             ]
             lib.brisk_enforce_uniformity.restype = ci
+            lib.brisk_score_masks.argtypes = [
+                ctypes.POINTER(ctypes.c_int64), ci, ci, ci, vp,  # layers, layer count, frames,
+            ]                                                    # threshold, stream
+            lib.brisk_score_masks.restype = ci
             lib.brisk_round_latency.argtypes = [ci, vp, vp, vp]  # rounds, cycles, sink, stream
             lib.brisk_round_latency.restype = ci
             lib.brisk_error_string.argtypes = [ci]

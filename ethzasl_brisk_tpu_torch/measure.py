@@ -37,7 +37,7 @@ FP64_OPS_PER_S = 34e12
 INT32_OPS_PER_S = 132 * 64 * 2 * 1.98e9
 SECTOR = 32  # bytes: the unit in which the card moves device memory
 L2_BYTES = 50 * 2**20  # H100's L2 cache
-TRACE_ATTEMPTS = 5  # the profiler now and then drops whole traces, several in a row
+TRACE_ATTEMPTS = 10  # the profiler now and then drops whole traces, or most of one, in a row
 LEAD_CALLS = 6  # calls at the start of a trace that are not counted
 
 
@@ -127,28 +127,58 @@ def cuda_time(fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _split(work, kernel_names) -> list[list]:
+    """``split_calls``' calls as [ms, kernels counted] pairs."""
+    work = sorted(work)
+    calls = []
+    for i, (_, ms, name) in enumerate(work):
+        if "spin_kernel" in name:
+            calls.append([0.0, 0])
+        elif "reduce_kernel" in name and i + 1 < len(work) and "spin_kernel" in work[i + 1][2]:
+            continue
+        elif calls and (kernel_names is None or any(k in name for k in kernel_names)):
+            calls[-1][0] += ms
+            calls[-1][1] += 1
+    return calls
+
+
 def split_calls(work, kernel_names) -> list[float]:
     """The device time (ms) of each timed call in a trace's device work,
     ``(start, ms, name)`` tuples: a call's work follows the marker kernel
     (``spin_kernel``, ``torch.cuda._sleep``) that ends the L2 flush before
     it; the flush's own reduction, the kernel just before each marker, is
     not counted, and a reduction of the timed call is."""
-    work = sorted(work)
-    times = []
-    for i, (_, ms, name) in enumerate(work):
-        if "spin_kernel" in name:
-            times.append(0.0)
-        elif "reduce_kernel" in name and i + 1 < len(work) and "spin_kernel" in work[i + 1][2]:
-            continue
-        elif times and (kernel_names is None or any(k in name for k in kernel_names)):
-            times[-1] += ms
-    return times
+    return [ms for ms, _ in _split(work, kernel_names)]
 
 
-def _traced_calls(fn, flush: torch.Tensor, kernel_names, calls: int) -> list[float]:
-    """Device time (ms) of each of ``calls`` calls of fn(), each after a read
-    of ``flush`` on the card it lies on, as one profiler trace shows them
-    (see ``device_time``)."""
+def whole_calls(calls: list, made: int, reps: int, per_call: int | None = None,
+                named: bool = False) -> list[float]:
+    """The times of the whole calls among the last ``reps`` of a trace of
+    ``made`` calls (``_split``'s pairs). Where the caller knows that a call
+    launches ``per_call`` of the kernels counted, only the calls that count
+    that many. Otherwise, with every marker in the trace, each call that
+    counts a kernel. With markers lost, a call may have taken in the next
+    call's work: of named kernels (``named``) no call is kept; of a call's
+    whole device work, those that count the trace's usual number of
+    kernels (a call whose kernels the profiler lost counts fewer, a merged
+    one more)."""
+    if per_call is not None:
+        return [ms for ms, n in calls[-reps:] if n == per_call]
+    counts = [n for _, n in calls if n]
+    if not counts:
+        return []
+    if len(calls) == made:
+        return [ms for ms, n in calls[-reps:] if n]
+    if named:
+        return []
+    usual = statistics.mode(counts)
+    return [ms for ms, n in calls[-reps:] if n == usual]
+
+
+def _traced_calls(fn, flush: torch.Tensor, kernel_names, calls: int) -> list[list]:
+    """Device time (ms) and kernels counted of each of ``calls`` calls of
+    fn(), each after a read of ``flush`` on the card it lies on, as one
+    profiler trace shows them (see ``device_time``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,11 +196,11 @@ def _traced_calls(fn, flush: torch.Tensor, kernel_names, calls: int) -> list[flo
             start, ms = ((e.start_ns(), e.duration_ns() / 1e6) if hasattr(e, "start_ns")
                          else (1e3 * e.start_us(), e.duration_us() / 1e3))
             work.append((start, ms, e.name()))
-    return split_calls(work, kernel_names)
+    return _split(work, kernel_names)
 
 
 def device_time(fn, device: str | torch.device, kernel_names: tuple[str, ...] | None = None,
-                reps: int = 10, warmup: int = 3) -> float:
+                reps: int = 10, warmup: int = 3, per_call: int | None = None) -> float:
     """Median device time (ms) of fn() over ``reps`` calls on card
     ``device``, each from a cold L2: the summed own time on the card of the
     kernels whose names contain one of ``kernel_names`` (all of the call's
@@ -182,10 +212,11 @@ def device_time(fn, device: str | torch.device, kernel_names: tuple[str, ...] | 
     (``torch.cuda._sleep``) marks its end, and the card is synchronised
     before and after the call; neither is counted, so ``fn`` may launch
     reductions of its own (``split_calls``). The profiler can miss events,
-    at the start of a trace or all of them: each trace starts with
-    ``LEAD_CALLS`` more calls, not counted, and a trace that still lacks a
-    call is taken again, up to ``TRACE_ATTEMPTS`` times, before this
-    raises."""
+    at the start of a trace, a part of it or all of it: each trace starts
+    with ``LEAD_CALLS`` more calls, not counted, only whole calls count
+    (``whole_calls``; ``per_call``, where given, is the number of the named
+    kernels one call launches), and traces are taken until ``reps`` whole
+    calls are in, up to ``TRACE_ATTEMPTS`` traces, before this raises."""
     for _ in range(warmup):
         fn()
     device = torch.device(device)
@@ -193,14 +224,15 @@ def device_time(fn, device: str | torch.device, kernel_names: tuple[str, ...] | 
         raise ValueError(f"device_time times work on a card, got {device}")
     flush = torch.empty((2 * L2_BYTES // 4 // 512, 512), dtype=torch.float32, device=device)
     torch.cuda.synchronize(device)
-    seen = []
+    times, seen = [], []
     for _ in range(TRACE_ATTEMPTS):
-        times = _traced_calls(fn, flush, kernel_names, reps + LEAD_CALLS)[-reps:]
-        if len(times) == reps and all(times):
-            return statistics.median(times)
-        seen.append(len(times))
-    raise RuntimeError(f"device_time: {reps} calls of {kernel_names or 'any kernel'} not in "
-                       f"{TRACE_ATTEMPTS} profiler traces (found {seen})")
+        calls = _traced_calls(fn, flush, kernel_names, reps + LEAD_CALLS)
+        seen.append(len(calls))
+        times += whole_calls(calls, reps + LEAD_CALLS, reps, per_call, kernel_names is not None)
+        if len(times) >= reps:
+            return statistics.median(times[:reps])
+    raise RuntimeError(f"device_time: {reps} whole calls of {kernel_names or 'any kernel'} not "
+                       f"in {TRACE_ATTEMPTS} profiler traces (calls found {seen})")
 
 
 def busy_ms(events) -> float:

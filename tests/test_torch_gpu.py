@@ -30,6 +30,7 @@ from ethzasl_brisk_tpu_torch.kernels.harris import (
     harris_score_mask_i32,
     harris_score_mask_layers,
 )
+from tests import _mask_cases as mask_cases
 from tests._uniformity_cases import CASES as UNIFORMITY_CASES, case as uniformity_case
 
 pytestmark = pytest.mark.gpu
@@ -234,6 +235,97 @@ def test_kernels_on_the_second_card(cuda):
     assert torch.cuda.current_device() == 0
 
 
+def _mask_frames(b: int, h: int, w: int) -> torch.Tensor:
+    """Smoothed noise, then a flat frame (ties; at threshold 0 the zero
+    fill decides) and sharp boxes (large negative scores on their edges)."""
+    frames = bench_frames(b, h, w, seed=h + w)
+    frames[1] = 77
+    frames[2] = 40
+    for k in range(4):
+        y, x = (h * (2 * k + 1)) // 9, (w * (3 * k + 1)) // 13
+        frames[2, y : y + 4 + 3 * k, x : x + 5 + 2 * k] = 220
+    return torch.from_numpy(frames)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["2d-mask", "fused"])
+@pytest.mark.parametrize("thr", [0, 20])
+@pytest.mark.parametrize(
+    "shape,octaves", [((16, 480, 640), 2), ((3, 61, 83), 2), ((3, 96, 130), 2),
+                      ((3, 61, 83), 1), ((3, 96, 130), 0), ((3, 480, 640), 5)],
+    ids=["b16-step", "61x83", "96x130", "61x83-oct1", "96x130-oct0", "vga-10-layers"])
+def test_score_masks_cuda_matches_plain(cuda, shape, octaves, thr, fused):
+    """Kernel score_masks bit for bit against the plain version on the
+    card: the B=16 step's four VGA layers, odd shapes whose layers reach
+    the extrapolating edge and the undefined taps, one layer, and ten
+    layers (two launches: the table holds eight). One launch a detection;
+    none for a single layer with K3's mask, which is already the answer."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.detect import scale_space
+    from ethzasl_brisk_tpu_torch.kernels import masks
+
+    n_layers = max(2 * octaves, 1)
+    pyr = scale_space.build_pyramid(_mask_frames(*shape).to(cuda), n_layers)
+    maps = [(scale_space.layer_geometry(i).above_map, scale_space.layer_geometry(i).below_map)
+            for i in range(n_layers)]
+    if fused:
+        pairs = harris_score_mask_layers(pyr, thr)
+        scores, base = [p[0] for p in pairs], [p[1] for p in pairs]
+    else:
+        scores, base = [harris_score_i32(p) for p in pyr], None
+    _kernels.reset_launches()
+    got = masks.score_masks(scores, thr, maps, base)
+    torch.cuda.synchronize()
+    want_launches = 0 if fused and n_layers == 1 else (n_layers + 7) // 8
+    assert _kernels.LAUNCHES["score_masks"] == want_launches
+    ref = masks.score_masks_plain(scores, thr, maps,
+                                  None if base is None else [m.clone() for m in base])
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g, r), f"layer {i}"
+        assert int(g.view(torch.uint8).max()) <= 1
+    assert int(got[0].sum()) > 0
+    assert torch.equal(masks.score_masks_twin(scores, thr, maps, base)[0], ref[0])
+
+
+@pytest.mark.parametrize("kind", mask_cases.KINDS)
+def test_score_masks_cuda_matches_plain_on_synthetic_scores(cuda, kind):
+    """Kernel score_masks bit for bit against the plain version on score
+    maps no Harris frame gives (``tests/_mask_cases.py``): int32 values at
+    both ends of the range (the kernel's int64 sums and C-truncated axis
+    terms at large magnitudes), wide ties, and all-negative maps, where the
+    zero fill decides every 3-D check; thresholds INT32_MIN, 0 and 5. One
+    launch each."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.detect import scale_space
+    from ethzasl_brisk_tpu_torch.kernels import masks
+
+    scores = [torch.from_numpy(s).to(cuda) for s in mask_cases.synthetic_scores(kind)]
+    maps = [(scale_space.layer_geometry(i).above_map, scale_space.layer_geometry(i).below_map)
+            for i in range(len(scores))]
+    for thr in mask_cases.THRESHOLDS:
+        _kernels.reset_launches()
+        got = masks.score_masks_cuda(scores, thr, maps)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["score_masks"] == 1
+        ref = masks.score_masks_plain(scores, thr, maps)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert torch.equal(g, r), f"thr {thr}, layer {i}"
+            assert int(g.view(torch.uint8).max()) <= 1
+    assert any(int(g.sum()) for g in masks.score_masks_cuda(scores, -(2**31), maps))
+
+
+def test_score_masks_cuda_rejects_bad_tables(cuda):
+    from ethzasl_brisk_tpu_torch.kernels import masks
+
+    sc = torch.zeros((2, 20, 30), dtype=torch.int32, device=cuda)
+    maps = [((4, -1, 6), (12, 2, 9)), ((6, -1, 8), (24, 3, 16))]
+    with pytest.raises(ValueError, match="int32"):
+        masks.score_masks_cuda([sc, sc[:1]], 0, maps)
+    with pytest.raises(ValueError, match="int32"):
+        masks.score_masks_cuda([sc, sc.float()], 0, maps)
+    with pytest.raises(ValueError, match="base mask"):
+        masks.score_masks_cuda([sc, sc], 0, maps, [sc.bool(), sc.bool()[:, :5]])
+
+
 STEP_CONFIG = dict(
     octaves=2, uniformity_radius=30.0, absolute_threshold=20.0,
     max_candidates=(704, 256, 192, 96), max_keypoints=128,
@@ -250,6 +342,7 @@ def test_step_launches_both_kernels(cuda):
     got = FramePipeline(feature, device="cuda").step(frames.to(cuda))
     assert _kernels.LAUNCHES["harris_score_i32"] == 1  # one launch for the 4 layers
     assert _kernels.LAUNCHES["harris_score_mask"] == 0
+    assert _kernels.LAUNCHES["score_masks"] == 1  # one launch for the 4 layers
     assert _kernels.LAUNCHES["smoothed_intensity"] == 0  # both samplings are describe_rotated's
     assert _kernels.LAUNCHES["describe_rotated"] == 1
     assert _kernels.LAUNCHES["brisk_orientation"] == 0
@@ -272,6 +365,7 @@ def test_fused_step_launches_k3_and_equals_default(cuda):
                           device="cuda").step(frames)
     assert _kernels.LAUNCHES["harris_score_mask"] == 1
     assert _kernels.LAUNCHES["harris_score_i32"] == 0
+    assert _kernels.LAUNCHES["score_masks"] == 1  # the 3-D checks on K3's masks
     assert _kernels.LAUNCHES["smoothed_intensity"] == 0
     assert _kernels.LAUNCHES["describe_rotated"] == 1
     assert _kernels.LAUNCHES["enforce_uniformity"] == 1
@@ -835,6 +929,7 @@ def test_ast_step_on_card_matches_cpu(cuda, model):
     assert _kernels.LAUNCHES["smoothed_intensity"] == 0
     assert _kernels.LAUNCHES["describe_rotated"] == 1
     assert _kernels.LAUNCHES["harris_score_i32"] == _kernels.LAUNCHES["harris_score_mask"] == 0
+    assert _kernels.LAUNCHES["score_masks"] == 0
     ref = AstFramePipeline(BriskFeatureDetector(**cfg, device="cpu"), device="cpu",
                            describe_capacity=200).step(frames)
     assert int(ref[0].valid.sum()) > 100
@@ -942,6 +1037,7 @@ def test_camera_grid_on_card_matches_cpu(cuda):
     assert _kernels.LAUNCHES["brisk_orientation"] == 0
     assert _kernels.LAUNCHES["walk_angles"] == 1
     assert _kernels.LAUNCHES["atan2f_elementwise"] == _kernels.LAUNCHES["sincosf_elementwise"] == 0
+    assert _kernels.LAUNCHES["score_masks"] == 1  # octaves 0: the 2-D mask alone
     ref = CameraAwareFeatureGrid(cam, BriskFeature(**kw, device="cpu"), margin=40,
                                  device="cpu").detect_and_compute(frame)
     kg, kc = got[0], ref[0]

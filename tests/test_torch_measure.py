@@ -74,3 +74,23 @@ def test_split_calls_counts_the_timed_calls_reductions():
     assert measure.split_calls(work, ("k2_sampler",)) == pytest.approx([0.5, 0.0])
     assert measure.split_calls(work[1:], ("reduce_kernel",)) == pytest.approx([0.2, 0.0])
     assert measure.split_calls(work[2:4], None) == []  # no marker, no call
+
+
+def test_whole_calls_drops_calls_the_profiler_cut():
+    """``device_time`` keeps only whole calls: where the caller gives the
+    kernels a call launches, the calls that count that many; else, with
+    every marker in the trace, each call whose kernels arrived; with
+    markers lost, of a call's whole work the calls that count the trace's
+    usual number of kernels (a call that took in the next one's work counts
+    more, one whose kernels were lost fewer), of named kernels none."""
+    full = [[0.5, 2], [0.0, 0], [0.4, 2], [0.6, 3]]
+    assert measure.whole_calls(full, 4, 3) == pytest.approx([0.4, 0.6])
+    assert measure.whole_calls(full, 4, 3, per_call=2) == pytest.approx([0.4])
+    cut = [[0.5, 2], [1.1, 4], [0.4, 2], [0.2, 1], [0.6, 2]]
+    assert measure.whole_calls(cut, 8, 4) == pytest.approx([0.4, 0.6])
+    assert measure.whole_calls(cut, 8, 4, named=True) == []
+    assert measure.whole_calls(cut, 8, 4, per_call=2, named=True) == pytest.approx([0.4, 0.6])
+    merged = [[0.3, 1], [0.7, 2], [0.3, 1], [0.4, 1]]
+    assert measure.whole_calls(merged, 8, 4, per_call=1, named=True) == pytest.approx(
+        [0.3, 0.3, 0.4])
+    assert measure.whole_calls([[0.0, 0]], 8, 4) == []
