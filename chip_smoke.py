@@ -11,7 +11,10 @@ site's sums in one launch, of ``segment_sum.cu``; greedy uniformity,
 every layer of a detection in one launch, ``enforce_uniformity`` of
 ``uniformity.cu``; the integer candidate masks, the 2-D maxima and the
 3-D checks of every layer of a detection in one launch, ``score_masks`` of
-``masks.cu``) from
+``masks.cu``; the score-ordered candidate lists of every layer in one
+launch, ``layer_candidates`` of ``candidates.cu``; the compaction, taps,
+sub-pixel fit and packing of every layer in one launch,
+``refine_keypoints`` of ``refine.cu``) from
 ``ethzasl_brisk_tpu_torch/csrc`` and checks each against its plain torch
 version at the shapes of the path that runs it (K1 and K3 on the four
 pyramid layers in one launch, and on each alone; K2 on the unrotated
@@ -19,8 +22,9 @@ and the rotated taps ``describe_rotated`` samples, the rotation from the
 plain chain; ``describe_rotated`` in every phase that describes uint8
 frames; ``enforce_uniformity`` in every counted run that detects with a
 uniformity radius, against its blocked plain version on the card;
-``score_masks`` at odd shapes and at the main step's layers, default and
-fused). Beside them it builds yardsticks that the port never calls:
+``score_masks``, ``layer_candidates`` and ``refine_keypoints`` at odd
+shapes and at the main step's layers, default and fused). Beside them it
+builds yardsticks that the port never calls:
 the earlier two-launch describe's second kernel (a warp a keypoint, after
 K2's unrotated samples) and ``describe.cu`` with its words a ballot a
 word, each timed in turns against ``describe_rotated``.
@@ -30,8 +34,9 @@ the launch counters set to 0 just before it and read just after:
 
 * the main path, ``FramePipeline.step`` with the benchmark configuration
   on 16 VGA frames (K1 1 launch for the four pyramid layers,
-  ``score_masks`` 1, ``enforce_uniformity`` 1, ``describe_rotated`` 1, K2
-  and the orientation kernel 0), compared with the plain CPU step;
+  ``score_masks`` 1, ``layer_candidates`` 1, ``enforce_uniformity`` 1,
+  ``refine_keypoints`` 1, ``describe_rotated`` 1, K2 and the orientation
+  kernel 0), compared with the plain CPU step;
 * the fused path, the same step with ``fused_mask=True`` (K3 1 launch for
   the four layers, ``score_masks`` 1 on K3's masks, K1 0,
   ``describe_rotated`` 1, K2 0), bit-equal to the main path;
@@ -130,7 +135,16 @@ examples', the camera grid's and the facades' too); the 16-bit and AST
 paths launch it never. ``[masks]`` holds it bitwise against the plain chain
 at 61 x 83 and 96 x 130 (noise, flat, sharp boxes; thresholds 0 and 20)
 and at the B=16 and B=128 step's layers, default and fused, and times the
-two in turns beside the bound.
+two in turns beside the bound. Every Harris detection, the 16-bit one
+included, launches ``layer_candidates`` and ``refine_keypoints`` once
+each; the AST paths never. ``[candidates]`` holds the first bitwise
+against its plain version at odd shapes, at the B=16 and B=128 step's
+layers (default, fused, its device-memory route, a tenth of the caps) and
+on a whole VGA map, and times it in turns with the plain version and
+``torch.sort``; ``[refine]`` holds the second bitwise in float32 and
+float64 at odd shapes and on the steps' refine inputs (without
+compaction, with no and with every accept too) and times it in turns with
+the plain version.
 Both steps are timed at batch 16 and 128 with per-stage CUDA events, in
 turns (default, fused, blocked, blocked, fused, default; "blocked" is the
 default step with the blocked uniformity path in the kernel's place), and
@@ -206,7 +220,8 @@ AST_STAGES = ("pyramid", "layers", "candidates", "pass1", "aux", "pass2", "descr
 SYSTEM_KERNELS = ("harris_score_i32", "harris_score_mask", "smoothed_intensity",
                   "smoothed_intensity_v1", "describe_rotated", "describe_rotated_v1",
                   "brisk_orientation", "atan2f_elementwise", "sincosf_elementwise",
-                  "walk_angles", "segment_sum", "enforce_uniformity", "score_masks")
+                  "walk_angles", "segment_sum", "enforce_uniformity", "score_masks",
+                  "layer_candidates", "refine_keypoints")
 # The v1 engine on the bench frames. bench.py's AST threshold 70 finds no
 # v1 corner on these smoothed-noise frames (their local contrast stays under
 # 70; v2's threshold map lowers its effective threshold there), so [v1]
@@ -299,6 +314,14 @@ WALK_FP32_OPS = 1 + 4 + 2 + 6 * 3 + 2 + ATAN2F_OPS + 1
 # compares 4).
 MASKS_OPS_PER_PIXEL = 25
 MASKS_OPS_PER_SURVIVOR = 6 * 7 + 10 * 11 * 2 + 9 + 4
+# Float operations of a slot of kernel refine_keypoints (csrc/refine.cu),
+# in the refine type: the coefficients 55 (tmp1 5, coeff1 and coeff2 6
+# each, tmp2-tmp4 5, coeff3 and coeff4 3 each, coeff5 4, coeff6 12, h_det
+# 4, its guards 2), the corner 18 (four values of 3, three offsets, three
+# compares), the interior and boundary deltas 32 (dx0 and dy0 7 each, four
+# compares, two divisors of 3, two boundary deltas of 6), two quadratics of
+# 14 and their compare 29, the selects 6, the un-mapping 8.
+REFINE_OPS_PER_SLOT = 55 + 18 + 32 + 29 + 6 + 8
 # The earlier segment_sum body, the staged one (a block a segment, tiles
 # of rows staged in shared memory, a launch a sum), built beside the
 # kernels as the yardstick [vo ba] times the grouped kernel against; the
@@ -994,14 +1017,10 @@ def masks_phase(dev, card: str, kind: str, launches: int, regs: list) -> dict:
             bnd = measure.bound_ms((6 if fused else 5) * pixels,
                                    int32_ops=MASKS_OPS_PER_PIXEL * pixels
                                    + MASKS_OPS_PER_SURVIVOR * survivors)
-            turns = {"kernel": [], "plain": []}
             runs = {"kernel": lambda: masks.score_masks_cuda(*args),
                     "plain": lambda: plain(*args)}
-            for label in ("kernel", "plain", "plain", "kernel"):
-                fn = runs[label]
-                names = None if label == "plain" else ("score_masks_kernel",)
-                turns[label].append((measure.cuda_time(fn),
-                                     measure.device_time(fn, dev, names, per_call=names and 1)))
+            turns = turns_of(runs, ("kernel", "plain", "plain", "kernel"), dev,
+                             {"kernel": ("score_masks_kernel",)})
             txt = "; ".join(f"{lab} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in v)
                             for lab, v in turns.items())
             host = host_us(runs["kernel"], 200)
@@ -1020,6 +1039,304 @@ def masks_phase(dev, card: str, kind: str, launches: int, regs: list) -> dict:
                            launches=launches, max_abs_err=0.0, ms=ev, device_ms=dv,
                            plain_ms=plain_ev, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
         del frames, args, scores, base
+        torch.cuda.empty_cache()
+    return row
+
+
+def turns_of(runs: dict, order: tuple, dev, names: dict) -> dict:
+    """Each run's (event ms, device ms) in the turns ``order``: the
+    device time of the kernels whose names ``names[label]`` gives (one
+    launch a call), or of a call's whole work where that is None."""
+    from ethzasl_brisk_tpu_torch import measure
+
+    turns = {label: [] for label in runs}
+    for label in order:
+        kernel = names.get(label)
+        turns[label].append((measure.cuda_time(runs[label]),
+                             measure.device_time(runs[label], dev, kernel,
+                                                 per_call=kernel and 1)))
+    return turns
+
+
+def candidates_phase(dev, card: str, kind: str, launches: int, regs: list) -> dict:
+    """[candidates]: kernel layer_candidates bitwise against its plain
+    version on the card, one counted launch each: the odd shapes (61 x 83,
+    96 x 130; noise, flat, boxes; thresholds 0 and 20) at caps 7, 150 and
+    the whole map, each route; the B=16 and B=128 step's four layers at the
+    main path's caps, default and fused, on the device-memory route, and at
+    a tenth of the caps (survivors over the cap: the radix select); a flat
+    VGA frame's whole map (a list past a chunk). At the step's shapes the
+    kernel, its device-memory route, the plain version and ``torch.sort``
+    (stable, a layer's masked map a call: the library yardstick) in turns,
+    event and device ms, beside the bound; host us a call. Then one VGA
+    layer a detection on the device-memory route (the quick start's at its
+    certified cap, the flat and noise frames' whole maps, a map of which
+    every pixel survives at that cap and at k = h*w), bitwise and in turns
+    with the plain version and ``torch.sort``. Returns the kernel's row at
+    the B=16 step's shapes."""
+    from ethzasl_brisk_tpu_torch import _kernels, measure
+    from ethzasl_brisk_tpu_torch.detect import scale_space
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+    from ethzasl_brisk_tpu_torch.kernels import candidates as kc
+
+    def layers(frames, thr, fused=False, octaves=2):
+        cfg = scale_space.DetectorConfig(octaves=octaves, absolute_threshold=float(thr),
+                                         fused_mask=fused)
+        return scale_space.layer_score_masks(scale_space.build_pyramid(frames, cfg.n_layers), cfg)
+
+    def list_bytes(scores, masks, caps) -> int:
+        # Each mask byte, each masked-in pixel's score sector, the lists
+        # (13 B a slot) and the counts.
+        return sum(m.numel() + measure.distinct_sector_bytes(m.reshape(-1).nonzero(), 4,
+                                                             m.numel())
+                   + 13 * sc.shape[0] * min(c, sc[0].numel()) + 4 * sc.shape[0]
+                   for sc, m, c in zip(scores, masks, caps))
+
+    def check(scores, masks, caps, what, routes=None) -> str:
+        _kernels.reset_launches()
+        got, counts = kc.layer_candidates_cuda(scores, masks, caps, routes)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["layer_candidates"] == 1, (what, _kernels.LAUNCHES)
+        ref, ref_counts = kc.layer_candidates_plain(scores, masks, caps)
+        assert torch.equal(counts, ref_counts), f"[candidates] {what}: counts"
+        for i, (g, r) in enumerate(zip(got, ref)):
+            for name, a, b in zip(("xs", "ys", "scores", "valid"), g, r):
+                assert torch.equal(a, b), f"[candidates] {what}: layer {i} {name} differs"
+        used = routes or [kc.layer_route(min(c, sc[0].numel())) for c, sc in zip(caps, scores)]
+        return f"{what} ({'/'.join(used)}; mask counts up to {int(counts.max())})"
+
+    lines = []
+    for h, w in ((61, 83), (96, 130)):
+        frames = mask_frames(3, h, w).to(dev)
+        for thr in (0, 20):
+            scores, masks = layers(frames, thr)
+            whole = [sc[0].numel() for sc in scores]
+            for caps in ([7] * 4, [150] * 4, whole):
+                lines.append(check(scores, masks, caps, f"{h}x{w} thr {thr} caps {caps}"))
+            lines.append(check(scores, masks, whole, f"{h}x{w} thr {thr} whole maps",
+                               ["device"] * 4))
+    flat = torch.full((2, 480, 640), 77, dtype=torch.uint8, device=dev)
+    flat[1] = torch.from_numpy(bench_frames(1)[0]).to(dev)
+    scores, masks = layers(flat, 0, octaves=0)
+    lines.append(check(scores, masks, [480 * 640], "flat and noise VGA frames, whole map"))
+    print(f"[candidates] kernel layer_candidates ptxas: {regs}; bitwise vs plain, one launch "
+          f"each: {'; '.join(lines)} [{kind}; {card}]", flush=True)
+
+    caps = list(BENCH_CONFIG["max_candidates"])
+    thr = int(BENCH_CONFIG["absolute_threshold"])
+    row = None
+    for batch in (16, 128):
+        frames = torch.from_numpy(bench_frames(batch)).to(dev)
+        lines = []
+        for fused in (True, False):
+            scores, masks = layers(frames, thr, fused)
+            lines.append(check(scores, masks, caps, "fused" if fused else "default"))
+        lines.append(check(scores, masks, caps, "device route", ["device"] * 4))
+        lines.append(check(scores, masks, [c // 10 for c in caps], "caps / 10"))
+        counts = kc.mask_counts(masks)
+        masked = [torch.where(m, sc, torch.full_like(sc, kc.INT32_MIN)).reshape(sc.shape[0], -1)
+                  for sc, m in zip(scores, masks)]
+        # "caps / 10": survivors past the lists, so the radix select's five
+        # more passes over the maps and sorts of at most 1024 keys, against
+        # the kernel's sort of up to 16,384 (padded) keys.
+        runs = {"kernel": lambda: kc.layer_candidates_cuda(scores, masks, caps),
+                "device route": lambda: kc.layer_candidates_cuda(scores, masks, caps,
+                                                                 ["device"] * 4),
+                "caps / 10": lambda: kc.layer_candidates_cuda(scores, masks,
+                                                              [c // 10 for c in caps]),
+                "plain": lambda: kc.layer_candidates_plain(scores, masks, caps),
+                "torch.sort": lambda: [torch.sort(x, dim=1, descending=True, stable=True)
+                                       for x in masked]}
+        names = {label: ("candidates_kernel",) for label in ("kernel", "device route", "caps / 10")}
+        turns = turns_of(runs, ("kernel", "device route", "caps / 10", "plain", "torch.sort",
+                                "torch.sort", "plain", "caps / 10", "device route", "kernel"),
+                         dev, names)
+        nbytes = list_bytes(scores, masks, caps)
+        bnd = measure.bound_ms(nbytes)
+        host = host_us(runs["kernel"], 200)
+        txt = "; ".join(f"{lab} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in v)
+                        for lab, v in turns.items())
+        print(f"[candidates] B={batch} step's four layers, caps {caps}: mask counts up to "
+              f"{counts.max(dim=0).values.tolist()} a frame; bitwise vs plain: "
+              f"{'; '.join(lines)}; event / device ms in turns: {txt}; bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}, {nbytes} B); host us a call (mean of 200, launches queued) "
+              f"{host:.1f} [{kind}; {card}]", flush=True)
+        if batch == 16:
+            (ev, dv), lib = turns["kernel"][0], turns["torch.sort"][0]
+            row = dict(name="layer_candidates", route="cuda",
+                       source="ethzasl_brisk_tpu_torch/csrc/candidates.cu",
+                       replaces="none: the port's own (the score-ordered candidate lists, which "
+                                "the JAX package does in XLA: lax.top_k, ethzasl_brisk_tpu/"
+                                "detect/scale_space.py:704-751; kernels/topk.py:30)",
+                       launches=launches, max_abs_err=0.0, ms=ev, device_ms=dv,
+                       plain_ms=turns["plain"][0][0], bound_ms=bnd[0], bound_by=bnd[1],
+                       library_ms=lib[0], library_device_ms=lib[1])
+        del frames, scores, masks, masked, runs
+        torch.cuda.empty_cache()
+
+    # One VGA layer on the device-memory route, where a list past a chunk
+    # is sorted across chunks in device memory by the one CTA of its frame:
+    # the quick start's layer at its certified cap, the flat and noise
+    # frames' whole maps, and a map of which every pixel survives at the
+    # quick start's cap (the radix select, then 32,768 padded keys) and at
+    # k = h*w (524,288).
+    qframes = torch.from_numpy(bench_frames(2)).to(dev)
+    q_layers = [layers(qframes[i : i + 1], QUICK_CONFIG["absolute_threshold"], True, 0)
+                for i in (0, 1)]
+    q_cap = -(-max(int(m[0].sum()) for _, m in q_layers) * 11 // 10 // 1024) * 1024
+    dense = torch.randint(-(2**31) + 1, 2**31 - 1, (1, 480, 640), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(23)).to(dev)
+    every = ([dense], [torch.ones_like(dense, dtype=torch.bool)])
+    configs = (("quick start", *q_layers[0], [q_cap]),
+               ("whole maps", *layers(flat, 0, octaves=0), [480 * 640]),
+               ("every pixel survives, the quick start's cap", *every, [q_cap]),
+               ("every pixel survives, whole map", *every, [480 * 640]))
+    for what, scores, masks, caps in configs:
+        line = check(scores, masks, caps, what)
+        sc, m, k = scores[0], masks[0], min(caps[0], scores[0][0].numel())
+        surv = (m & (sc > kc.INT32_MIN)).sum(dim=(1, 2)).tolist()
+        sorts = []
+        for n in surv:
+            keys = kc.key_capacity(min(n, kc.key_capacity(k)))
+            sorts.append("in shared memory" if keys <= kc.CHUNK_KEYS
+                         else f"across chunks ({keys} keys)")
+        masked = torch.where(m, sc, torch.full_like(sc, kc.INT32_MIN)).reshape(sc.shape[0], -1)
+        runs = {"kernel": lambda: kc.layer_candidates_cuda(scores, masks, caps),
+                "plain": lambda: kc.layer_candidates_plain(scores, masks, caps),
+                "torch.sort": lambda: torch.sort(masked, dim=1, descending=True, stable=True)}
+        turns = turns_of(runs, ("kernel", "plain", "torch.sort", "torch.sort", "plain",
+                                "kernel"), dev, {"kernel": ("candidates_kernel",)})
+        nbytes = list_bytes(scores, masks, caps)
+        bnd = measure.bound_ms(nbytes)
+        txt = "; ".join(f"{lab} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in v)
+                        for lab, v in turns.items())
+        print(f"[candidates] VGA {what}: {line}; B={sc.shape[0]}, k {k}, survivors a frame "
+              f"{surv}, sorted {', '.join(sorts)}; event / device ms in turns: {txt}; bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}, {nbytes} B) [{kind}; {card}]", flush=True)
+        del runs, masked
+    del configs, every, q_layers, qframes, dense, flat
+    torch.cuda.empty_cache()
+    return row
+
+
+def capture_refine(run) -> tuple:
+    """The arguments, cloned, of the one ``refine_keypoints`` call of
+    ``run()``'s detection: (scores, cands, accepts, caps, geoms), rdt."""
+    from ethzasl_brisk_tpu_torch.detect import scale_space
+
+    calls = []
+    real = scale_space.refine_keypoints
+
+    def record(scores, cands, accepts, caps, geoms, rdt=torch.float32):
+        calls.append(([s.clone() for s in scores], [tuple(t.clone() for t in c) for c in cands],
+                      [a.clone() for a in accepts], list(caps), geoms))
+        return real(scores, cands, accepts, caps, geoms, rdt)
+
+    scale_space.refine_keypoints = record
+    try:
+        run()
+    finally:
+        scale_space.refine_keypoints = real
+    assert len(calls) == 1, len(calls)
+    return calls[0]
+
+
+def refine_phase(dev, card: str, kind: str, launches: int, regs: list, feature,
+                 fused_feature) -> dict:
+    """[refine]: kernel refine_keypoints bitwise against its plain version
+    on the card, one counted launch each, in float32 and float64: the odd
+    shapes' detections (61 x 83, 96 x 130; thresholds 0 and 20; refine caps
+    24), the B=16 and B=128 steps' refine (default and fused), and at
+    B=16 without compaction (caps = k), with no accept and with every
+    accept. At the steps' inputs the kernel and the plain version in turns,
+    event and device ms, beside the bound; host us a call. Returns the
+    kernel's row at the B=16 step's inputs (float32)."""
+    from ethzasl_brisk_tpu_torch import _kernels, measure
+    from ethzasl_brisk_tpu_torch.detect import refine, scale_space
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+
+    def check(args, rdt, what) -> str:
+        _kernels.reset_launches()
+        got, counts = refine.refine_keypoints_cuda(*args, rdt)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["refine_keypoints"] == 1, (what, _kernels.LAUNCHES)
+        ref, ref_counts = refine.refine_keypoints_plain(*args, rdt)
+        assert torch.equal(counts, ref_counts), f"[refine] {what}: counts"
+        for name, a, b in zip(("x", "y", "size", "angle", "response", "octave", "valid"),
+                              got.fields(), ref.fields()):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), f"[refine] {what}: {name} differs from plain"
+        return f"{what} ({int(ref.valid.sum())} valid of {ref.valid.numel()})"
+
+    lines = []
+    for h, w in ((61, 83), (96, 130)):
+        frames = mask_frames(3, h, w).to(dev)
+        for thr in (0, 20):
+            cfg = scale_space.DetectorConfig(octaves=2, absolute_threshold=float(thr),
+                                             max_candidates=150, refine_capacity=24)
+            args = capture_refine(lambda: scale_space.detect_keypoints(frames, cfg))
+            for rdt in (torch.float32, torch.float64):
+                lines.append(check(args, rdt, f"{h}x{w} thr {thr} {str(rdt)[6:]}"))
+    print(f"[refine] kernel refine_keypoints ptxas: {regs}; bitwise vs plain, one launch "
+          f"each: {'; '.join(lines)} [{kind}; {card}]", flush=True)
+
+    row = None
+    for batch in (16, 128):
+        frames = torch.from_numpy(bench_frames(batch)).to(dev)
+        lines = []
+        args = capture_refine(lambda: fused_feature.detect(frames))
+        lines.append(check(args, torch.float32, "fused"))
+        args = capture_refine(lambda: feature.detect(frames))
+        for rdt in (torch.float64, torch.float32):
+            lines.append(check(args, rdt, f"default {str(rdt)[6:]}"))
+        scores, cands, accepts, caps, geoms = args
+        if batch == 16:
+            lines.append(check((scores, cands, accepts, [c[0].shape[1] for c in cands], geoms),
+                               torch.float32, "caps = k"))
+            for label, fill in (("no accept", False), ("every accept", True)):
+                flags = [torch.full_like(a, fill) for a in accepts]
+                lines.append(check((scores, cands, flags, caps, geoms), torch.float32, label))
+        runs = {"kernel": lambda: refine.refine_keypoints_cuda(*args),
+                "plain": lambda: refine.refine_keypoints_plain(*args)}
+        turns = turns_of(runs, ("kernel", "plain", "plain", "kernel"), dev,
+                         {"kernel": ("refine_kernel",)})
+        # The bytes: the accept flags, a slot's candidate (12 B) and fields
+        # (25 B: five float32, the int32 octave, the valid byte), the
+        # distinct sectors of its taps, the counts.
+        nbytes, slots = 4 * scores[0].shape[0] * len(caps), 0
+        for sc, (xs, ys, _, _), a, cap in zip(scores, cands, accepts, caps):
+            src = refine.compaction_slots(a, cap)
+            cx, cy = torch.gather(xs, 1, src).long(), torch.gather(ys, 1, src).long()
+            h, w = sc.shape[1:]
+            plane = torch.arange(sc.shape[0], device=dev)[:, None] * (h * w)
+            taps = torch.stack([plane + torch.clamp(cy + dy, 0, h - 1) * w
+                                + torch.clamp(cx + dx, 0, w - 1)
+                                for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
+            nbytes += a.numel() + 37 * src.numel() + measure.distinct_sector_bytes(
+                taps, 4, sc.numel())
+            slots += src.numel()
+        bnd = measure.bound_ms(nbytes, fp32_ops=REFINE_OPS_PER_SLOT * slots)
+        host = host_us(runs["kernel"], 200)
+        txt = "; ".join(f"{lab} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in v)
+                        for lab, v in turns.items())
+        print(f"[refine] B={batch} step, caps {caps}, {slots} slots, accepted up to "
+              f"{refine.accepted_counts(accepts).max(dim=0).values.tolist()} a frame; bitwise "
+              f"vs plain: {'; '.join(lines)}; float32 event / device ms in turns: {txt}; bound "
+              f"{bnd[0]:.5f} ms ({bnd[1]}, {nbytes} B, {REFINE_OPS_PER_SLOT * slots} float "
+              f"operations); host us a call (mean of 200, launches queued) {host:.1f} "
+              f"[{kind}; {card}]", flush=True)
+        if batch == 16:
+            (ev, dv) = turns["kernel"][0]
+            row = dict(name="refine_keypoints", route="cuda",
+                       source="ethzasl_brisk_tpu_torch/csrc/refine.cu",
+                       replaces="none: the port's own (the compaction, taps, sub-pixel fit and "
+                                "packing, which the JAX package does in XLA: ethzasl_brisk_tpu/"
+                                "detect/scale_space.py:666-701, :772-848; detect/subpixel.py:18)",
+                       launches=launches, max_abs_err=0.0, ms=ev, device_ms=dv,
+                       plain_ms=turns["plain"][0][0], bound_ms=bnd[0], bound_by=bnd[1],
+                       library_ms=None)
+        del frames, args, scores, cands, accepts, runs
         torch.cuda.empty_cache()
     return row
 
@@ -1210,6 +1527,7 @@ def quick_start(dev: torch.device) -> dict:
     from ethzasl_brisk_tpu_torch import BriskFeature, _kernels, measure
     from ethzasl_brisk_tpu_torch.core.image_io import read_pgm, write_pgm
     from ethzasl_brisk_tpu_torch.frames import bench_frames
+    from ethzasl_brisk_tpu_torch.kernels import candidates
     from ethzasl_brisk_tpu_torch.match.matcher import radius_match_best
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1246,6 +1564,7 @@ def quick_start(dev: torch.device) -> dict:
     assert launches["harris_score_i32"] == 0, launches
     # octaves 0 with K3: its mask is already the answer.
     assert launches["score_masks"] == 0, launches
+    assert launches["layer_candidates"] == launches["refine_keypoints"] == 2, launches
     assert launches["describe_rotated"] == 2, launches
     assert launches["smoothed_intensity"] == launches["brisk_orientation"] == 0, launches
 
@@ -1254,22 +1573,23 @@ def quick_start(dev: torch.device) -> dict:
     for (kg, dg), (kc, dc) in zip(out, ref):
         assert kg.x.dim() == 1 and dg.shape == (kg.capacity, 12), "unbatched outputs"
         assert torch.equal(kg.valid.cpu(), kc.valid), "quick start valid"
-        for name in ("size", "response", "octave"):
+        for name in ("size", "response", "octave", "x", "y"):
             assert torch.equal(getattr(kg, name).cpu(), getattr(kc, name)), name
         gap = max(gap, ulp_gap(kg.x, kc.x), ulp_gap(kg.y, kc.y))
         assert torch.equal(kg.angle.cpu(), kc.angle), "quick start angle"
         assert torch.equal(dg.cpu(), dc), "quick start descriptors"
         assert bool(torch.isfinite(kg.x).all())
         n_valid.append(int(kc.valid.sum()))
-    assert gap <= 1, gap
+    assert gap == 0, gap
     assert min(n_valid) > 0
     for g, c in zip(match, ref_match):
         assert torch.equal(g.cpu(), c), "quick start matches"
     ms = measure.cuda_time(lambda: feature.detect_and_compute(gpu_imgs[0]), reps=5, warmup=1)
     print(
         f"[quick start] 2 VGA PGM images: candidates {counts} -> certified cap {cap}; "
-        f"valid keypoints {n_valid}; launches {launches}; GPU vs CPU: valid bitwise, x/y "
-        f"within {gap} ULP, angles, descriptors and matches bitwise "
+        f"valid keypoints {n_valid}; launches {launches}; GPU vs CPU: every field, x/y "
+        f"included ({gap} ULP apart), angles, descriptors and matches bitwise; the list on "
+        f"the {candidates.layer_route(cap)} route "
         f"({int(match[2].sum())} under radius {QUICK_RADIUS}); detect_and_compute "
         f"{ms:.3f} ms per image (median of 5)",
         flush=True,
@@ -1347,11 +1667,11 @@ def u16_phase(dev: torch.device, card: str) -> dict:
     # The host image, as a user passes it.
     got, launches = counted(lambda: feature.detect_and_compute(frame))
     # No K1-K3 (float maps, the float sampler): the orientation kernel, on
-    # the op-by-op chain, and uniformity's.
-    assert launches == launches_of(brisk_orientation=1, enforce_uniformity=1), \
-        f"[u16] launches: {launches}"
-    assert not any(v for k, v in _kernels.LAUNCHES.items()
-                   if k not in ("brisk_orientation", "enforce_uniformity"))
+    # the op-by-op chain, uniformity's, and the float lists and refine.
+    on_path = dict(brisk_orientation=1, enforce_uniformity=1, layer_candidates=1,
+                   refine_keypoints=1)
+    assert launches == launches_of(**on_path), f"[u16] launches: {launches}"
+    assert not any(v for k, v in _kernels.LAUNCHES.items() if k not in on_path)
     assert got[0].x.device == dev and got[1].shape == (got[0].capacity, 12)
     assert bool(torch.isfinite(got[0].x).all())
     ref = BriskFeature(**U16_CONFIG, max_candidates=cap, device="cpu").detect_and_compute(frame)
@@ -1395,6 +1715,7 @@ def facade_phase(dev: torch.device, card: str) -> dict:
     assert launches["enforce_uniformity"] == 0, launches
     assert launches["harris_score_i32"] == launches["harris_score_mask"] == 0, launches
     assert launches["score_masks"] == 0, launches
+    assert launches["layer_candidates"] == launches["refine_keypoints"] == 0, launches
     # angle_exact: the host's double atan2, no orientation kernel, and both
     # samplings on K2 (describe_rotated takes the float32 chain only).
     assert launches["brisk_orientation"] == launches["describe_rotated"] == 0, launches
@@ -1408,6 +1729,7 @@ def facade_phase(dev: torch.device, card: str) -> dict:
     got, launches64 = counted(lambda: BriskFeature(**parity).detect_and_compute(frame))
     assert launches64["harris_score_i32"] == launches64["score_masks"] == 1, launches64
     assert launches64["enforce_uniformity"] == 1, launches64
+    assert launches64["layer_candidates"] == launches64["refine_keypoints"] == 1, launches64
     assert launches64["smoothed_intensity"] == 2, launches64
     ref = BriskFeature(**parity, device="cpu").detect_and_compute(frame)
     n64 = assert_same_image_outputs(got, ref, "[facade] float64")
@@ -1682,7 +2004,8 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     feat = BriskFeature(**BENCH_CONFIG, version="v1")
     hg, launches_h = counted(lambda: feat.detect_and_compute(host[0]))
     assert launches_h == launches_of(harris_score_i32=1, describe_rotated_v1=1,
-                                     enforce_uniformity=1, score_masks=1), launches_h
+                                     enforce_uniformity=1, score_masks=1, layer_candidates=1,
+                                     refine_keypoints=1), launches_h
     n_h = assert_same_image_outputs(
         hg, BriskFeature(**BENCH_CONFIG, version="v1", device="cpu").detect_and_compute(host[0]),
         "[v1] BriskFeature")
@@ -1691,7 +2014,8 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     exact = dict(BENCH_CONFIG, version="v1", angle_exact=True)
     he, launches_e = counted(lambda: BriskFeature(**exact).detect_and_compute(host[0]))
     assert launches_e == launches_of(harris_score_i32=1, smoothed_intensity_v1=2,
-                                     enforce_uniformity=1, score_masks=1), launches_e
+                                     enforce_uniformity=1, score_masks=1, layer_candidates=1,
+                                     refine_keypoints=1), launches_e
     n_e = assert_same_image_outputs(
         he, BriskFeature(**exact, device="cpu").detect_and_compute(host[0]),
         "[v1] BriskFeature, angle_exact")
@@ -1911,7 +2235,8 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
         "equidistant": PinholeCamera(**CAMERA, distortion=EquidistantDistortion(*EQUIDISTANT)),
     }
     expect = launches_of(harris_score_i32=1, describe_rotated=1, walk_angles=1,
-                         enforce_uniformity=1, score_masks=1)
+                         enforce_uniformity=1, score_masks=1, layer_candidates=1,
+                         refine_keypoints=1)
     walk, old_chain = camera_aware.walk_angles, camera_aware.walk_angles_plain
     walk_calls, atan2_calls, sincos_calls, grid_launches = [], [], [], {}
 
@@ -1983,7 +2308,8 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
     single = CameraAwareFeature(cams["radtan"], feature)
     got, launches = counted(lambda: single.detect_and_compute(host))
     assert launches == launches_of(harris_score_i32=1, describe_rotated=1,
-                                   enforce_uniformity=1, score_masks=1), launches
+                                   enforce_uniformity=1, score_masks=1, layer_candidates=1,
+                                   refine_keypoints=1), launches
     ref = CameraAwareFeature(cams["radtan"], feature_cpu).detect_and_compute(host)
     assert torch.equal(got[2].cpu(), ref[2]), "[camera] single view warp"
     n = assert_same_image_outputs(got[:2], ref[:2], "[camera] single view")
@@ -2192,10 +2518,11 @@ def vo_phase(dev: torch.device, card: str, kind: str, yard: dict) -> dict:
         undo()
         frontend.VoFrontend.process_frame = process
     assert got["capacity_ok"] and ref["capacity_ok"]
-    # K1 and score_masks once a frame and once for the frame-0 certificate,
-    # describe_rotated once a frame, the segment sums once a Gauss-Newton
-    # step, 12 a BA solve.
+    # K1, score_masks, layer_candidates and refine_keypoints once a frame
+    # and once for the frame-0 certificate, describe_rotated once a frame,
+    # the segment sums once a Gauss-Newton step, 12 a BA solve.
     expect = launches_of(harris_score_i32=VO_FRAMES + 1, score_masks=VO_FRAMES + 1,
+                         layer_candidates=VO_FRAMES + 1, refine_keypoints=VO_FRAMES + 1,
                          describe_rotated=VO_FRAMES,
                          segment_sum=SEGMENT_SUMS_PER_SOLVE * len(windows))
     assert launches == expect, launches
@@ -2533,6 +2860,7 @@ def ckpt_phase(dev: torch.device, card: str, kind: str) -> None:
     resumed_at = steps[-1]
     frames_run = CKPT_FRAMES - resumed_at
     expect = launches_of(harris_score_i32=frames_run + 1, score_masks=frames_run + 1,
+                         layer_candidates=frames_run + 1, refine_keypoints=frames_run + 1,
                          describe_rotated=frames_run, segment_sum=launches["segment_sum"])
     assert launches == expect, (launches, expect)
     assert launches["segment_sum"] % SEGMENT_SUMS_PER_SOLVE == 0, launches
@@ -2628,6 +2956,7 @@ def dist_phase(dev: torch.device, card: str, kind: str, feature, pipe, frames16)
             got, launches = counted(lambda: sharded.step(frames16, with_diagnostics=True))
             assert launches["harris_score_i32"] == launches["describe_rotated"] == 1, launches
             assert launches["enforce_uniformity"] == launches["score_masks"] == 1, launches
+            assert launches["layer_candidates"] == launches["refine_keypoints"] == 1, launches
             assert launches["smoothed_intensity"] == 0, launches
             assert_same_step(got[:4], (kps, desc, midx, mdist), "[dist] step over the mesh")
             assert bool(got[4]["detect"].ok.all())
@@ -2743,8 +3072,8 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
             recorded.clear()
         finally:
             frontend.VoFrontend.process_frame = process
-        assert launches == launches_of(harris_score_i32=n, score_masks=n,
-                                       describe_rotated=n), launches
+        assert launches == launches_of(harris_score_i32=n, score_masks=n, layer_candidates=n,
+                                       refine_keypoints=n, describe_rotated=n), launches
         assert len(card_frames) == len(cpu_frames) == n
         for i, (g, c) in enumerate(zip(card_frames, cpu_frames)):
             assert_same_image_outputs(g, c, f"[vo tools] {label} frame {i}")
@@ -2808,6 +3137,7 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
         assert np.isfinite(float(evals[1].split(": ")[1])), evals
         assert eval_launches == launches_of(
             harris_score_i32=VO_TOOLS_CLI_FRAMES, score_masks=VO_TOOLS_CLI_FRAMES,
+            layer_candidates=VO_TOOLS_CLI_FRAMES, refine_keypoints=VO_TOOLS_CLI_FRAMES,
             describe_rotated=VO_TOOLS_CLI_FRAMES), eval_launches
     print(f"[vo tools] python -m ethzasl_brisk_tpu_torch.vo.synthetic {' '.join(argv[:3])} on "
           f"the card: {lines[-1]}; vo.gen_sequence {VO_TOOLS_CLI_FRAMES} frames through "
@@ -2847,6 +3177,8 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
         n_drawn = len(os.listdir(os.path.join(tmp, "draw")))
     n_batches = (LIVE_FRAMES - 1) // LIVE_BATCH
     assert launches["harris_score_i32"] == launches["score_masks"] == n_batches + 1, launches
+    assert launches["layer_candidates"] == launches["refine_keypoints"] == n_batches + 1, \
+        launches
     assert launches["describe_rotated"] == n_batches, launches
     assert launches["smoothed_intensity"] == launches["enforce_uniformity"] == 0, launches
     card_batches = [ln for ln in card_lines if ln.startswith("batch ")]
@@ -2860,7 +3192,8 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
           f"registry: {timing_lines} [{kind}; {card}]", flush=True)
     demo, demo_launches = counted(lambda: run(lambda: cameras_demo.main(["--device", dev.type])))
     assert (demo_launches["harris_score_i32"] == demo_launches["describe_rotated"]
-            == demo_launches["score_masks"] == 1), demo_launches
+            == demo_launches["score_masks"] == demo_launches["layer_candidates"]
+            == demo_launches["refine_keypoints"] == 1), demo_launches
     assert demo_launches["smoothed_intensity"] == demo_launches["enforce_uniformity"] == 0, \
         demo_launches
     print(f"[examples] cameras_demo on the card: {demo}; launches {demo_launches} "
@@ -2889,6 +3222,7 @@ def main() -> int:
         harris_score_mask_i32,
         harris_score_mask_layers,
     )
+    from ethzasl_brisk_tpu_torch.kernels.candidates import layer_candidates
     from ethzasl_brisk_tpu_torch.kernels.nms import maxima2d_mask
     from ethzasl_brisk_tpu_torch.probes import cases as probe_cases
     cuda_time = measure.cuda_time
@@ -2913,12 +3247,15 @@ def main() -> int:
     regs = ptxas_lines(log.read_text() if log.exists() else "", "describe_rotated_kernel")
     uniformity_regs = ptxas_lines(log.read_text() if log.exists() else "", "uniformity_kernel")
     masks_regs = ptxas_lines(log.read_text() if log.exists() else "", "score_masks_kernel")
+    candidates_regs = ptxas_lines(log.read_text() if log.exists() else "", "candidates_kernel")
+    refine_regs = ptxas_lines(log.read_text() if log.exists() else "", "refine_kernel")
     uniformity_kernel = install_uniformity_check()
     print(f"[build] {lib_path.name} and {len(yard)} yardsticks in "
           f"{time.perf_counter() - t0:.2f} s; describe_rotated's ptxas: {regs}; the words a "
           f"ballot a word: {yard['describe_words_ballot'][1]}; the warp kernel: "
           f"{yard['warp_describe'][1]}; enforce_uniformity's: {uniformity_regs}; score_masks': "
-          f"{masks_regs}", flush=True)
+          f"{masks_regs}; layer_candidates': {candidates_regs}; refine_keypoints': "
+          f"{refine_regs}", flush=True)
 
     frames16 = torch.from_numpy(bench_frames(16)).to(dev)
     # The entry points run on the card by default.
@@ -2994,6 +3331,7 @@ def main() -> int:
     assert launches["describe_rotated"] == 1, launches
     assert launches["enforce_uniformity"] == 1, launches  # the four layers
     assert launches["score_masks"] == 1, launches  # the four layers
+    assert launches["layer_candidates"] == launches["refine_keypoints"] == 1, launches
     assert launches["smoothed_intensity"] == launches["brisk_orientation"] == 0, launches
     b, k = kps.valid.shape
     print(
@@ -3031,6 +3369,8 @@ def main() -> int:
     assert fused_launches["harris_score_mask"] == 1, fused_launches
     assert fused_launches["enforce_uniformity"] == 1, fused_launches
     assert fused_launches["score_masks"] == 1, fused_launches  # on K3's masks
+    assert fused_launches["layer_candidates"] == fused_launches["refine_keypoints"] == 1, \
+        fused_launches
     assert fused_launches["harris_score_i32"] == 0, fused_launches
     assert fused_launches["describe_rotated"] == 1, fused_launches
     assert fused_launches["smoothed_intensity"] == 0, fused_launches
@@ -3051,39 +3391,40 @@ def main() -> int:
     feature_cpu = BriskFeature(**BENCH_CONFIG, device="cpu")
     cfg = feature.config
     pyr_g, pyr_c = scale_space.build_pyramid(f4, 4), scale_space.build_pyramid(f4c, 4)
+    caps4 = [cfg.layer_cap(i) for i in range(4)]
     _kernels.reset_launches()
     sc_g, mk_g = scale_space.layer_score_masks(pyr_g, cfg)
-    assert _kernels.LAUNCHES["score_masks"] == 1, _kernels.LAUNCHES
+    cands_g, counts_g = layer_candidates(sc_g, mk_g, caps4)
+    assert _kernels.LAUNCHES["score_masks"] == _kernels.LAUNCHES["layer_candidates"] == 1, \
+        _kernels.LAUNCHES
     sc_c, mk_c = scale_space.layer_score_masks(pyr_c, cfg)
+    cands_c, counts_c = layer_candidates(sc_c, mk_c, caps4)
+    assert torch.equal(counts_g.cpu(), counts_c), "candidate counts"
     for i in range(4):
         assert torch.equal(pyr_g[i].cpu(), pyr_c[i]), f"pyramid layer {i}"
         assert torch.equal(sc_g[i].cpu(), sc_c[i]), f"scores layer {i}"
         assert torch.equal(mk_g[i].cpu(), mk_c[i]), f"masks layer {i}"
-        cg = scale_space._layer_candidates(sc_g[i], mk_g[i], cfg.layer_cap(i))
-        cc = scale_space._layer_candidates(sc_c[i], mk_c[i], cfg.layer_cap(i))
-        for a, c in zip(cg, cc):
+        for a, c in zip(cands_g[i], cands_c[i]):
             assert torch.equal(a.cpu(), c), f"candidates layer {i}"
         with uniformity_checked():
-            accept_g = scale_space._layer_accept(cg, cfg, tuple(sc_g[i].shape[-2:]))
-        assert torch.equal(accept_g.cpu(), scale_space._layer_accept(cc, cfg)), \
+            accept_g = scale_space._layer_accept(cands_g[i], cfg, tuple(sc_g[i].shape[-2:]))
+        assert torch.equal(accept_g.cpu(), scale_space._layer_accept(cands_c[i], cfg)), \
             f"accept layer {i}"
     out_g = FramePipeline(feature).step(f4)
     out_c = FramePipeline(feature_cpu, device="cpu").step(f4c)
     kg, kc = out_g[0], out_c[0]
-    assert torch.equal(kg.valid.cpu(), kc.valid), "valid"
-    for name in ("size", "response", "octave"):
+    for name in ("x", "y", "size", "response", "octave", "valid"):
         assert torch.equal(getattr(kg, name).cpu(), getattr(kc, name)), name
     gx, gy = ulp_gap(kg.x, kc.x), ulp_gap(kg.y, kc.y)
-    assert gx <= 1 and gy <= 1, (gx, gy)
     assert torch.equal(kg.angle.cpu(), kc.angle), "angle"
     n_desc = int(kc.valid.sum())
     assert n_desc > 0
     for i, name in ((1, "descriptors"), (2, "match index"), (3, "match distance")):
         assert torch.equal(out_g[i].cpu(), out_c[i]), name
     print(
-        f"[gpu vs cpu] B=4: pyramid, scores, masks (score_masks, 1 launch), candidates, "
-        f"accepts, valid bitwise; "
-        f"x/y within {max(gx, gy)} ULP; the angles of all {n_desc} described keypoints, "
+        f"[gpu vs cpu] B=4: pyramid, scores, masks (score_masks, 1 launch), candidates "
+        f"(layer_candidates, 1 launch) and their counts, accepts, every keypoint field "
+        f"bitwise (x/y {max(gx, gy)} ULP apart); the angles of all {n_desc} described keypoints, "
         f"descriptors and matches bitwise",
         flush=True,
     )
@@ -3160,6 +3501,17 @@ def main() -> int:
     masks_row = masks_phase(dev, card, kind, launches["score_masks"], masks_regs)
     print(f"[masks] B=16 step's four layers: {row_text(masks_row)}; "
           f"launches: the main path's {launches['score_masks']} [{kind}; {card}]", flush=True)
+
+    # ---- layer_candidates and refine_keypoints against their plain
+    # versions, in turns, at the step's shapes.
+    candidates_row = candidates_phase(dev, card, kind, launches["layer_candidates"],
+                                      candidates_regs)
+    print(f"[candidates] B=16 step's four layers: {row_text(candidates_row)}; launches: the "
+          f"main path's {launches['layer_candidates']} [{kind}; {card}]", flush=True)
+    refine_row = refine_phase(dev, card, kind, launches["refine_keypoints"], refine_regs,
+                              feature, fused_feature)
+    print(f"[refine] B=16 step: {row_text(refine_row)}; launches: the main path's "
+          f"{launches['refine_keypoints']} [{kind}; {card}]", flush=True)
 
     # ---- Timing.
     stage_names = ["pyramid", "harris", "masks", "candidates", "uniformity", "refine",
@@ -3267,8 +3619,8 @@ def main() -> int:
              "ethzasl_brisk_tpu/kernels/pallas_harris.py:177",
              fused_launches["harris_score_mask"], k3_err, "k3"),
         )
-    ] + [v1_row, describe_row, orientation_row] + camera_rows + [segment_row, uniformity_row,
-                                                                  masks_row] + probe_rows
+    ] + [v1_row, describe_row, orientation_row] + camera_rows + [
+        segment_row, uniformity_row, masks_row, candidates_row, refine_row] + probe_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[wall] {time.perf_counter() - t_start:.1f} s from start to the kernels line", flush=True)
     print(f"[card] {card}", flush=True)

@@ -59,6 +59,10 @@ LAUNCHES = {
     # 3-D checks), each every layer of a detection in one launch
     # (csrc/uniformity.cu, csrc/masks.cu).
     "enforce_uniformity": 0, "score_masks": 0,
+    # The score-ordered candidate lists and the refine (compaction, taps,
+    # sub-pixel fit, packing), each every layer of a detection in one
+    # launch (csrc/candidates.cu, csrc/refine.cu).
+    "layer_candidates": 0, "refine_keypoints": 0,
     # The latency probes behind segment_sum's and enforce_uniformity's chain
     # bounds (measure.add_latency_cycles, measure.round_latency_cycles).
     "add_latency": 0, "round_latency": 0,
@@ -242,6 +246,17 @@ def library() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_int64), ci, ci, ci, vp,  # layers, layer count, frames,
             ]                                                    # threshold, stream
             lib.brisk_score_masks.restype = ci
+            lib.brisk_layer_candidates.argtypes = [
+                ctypes.POINTER(ctypes.c_int64), ci, ci, ci,  # layers, layer count, frames, columns
+                ci, vp, vp,                                  # is_float, counts, stream
+            ]
+            lib.brisk_layer_candidates.restype = ci
+            lib.brisk_refine_keypoints.argtypes = [
+                ctypes.POINTER(ctypes.c_int64), ci,          # layers, layer count
+                ctypes.POINTER(ctypes.c_int64), ci,          # outputs, frames
+                ci, ci, ci, ci, vp,  # columns, counts' columns, is_float, is_double, stream
+            ]
+            lib.brisk_refine_keypoints.restype = ci
             lib.brisk_round_latency.argtypes = [ci, vp, vp, vp]  # rounds, cycles, sink, stream
             lib.brisk_round_latency.restype = ci
             lib.brisk_error_string.argtypes = [ci]

@@ -1,0 +1,115 @@
+"""Synthetic score maps and masks for the candidate lists and the refine,
+shared by the CPU tests (``test_torch_candidates.py``,
+``test_torch_refine.py``) and the card's (``test_torch_gpu.py``). numpy
+only: the card's tests import no JAX.
+
+Each case is three layers of two frames, (scores, masks, caps): maps no
+Harris frame gives, at odd sizes, with caps below, at and above what
+survives. A survivor is a masked-in pixel above the sentinel (INT32_MIN,
+or -inf on float scores).
+
+* ``all_masked_out``: no mask bit; every slot is a sentinel fill;
+* ``no_survivor``: every pixel masked in at the sentinel itself, so the
+  fills are valid;
+* ``over_cap``: survivors far past the cap (the kernel's radix select),
+  and between the cap and its power of two;
+* ``whole_map``: k = h*w on every layer, the whole map ordered;
+* ``ties``: three score values over the whole map;
+* ``int32_min_masked_in``: masked-in INT32_MIN among ordinary scores;
+* ``signed_zero``: float scores of -0.0, +0.0, -inf and a few others;
+* ``float_spread``: float scores from 1e-12 to 1e12, both signs (the
+  refine's products stay finite);
+* ``signed_nan``: float scores among them masked-in NaNs with the sign
+  set, which the total order puts under -inf, so after every pixel at the
+  sentinel, each keeping its own bits; caps of the whole map and two
+  short of it (some of them cut), and a map of them nearly all, more than
+  its list holds (the kernel's radix select on them). The lists only:
+  no Harris map holds a NaN, and the refine cases leave this one out;
+* ``large_map``: one (1, 180, 200) layer of 50 score values, nearly all
+  masked in, k = h*w: ~35,000 survivors, past a chunk of shared memory
+  (the kernel's device route, sorted a chunk at a time and across chunks
+  in device memory).
+"""
+import numpy as np
+
+INT32_MIN = -(2**31)
+KINDS = ("all_masked_out", "no_survivor", "over_cap", "whole_map", "ties",
+         "int32_min_masked_in", "signed_zero", "float_spread", "large_map", "signed_nan")
+# The cases the refine tests leave out: one for its size, one because no
+# Harris map holds a NaN.
+LISTS_ONLY = ("large_map", "signed_nan")
+# Float32 bit patterns of the ``signed_nan`` maps: NaNs with the sign set
+# (under -inf in the total order), -inf, +NaN, 1.0, +0.0 and -0.0.
+NAN_BITS = (0xFFC00000, 0xFF800001, 0xFFFFFFFF, 0xFF800000, 0x7FC00000, 0x3F800000, 0, 0x80000000)
+SHAPES = ((37, 45), (20, 31), (9, 13))
+
+
+def case(kind: str):
+    """(scores, masks, caps): lists of (B, h, w) int32 or float32 maps,
+    (B, h, w) bool masks and a cap a layer."""
+    rng = np.random.default_rng(KINDS.index(kind) + 11)
+    if kind == "large_map":
+        return ([rng.integers(0, 50, (1, 180, 200)).astype(np.int32)],
+                [rng.random((1, 180, 200)) < 0.97], [180 * 200])
+    scores, masks, caps = [], [], []
+    for h, w in SHAPES:
+        n = h * w
+        shape = (2, h, w)
+        mask = rng.random(shape) < 0.3
+        s = rng.integers(-1000, 1000, shape).astype(np.int32)
+        cap = n // 3
+        if kind == "all_masked_out":
+            mask[:] = False
+        elif kind == "no_survivor":
+            mask[:] = True
+            s[:] = INT32_MIN
+        elif kind == "over_cap":
+            mask = rng.random(shape) < 0.8
+            cap = {37: 5, 20: 3, 9: 60}[h]
+            if h == 9:  # 62 survivors a frame: past the cap, within its power of two
+                mask[:] = False
+                for f in range(2):
+                    mask[f].reshape(-1)[rng.choice(n, 62, replace=False)] = True
+        elif kind == "whole_map":
+            cap = n + 5
+        elif kind == "ties":
+            s = rng.choice(np.array([-4, 9, 9, 9, 30], np.int32), shape)
+            mask = rng.random(shape) < 0.6
+            cap = n // 2
+        elif kind == "int32_min_masked_in":
+            s = np.where(rng.random(shape) < 0.4, INT32_MIN,
+                         rng.integers(-(2**31) + 1, 2**31, shape)).astype(np.int32)
+            mask = rng.random(shape) < 0.7
+            cap = n - 3
+        elif kind == "signed_zero":
+            s = rng.choice(np.array([-0.0, 0.0, -np.inf, 2.5, -1.0], np.float32), shape)
+            mask = rng.random(shape) < 0.6
+            cap = n // 2
+        elif kind == "signed_nan":
+            s = rng.choice(np.array(NAN_BITS, np.uint32), shape).view(np.float32)
+            mask = rng.random(shape) < 0.7
+            cap = {37: n, 20: n - 2, 9: n // 3}[h]
+            if h == 9:  # every pixel masked in, ~90 % signed NaNs: more than the list holds
+                s = rng.choice(np.array(NAN_BITS[:3] + NAN_BITS[5:6], np.uint32), shape,
+                               p=[0.3, 0.3, 0.3, 0.1]).view(np.float32)
+                mask[:] = True
+        elif kind == "float_spread":
+            s = rng.standard_normal(shape) * 10.0 ** rng.integers(-12, 12, shape)
+            s = s.astype(np.float32)
+            mask = rng.random(shape) < 0.5
+            cap = n // 4
+        scores.append(s)
+        masks.append(mask)
+        caps.append(cap)
+    return scores, masks, caps
+
+
+def accepts_for(cands_valid, kind: str, seed: int = 0):
+    """Accept flags (B, k) of one layer's candidates for the refine cases:
+    none, every one, or a seeded half of the valid ones."""
+    rng = np.random.default_rng(seed)
+    if kind == "none":
+        return np.zeros(cands_valid.shape, bool)
+    if kind == "all":
+        return np.ones(cands_valid.shape, bool)
+    return cands_valid & (rng.random(cands_valid.shape) < 0.5)

@@ -36,6 +36,7 @@ from ethzasl_brisk_tpu_torch import BriskFeature, KeyPoints  # noqa: E402
 from ethzasl_brisk_tpu_torch.core import golden  # noqa: E402
 from ethzasl_brisk_tpu_torch.describe.extractor import BriskExtractor  # noqa: E402
 from ethzasl_brisk_tpu_torch.detect import scale_space as tss  # noqa: E402
+from ethzasl_brisk_tpu_torch.detect.refine import refine_fused  # noqa: E402
 from ethzasl_brisk_tpu_torch.detect.scale_space import DetectorConfig  # noqa: E402
 from ethzasl_brisk_tpu_torch.frames import bench_frames  # noqa: E402
 
@@ -174,7 +175,7 @@ def test_refine_tail_matches_jax_on_every_layer(dtype):
             [jnp.asarray(sc) for sc in scores], [tuple(jnp.asarray(c) for c in t) for t in comp],
             geoms, jss.DetectorConfig(refine_dtype=dtype))
         ref = jax.tree.map(np.asarray, ref)
-    got = tss._refine_keypoints_fused(
+    got = refine_fused(
         [torch.from_numpy(sc)[None] for sc in scores],
         [tuple(torch.from_numpy(c)[None] for c in t) for t in comp],
         [tss.layer_geometry(i) for i in range(4)], tss.REFINE_DTYPES[dtype])

@@ -30,6 +30,7 @@ from ethzasl_brisk_tpu_torch.kernels.harris import (
     harris_score_mask_i32,
     harris_score_mask_layers,
 )
+from tests import _candidate_cases as candidate_cases
 from tests import _mask_cases as mask_cases
 from tests._uniformity_cases import CASES as UNIFORMITY_CASES, case as uniformity_case
 
@@ -326,6 +327,142 @@ def test_score_masks_cuda_rejects_bad_tables(cuda):
         masks.score_masks_cuda([sc, sc], 0, maps, [sc.bool(), sc.bool()[:, :5]])
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _candidate_case(kind: str, dev):
+    scores, masks, caps = candidate_cases.case(kind)
+    return ([torch.from_numpy(s).to(dev) for s in scores],
+            [torch.from_numpy(m).to(dev) for m in masks], caps)
+
+
+@pytest.mark.parametrize("route", ["auto", "device"])
+@pytest.mark.parametrize("kind", candidate_cases.KINDS)
+def test_layer_candidates_cuda_matches_plain(cuda, kind, route):
+    """Kernel layer_candidates bit for bit against the plain version on the
+    synthetic maps (``tests/_candidate_cases.py``: no mask bit, every pixel
+    at the sentinel, survivors past the cap, the whole map, ties,
+    masked-in INT32_MIN, float signed zeros and spreads, a list past a
+    chunk), on the route the plan picks and on the device-memory route;
+    one launch each, the counts too."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.kernels import candidates as kc
+
+    scores, masks, caps = _candidate_case(kind, cuda)
+    routes = None if route == "auto" else ["device"] * len(scores)
+    _kernels.reset_launches()
+    got, counts = kc.layer_candidates_cuda(scores, masks, caps, routes)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["layer_candidates"] == 1
+    ref, ref_counts = kc.layer_candidates_plain(scores, masks, caps)
+    assert torch.equal(counts, ref_counts)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        for name, a, b in zip(("xs", "ys", "scores", "valid"), g, r):
+            assert torch.equal(_bits(a), _bits(b)), f"{kind} layer {i} {name}"
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused"])
+def test_layer_candidates_cuda_on_the_step_layers(cuda, fused):
+    """The B=16 step's four VGA layers at the main path's caps
+    (10240/3072/3072/1024, all on the shared-memory route), and on the
+    device-memory route: bitwise against plain, one launch each."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.detect import scale_space
+    from ethzasl_brisk_tpu_torch.kernels import candidates as kc
+
+    cfg = scale_space.DetectorConfig(octaves=2, absolute_threshold=20.0, fused_mask=fused)
+    frames = torch.from_numpy(bench_frames(16)).to(cuda)
+    scores, masks = scale_space.layer_score_masks(scale_space.build_pyramid(frames, 4), cfg)
+    caps = [10240, 3072, 3072, 1024]
+    assert [kc.layer_route(c) for c in caps] == ["shared"] * 4
+    ref, ref_counts = kc.layer_candidates_plain(scores, masks, caps)
+    for routes in (None, ["device"] * 4):
+        _kernels.reset_launches()
+        got, counts = kc.layer_candidates_cuda(scores, masks, caps, routes)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["layer_candidates"] == 1
+        assert torch.equal(counts, ref_counts)
+        for g, r in zip(got, ref):
+            for a, b in zip(g, r):
+                assert torch.equal(a, b)
+    assert int(ref_counts[:, 0].max()) < caps[0]
+
+
+def test_layer_candidates_cuda_rejects_bad_tables(cuda):
+    from ethzasl_brisk_tpu_torch.kernels import candidates as kc
+
+    sc = torch.zeros((2, 20, 30), dtype=torch.int32, device=cuda)
+    m = torch.ones((2, 20, 30), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        kc.layer_candidates_cuda([sc, sc[:1]], [m, m[:1]], [5, 5])
+    with pytest.raises(ValueError, match="mask"):
+        kc.layer_candidates_cuda([sc], [m[:, :5]], [5])
+    with pytest.raises(ValueError, match="route"):
+        kc.layer_candidates_cuda([sc], [m], [600], ["nowhere"])
+    with pytest.raises(ValueError, match="int32 or float32"):
+        kc.layer_candidates_cuda([sc.double()], [m], [5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("kind", [k for k in candidate_cases.KINDS
+                                  if k not in candidate_cases.LISTS_ONLY])
+def test_refine_keypoints_cuda_matches_plain(cuda, kind, dtype):
+    """Kernel refine_keypoints bit for bit against the plain version on the
+    synthetic maps' candidate lists, with no accept, every accept and
+    half, caps of k (no compaction), k / 2 and 3: every KeyPoints field and
+    the accepted counts, one launch each."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.detect import refine, scale_space
+    from ethzasl_brisk_tpu_torch.kernels import candidates as kc
+
+    scores, masks, caps = _candidate_case(kind, cuda)
+    cands, _ = kc.layer_candidates_plain(scores, masks, caps)
+    cands = [tuple(t.contiguous() for t in c) for c in cands]
+    geoms = [scale_space.layer_geometry(i) for i in range(len(scores))]
+    for accept_kind in ("none", "all", "half"):
+        accepts = [torch.from_numpy(candidate_cases.accepts_for(c[3].cpu().numpy(), accept_kind,
+                                                                i)).to(cuda)
+                   for i, c in enumerate(cands)]
+        for cap_of in (lambda k: k, lambda k: k // 2, lambda k: min(k, 3)):
+            rcaps = [cap_of(c[0].shape[1]) for c in cands]
+            _kernels.reset_launches()
+            got, counts = refine.refine_keypoints_cuda(scores, cands, accepts, rcaps, geoms, dtype)
+            torch.cuda.synchronize()
+            assert _kernels.LAUNCHES["refine_keypoints"] == 1
+            ref, ref_counts = refine.refine_keypoints_plain(scores, cands, accepts, rcaps, geoms,
+                                                            dtype)
+            assert torch.equal(counts, ref_counts)
+            for name, a, b in zip(("x", "y", "size", "angle", "response", "octave", "valid"),
+                                  got.fields(), ref.fields()):
+                assert torch.equal(_bits(a), _bits(b)), f"{kind} {accept_kind} {rcaps} {name}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_detect_keypoints_on_card_matches_cpu(cuda, dtype):
+    """The whole detection on the card (K1, score_masks, layer_candidates,
+    enforce_uniformity, refine_keypoints: one launch each) against the CPU:
+    every KeyPoints field and the certificate bit for bit."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.detect import scale_space
+
+    cfg = scale_space.DetectorConfig(**{k: v for k, v in STEP_CONFIG.items()
+                                        if k != "describe_capacity"}, refine_dtype=dtype)
+    frames = torch.from_numpy(bench_frames(4, 240, 320, seed=4))
+    _kernels.reset_launches()
+    got, gdiag = scale_space.detect_keypoints(frames.to(cuda), cfg, with_diagnostics=True)
+    torch.cuda.synchronize()
+    for name in ("harris_score_i32", "score_masks", "layer_candidates", "enforce_uniformity",
+                 "refine_keypoints"):
+        assert _kernels.LAUNCHES[name] == 1, name
+    ref, rdiag = scale_space.detect_keypoints(frames, cfg, with_diagnostics=True)
+    for a, b in zip(got.fields(), ref.fields()):
+        assert torch.equal(_bits(a).cpu(), _bits(b))
+    for a, b in zip(gdiag, rdiag):
+        assert torch.equal(a.cpu(), b)
+    assert int(ref.valid.sum()) > 100
+
+
 STEP_CONFIG = dict(
     octaves=2, uniformity_radius=30.0, absolute_threshold=20.0,
     max_candidates=(704, 256, 192, 96), max_keypoints=128,
@@ -347,6 +484,7 @@ def test_step_launches_both_kernels(cuda):
     assert _kernels.LAUNCHES["describe_rotated"] == 1
     assert _kernels.LAUNCHES["brisk_orientation"] == 0
     assert _kernels.LAUNCHES["enforce_uniformity"] == 1  # one launch for the 4 layers
+    assert _kernels.LAUNCHES["layer_candidates"] == _kernels.LAUNCHES["refine_keypoints"] == 1
     ref = FramePipeline(BriskFeature(**STEP_CONFIG, device="cpu"), device="cpu").step(frames)
     assert torch.equal(got[0].valid.cpu(), ref[0].valid)
     assert torch.equal(got[0].response.cpu(), ref[0].response)
@@ -369,6 +507,7 @@ def test_fused_step_launches_k3_and_equals_default(cuda):
     assert _kernels.LAUNCHES["smoothed_intensity"] == 0
     assert _kernels.LAUNCHES["describe_rotated"] == 1
     assert _kernels.LAUNCHES["enforce_uniformity"] == 1
+    assert _kernels.LAUNCHES["layer_candidates"] == _kernels.LAUNCHES["refine_keypoints"] == 1
     for a, b in zip(default[0].fields(), fused[0].fields()):
         assert torch.equal(a, b)
     for a, b in zip(default[1:], fused[1:]):
@@ -930,6 +1069,7 @@ def test_ast_step_on_card_matches_cpu(cuda, model):
     assert _kernels.LAUNCHES["describe_rotated"] == 1
     assert _kernels.LAUNCHES["harris_score_i32"] == _kernels.LAUNCHES["harris_score_mask"] == 0
     assert _kernels.LAUNCHES["score_masks"] == 0
+    assert _kernels.LAUNCHES["layer_candidates"] == _kernels.LAUNCHES["refine_keypoints"] == 0
     ref = AstFramePipeline(BriskFeatureDetector(**cfg, device="cpu"), device="cpu",
                            describe_capacity=200).step(frames)
     assert int(ref[0].valid.sum()) > 100
@@ -1038,6 +1178,7 @@ def test_camera_grid_on_card_matches_cpu(cuda):
     assert _kernels.LAUNCHES["walk_angles"] == 1
     assert _kernels.LAUNCHES["atan2f_elementwise"] == _kernels.LAUNCHES["sincosf_elementwise"] == 0
     assert _kernels.LAUNCHES["score_masks"] == 1  # octaves 0: the 2-D mask alone
+    assert _kernels.LAUNCHES["layer_candidates"] == _kernels.LAUNCHES["refine_keypoints"] == 1
     ref = CameraAwareFeatureGrid(cam, BriskFeature(**kw, device="cpu"), margin=40,
                                  device="cpu").detect_and_compute(frame)
     kg, kc = got[0], ref[0]
@@ -1546,13 +1687,13 @@ def test_uniformity_kernel_makes_no_host_sync(cuda):
     wrapper synchronises the host (after one warm call that builds the
     library)."""
     from ethzasl_brisk_tpu_torch.detect import scale_space
+    from ethzasl_brisk_tpu_torch.kernels.candidates import layer_candidates
 
     frames = torch.from_numpy(bench_frames(4)).to(cuda)
     feature = BriskFeature(**STEP_CONFIG, device="cuda")
     cfg = feature.config
     scores, masks = scale_space.layer_score_masks(scale_space.build_pyramid(frames, 4), cfg)
-    cands = [scale_space._layer_candidates(scores[i], masks[i], cfg.layer_cap(i))
-             for i in range(4)]
+    cands, _ = layer_candidates(scores, masks, [cfg.layer_cap(i) for i in range(4)])
     problems = [(*c, min(cfg.max_num_kpt, c[0].shape[1])) for c in cands]
     shapes = [tuple(sc.shape[-2:]) for sc in scores]
     assert all(layer_plan(p[0].shape[1], s, 30.0)[0] == "grid" for p, s in zip(problems, shapes))

@@ -56,6 +56,7 @@ from ethzasl_brisk_tpu_torch.detect.uniformity import (  # noqa: E402
     enforce_uniformity_sequential,
 )
 from ethzasl_brisk_tpu_torch.frames import bench_frames  # noqa: E402
+from ethzasl_brisk_tpu_torch.kernels.candidates import top_candidates  # noqa: E402
 from ethzasl_brisk_tpu_torch.match.matcher import hamming_distance_matrix  # noqa: E402
 
 # The bench configuration (bench.py:88-158) with capacities cut for 120x160.
@@ -197,7 +198,7 @@ def test_layers_match_jax(step_pair):
         np.testing.assert_array_equal(scores[i][0].numpy(), np.asarray(jscores[i]))
         np.testing.assert_array_equal(masks[i][0].numpy(), np.asarray(jmasks[i]))
         jc = jss._layer_candidates(jscores[i], jmasks[i], cfg, cfg.layer_cap(i))
-        tc = tss._layer_candidates(scores[i], masks[i], tcfg.layer_cap(i))
+        tc = top_candidates(scores[i], masks[i], tcfg.layer_cap(i))
         for a, b in zip(tc, jc[:4]):
             np.testing.assert_array_equal(a[0].numpy(), np.asarray(b))
         ja = jss._layer_accept(jc, jscores[i].shape, cfg)
@@ -215,7 +216,7 @@ def test_detect_accepts_match_jax(step_pair):
     _, tdiag = tss.detect_keypoints(torch.from_numpy(frames), tcfg, with_diagnostics=True)
     np.testing.assert_array_equal(tdiag.accepted_counts.numpy(), np.asarray(diag.accepted_counts))
     scores, masks = tss.layer_score_masks(tss.build_pyramid(torch.from_numpy(frames), 4), tcfg)
-    cands = [tss._layer_candidates(scores[i], masks[i], tcfg.layer_cap(i)) for i in range(4)]
+    cands = [top_candidates(scores[i], masks[i], tcfg.layer_cap(i)) for i in range(4)]
     accepts = tss._layer_accepts(cands, tcfg)
     for f, frame in enumerate(frames):
         jscores, jmasks = jss.layer_score_masks(jnp.asarray(frame), cfg)

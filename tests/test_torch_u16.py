@@ -2,7 +2,7 @@
 
 The 16-bit samplers (``halfsample16``, ``twothirdsample16``), the float
 integrals, the float Harris score, the float warps and 3 x 3 maximum, the
-float branch of ``layer_score_masks`` and ``_layer_candidates``, the float
+float branch of ``layer_score_masks`` and ``top_candidates``, the float
 sampler ``smoothed_intensity_f32``, ``detect_keypoints`` and
 ``BriskFeature.detect_and_compute`` on uint16 single images, and the
 ``ValueError`` on uint16 batches.
@@ -46,6 +46,7 @@ from ethzasl_brisk_tpu_torch import BriskFeature, FramePipeline, HarrisFeatureDe
 from ethzasl_brisk_tpu_torch.describe import extractor as tex  # noqa: E402
 from ethzasl_brisk_tpu_torch.detect import scale_space as tss  # noqa: E402
 from ethzasl_brisk_tpu_torch.kernels import downsample as tds  # noqa: E402
+from ethzasl_brisk_tpu_torch.kernels.candidates import top_candidates  # noqa: E402
 from ethzasl_brisk_tpu_torch.kernels import harris as th  # noqa: E402
 from ethzasl_brisk_tpu_torch.kernels import integral as tint  # noqa: E402
 
@@ -155,7 +156,7 @@ def test_layer_masks_and_candidates_match_jax(small, jax_layers, fused_mask):
         _bits_equal(scores[i][0].numpy(), jscores[i])
         np.testing.assert_array_equal(masks[i][0].numpy(), np.asarray(jmasks[i]))
         jc = jss._layer_candidates(jscores[i], jmasks[i], jcfg, jcfg.layer_cap(i))
-        tc = tss._layer_candidates(scores[i], masks[i], tcfg.layer_cap(i))
+        tc = top_candidates(scores[i], masks[i], tcfg.layer_cap(i))
         for a, b in zip(tc, jc[:4]):
             _bits_equal(a[0].numpy(), np.asarray(b).astype(a.numpy().dtype))
         ja = jss._layer_accept(jc, jscores[i].shape, jcfg)
