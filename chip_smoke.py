@@ -132,15 +132,17 @@ the launch counters set to 0 just before it and read just after:
 Every uint8 Harris detection in these paths launches ``score_masks``
 once, beside its K1 or K3 launch (the VO loop's, the tools', the
 examples', the camera grid's and the facades' too); the 16-bit and AST
-paths launch it never. ``[masks]`` holds it bitwise against the plain chain
-at 61 x 83 and 96 x 130 (noise, flat, sharp boxes; thresholds 0 and 20)
-and at the B=16 and B=128 step's layers, default and fused, and times the
-two in turns beside the bound. Every Harris detection, the 16-bit one
-included, launches ``layer_candidates`` and ``refine_keypoints`` once
-each; the AST paths never. ``[candidates]`` holds the first bitwise
+paths launch it never. ``[masks]`` holds it bitwise against the plain
+chain at 61 x 83 and 96 x 130 (noise, flat, sharp boxes; thresholds 0 and
+20) and at the B=16 and B=128 step's layers, default and fused, prints its
+staged bytes and CTAs an SM, and times the two in turns beside the bound. Every Harris detection, the
+16-bit one included, launches ``layer_candidates`` and ``refine_keypoints``
+once each; the AST paths never. ``[candidates]`` holds the first bitwise
 against its plain version at odd shapes, at the B=16 and B=128 step's
-layers (default, fused, its device-memory route, a tenth of the caps) and
-on a whole VGA map, and times it in turns with the plain version and
+layers (default, fused, its device-memory route, a tenth of the caps,
+C = 1) and on VGA maps at a cluster of 16, prints each check's plan (C,
+routes, radix passes run and skipped, shared bytes, CTAs an SM), and times
+it in turns with its other cluster sizes, the plain version and
 ``torch.sort``; ``[refine]`` holds the second bitwise in float32 and
 float64 at odd shapes and on the steps' refine inputs (without
 compaction, with no and with every accept too) and times it in turns with
@@ -807,19 +809,29 @@ def uniformity_work(problems, masks) -> tuple[int, int, int, int, int]:
 UNIFORMITY_LAYOUTS = {"grid": dict(), "candidates": dict(route="candidates")}
 
 
-def ctas_an_sm(shared: int, regs: int, dev) -> int:
-    """Resident CTAs of kernel enforce_uniformity an SM: its threads, its
-    registers and its dynamic shared memory (plus the 1 KB the card keeps
-    a CTA) against the SM's."""
+def ctas_an_sm(shared: int, regs: int, dev, threads: int | None = None) -> int:
+    """Resident CTAs of a kernel an SM (enforce_uniformity's unless
+    ``threads`` is given): its threads, its registers and its shared
+    memory (plus the 1 KB the card keeps a CTA) against the SM's."""
     from ethzasl_brisk_tpu_torch.detect import uniformity
 
+    threads = threads or uniformity.WINDOW
     props = torch.cuda.get_device_properties(dev)
     smem_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
-    limits = [props.max_threads_per_multi_processor // uniformity.WINDOW,
-              smem_sm // (shared + 1024)]
+    limits = [props.max_threads_per_multi_processor // threads, smem_sm // (shared + 1024)]
     if regs:
-        limits.append(65536 // (regs * uniformity.WINDOW))
+        limits.append(65536 // (regs * threads))
     return min(limits)
+
+
+def ptxas_numbers(regs: list) -> tuple[int, int]:
+    """The largest register count and static shared bytes in ptxas lines."""
+    import re
+
+    def most(pattern):
+        return max([int(m) for line in regs for m in re.findall(pattern, line)] or [0])
+
+    return most(r"Used (\d+) registers"), most(r"(\d+) bytes smem")
 
 
 def uniformity_turns(kernel, problems, radius, shapes, dev, regs: int) -> dict:
@@ -954,10 +966,10 @@ def masks_phase(dev, card: str, kind: str, launches: int, regs: list) -> dict:
     """[masks]: kernel score_masks bitwise against its plain version on the
     card, at odd shapes (61 x 83, 96 x 130; noise, flat, boxes; thresholds
     0 and 20) and at the main step's four layers at B=16 and B=128,
-    default and fused, one counted launch each; at the step's shapes the
-    kernel and the plain chain in turns (kernel, plain, plain, kernel),
-    event and device ms, beside the bound. Returns the kernel's row at the
-    B=16 step's shapes (default path)."""
+    default and fused, one counted launch each; the plan (staged bytes a
+    CTA, CTAs an SM); at the step's shapes the kernel and the plain chain
+    in turns, event and device ms, beside the bound. Returns the kernel's
+    row at the B=16 step's shapes (default path)."""
     from ethzasl_brisk_tpu_torch import _kernels, measure
     from ethzasl_brisk_tpu_torch.detect import scale_space
     from ethzasl_brisk_tpu_torch.frames import bench_frames
@@ -999,9 +1011,20 @@ def masks_phase(dev, card: str, kind: str, launches: int, regs: list) -> dict:
         for thr in (0, 20):
             for fused in (False, True):
                 what = f"{h}x{w} thr {thr} {'fused' if fused else '2-D'}"
-                odd.append(f"{what} {check(inputs(frames, thr, fused), what)}")
-    print(f"[masks] kernel score_masks ptxas: {regs}; bitwise vs plain, one launch each, "
-          f"candidates: {'; '.join(odd)} [{kind}; {card}]", flush=True)
+                args = inputs(frames, thr, fused)
+                odd.append(f"{what} {check(args, what)}")
+    n_regs, static = ptxas_numbers(regs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = []
+    for lab, fused in (("default", False), ("fused", True)):
+        dyn = masks.staged_bytes(fused)
+        ctas = ctas_an_sm(dyn + static, n_regs, dev, masks.THREADS)
+        plan.append(f"{lab}: {dyn} B staged (scores {masks.SCORE_BYTES}"
+                    + (f", K3's mask {masks.MASK_BYTES}" if fused else "")
+                    + f"), {dyn + static} B a CTA, {ctas} CTAs an SM")
+    print(f"[masks] kernel score_masks ptxas: {regs}; plan: {'; '.join(plan)}; {sms} SMs; "
+          f"bitwise vs plain, one launch each, candidates: {'; '.join(odd)} "
+          f"[{kind}; {card}]", flush=True)
 
     thr = int(BENCH_CONFIG["absolute_threshold"])
     row = None
@@ -1063,17 +1086,20 @@ def candidates_phase(dev, card: str, kind: str, launches: int, regs: list) -> di
     version on the card, one counted launch each: the odd shapes (61 x 83,
     96 x 130; noise, flat, boxes; thresholds 0 and 20) at caps 7, 150 and
     the whole map, each route; the B=16 and B=128 step's four layers at the
-    main path's caps, default and fused, on the device-memory route, and at
-    a tenth of the caps (survivors over the cap: the radix select); a flat
-    VGA frame's whole map (a list past a chunk). At the step's shapes the
-    kernel, its device-memory route, the plain version and ``torch.sort``
-    (stable, a layer's masked map a call: the library yardstick) in turns,
-    event and device ms, beside the bound; host us a call. Then one VGA
-    layer a detection on the device-memory route (the quick start's at its
-    certified cap, the flat and noise frames' whole maps, a map of which
-    every pixel survives at that cap and at k = h*w), bitwise and in turns
-    with the plain version and ``torch.sort``. Returns the kernel's row at
-    the B=16 step's shapes."""
+    main path's caps, default and fused, on the device-memory route, at a
+    tenth of the caps (survivors over the cap: the radix select) and at
+    C = 1; a flat and a noise VGA frame's whole map (the device route).
+    Each with its plan: the CTAs a list (C), the routes, the radix passes
+    run and skipped (the kernel's own count), a CTA's shared bytes and CTAs
+    an SM. At the step's shapes the kernel, its device-memory route, the
+    other cluster sizes, the plain version and ``torch.sort`` (stable, a
+    layer's masked map a call: the library yardstick) in turns, event and
+    device ms, beside the bound; host us a call. Then one VGA layer a
+    detection (the quick start's at its certified cap, the flat and noise
+    frames' whole maps, a map of which every pixel survives at that cap
+    and at k = h*w), bitwise at the plan's cluster and at C = 8, and in
+    turns with the plain version and ``torch.sort``. Returns the kernel's
+    row at the B=16 step's shapes."""
     from ethzasl_brisk_tpu_torch import _kernels, measure
     from ethzasl_brisk_tpu_torch.detect import scale_space
     from ethzasl_brisk_tpu_torch.frames import bench_frames
@@ -1092,9 +1118,12 @@ def candidates_phase(dev, card: str, kind: str, launches: int, regs: list) -> di
                    + 13 * sc.shape[0] * min(c, sc[0].numel()) + 4 * sc.shape[0]
                    for sc, m, c in zip(scores, masks, caps))
 
-    def check(scores, masks, caps, what, routes=None) -> str:
+    n_regs, _ = ptxas_numbers(regs)
+
+    def check(scores, masks, caps, what, routes=None, cluster=None) -> str:
+        passes = torch.empty((scores[0].shape[0], len(scores)), dtype=torch.int32, device=dev)
         _kernels.reset_launches()
-        got, counts = kc.layer_candidates_cuda(scores, masks, caps, routes)
+        got, counts = kc.layer_candidates_cuda(scores, masks, caps, routes, cluster, passes)
         torch.cuda.synchronize()
         assert _kernels.LAUNCHES["layer_candidates"] == 1, (what, _kernels.LAUNCHES)
         ref, ref_counts = kc.layer_candidates_plain(scores, masks, caps)
@@ -1102,8 +1131,19 @@ def candidates_phase(dev, card: str, kind: str, launches: int, regs: list) -> di
         for i, (g, r) in enumerate(zip(got, ref)):
             for name, a, b in zip(("xs", "ys", "scores", "valid"), g, r):
                 assert torch.equal(a, b), f"[candidates] {what}: layer {i} {name} differs"
-        used = routes or [kc.layer_route(min(c, sc[0].numel())) for c, sc in zip(caps, scores)]
-        return f"{what} ({'/'.join(used)}; mask counts up to {int(counts.max())})"
+        # The plan as the wrapper makes it, and the kernel's own pass count.
+        c = cluster or kc.cluster_size(scores[0].shape[0], len(scores),
+                                       max(sc[0].numel() for sc in scores))
+        ks = [min(cap, sc[0].numel()) for cap, sc in zip(caps, scores)]
+        used = routes or [kc.layer_route(k, c) for k in ks]
+        bits = passes.cpu().reshape(-1).tolist()
+        ran = sum(bin(b & 0xF).count("1") for b in bits)
+        skipped = sum(bin((b >> 4) & 0xF).count("1") for b in bits)
+        shared = kc.shared_bytes([k for k, r in zip(ks, used) if r == "shared"], c)
+        return (f"{what} (C {c}, {'/'.join(used)}, radix passes run {ran} / skipped {skipped} "
+                f"over {len(bits)} lists, {shared} B shared a CTA, "
+                f"{ctas_an_sm(shared, n_regs, dev, kc.THREADS)} CTAs an SM; mask counts up to "
+                f"{int(counts.max())})")
 
     lines = []
     for h, w in ((61, 83), (96, 130)):
@@ -1133,6 +1173,9 @@ def candidates_phase(dev, card: str, kind: str, launches: int, regs: list) -> di
             lines.append(check(scores, masks, caps, "fused" if fused else "default"))
         lines.append(check(scores, masks, caps, "device route", ["device"] * 4))
         lines.append(check(scores, masks, [c // 10 for c in caps], "caps / 10"))
+        lines.append(check(scores, masks, caps, "C = 1", cluster=1))
+        plan_c = kc.cluster_size(batch, 4, 480 * 640)
+        others = [c for c in (1, 2, 4, 8) if c != plan_c]
         counts = kc.mask_counts(masks)
         masked = [torch.where(m, sc, torch.full_like(sc, kc.INT32_MIN)).reshape(sc.shape[0], -1)
                   for sc, m in zip(scores, masks)]
@@ -1147,20 +1190,43 @@ def candidates_phase(dev, card: str, kind: str, launches: int, regs: list) -> di
                 "plain": lambda: kc.layer_candidates_plain(scores, masks, caps),
                 "torch.sort": lambda: [torch.sort(x, dim=1, descending=True, stable=True)
                                        for x in masked]}
-        names = {label: ("candidates_kernel",) for label in ("kernel", "device route", "caps / 10")}
-        turns = turns_of(runs, ("kernel", "device route", "caps / 10", "plain", "torch.sort",
-                                "torch.sort", "plain", "caps / 10", "device route", "kernel"),
+        for c in others:
+            runs[f"C {c}"] = lambda c=c: kc.layer_candidates_cuda(scores, masks, caps, cluster=c)
+        cs = tuple(f"C {c}" for c in others)
+        names = {label: ("candidates_kernel",)
+                 for label in ("kernel", "device route", "caps / 10", *cs)}
+        turns = turns_of(runs, ("kernel", "device route", "caps / 10", *cs, "plain", "torch.sort",
+                                "torch.sort", "plain", *cs[::-1], "caps / 10", "device route",
+                                "kernel"),
                          dev, names)
         nbytes = list_bytes(scores, masks, caps)
         bnd = measure.bound_ms(nbytes)
-        host = host_us(runs["kernel"], 200)
+        # The wrapper's host time, and its parts: launch_plan (the checks,
+        # the outputs' allocations, the tables), as many torch.empty calls
+        # as it makes, and the C entry through _kernels.launch on a table
+        # made once.
+        _, cnts, tables, _keep, (c_plan, _) = kc.launch_plan(scores, masks, caps)
+        n_alloc = 4 * len(caps) + 1 + len(_keep) - _keep.count(None)
+
+        def entry():
+            for table, n in tables:
+                _kernels.launch("layer_candidates", "layer_candidates", dev, table, n, batch,
+                                len(scores), 0, c_plan, cnts.data_ptr(), 0)
+
+        host = {"call": host_us(runs["kernel"], 200),
+                "launch_plan": host_us(lambda: kc.launch_plan(scores, masks, caps), 200),
+                f"its {n_alloc} torch.empty": host_us(
+                    lambda: [torch.empty((batch, 64), dtype=torch.int32, device=dev)
+                             for _ in range(n_alloc)], 200),
+                "the C entry": host_us(entry, 200)}
         txt = "; ".join(f"{lab} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in v)
                         for lab, v in turns.items())
         print(f"[candidates] B={batch} step's four layers, caps {caps}: mask counts up to "
               f"{counts.max(dim=0).values.tolist()} a frame; bitwise vs plain: "
               f"{'; '.join(lines)}; event / device ms in turns: {txt}; bound {bnd[0]:.4f} ms "
-              f"({bnd[1]}, {nbytes} B); host us a call (mean of 200, launches queued) "
-              f"{host:.1f} [{kind}; {card}]", flush=True)
+              f"({bnd[1]}, {nbytes} B); host us (mean of 200, launches queued): "
+              + ", ".join(f"{lab} {v:.1f}" for lab, v in host.items())
+              + f" [{kind}; {card}]", flush=True)
         if batch == 16:
             (ev, dv), lib = turns["kernel"][0], turns["torch.sort"][0]
             row = dict(name="layer_candidates", route="cuda",
@@ -1171,15 +1237,15 @@ def candidates_phase(dev, card: str, kind: str, launches: int, regs: list) -> di
                        launches=launches, max_abs_err=0.0, ms=ev, device_ms=dv,
                        plain_ms=turns["plain"][0][0], bound_ms=bnd[0], bound_by=bnd[1],
                        library_ms=lib[0], library_device_ms=lib[1])
-        del frames, scores, masks, masked, runs
+        del frames, scores, masks, masked, runs, tables, _keep
         torch.cuda.empty_cache()
 
-    # One VGA layer on the device-memory route, where a list past a chunk
-    # is sorted across chunks in device memory by the one CTA of its frame:
-    # the quick start's layer at its certified cap, the flat and noise
-    # frames' whole maps, and a map of which every pixel survives at the
-    # quick start's cap (the radix select, then 32,768 padded keys) and at
-    # k = h*w (524,288).
+    # One VGA layer a detection, a cluster of 16 a list (and of 8 in the
+    # turns, against it): the quick start's layer at its certified cap (the
+    # shared route), the flat and noise frames' whole maps (the device
+    # route), and a map of which every pixel survives at the quick start's
+    # cap (the radix select over the cluster, then its keys sorted in shared
+    # memory) and at k = h*w (307,200 keys sorted in device memory).
     qframes = torch.from_numpy(bench_frames(2)).to(dev)
     q_layers = [layers(qframes[i : i + 1], QUICK_CONFIG["absolute_threshold"], True, 0)
                 for i in (0, 1)]
@@ -1195,17 +1261,17 @@ def candidates_phase(dev, card: str, kind: str, launches: int, regs: list) -> di
         line = check(scores, masks, caps, what)
         sc, m, k = scores[0], masks[0], min(caps[0], scores[0][0].numel())
         surv = (m & (sc > kc.INT32_MIN)).sum(dim=(1, 2)).tolist()
-        sorts = []
-        for n in surv:
-            keys = kc.key_capacity(min(n, kc.key_capacity(k)))
-            sorts.append("in shared memory" if keys <= kc.CHUNK_KEYS
-                         else f"across chunks ({keys} keys)")
+        sorts = [("a radix select, then " if n > k else "") + f"{min(n, k)} keys"
+                 for n in surv]
         masked = torch.where(m, sc, torch.full_like(sc, kc.INT32_MIN)).reshape(sc.shape[0], -1)
+        line = f"{line}; {check(scores, masks, caps, f'{what}, C = 8', cluster=8)}"
         runs = {"kernel": lambda: kc.layer_candidates_cuda(scores, masks, caps),
+                "C 8": lambda: kc.layer_candidates_cuda(scores, masks, caps, cluster=8),
                 "plain": lambda: kc.layer_candidates_plain(scores, masks, caps),
                 "torch.sort": lambda: torch.sort(masked, dim=1, descending=True, stable=True)}
-        turns = turns_of(runs, ("kernel", "plain", "torch.sort", "torch.sort", "plain",
-                                "kernel"), dev, {"kernel": ("candidates_kernel",)})
+        turns = turns_of(runs, ("kernel", "C 8", "plain", "torch.sort", "torch.sort", "plain",
+                                "C 8", "kernel"), dev,
+                         {"kernel": ("candidates_kernel",), "C 8": ("candidates_kernel",)})
         nbytes = list_bytes(scores, masks, caps)
         bnd = measure.bound_ms(nbytes)
         txt = "; ".join(f"{lab} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in v)
@@ -1345,8 +1411,8 @@ def build_yardsticks() -> dict:
     """The yardsticks the port never calls, each built into its own library
     with the kernels' flags and ``csrc/`` on the include path, all ``nvcc``
     runs at once: the staged segment_sum body, the two-launch describe's
-    warp kernel and ``describe.cu`` with its words a ballot a word. Returns
-    {name: (loaded library, ptxas lines)}."""
+    warp kernel and ``describe.cu`` with its words a ballot a word.
+    Returns {name: (loaded library, ptxas lines)}."""
     import ctypes
     import hashlib
 
@@ -1589,7 +1655,8 @@ def quick_start(dev: torch.device) -> dict:
         f"[quick start] 2 VGA PGM images: candidates {counts} -> certified cap {cap}; "
         f"valid keypoints {n_valid}; launches {launches}; GPU vs CPU: every field, x/y "
         f"included ({gap} ULP apart), angles, descriptors and matches bitwise; the list on "
-        f"the {candidates.layer_route(cap)} route "
+        f"the {candidates.layer_route(cap, candidates.cluster_size(1, 1, 480 * 640))} route, "
+        f"a cluster of {candidates.cluster_size(1, 1, 480 * 640)} CTAs "
         f"({int(match[2].sum())} under radius {QUICK_RADIUS}); detect_and_compute "
         f"{ms:.3f} ms per image (median of 5)",
         flush=True,
@@ -3254,8 +3321,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s; describe_rotated's ptxas: {regs}; the words a "
           f"ballot a word: {yard['describe_words_ballot'][1]}; the warp kernel: "
           f"{yard['warp_describe'][1]}; enforce_uniformity's: {uniformity_regs}; score_masks': "
-          f"{masks_regs}; layer_candidates': {candidates_regs}; refine_keypoints': "
-          f"{refine_regs}", flush=True)
+          f"{masks_regs}; layer_candidates': "
+          f"{candidates_regs}; refine_keypoints': {refine_regs}", flush=True)
 
     frames16 = torch.from_numpy(bench_frames(16)).to(dev)
     # The entry points run on the card by default.

@@ -248,7 +248,7 @@ def library() -> ctypes.CDLL:
             lib.brisk_score_masks.restype = ci
             lib.brisk_layer_candidates.argtypes = [
                 ctypes.POINTER(ctypes.c_int64), ci, ci, ci,  # layers, layer count, frames, columns
-                ci, vp, vp,                                  # is_float, counts, stream
+                ci, ci, vp, vp, vp,  # is_float, cluster, counts, passes (or 0), stream
             ]
             lib.brisk_layer_candidates.restype = ci
             lib.brisk_refine_keypoints.argtypes = [

@@ -29,25 +29,34 @@
 // operations a pixel for the 2-D test and ~275 a survivor of it for the
 // probes (~5 % of the pixels on the bench frames).
 //
-// Design: a CTA of 256 threads takes a tile of 32 rows x 128 columns of
-// one (frame, layer). It stages the tile's scores with a one-pixel halo in
-// shared memory (asynchronous word copies, 18 a thread, no registers;
-// word copies and byte stores need no row alignment, so widths 426 and 213
-// take the same path). Each warp then takes a strip of 4 rows, a lane a
-// column in 4 steps of 32: per column it reads the strip's 6 halo rows'
-// 3 cells (4.5 shared reads a pixel), takes the 3x3 maximum separably (no
-// 8-neighbour greater is the 3x3 maximum, centre included, at most the
-// centre), stores the bytes that fail the 2-D test (32 consecutive bytes a
-// warp store) and appends the survivors to the warp's own segment of a
-// shared list by ballot and popcount: no atomic, no shuffle. After a
-// barrier the CTA's threads take the survivors in turn and run the 10
-// probes, every tap an __ldg from L2 or L1: a tap that the sum does not
-// use reads the survivor's own score instead, so all 40 loads issue
-// together and none leaves its layer. The grid is frame-major: a frame's tiles of every layer are neighbours
-// in the grid, so the neighbour layers' taps are read while L2 still
-// holds them. Every layer of the launch lies in a by-value table of at
-// most 8; an entry carries its neighbours' pointers, so a longer pyramid
-// splits into launches without an entry losing its neighbour.
+// Design: a CTA of 256 threads a tile of 32 rows x 128 columns of one
+// (frame, layer), 4 CTAs an SM. The tile's scores with a one-pixel halo,
+// and on the fused path K3's mask bytes, are staged in shared memory as the
+// 16-byte chunks of device memory that cover each row, a warp a row and a
+// lane a chunk; each staged row starts at its address mod 16, kept a row,
+// so rows of widths 426 and 213 copy in 16 bytes too and the reads shift by
+// the row's offset. A chunk's bytes past the row are never read: a pixel on
+// rows and columns [2, n-3], the only ones the 2-D test can pass, reads no
+// cell outside the map. Each warp then takes a strip of 4 rows, a lane a
+// column in 4 steps of 32: per column it reads the strip's 6 halo rows' 3
+// cells, takes the 3x3 maximum separably (no 8-neighbour greater is the
+// 3x3 maximum, centre included, at most the centre; the bounds tested once
+// a row and once a column), stores the bytes that fail the 2-D test and
+// appends the survivors to the warp's own segment of a shared list by
+// ballot and popcount. After a barrier the CTA's threads take the survivors
+// in turn: the 9 probes above load the survivor's patch
+// of layer i+1 (at most 4 x 4 words: the maps shrink, so three neighbouring
+// probes' taps span at most 4 columns and 4 rows) into registers once, sum
+// its rows at the three probe columns and then each probe down its pair of
+// rows; the probe below loads its 4 taps. Those taps come from L2 (and L1):
+// staging the tile's footprints of the neighbour layers in shared memory
+// too was slower on this card (the times in PERF.md), and so was a
+// persistent CTA walking tiles with two staging buffers.
+// The grid is frame-major: a frame's tiles of every layer are neighbours,
+// so the neighbour layers' taps are read while L2 still holds them. Every
+// layer of the launch lies in a by-value table of at most 8; an entry
+// carries its neighbours' pointers, so a longer pyramid splits into
+// launches without an entry losing its neighbour.
 
 #include <climits>
 #include <cstdint>
@@ -59,18 +68,27 @@ namespace {
 constexpr int kLanes = 32;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / kLanes;
-constexpr int kTileW = 128;  // columns of a CTA's tile
-constexpr int kTileH = 32;   // rows of a CTA's tile
+constexpr int kTileW = 128;  // columns of a tile
+constexpr int kTileH = 32;   // rows of a tile
 constexpr int kHaloW = kTileW + 2;
 constexpr int kHaloH = kTileH + 2;
-constexpr int kStaged = kHaloW * kHaloH;
 constexpr int kStripRows = kTileH / kWarps;  // a warp's rows
 constexpr int kMaxLayers = 8;
-constexpr int kFields = 17;  // int64 fields of a layer in the host table
+constexpr int kFields = 17;      // int64 fields of a layer in the host table
+constexpr int kRowWords = 140;   // a staged score row: 4 words of lead, then the halo row
+constexpr int kMaskRowBytes = 160;  // a staged row of K3's mask bytes
+constexpr int kScoreBytes = kHaloH * kRowWords * 4;
+constexpr int kMaskBytes = kTileH * kMaskRowBytes;
 constexpr unsigned kAll = 0xffffffffu;
 static_assert(kTileW % kLanes == 0, "a warp row covers the tile's columns in whole steps");
 static_assert(kTileH % kWarps == 0, "the warps' strips cover the tile's rows");
 static_assert(kTileW * kTileH <= 65536, "a survivor's place in the tile fits 16 bits");
+static_assert((kRowWords * 4) % 16 == 0 && kMaskRowBytes % 16 == 0,
+              "staged rows start on 16 bytes");
+static_assert(kRowWords >= 4 + 3 + kHaloW + 3, "a halo row fits its staged row");
+static_assert(kMaskRowBytes >= kTileW + 30, "a mask row fits its staged row");
+static_assert(kScoreBytes + kMaskBytes + 2 * kTileH * kTileW + 1024 <= 48 * 1024,
+              "the staged rows and the survivor lists need no opt-in past 48 KB");
 
 struct Neighbour {
   const int32_t* scores;  // (B, rows, cols)
@@ -109,62 +127,123 @@ __device__ __forceinline__ Axis axis(int u, int limit, int a, int b, int d) {
   return {i0, val - i0 * d, i0 >= 0 && i0 + 1 < limit};
 }
 
-// The D^2-scaled bilinear sum of one frame of a neighbour layer, or 0 where
-// !ok; then every tap reads `safe` (a valid word) instead.
-__device__ __forceinline__ long long bilinear(const int32_t* src, int cols, Axis v, Axis u,
-                                              int d, bool ok, const int32_t* safe) {
-  const int32_t* p = ok ? src + ((long long)v.i0 * cols + u.i0) : safe;
-  const int dc = ok ? 1 : 0, dr = ok ? cols : 0;
-  const long long p00 = __ldg(p), p01 = __ldg(p + dc);
-  const long long p10 = __ldg(p + dr), p11 = __ldg(p + dr + dc);
-  const long long gu = d - u.f, gv = d - v.f;
-  const long long s = gv * (gu * p00 + u.f * p01) + v.f * (gu * p10 + u.f * p11);
-  return ok ? s : 0;
+__device__ __forceinline__ int clamp_to(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// The 3-D checks of a survivor at (x, y) of frame `frame` of layer Y.
-__device__ __forceinline__ bool passes_3d(const Layer& Y, int frame, int x, int y,
-                                          long long s, const int32_t* safe) {
-  bool pass = true;
-  if (Y.above.d) {
-    const Neighbour& N = Y.above;
-    const int32_t* src = N.scores + (size_t)frame * N.rows * N.cols;
-    Axis vs[3], us[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      vs[k] = axis(y + k - 1, N.rows, N.a, N.b, N.d);
-      us[k] = axis(x + k - 1, N.cols, N.a, N.b, N.d);
-    }
-    long long top = LLONG_MIN;
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky) {
-      const int yy = y + ky - 1;
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const int xx = x + kx - 1;
-        // Outside layer i the probe reads 0, as an undefined sum does.
-        const bool inside = yy >= 0 && yy < Y.h && xx >= 0 && xx < Y.w;
-        const long long p = bilinear(src, N.cols, vs[ky], us[kx], N.d,
-                                     inside && vs[ky].ok && us[kx].ok, safe);
-        top = p > top ? p : top;
-      }
-    }
-    pass = s * (N.d * N.d) >= top;
+// A neighbour layer's plane of one frame in device memory; a tap's row and
+// column clamped into the layer (a patch may reach past it, where its
+// probes are undefined and read 0).
+struct Taps {
+  const int32_t* base;
+  int rows, cols;
+  __device__ __forceinline__ const int32_t* row(int v) const {
+    return base + static_cast<size_t>(clamp_to(v, 0, rows - 1)) * cols;
   }
-  if (Y.below.d) {
-    const Neighbour& N = Y.below;
-    const int32_t* src = N.scores + (size_t)frame * N.rows * N.cols;
-    const Axis v = axis(y, N.rows, N.a, N.b, N.d), u = axis(x, N.cols, N.a, N.b, N.d);
-    const long long below = bilinear(src, N.cols, v, u, N.d, v.ok && u.ok, safe);
-    pass = pass && s * (N.d * N.d) >= below;
+  __device__ __forceinline__ int32_t at(const int32_t* row, int u) const {
+    return __ldg(row + clamp_to(u, 0, cols - 1));
   }
-  return pass;
+};
+
+__device__ __forceinline__ Taps device_taps(const Neighbour& N, int frame) {
+  return {N.scores + static_cast<size_t>(frame) * N.rows * N.cols, N.rows, N.cols};
+}
+
+// The value in a row of three picked by o (0, 1, else 2).
+template <typename T>
+__device__ __forceinline__ T pick(int o, T a, T b, T c) {
+  return o == 0 ? a : (o == 1 ? b : c);
+}
+
+// The maximum of the 9 probes above a survivor at (x, y) of layer Y: its
+// 4 x 4 patch of layer i+1 into registers, the patch rows' sums at the
+// three probe columns, then each probe's sum down its pair of rows.
+__device__ __forceinline__ long long top_above(const Layer& Y, const Taps& F, int x, int y) {
+  const Neighbour& N = Y.above;
+  Axis vs[3], us[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    vs[k] = axis(y + k - 1, N.rows, N.a, N.b, N.d);
+    us[k] = axis(x + k - 1, N.cols, N.a, N.b, N.d);
+  }
+  const int pr = vs[0].i0, pc = us[0].i0;
+  int32_t P[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int32_t* row = F.row(pr + i);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) P[i][j] = F.at(row, pc + j);
+  }
+  long long H[4][3];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx) {
+    const int o = us[kx].i0 - pc;
+    const long long fu = us[kx].f, gu = N.d - us[kx].f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      H[i][kx] = gu * pick(o, P[i][0], P[i][1], P[i][2]) + fu * pick(o, P[i][1], P[i][2], P[i][3]);
+    }
+  }
+  long long top = LLONG_MIN;
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky) {
+    const int o = vs[ky].i0 - pr, yy = y + ky - 1;
+    const long long fv = vs[ky].f, gv = N.d - vs[ky].f;
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      const int xx = x + kx - 1;
+      // Outside layer i the probe reads 0, as an undefined sum does.
+      const bool ok = yy >= 0 && yy < Y.h && xx >= 0 && xx < Y.w && vs[ky].ok && us[kx].ok;
+      const long long s = gv * pick(o, H[0][kx], H[1][kx], H[2][kx]) +
+                          fv * pick(o, H[1][kx], H[2][kx], H[3][kx]);
+      const long long p = ok ? s : 0;
+      top = p > top ? p : top;
+    }
+  }
+  return top;
+}
+
+// The probe below a survivor at (x, y): the D^2-scaled bilinear sum of
+// layer i-1's 4 taps, or 0 where undefined.
+__device__ __forceinline__ long long probe_below(const Layer& Y, const Taps& F, int x, int y) {
+  const Neighbour& N = Y.below;
+  const Axis v = axis(y, N.rows, N.a, N.b, N.d), u = axis(x, N.cols, N.a, N.b, N.d);
+  const int32_t* r0 = F.row(v.i0);
+  const int32_t* r1 = F.row(v.i0 + 1);
+  const long long p00 = F.at(r0, u.i0), p01 = F.at(r0, u.i0 + 1);
+  const long long p10 = F.at(r1, u.i0), p11 = F.at(r1, u.i0 + 1);
+  const long long gu = N.d - u.f, gv = N.d - v.f;
+  const long long s = gv * (gu * p00 + u.f * p01) + v.f * (gu * p10 + u.f * p11);
+  return v.ok && u.ok ? s : 0;
+}
+
+// Issues the 16-byte copies of rows [0, rows) of a region, a warp a row and
+// a lane a chunk: row r covers device bytes [from, to) (row(r, from, to)
+// returns false for no row) and lands at dst + r * stride + lead, the byte
+// at `from` at offset (from mod 16) past that, which shifts[r] keeps in
+// `unit`s (0 for no row).
+template <typename Row>
+__device__ __forceinline__ void stage_rows(char* dst, int stride, int lead, int rows,
+                                           uint8_t* shifts, int unit, Row row) {
+  const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  for (int r = warp; r < rows; r += kWarps) {
+    uintptr_t from = 0, to = 0;
+    const bool any = row(r, from, to);
+    if (lane == 0) shifts[r] = any ? static_cast<uint8_t>((from & 15) / unit) : 0;
+    if (!any) continue;
+    const uintptr_t first = from & ~static_cast<uintptr_t>(15);
+    for (uintptr_t chunk = first + 16 * lane; chunk < to; chunk += 16 * kLanes) {
+      __pipeline_memcpy_async(dst + r * stride + lead + (chunk - first),
+                              reinterpret_cast<const void*>(chunk), 16);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 4) score_masks_kernel(const Layers L) {
-  __shared__ int32_t tile[kHaloH][kHaloW];
+  extern __shared__ __align__(16) char staged[];  // scores, K3's mask
   __shared__ uint16_t survivors[kWarps][kStripRows * kTileW];  // a segment a warp
   __shared__ int counts[kWarps];
+  __shared__ uint8_t score_sh[kHaloH], mask_sh[kTileH];
 
   const int frame = blockIdx.x / L.tiles;
   int t = blockIdx.x - frame * L.tiles;
@@ -178,65 +257,104 @@ __global__ void __launch_bounds__(kThreads, 4) score_masks_kernel(const Layers L
   t -= Y.first_tile;
   const int h = Y.h, w = Y.w;
   const int x0 = (t % Y.tiles_x) * kTileW, y0 = (t / Y.tiles_x) * kTileH;
-  const size_t plane = (size_t)frame * h * w;
+  const size_t plane = static_cast<size_t>(frame) * h * w;
   const int32_t* sc = Y.scores + plane;
+  int32_t* tile = reinterpret_cast<int32_t*>(staged);
+  uint8_t* mask = reinterpret_cast<uint8_t*>(staged + kScoreBytes);
+  const int xe = x0 + kTileW < w ? x0 + kTileW : w;  // the tile's columns end
 
-  // Stage rows y0-1 .. y0+kTileH and columns x0-1 .. x0+kTileW by
-  // asynchronous copies, 0 outside the map: a pixel on rows and columns
-  // [2, n-3], the only ones the 2-D test can pass, reads no such cell.
-  for (int i = threadIdx.x; i < kStaged; i += kThreads) {
-    const int r = i / kHaloW, c = i - r * kHaloW;
-    const int y = y0 - 1 + r, x = x0 - 1 + c;
-    const bool in_map = y >= 0 && y < h && x >= 0 && x < w;
-    __pipeline_memcpy_async(&tile[0][0] + i, in_map ? sc + (size_t)y * w + x : sc, 4,
-                            in_map ? 0 : 4);
+  // Rows y0-1 .. y0+kTileH, columns x0-1 .. x0+kTileW of the scores (those
+  // in the map: from column 0 where x0 is 0), and K3's bytes of the tile.
+  const int xlo = x0 > 0 ? x0 - 1 : 0, xhi = x0 + kTileW + 1 < w ? x0 + kTileW + 1 : w;
+  stage_rows(staged, kRowWords * 4, 16, kHaloH, score_sh, 4,
+             [&](int r, uintptr_t& from, uintptr_t& to) {
+               const int y = y0 - 1 + r;
+               if (y < 0 || y >= h) return false;
+               const uintptr_t row = reinterpret_cast<uintptr_t>(sc + static_cast<size_t>(y) * w);
+               from = row + 4 * static_cast<uintptr_t>(xlo);
+               to = row + 4 * static_cast<uintptr_t>(xhi);
+               return true;
+             });
+  if (Y.in_mask) {
+    const uint8_t* m = Y.in_mask + plane;
+    stage_rows(reinterpret_cast<char*>(mask), kMaskRowBytes, 0, kTileH, mask_sh, 1,
+               [&](int r, uintptr_t& from, uintptr_t& to) {
+                 const int y = y0 + r;
+                 if (y >= h) return false;
+                 const uintptr_t row = reinterpret_cast<uintptr_t>(m + static_cast<size_t>(y) * w);
+                 from = row + x0;
+                 to = row + xe;
+                 return true;
+               });
   }
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
 
+  // The 2-D test: the bytes that fail it stored, its survivors listed.
   const bool checks = Y.above.d != 0 || Y.below.d != 0;
   const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
   const int r0 = warp * kStripRows;  // the strip's first tile row
-  int n_warp = 0;                    // the warp's survivors so far
+  // Staged row r (tile row r-1) from column x0-1: where x0 is 0 the row
+  // starts at column 0, one word on.
+  const int shift0 = x0 == 0 ? 1 : 0;
+  const int32_t* rows[kStripRows + 2];
+#pragma unroll
+  for (int j = 0; j < kStripRows + 2; ++j) {
+    rows[j] = tile + (r0 + j) * kRowWords + 4 + score_sh[r0 + j] - shift0;
+  }
+  uint8_t* orow[kStripRows];  // the strip's output rows from column x0
+  bool row_in[kStripRows], row_ok[kStripRows];  // in the map; on rows [2, h-3]
+#pragma unroll
+  for (int j = 0; j < kStripRows; ++j) {
+    const int y = y0 + r0 + j;
+    orow[j] = Y.out + plane + static_cast<size_t>(y) * w + x0;
+    row_in[j] = y < h;
+    row_ok[j] = y >= 2 && y <= h - 3;
+  }
+  int n_warp = 0;  // the warp's survivors so far
 #pragma unroll
   for (int k = 0; k < kTileW / kLanes; ++k) {
     const int c = lane + k * kLanes;
     const int x = x0 + c;
-    // Horizontal maxima of the strip's halo rows r0-1 .. r0+kStripRows.
-    int hmax[kStripRows + 2] = {};
-    if (!Y.in_mask) {
+    const bool col_in = x < w;
+    bool pass[kStripRows];
+    if (Y.in_mask) {
+#pragma unroll
+      for (int j = 0; j < kStripRows; ++j) {
+        pass[j] = col_in && row_in[j] &&
+                  mask[(r0 + j) * kMaskRowBytes + mask_sh[r0 + j] + c] != 0;
+      }
+    } else {
+      // Horizontal maxima of the strip's halo rows, then each row's 3x3.
+      const bool col_ok = x >= 2 && x <= w - 3;
+      int hmax[kStripRows + 2], mid[kStripRows + 2];
 #pragma unroll
       for (int j = 0; j < kStripRows + 2; ++j) {
-        hmax[j] = max(max(tile[r0 + j][c], tile[r0 + j][c + 1]), tile[r0 + j][c + 2]);
+        mid[j] = rows[j][c + 1];
+        hmax[j] = max(max(rows[j][c], mid[j]), rows[j][c + 2]);
+      }
+#pragma unroll
+      for (int j = 0; j < kStripRows; ++j) {
+        const int s = mid[j + 1];
+        pass[j] = col_ok && row_ok[j] && s >= L.thr &&
+                  max(max(hmax[j], hmax[j + 1]), hmax[j + 2]) <= s;
       }
     }
 #pragma unroll
     for (int j = 0; j < kStripRows; ++j) {
-      const int r = r0 + j, y = y0 + r;
-      const bool in = x < w && y < h;
-      const size_t at = plane + (size_t)y * w + x;
-      bool pass = false;
-      if (in) {
-        if (Y.in_mask) {
-          pass = Y.in_mask[at] != 0;
-        } else {
-          const int s = tile[r + 1][c + 1];
-          pass = x >= 2 && x <= w - 3 && y >= 2 && y <= h - 3 && s >= L.thr &&
-                 max(max(hmax[j], hmax[j + 1]), hmax[j + 2]) <= s;
-        }
-      }
+      const bool in = col_in && row_in[j];
       if (!checks) {
-        if (in) Y.out[at] = pass;
+        if (in) orow[j][c] = pass[j];
         continue;
       }
-      const unsigned ballot = __ballot_sync(kAll, pass);
-      if (pass) {
+      const unsigned ballot = __ballot_sync(kAll, pass[j]);
+      if (pass[j]) {
         survivors[warp][n_warp + __popc(ballot & ((1u << lane) - 1u))] =
-            (uint16_t)(r * kTileW + c);
+            static_cast<uint16_t>((r0 + j) * kTileW + c);
       }
       n_warp += __popc(ballot);
-      if (in && !pass) Y.out[at] = 0;
+      if (in && !pass[j]) orow[j][c] = 0;
     }
   }
   if (!checks) return;
@@ -244,6 +362,7 @@ __global__ void __launch_bounds__(kThreads, 4) score_masks_kernel(const Layers L
   __syncthreads();
 
   // The survivors of every warp in turn: j -> (warp segment, place).
+  const Taps above = device_taps(Y.above, frame), below = device_taps(Y.below, frame);
   int first[kWarps + 1];
   first[0] = 0;
 #pragma unroll
@@ -258,8 +377,16 @@ __global__ void __launch_bounds__(kThreads, 4) score_masks_kernel(const Layers L
     const int idx = survivors[seg][place];
     const int r = idx / kTileW, c = idx % kTileW;
     const int x = x0 + c, y = y0 + r;
-    const size_t at = (size_t)y * w + x;
-    Y.out[plane + at] = passes_3d(Y, frame, x, y, tile[r + 1][c + 1], sc + at);
+    const long long s = tile[(r + 1) * kRowWords + 4 + score_sh[r + 1] - shift0 + c + 1];
+    bool pass = true;
+    if (Y.above.d) {
+      pass = s * (static_cast<long long>(Y.above.d) * Y.above.d) >= top_above(Y, above, x, y);
+    }
+    if (Y.below.d) {
+      pass = pass &&
+             s * (static_cast<long long>(Y.below.d) * Y.below.d) >= probe_below(Y, below, x, y);
+    }
+    Y.out[plane + static_cast<size_t>(y) * w + x] = pass;
   }
 }
 
@@ -274,6 +401,7 @@ extern "C" int brisk_score_masks(const int64_t* host_layers, int n_layers, int f
   if (n_layers < 1 || n_layers > kMaxLayers || frames < 0) return (int)cudaErrorInvalidValue;
   Layers L = {};
   long long tiles = 0;
+  bool fused = false;
   for (int l = 0; l < n_layers; ++l) {
     const int64_t* f = host_layers + (size_t)l * kFields;
     const int64_t h = f[3], w = f[4];
@@ -287,6 +415,7 @@ extern "C" int brisk_score_masks(const int64_t* host_layers, int n_layers, int f
     Y.tiles_x = (int)((w + kTileW - 1) / kTileW);
     Y.first_tile = (int)tiles;
     tiles += Y.tiles_x * ((h + kTileH - 1) / kTileH);
+    fused = fused || Y.in_mask != nullptr;
     Neighbour* nb[2] = {&Y.above, &Y.below};
     for (int k = 0; k < 2; ++k) {
       const int64_t* g = f + 5 + 6 * k;
@@ -295,6 +424,8 @@ extern "C" int brisk_score_masks(const int64_t* host_layers, int n_layers, int f
           a < 0 || a > 64 || b < -64 || b > 64) {
         return (int)cudaErrorInvalidValue;
       }
+      // The above probes' patch of 4 x 4 words needs a shrinking map.
+      if (d && k == 0 && a >= d) return (int)cudaErrorInvalidValue;
       *nb[k] = {reinterpret_cast<const int32_t*>(g[0]), (int)rows, (int)cols, (int)a, (int)b,
                 (int)d};
     }
@@ -306,6 +437,7 @@ extern "C" int brisk_score_masks(const int64_t* host_layers, int n_layers, int f
   const long long blocks = (long long)frames * tiles;
   if (blocks == 0) return 0;
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  score_masks_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(L);
+  const int smem = kScoreBytes + (fused ? kMaskBytes : 0);
+  score_masks_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(L);
   return (int)cudaGetLastError();
 }

@@ -18,14 +18,18 @@ its own score.
 CUDA tensors (or it raises), the plain version for CPU tensors.
 ``layer_candidates_plain`` is the stable full-map sort, layer by layer
 (``top_candidates``); ``layer_candidates_twin`` is the kernel's algorithm
-in torch: the survivors (masked in and above the sentinel) as unique
-keys, the whole list sorted where it fits ``key_capacity(k)`` keys, else
-a radix select of the k-th key's score word (four 8-bit digits) and the
-first ties at it in flat order; then the pixels at the sentinel, in flat
-order, for the slots left; then, on float scores, the masked-in pixels
-under -inf (a NaN with its sign set) by their keys, as the survivors.
-``launch_plan`` puts a layer's key list in shared memory or, past
-``CHUNK_KEYS`` keys, in a device-memory scratch.
+in torch: the map cut into ``cluster`` slices of its mask groups; the
+survivors (masked in and above the sentinel) listed in flat order, all of
+them where they fit the k slots, else a radix select over the slices of
+the k-th word (four 8-bit digits) and the first ties at it in flat order;
+the list sorted by four stable 8-bit LSD passes on the inverted score
+word, a pass skipped where one digit holds every key; then the pixels at
+the sentinel, in flat order, for the slots left; then, on float scores,
+the masked-in pixels under -inf (a NaN with its sign set), as the
+survivors. ``launch_plan`` (``cluster_size``, ``layer_route``) picks the
+launch's cluster of CTAs a list and puts a layer's keys in the cluster's
+shared memory or, past ``PART_KEYS`` keys a CTA, in a device-memory
+scratch.
 """
 from __future__ import annotations
 
@@ -37,11 +41,24 @@ from ethzasl_brisk_tpu_torch import _kernels
 
 INT32_MIN = -(2**31)
 # csrc/candidates.cu: kMaxLayers layers a launch, kFields int64 fields a
-# layer; a CTA sorts up to kChunkKeys keys in shared memory.
+# layer, kThreads a CTA, a CTA's share of a list in shared memory up to
+# kPartKeys keys, its two buffers up to kBufferKeys together, behind its
+# kSharedBytes of tables, up to kMaxCluster CTAs a list.
 MAX_LAYERS = 8
 FIELDS = 11
-CHUNK_KEYS = 16384
+THREADS = 512
+PART_KEYS = 5632
+BUFFER_KEYS = 11264
+SHARED_BYTES = 18432
+MAX_CLUSTER = 16
+CLUSTERS = (1, 2, 4, 8, 16)
 ROUTES = ("shared", "device")
+# The plan: clusters of 8 while the launch's CTAs stay within CLUSTER_CTAS
+# (halved past it: about one wave of two CTAs an SM), 16 (a non-portable
+# cluster) for at most two lists with a map of LARGE_MAP pixels or more (a
+# VGA layer a detection).
+CLUSTER_CTAS = 256
+LARGE_MAP = 2**17
 _U32 = 0xFFFFFFFF
 
 
@@ -84,16 +101,37 @@ def layer_candidates_plain(scores: list[torch.Tensor], masks: list[torch.Tensor]
         mask_counts(masks)
 
 
-def key_capacity(k: int) -> int:
-    """The keys a layer's list holds: k rounded up to a power of two (the
-    bitonic network's length)."""
-    return 1 << max(k - 1, 0).bit_length()
+def cluster_size(frames: int, n_layers: int, largest: int) -> int:
+    """The CTAs a list of kernel ``layer_candidates``, one for the launch:
+    16 for at most two lists with a map of ``LARGE_MAP`` pixels or more,
+    else 8, halved while the launch's CTAs pass ``CLUSTER_CTAS`` (B x
+    layers already fill the SMs)."""
+    lists = frames * n_layers
+    if lists <= 2 and largest >= LARGE_MAP:
+        return MAX_CLUSTER
+    c = 8
+    while c > 1 and lists * c > CLUSTER_CTAS:
+        c //= 2
+    return c
 
 
-def layer_route(k: int) -> str:
-    """Where kernel ``layer_candidates`` keeps a layer's key list: shared
-    memory while ``key_capacity(k)`` keys fit a chunk, else device memory."""
-    return "shared" if key_capacity(k) <= CHUNK_KEYS else "device"
+def layer_route(k: int, cluster: int) -> str:
+    """Where kernel ``layer_candidates`` keeps a layer's keys: the cluster's
+    shared memory while a CTA's share, ceil(k / cluster), fits
+    ``PART_KEYS``, else device memory."""
+    return "shared" if -(-k // cluster) <= PART_KEYS else "device"
+
+
+def shared_bytes(ks: list, cluster: int) -> int:
+    """A CTA's dynamic shared memory for a launch whose shared-route layers
+    list ``ks`` keys: its tables, a buffer of a CTA's share of the largest
+    list and one half as large again, which first stages the CTA's slice's
+    survivors, within ``BUFFER_KEYS`` keys for both (csrc/candidates.cu's
+    host entry)."""
+    part = max([-(-k // cluster) for k in ks] or [0])
+    stage = max([min(p + p // 2, k, BUFFER_KEYS - p) for k in ks for p in [-(-k // cluster)]]
+                or [0])
+    return SHARED_BYTES + 8 * (part + max(part, stage))
 
 
 def _order(sc: torch.Tensor) -> torch.Tensor:
@@ -102,71 +140,136 @@ def _order(sc: torch.Tensor) -> torch.Tensor:
     return _total_order(sc).to(torch.int64) - INT32_MIN
 
 
-def _twin_tier(hi: torch.Tensor, tier: torch.Tensor, k: int, capacity: int) -> torch.Tensor:
-    """The flat indices (int64) of the first k pixels of ``tier`` by their
-    inverted score words ``hi``, ascending, ties to the lower index: the
-    tier sorted whole where it fits ``capacity`` keys, else a radix select
-    of the k-th key's score word and the first ties at it in flat order."""
-    if int(tier.sum()) <= capacity:
-        listed = tier.nonzero()[:, 0]
-    else:
-        # The k-th key's score word by four 8-bit digits, then the tier's
-        # pixels above it and the first ties at it in flat order.
-        word, left = 0, k
+def _slices(n: int, offset: int, cluster: int) -> list[tuple[int, int]]:
+    """The kernel's slices of a plane of n pixels whose mask starts
+    ``offset`` bytes past a 16-byte boundary: the groups (the unaligned
+    head and the tail a pixel, 16 pixels between) cut evenly over the
+    cluster, as (first pixel, end) a CTA."""
+    head = min((16 - offset % 16) % 16, n)
+    vecs = (n - head) // 16
+    tail = head + 16 * vecs
+    total = head + vecs + (n - tail)
+
+    def first(g):
+        if g >= total:
+            return n
+        if g < head:
+            return g
+        return head + 16 * (g - head) if g < head + vecs else tail + (g - head - vecs)
+
+    return [(first(total * r // cluster), first(total * (r + 1) // cluster))
+            for r in range(cluster)]
+
+
+def _twin_tier(hi: torch.Tensor, tier: torch.Tensor, limit: int, slices) -> tuple:
+    """The flat indices (int64) of the first ``limit`` pixels of ``tier`` by
+    their inverted score words ``hi``, ties in flat order, as the kernel
+    finds them, and the bits of its radix passes run (0-3) and skipped
+    (4-7): the tier listed in flat order, slice by slice (where more than
+    ``limit`` are in it, after a radix select over the slices of the
+    limit-th word and the first ties at it in flat order over the
+    cluster), then four stable 8-bit LSD passes on the words, a pass
+    skipped where one digit holds every key."""
+    total = int(tier.sum())
+    listed = min(total, limit)
+    if listed <= 0:
+        return hi.new_zeros(0), 0
+    parts = [tier[a:b].nonzero()[:, 0] + a for a, b in slices]
+    if total > limit:
+        cut, left = 0, limit
+        above = [0] * len(parts)
         for shift in (24, 16, 8, 0):
             high = 0 if shift == 24 else (_U32 << (shift + 8)) & _U32
-            at = tier & ((hi & high) == word)
-            hist = torch.bincount((hi[at] >> shift) & 0xFF, minlength=256).tolist()
+            own = [torch.bincount((hi[p][(hi[p] & high) == cut] >> shift) & 0xFF,
+                                  minlength=256) for p in parts]
+            tot = torch.stack(own).sum(dim=0).tolist()
             d = 0
-            while hist[d] < left:
-                left -= hist[d]
+            while tot[d] < left:
+                left -= tot[d]
                 d += 1
-            word |= d << shift
-        ties = (tier & (hi == word)).nonzero()[:left, 0]
-        listed = torch.cat([(tier & (hi < word)).nonzero()[:, 0], ties]).sort().values
-    return listed[torch.sort(hi[listed], stable=True).indices][:k]
+            above = [a + int(o[:d].sum()) for a, o in zip(above, own)]
+            ties = [int(o[d]) for o in own]
+            cut |= d << shift
+        taken, ties_before = [], 0
+        for p, t in zip(parts, ties):
+            take = min(max(left - ties_before, 0), t)
+            ties_before += t
+            w = hi[p]
+            at = (w == cut).nonzero()[:take, 0]
+            keep = (w < cut)
+            keep[at] = True
+            taken.append(p[keep])
+        parts = taken
+    keys = torch.cat(parts)
+    words = hi[keys]
+    ran = 0
+    for p in range(4):
+        digit = (words >> (8 * p)) & 0xFF
+        if int(torch.bincount(digit, minlength=256).max()) == listed:
+            ran |= 1 << (4 + p)
+            continue
+        ran |= 1 << p
+        order = torch.sort(digit, stable=True).indices
+        keys, words = keys[order], words[order]
+    return keys, ran
 
 
-def _twin_frame(sc: torch.Tensor, m: torch.Tensor, k: int):
-    """One frame of the twin: the flat indices of the k slots (int64), and
-    how many are survivors and how many sentinel fills after them."""
+def _twin_frame(sc: torch.Tensor, m: torch.Tensor, k: int, slices):
+    """One frame of the twin: the flat indices of the k slots (int64), how
+    many are survivors and how many sentinel fills after them, and the
+    survivors' pass bits."""
     low = _order(torch.full((1,), sentinel(sc.dtype), dtype=sc.dtype))[0]
     order = _order(sc)
     hi = _U32 - order  # the inverted score word: ascending is best first
-    head = _twin_tier(hi, m & (order > low), k, key_capacity(k))
-    fill = (~m | (order == low)).nonzero()[: k - len(head), 0]
-    rest = k - len(head) - len(fill)
-    # Float scores only: the masked-in pixels under -inf (a NaN with its
-    # sign set), by their keys.
-    tail = _twin_tier(hi, m & (order < low), rest, key_capacity(k))
-    return torch.cat([head, fill, tail]), len(head), len(fill)
+    surv, under = m & (order > low), m & (order < low)
+    head, ran = _twin_tier(hi, surv, k, slices)
+    # The fills: each slice's pixels at the sentinel from its offset among
+    # the cluster's, in flat order.
+    fills = torch.cat([(~(surv | under)[a:b]).nonzero()[:, 0] + a for a, b in slices])
+    fill = fills[: k - len(head)]
+    tail, _ = _twin_tier(hi, under, k - len(head) - len(fill), slices)
+    return torch.cat([head, fill, tail]), len(head), len(fill), ran
 
 
-def layer_candidates_twin(scores: list[torch.Tensor], masks: list[torch.Tensor], caps: list):
-    """The kernel's algorithm in torch, frame by frame; any device."""
+def layer_candidates_twin(scores: list[torch.Tensor], masks: list[torch.Tensor], caps: list,
+                          cluster: "int | None" = None, passes: "list | None" = None):
+    """The kernel's algorithm in torch, frame by frame, with the launch's
+    ``cluster`` (the plan's by default); any device. ``passes``, a list,
+    gets each layer's (B,) survivor pass bits."""
+    if cluster is None:
+        cluster = cluster_size(scores[0].shape[0], len(scores),
+                               max(sc[0].numel() for sc in scores))
     cands = []
     for sc, m, cap in zip(scores, masks, caps):
         bsz, h, w = sc.shape
         k = min(cap, h * w)
         out = tuple(torch.empty((bsz, k), dtype=t, device=sc.device)
                     for t in (torch.int32, torch.int32, sc.dtype, torch.bool))
+        bits = []
         for f in range(bsz):
-            idx, n_head, n_fill = _twin_frame(sc[f].reshape(-1), m[f].reshape(-1), k)
+            mf = m[f].reshape(-1)
+            slices = _slices(h * w, mf.data_ptr() % 16, cluster)
+            idx, n_head, n_fill, ran = _twin_frame(sc[f].reshape(-1), mf, k, slices)
             top = sc[f].reshape(-1)[idx]
             top[n_head : n_head + n_fill] = sentinel(sc.dtype)
-            for col, v in zip(out, (idx % w, idx // w, top, m[f].reshape(-1)[idx])):
+            for col, v in zip(out, (idx % w, idx // w, top, mf[idx])):
                 col[f] = v
+            bits.append(ran if k else 0)
         cands.append(out)
+        if passes is not None:
+            passes.append(torch.tensor(bits, dtype=torch.int32))
     return cands, mask_counts(masks)
 
 
 def launch_plan(scores: list[torch.Tensor], masks: list[torch.Tensor], caps: list,
-                routes: "list[str] | None" = None):
+                routes: "list[str] | None" = None, cluster: "int | None" = None):
     """The launches of kernel ``layer_candidates`` on
     ``layer_candidates_cuda``'s arguments, checked: (candidate lists,
-    counts, [(layer table, layer count), ...], scratch tensors). A layer's
-    route is ``layer_route(k)`` unless ``routes`` names it ("shared" only
-    where its keys fit a chunk). The tables are ctypes int64 arrays of
+    counts, [(layer table, layer count), ...], scratch tensors, (cluster,
+    routes)). The cluster is ``cluster_size`` of the launch unless
+    ``cluster`` names it (one of ``CLUSTERS``); a layer's route is
+    ``layer_route(k, cluster)`` unless ``routes`` names it ("shared" only
+    where a CTA's share fits). The tables are ctypes int64 arrays of
     ``FIELDS`` fields a layer, up to ``MAX_LAYERS`` layers each."""
     n_layers = len(scores)
     routes = [None] * n_layers if routes is None else list(routes)
@@ -179,51 +282,64 @@ def launch_plan(scores: list[torch.Tensor], masks: list[torch.Tensor], caps: lis
     dtype, frames = scores[0].dtype, scores[0].shape[0]
     if dtype not in (torch.int32, torch.float32):
         raise ValueError(f"layer_candidates_cuda takes int32 or float32 scores, got {dtype}")
-    cands, rows, keep = [], [], []
-    counts = torch.empty((frames, n_layers), dtype=torch.int32, device=dev)
-    for i, (sc, m, cap, route) in enumerate(zip(scores, masks, caps, routes)):
+    for i, (sc, m, cap) in enumerate(zip(scores, masks, caps)):
         if (sc.device != dev or sc.dtype != dtype or sc.dim() != 3 or sc.shape[0] != frames
                 or not sc.is_contiguous()):
             raise ValueError(f"layer {i}: expected contiguous {dtype} ({frames}, h, w) on {dev}, "
                              f"got {sc.dtype} {tuple(sc.shape)} on {sc.device}")
         if m.device != dev or m.dtype != torch.bool or m.shape != sc.shape or not m.is_contiguous():
             raise ValueError(f"mask {i}: expected contiguous bool {tuple(sc.shape)} on {dev}")
+        if int(cap) < 0 or sc.shape[1] * sc.shape[2] >= 2**30:
+            raise ValueError(f"layer {i}: cap {cap} on a {tuple(sc.shape[1:])} map")
+    if cluster is None:
+        cluster = cluster_size(frames, n_layers, max(sc.shape[1] * sc.shape[2] for sc in scores))
+    if cluster not in CLUSTERS:
+        raise ValueError(f"layer_candidates_cuda: cluster {cluster} not in {CLUSTERS}")
+    cands, rows, keep, used = [], [], [], []
+    counts = torch.empty((frames, n_layers), dtype=torch.int32, device=dev)
+    for i, (sc, m, cap, route) in enumerate(zip(scores, masks, caps, routes)):
         h, w = sc.shape[1:]
-        if int(cap) < 0 or h * w >= 2**30:
-            raise ValueError(f"layer {i}: cap {cap} on a {h} x {w} map")
         k = min(int(cap), h * w)
-        route = route or layer_route(k)
-        if route not in ROUTES or (route == "shared" and key_capacity(k) > CHUNK_KEYS):
-            raise ValueError(f"layer {i}: route {route!r} for k = {k}")
+        route = route or layer_route(k, cluster)
+        if route not in ROUTES or (route == "shared" and layer_route(k, cluster) != "shared"):
+            raise ValueError(f"layer {i}: route {route!r} for k = {k} over {cluster} CTAs")
         out = (torch.empty((frames, k), dtype=torch.int32, device=dev),
                torch.empty((frames, k), dtype=torch.int32, device=dev),
                torch.empty((frames, k), dtype=dtype, device=dev),
                torch.empty((frames, k), dtype=torch.bool, device=dev))
-        scratch = (torch.empty((frames * key_capacity(k),), dtype=torch.int64, device=dev)
+        scratch = (torch.empty((frames, 2, k), dtype=torch.int64, device=dev)
                    if route == "device" else None)
         cands.append(out)
         keep.append(scratch)
+        used.append(route)
         rows.append([sc.data_ptr(), m.data_ptr(), *(t.data_ptr() for t in out),
                      0 if scratch is None else scratch.data_ptr(), h, w, k, i])
     chunks = [rows[j : j + MAX_LAYERS] for j in range(0, len(rows), MAX_LAYERS)]
     tables = [((ctypes.c_int64 * (len(c) * FIELDS))(*(v for r in c for v in r)), len(c))
               for c in chunks]
-    return cands, counts, tables, keep
+    return cands, counts, tables, keep, (cluster, used)
 
 
 def layer_candidates_cuda(scores: list[torch.Tensor], masks: list[torch.Tensor], caps: list,
-                          routes: "list[str] | None" = None):
+                          routes: "list[str] | None" = None, cluster: "int | None" = None,
+                          passes: "torch.Tensor | None" = None):
     """Kernel ``layer_candidates``: every layer's list and the (B, L) mask
     counts in one launch (up to 8 layers a launch). ``scores``: contiguous
     int32 or float32 (B, h, w) CUDA tensors on one card, one B and one
-    type; ``masks``: their bool masks; ``routes`` forces a layer's route
-    (to time and check it)."""
-    cands, counts, tables, _scratch = launch_plan(scores, masks, caps, routes)
+    type; ``masks``: their bool masks; ``routes`` and ``cluster`` force a
+    layer's route and the CTAs a list (to time and check them);
+    ``passes``, an int32 (B, L) tensor on the card, gets each list's
+    survivor radix passes run (bits 0-3) and skipped (bits 4-7)."""
+    cands, counts, tables, _scratch, (c, _) = launch_plan(scores, masks, caps, routes, cluster)
     dev = scores[0].device
     is_float = int(scores[0].dtype == torch.float32)
+    if passes is not None and (passes.device != dev or passes.dtype != torch.int32
+                               or passes.shape != counts.shape or not passes.is_contiguous()):
+        raise ValueError(f"passes: expected contiguous int32 {tuple(counts.shape)} on {dev}")
     for table, n in tables:
         _kernels.launch("layer_candidates", "layer_candidates", dev, table, n,
-                        scores[0].shape[0], len(scores), is_float, counts.data_ptr())
+                        scores[0].shape[0], len(scores), is_float, c, counts.data_ptr(),
+                        0 if passes is None else passes.data_ptr())
     return cands, counts
 
 

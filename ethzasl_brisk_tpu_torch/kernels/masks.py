@@ -21,7 +21,9 @@ for CUDA tensors (or it raises), the plain version for CPU tensors.
 ``score_masks_plain`` is the dense torch chain over every pixel;
 ``score_masks_twin`` is the kernel's per-pixel arithmetic in torch (the 2-D
 test as a 3x3 maximum, the axis terms by truncating division, the probes
-at the survivors only), held against the JAX package on the CPU.
+at the survivors only: the 9 above from the survivor's 4 x 4 patch of the
+layer above, its rows' sums at the three probe columns, then each probe's
+sum down its pair of rows), held against the JAX package on the CPU.
 """
 from __future__ import annotations
 
@@ -35,6 +37,19 @@ from ethzasl_brisk_tpu_torch.kernels.nms import max3x3_zero_fill, maxima2d_mask,
 
 MAX_LAYERS = 8  # the layer table of csrc/masks.cu
 BORDER = 2
+# csrc/masks.cu's tile and its shared memory: a CTA of THREADS takes a
+# tile of TILE_H x TILE_W pixels and stages its halo rows (SCORE_BYTES)
+# and on the fused path K3's mask rows (MASK_BYTES).
+THREADS = 256
+TILE_W, TILE_H = 128, 32
+ROW_WORDS, MASK_ROW_BYTES = 140, 160
+SCORE_BYTES = (TILE_H + 2) * ROW_WORDS * 4
+MASK_BYTES = TILE_H * MASK_ROW_BYTES
+
+
+def staged_bytes(fused: bool) -> int:
+    """Kernel ``score_masks``' dynamic shared memory a CTA."""
+    return SCORE_BYTES + (MASK_BYTES if fused else 0)
 
 
 def warp_scores(
@@ -115,8 +130,9 @@ def _probe(src: torch.Tensor, f: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
 def _maxima2d_twin(sc: torch.Tensor, thr: int) -> torch.Tensor:
     """The kernel's 2-D test: on rows and columns [2, n-3], score >= thr
     and the 3x3 maximum, centre included, at most the score, taken as a
-    horizontal then a vertical maximum of 3. The kernel stages 0 outside
-    the map: no pixel on [2, n-3] reads it."""
+    horizontal then a vertical maximum of 3. No pixel on [2, n-3] reads a
+    cell outside the map (the kernel's staged chunks hold other bytes
+    there; the twin pads with 0)."""
     h, w = sc.shape[-2:]
     p = F.pad(sc, (1, 1, 1, 1), value=0)
     rows = torch.maximum(torch.maximum(p[..., :, :w], p[..., :, 1 : w + 1]), p[..., :, 2:])
@@ -128,10 +144,47 @@ def _maxima2d_twin(sc: torch.Tensor, thr: int) -> torch.Tensor:
     return ok & inb
 
 
+def _pick(o: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``pick``: a where o is 0, b where 1, else c."""
+    return torch.where(o == 0, a, torch.where(o == 1, b, c))
+
+
+def _top_above(src: torch.Tensor, f, y, x, h: int, w: int, affine) -> torch.Tensor:
+    """The maximum of the 9 probes above survivors (f, y, x) of an h x w
+    layer, as the kernel sums them: the survivor's 4 x 4 patch of ``src``
+    (indices clamped to it), the patch rows' sums at the three probe
+    columns, then each probe's sum down its pair of rows; 0 for a probe
+    outside the layer or undefined."""
+    a, b, d = affine
+    rows, cols = src.shape[-2:]
+    vs = [_axis(y + k - 1, rows, a, b, d) for k in range(3)]
+    us = [_axis(x + k - 1, cols, a, b, d) for k in range(3)]
+    pr, pc = vs[0][0], us[0][0]
+    flat = src.to(torch.int64).reshape(-1)
+    patch = [[flat[(f * rows + (pr + i).clamp(0, rows - 1)) * cols + (pc + j).clamp(0, cols - 1)]
+              if flat.numel() else torch.zeros_like(f) for j in range(4)] for i in range(4)]
+    sums = []
+    for i0, fu, _ in us:
+        o = i0 - pc
+        sums.append([(d - fu) * _pick(o, *p[:3]) + fu * _pick(o, *p[1:]) for p in patch])
+    top = None
+    for ky, (v0, fv, okv) in enumerate(vs):
+        o, yy = v0 - pr, y + ky - 1
+        for kx, (_, _, oku) in enumerate(us):
+            xx = x + kx - 1
+            col = sums[kx]
+            s = (d - fv) * _pick(o, *col[:3]) + fv * _pick(o, *col[1:])
+            ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w) & okv & oku
+            p = torch.where(ok, s, torch.zeros_like(s))
+            top = p if top is None else torch.maximum(top, p)
+    return top
+
+
 def score_masks_twin(scores: list[torch.Tensor], thr: int, maps: list,
                      base_masks: "list[torch.Tensor] | None" = None) -> list[torch.Tensor]:
     """The kernel's per-pixel arithmetic in torch: the 2-D test (or K3's
-    mask), then the 3-D probes at the survivors only; any device."""
+    mask), then the 3-D probes at the survivors only, those above from the
+    survivor's patch; any device."""
     n_layers = len(scores)
     masks = []
     for i, sc in enumerate(scores):
@@ -141,15 +194,8 @@ def score_masks_twin(scores: list[torch.Tensor], thr: int, maps: list,
         center = sc[f, y, x].to(torch.int64)
         keep = torch.ones_like(f, dtype=torch.bool)
         if i + 1 < n_layers:
-            a, b, d = maps[i][0]
-            top = None
-            for dy in (-1, 0, 1):
-                for dx in (-1, 0, 1):
-                    yy, xx = y + dy, x + dx
-                    inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-                    p = _probe(scores[i + 1], f, yy, xx, inside, (a, b, d))
-                    top = p if top is None else torch.maximum(top, p)
-            keep &= center * (d * d) >= top
+            d = maps[i][0][2]
+            keep &= center * (d * d) >= _top_above(scores[i + 1], f, y, x, h, w, maps[i][0])
         if i > 0:
             a, b, d = maps[i][1]
             below = _probe(scores[i - 1], f, y, x, torch.ones_like(keep), (a, b, d))

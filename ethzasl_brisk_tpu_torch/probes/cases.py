@@ -439,7 +439,9 @@ def run_case(case: Case, device: torch.device, card: str, reps: int = 10) -> dic
     err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
     plan = kern.plan(*args).label if kern.plan else None
     ms = measure.cuda_time(lambda: kern.wrapper(*args), reps=reps)
-    device_ms = measure.device_time(lambda: kern.wrapper(*args), device, kern.names, reps=reps)
+    # One launch a call (checked above): calls the profiler cut are known.
+    device_ms = measure.device_time(lambda: kern.wrapper(*args), device, kern.names, reps=reps,
+                                    per_call=1)
     plain_ms = measure.cuda_time(lambda: kern.plain(*args), reps=reps)
     library_ms = library_device_ms = None
     if kern.library:

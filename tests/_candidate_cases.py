@@ -26,18 +26,23 @@ or -inf on float scores).
   its list holds (the kernel's radix select on them). The lists only:
   no Harris map holds a NaN, and the refine cases leave this one out;
 * ``large_map``: one (1, 180, 200) layer of 50 score values, nearly all
-  masked in, k = h*w: ~35,000 survivors, past a chunk of shared memory
-  (the kernel's device route, sorted a chunk at a time and across chunks
-  in device memory).
+  masked in, k = h*w: ~35,000 survivors, past a CTA's shared memory at
+  small clusters (the kernel's device route);
+* ``tie_runs``: long runs of equal scores that the cap cuts, across the
+  kernel's slices: a flat map of which every pixel survives at a tenth of
+  it (the radix select takes the first ties in flat order) and one masked
+  in at random; bright boxes on a flat ground, every pixel in, the cap
+  past the boxes into the ground; rows of three values in long runs.
 """
 import numpy as np
 
 INT32_MIN = -(2**31)
 KINDS = ("all_masked_out", "no_survivor", "over_cap", "whole_map", "ties",
-         "int32_min_masked_in", "signed_zero", "float_spread", "large_map", "signed_nan")
+         "int32_min_masked_in", "signed_zero", "float_spread", "large_map", "signed_nan",
+         "tie_runs")
 # The cases the refine tests leave out: one for its size, one because no
-# Harris map holds a NaN.
-LISTS_ONLY = ("large_map", "signed_nan")
+# Harris map holds a NaN, one whose point is the lists' tie order.
+LISTS_ONLY = ("large_map", "signed_nan", "tie_runs")
 # Float32 bit patterns of the ``signed_nan`` maps: NaNs with the sign set
 # (under -inf in the total order), -inf, +NaN, 1.0, +0.0 and -0.0.
 NAN_BITS = (0xFFC00000, 0xFF800001, 0xFFFFFFFF, 0xFF800000, 0x7FC00000, 0x3F800000, 0, 0x80000000)
@@ -93,6 +98,23 @@ def case(kind: str):
                 s = rng.choice(np.array(NAN_BITS[:3] + NAN_BITS[5:6], np.uint32), shape,
                                p=[0.3, 0.3, 0.3, 0.1]).view(np.float32)
                 mask[:] = True
+        elif kind == "tie_runs":
+            if h == 37:  # flat: frame 0 every pixel in, frame 1 most of them
+                s[:] = 7
+                mask[0] = True
+                mask[1] = rng.random((h, w)) < 0.9
+                cap = n // 10
+            elif h == 20:  # boxes of 50 on a ground of 3, every pixel in
+                s[:] = 3
+                s[:, 4:9, 6:20] = 50
+                s[1, 12:18, 2:7] = 50
+                mask[:] = True
+                cap = int((s[0] == 50).sum()) + n // 10
+            else:  # rows of three values in long runs
+                s = np.repeat(np.array([5, -2, 5], np.int32)[rng.integers(0, 3, (2, h, 1))],
+                              w, axis=2)
+                mask = rng.random(shape) < 0.9
+                cap = n // 3
         elif kind == "float_spread":
             s = rng.standard_normal(shape) * 10.0 ** rng.integers(-12, 12, shape)
             s = s.astype(np.float32)

@@ -4,11 +4,13 @@ kernel's torch twin bitwise against the JAX ``_layer_candidates``.
 Kernel ``layer_candidates`` runs on the card only (``test_torch_gpu.py``
 holds it against the plain version there, on both of its routes). Here
 ``layer_candidates_plain`` (the stable full-map sort the detector runs on
-the CPU) and ``layer_candidates_twin`` (the kernel's algorithm: unique
-keys for the survivors, the list sorted where it fits its power of two,
-else a radix select of the k-th key and the first ties in flat order;
-then the pixels that do not survive, in flat order) are held slot for
-slot against the JAX package's ``lax.top_k`` lists:
+the CPU) and ``layer_candidates_twin`` (the kernel's algorithm: the map
+cut into a cluster's slices, the survivors listed in flat order, all of
+them or, past the cap, after a radix select of the k-th word with the
+first ties in flat order; four stable 8-bit LSD passes on the words, a
+pass skipped where one digit holds every key; then the pixels that do not
+survive, in flat order) are held slot for slot against the JAX package's
+``lax.top_k`` lists:
 
 * on the Harris layers of seeded 61 x 83 and 96 x 130 frames (noise, a
   flat frame, sharp boxes; octaves 0-2, thresholds 0 and 20) at caps
@@ -17,7 +19,8 @@ slot against the JAX package's ``lax.top_k`` lists:
   no mask bit, every pixel at the sentinel, survivors past the cap, ties,
   masked-in INT32_MIN, float +0.0 / -0.0 / -inf (``lax.top_k`` orders
   floats by their total order: +0.0 above -0.0), masked-in NaNs with the
-  sign set (under -inf in that order) and wide float spreads.
+  sign set (under -inf in that order), wide float spreads, and long tie
+  runs that the cap cuts (a flat map, boxes, runs of rows).
 
 The JAX function runs eagerly on the port's score maps and masks (which
 ``test_torch_masks.py`` holds against JAX's), a frame at a time.
@@ -170,22 +173,92 @@ def test_layer_candidates_routes_cpu_to_plain_and_cuda_needs_a_card():
         kc.layer_candidates_cuda(scores, masks, caps)
 
 
-@pytest.mark.parametrize("k,route", [(1, "shared"), (3072, "shared"), (10240, "shared"),
-                                     (16384, "shared"), (16385, "device"), (18432, "device"),
-                                     (307200, "device")])
-def test_route_plan(k, route):
-    """Shared memory while the padded list fits a chunk (16,384 keys, 128
-    KB: the main path's caps 10240/3072/3072/1024 all do), device memory
-    past it (the quick start's certified cap, a whole VGA map)."""
-    assert kc.layer_route(k) == route
-    assert kc.key_capacity(k) >= k and kc.key_capacity(k) & (kc.key_capacity(k) - 1) == 0
-    assert kc.key_capacity(k) < 2 * max(k, 1)
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_twin_matches_plain_at_every_cluster(cluster):
+    """The twin at each cluster size the plan can pick against the plain
+    version on every synthetic case (no JAX): the slices, the listing
+    offsets, the select's tie split over the slices and the stable passes
+    change with the cluster, the lists must not."""
+    for kind in cases.KINDS:
+        scores, masks, caps = cases.case(kind)
+        scores = [torch.from_numpy(s) for s in scores]
+        masks = [torch.from_numpy(m) for m in masks]
+        ref, ref_counts = kc.layer_candidates_plain(scores, masks, caps)
+        got, counts = kc.layer_candidates_twin(scores, masks, caps, cluster=cluster)
+        assert torch.equal(counts, ref_counts), kind
+        for i, (g, r) in enumerate(zip(got, ref)):
+            for name, a, b in zip(FIELDS, g, r):
+                assert np.array_equal(_bits(a.numpy()), _bits(b.numpy())), (kind, i, name)
+
+
+def test_twin_skips_the_passes_one_digit_holds():
+    """Pass skipping as the kernel does it: the flat map's one word skips
+    every pass; on a bench frame's int32 Harris layers (its survivors'
+    scores all between the threshold and 2^16) the two top digits are one
+    bin each and their passes are skipped, the two low digits' passes
+    run."""
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+
+    scores, masks, caps = cases.case("tie_runs")
+    passes = []
+    kc.layer_candidates_twin([torch.from_numpy(s) for s in scores],
+                             [torch.from_numpy(m) for m in masks], caps, passes=passes)
+    assert passes[0].tolist() == [0xF0, 0xF0]
+    cfg = tss.DetectorConfig(octaves=1, absolute_threshold=20.0)
+    scores, masks = tss.layer_score_masks(
+        tss.build_pyramid(torch.from_numpy(bench_frames(1)), cfg.n_layers), cfg)
+    passes = []
+    kc.layer_candidates_twin(scores, masks, [10240, 3072], passes=passes)
+    assert all(p.tolist() == [0xC3] for p in passes), passes
+
+
+def test_slices_cover_the_map_once():
+    """The kernel's slices of a plane, at every alignment of its mask and
+    every cluster size: contiguous, in order, covering every pixel once,
+    cut at group boundaries (16-byte loads inside), some empty on a map
+    smaller than the cluster's groups."""
+    for n in (1, 5, 20, 83 * 61, 640 * 480):
+        for offset in range(16):
+            for cluster in kc.CLUSTERS:
+                sl = kc._slices(n, offset, cluster)
+                assert sl[0][0] == 0 and sl[-1][1] == n
+                assert all(a[1] == b[0] for a, b in zip(sl, sl[1:]))
+                head = min((16 - offset) % 16, n)
+                tail = head + (n - head) // 16 * 16
+                assert all(a <= head or a >= tail or (a - head) % 16 == 0 for a, _ in sl)
+    assert any(a == b for a, b in kc._slices(5, 0, 16))
+
+
+@pytest.mark.parametrize("frames,layers,largest,k,cluster,route", [
+    (16, 4, 480 * 640, 10240, 4, "shared"),    # the B=16 step, layer 0
+    (128, 4, 480 * 640, 10240, 1, "device"),   # the B=128 step, layer 0
+    (128, 4, 480 * 640, 3072, 1, "shared"),    # ... and layers 1-2
+    (32, 4, 480 * 640, 10240, 2, "shared"),
+    (1, 1, 480 * 640, 18432, 16, "shared"),    # the quick start's certified cap
+    (1, 1, 480 * 640, 480 * 640, 16, "device"),  # a whole VGA map
+    (1, 4, 480 * 640, 10240, 8, "shared"),     # a B=1 detection (VO, camera grids)
+    (3, 4, 61 * 83, 5063, 8, "shared"),
+    (4, 4, 480 * 640, 10240, 8, "shared"),     # [gpu vs cpu]
+])
+def test_route_plan(frames, layers, largest, k, cluster, route):
+    """The plan: clusters of 8 while the launch's CTAs stay within 256
+    (about one wave of two CTAs an SM), halved past it, 16 for one or two
+    VGA-size lists; a layer's keys in
+    the cluster's shared memory while a CTA's share ceil(k / C) fits
+    PART_KEYS (the main path's caps at B=16, the quick start's),
+    else in device memory; a CTA's shared bytes (a share of the list and
+    half as much again to stage its slice's survivors) within two CTAs an
+    SM at the largest share."""
+    assert kc.cluster_size(frames, layers, largest) == cluster
+    assert kc.layer_route(k, cluster) == route
+    assert 2 * (kc.shared_bytes([kc.PART_KEYS * cluster], cluster) + 1024) <= 233472
 
 
 def test_candidates_table_matches_the_kernel_source():
-    """The wrapper's layer table and route bound agree with the kernel's
-    constants: 8 layers a launch, 11 int64 fields a layer, a chunk of
-    16,384 keys (128 KB of shared memory, under the card's 227 KB)."""
+    """The wrapper's layer table and plan agree with the kernel's
+    constants: 8 layers a launch, 11 int64 fields a layer, 512 threads, up
+    to 5,632 keys in each of a CTA's two shared buffers behind 18 KB of
+    tables, clusters of up to 16 CTAs."""
     import pathlib
     import re
 
@@ -193,8 +266,11 @@ def test_candidates_table_matches_the_kernel_source():
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kMaxLayers"]) == kc.MAX_LAYERS
     assert int(consts["kFields"]) == kc.FIELDS
-    assert int(consts["kChunkKeys"]) == kc.CHUNK_KEYS
-    assert kc.CHUNK_KEYS * 8 + 2048 <= 232448
+    assert int(consts["kThreads"]) == kc.THREADS
+    assert int(consts["kPartKeys"]) == kc.PART_KEYS
+    assert int(consts["kBufferKeys"]) == kc.BUFFER_KEYS
+    assert int(consts["kSharedBytes"]) == kc.SHARED_BYTES
+    assert int(consts["kMaxCluster"]) == kc.MAX_CLUSTER == max(kc.CLUSTERS)
     # The table's fields, in the entry's order.
     doc = src[src.index("// host_layers:"):src.index('extern "C"')]
     assert "scores, mask, xs, ys,\n// top, valid, scratch" in doc

@@ -325,6 +325,10 @@ def test_score_masks_cuda_rejects_bad_tables(cuda):
         masks.score_masks_cuda([sc, sc.float()], 0, maps)
     with pytest.raises(ValueError, match="base mask"):
         masks.score_masks_cuda([sc, sc], 0, maps, [sc.bool(), sc.bool()[:, :5]])
+    # An above map that does not shrink leaves the staged footprint and the
+    # 4 x 4 patch: the entry refuses it.
+    with pytest.raises(RuntimeError, match="launch failed"):
+        masks.score_masks_cuda([sc, sc], 0, [((8, -1, 6), (12, 2, 9)), maps[1]])
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -337,22 +341,26 @@ def _candidate_case(kind: str, dev):
             [torch.from_numpy(m).to(dev) for m in masks], caps)
 
 
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8, 16], ids=lambda c: f"C{c or 'plan'}")
 @pytest.mark.parametrize("route", ["auto", "device"])
 @pytest.mark.parametrize("kind", candidate_cases.KINDS)
-def test_layer_candidates_cuda_matches_plain(cuda, kind, route):
+def test_layer_candidates_cuda_matches_plain(cuda, kind, route, cluster):
     """Kernel layer_candidates bit for bit against the plain version on the
     synthetic maps (``tests/_candidate_cases.py``: no mask bit, every pixel
     at the sentinel, survivors past the cap, the whole map, ties,
-    masked-in INT32_MIN, float signed zeros and spreads, a list past a
-    chunk), on the route the plan picks and on the device-memory route;
-    one launch each, the counts too."""
+    masked-in INT32_MIN, float signed zeros and spreads, a long list, long
+    tie runs the cap cuts), on the route the plan picks and on the
+    device-memory route, at the plan's cluster and at each size forced
+    (C = 1 included); one launch each, the counts too, and each list's
+    radix passes run and skipped as the twin finds them."""
     from ethzasl_brisk_tpu_torch import _kernels
     from ethzasl_brisk_tpu_torch.kernels import candidates as kc
 
     scores, masks, caps = _candidate_case(kind, cuda)
     routes = None if route == "auto" else ["device"] * len(scores)
+    passes = torch.full((scores[0].shape[0], len(scores)), -1, dtype=torch.int32, device=cuda)
     _kernels.reset_launches()
-    got, counts = kc.layer_candidates_cuda(scores, masks, caps, routes)
+    got, counts = kc.layer_candidates_cuda(scores, masks, caps, routes, cluster, passes)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["layer_candidates"] == 1
     ref, ref_counts = kc.layer_candidates_plain(scores, masks, caps)
@@ -360,13 +368,18 @@ def test_layer_candidates_cuda_matches_plain(cuda, kind, route):
     for i, (g, r) in enumerate(zip(got, ref)):
         for name, a, b in zip(("xs", "ys", "scores", "valid"), g, r):
             assert torch.equal(_bits(a), _bits(b)), f"{kind} layer {i} {name}"
+    twin_passes = []
+    kc.layer_candidates_twin(scores, masks, caps, cluster, twin_passes)
+    assert torch.equal(passes.cpu(), torch.stack(twin_passes, dim=1))
 
 
+@pytest.mark.parametrize("cluster", [None, 1], ids=["plan", "C1"])
 @pytest.mark.parametrize("fused", [False, True], ids=["default", "fused"])
-def test_layer_candidates_cuda_on_the_step_layers(cuda, fused):
+def test_layer_candidates_cuda_on_the_step_layers(cuda, fused, cluster):
     """The B=16 step's four VGA layers at the main path's caps
-    (10240/3072/3072/1024, all on the shared-memory route), and on the
-    device-memory route: bitwise against plain, one launch each."""
+    (10240/3072/3072/1024, all on the shared-memory route at the plan's
+    cluster of 4), and on the device-memory route, at the plan's cluster
+    and at C = 1: bitwise against plain, one launch each."""
     from ethzasl_brisk_tpu_torch import _kernels
     from ethzasl_brisk_tpu_torch.detect import scale_space
     from ethzasl_brisk_tpu_torch.kernels import candidates as kc
@@ -375,11 +388,12 @@ def test_layer_candidates_cuda_on_the_step_layers(cuda, fused):
     frames = torch.from_numpy(bench_frames(16)).to(cuda)
     scores, masks = scale_space.layer_score_masks(scale_space.build_pyramid(frames, 4), cfg)
     caps = [10240, 3072, 3072, 1024]
-    assert [kc.layer_route(c) for c in caps] == ["shared"] * 4
+    assert kc.cluster_size(16, 4, 480 * 640) == 4
+    assert [kc.layer_route(c, 4) for c in caps] == ["shared"] * 4
     ref, ref_counts = kc.layer_candidates_plain(scores, masks, caps)
     for routes in (None, ["device"] * 4):
         _kernels.reset_launches()
-        got, counts = kc.layer_candidates_cuda(scores, masks, caps, routes)
+        got, counts = kc.layer_candidates_cuda(scores, masks, caps, routes, cluster)
         torch.cuda.synchronize()
         assert _kernels.LAUNCHES["layer_candidates"] == 1
         assert torch.equal(counts, ref_counts)
@@ -387,6 +401,42 @@ def test_layer_candidates_cuda_on_the_step_layers(cuda, fused):
             for a, b in zip(g, r):
                 assert torch.equal(a, b)
     assert int(ref_counts[:, 0].max()) < caps[0]
+
+
+@pytest.mark.parametrize("what", ["noise", "flat", "every pixel"])
+def test_layer_candidates_cuda_on_a_vga_map(cuda, what):
+    """One VGA layer a detection, as the quick start and the whole-map
+    lists give it, on the plan's cluster of 16: a noise frame's layer at a
+    cap over its survivors (the shared route), the whole map of a flat
+    frame (every fill, the device route) and of one whose every pixel
+    survives at 18,432 (the radix select over the cluster) and at k = h*w
+    (the device route's sort of 307,200 keys); bitwise against plain."""
+    from ethzasl_brisk_tpu_torch.detect import scale_space
+    from ethzasl_brisk_tpu_torch.kernels import candidates as kc
+
+    assert kc.cluster_size(1, 1, 480 * 640) == 16
+    if what == "every pixel":
+        sc = torch.randint(-(2**31) + 1, 2**31 - 1, (1, 480, 640), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(23)).to(cuda)
+        sc[0, 100:300, 50:600] = 12345  # a long tie run the cap cuts
+        layers, caps = ([sc], [torch.ones_like(sc, dtype=torch.bool)]), [18432, 480 * 640]
+    else:
+        frame = torch.from_numpy(bench_frames(1)).to(cuda)
+        if what == "flat":
+            frame[:] = 77
+        cfg = scale_space.DetectorConfig(octaves=0, absolute_threshold=20.0)
+        layers = scale_space.layer_score_masks(scale_space.build_pyramid(frame, 1), cfg)
+        caps = [18432] if what == "noise" else [480 * 640]
+    for cap in caps:
+        ref, ref_counts = kc.layer_candidates_plain(*layers, [cap])
+        for routes in (None, ["device"]):
+            if routes is None and kc.layer_route(cap, 16) != "shared":
+                continue
+            got, counts = kc.layer_candidates_cuda(*layers, [cap], routes)
+            torch.cuda.synchronize()
+            assert torch.equal(counts, ref_counts)
+            for a, b in zip(got[0], ref[0]):
+                assert torch.equal(a, b), (what, cap, routes)
 
 
 def test_layer_candidates_cuda_rejects_bad_tables(cuda):
@@ -402,6 +452,14 @@ def test_layer_candidates_cuda_rejects_bad_tables(cuda):
         kc.layer_candidates_cuda([sc], [m], [600], ["nowhere"])
     with pytest.raises(ValueError, match="int32 or float32"):
         kc.layer_candidates_cuda([sc.double()], [m], [5])
+    with pytest.raises(ValueError, match="cluster"):
+        kc.layer_candidates_cuda([sc], [m], [5], None, 3)
+    big = torch.zeros((1, 200, 300), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="route"):
+        kc.layer_candidates_cuda([big], [big.bool()], [60000], ["shared"], 8)
+    with pytest.raises(ValueError, match="passes"):
+        kc.layer_candidates_cuda([sc], [m], [5], passes=torch.zeros(2, 2, dtype=torch.int32,
+                                                                     device=cuda))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])

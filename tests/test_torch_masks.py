@@ -156,8 +156,10 @@ def test_score_masks_routes_cpu_to_plain_and_cuda_needs_a_card():
 
 
 def test_masks_table_matches_the_kernel_source():
-    """The wrapper's layer table and the kernel's constants agree: 8 layers
-    a launch, 17 int64 fields a layer (5 of the layer, 6 a neighbour)."""
+    """The wrapper's layer table, the staging sizes and the kernel's
+    constants agree: 8 layers a launch, 17 int64 fields a layer (5 of the
+    layer, 6 a neighbour), the tile and the staged rows; and four CTAs an
+    SM hold their staging on the fused path."""
     import pathlib
     import re
 
@@ -165,3 +167,29 @@ def test_masks_table_matches_the_kernel_source():
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kMaxLayers"]) == km.MAX_LAYERS
     assert int(consts["kFields"]) == 5 + 2 * 6
+    assert int(consts["kThreads"]) == km.THREADS
+    assert (int(consts["kTileW"]), int(consts["kTileH"])) == (km.TILE_W, km.TILE_H)
+    assert (int(consts["kRowWords"]), int(consts["kMaskRowBytes"])) == (
+        km.ROW_WORDS, km.MASK_ROW_BYTES)
+    assert 4 * (km.staged_bytes(True) + 8192 + 1024) <= 233472
+
+
+@pytest.mark.parametrize("layer", range(6))
+def test_patch_holds_every_probe(layer):
+    """Each layer's above map fits the kernel, as its entry checks: the map
+    shrinks, so a survivor's 9 probes take at most a 4 x 4 patch. Replayed
+    on every pixel of a VGA layer: each probe's taps lie in the survivor's
+    patch, at offsets 0-2 of its first row and column."""
+    g = tss.layer_geometry(layer)
+    a, b, d = g.above_map
+    assert a < d
+    h, w = 480, 640
+    rows, cols = -(-h * 2 // 3), -(-w * 2 // 3)  # at least the layer above's size
+    y, x = torch.meshgrid(torch.arange(2, h - 2), torch.arange(2, w - 2), indexing="ij")
+    y, x = y.reshape(-1), x.reshape(-1)
+    pr, pc = km._axis(y - 1, rows, a, b, d)[0], km._axis(x - 1, cols, a, b, d)[0]
+    for k in range(3):
+        v0 = km._axis(y + k - 1, rows, a, b, d)[0]
+        u0 = km._axis(x + k - 1, cols, a, b, d)[0]
+        assert bool(((v0 - pr >= 0) & (v0 - pr <= 2)).all())
+        assert bool(((u0 - pc >= 0) & (u0 - pc <= 2)).all())
