@@ -144,9 +144,12 @@ C = 1) and on VGA maps at a cluster of 16, prints each check's plan (C,
 routes, radix passes run and skipped, shared bytes, CTAs an SM), and times
 it in turns with its other cluster sizes, the plain version and
 ``torch.sort``; ``[refine]`` holds the second bitwise in float32 and
-float64 at odd shapes and on the steps' refine inputs (without
-compaction, with no and with every accept too) and times it in turns with
-the plain version.
+float64 at odd shapes, on the steps' refine inputs (without compaction,
+with no and with every accept, and with accepts only in the last 1,024
+flags of each list too) and on a VGA list past a chunk, prints its plan
+(threads, chunks a list and chunks ranked, the shared slot table, shared
+bytes, registers, spill and CTAs an SM), and times it in turns with its
+tail case and the plain version, with the wrapper's host time split.
 Both steps are timed at batch 16 and 128 with per-stage CUDA events, in
 turns (default, fused, blocked, blocked, fused, default; "blocked" is the
 default step with the blocked uniformity path in the kernel's place), and
@@ -1307,19 +1310,61 @@ def capture_refine(run) -> tuple:
     return calls[0]
 
 
+def refine_ptxas(regs: list) -> dict:
+    """Registers and spill bytes of each refine kernel from its ptxas
+    lines: {"float32": (registers, spill bytes), "float64": ...}, by the
+    fit's type."""
+    import re
+
+    out, key = {}, None
+    for line in regs:
+        m = re.search(r"refine_kernelILb[01]E([fd])E", line)
+        if "Compiling entry" in line and m:
+            key = "float32" if m.group(1) == "f" else "float64"
+        elif key:
+            r, spill = out.get(key, (0, 0))
+            r = max([r] + [int(v) for v in re.findall(r"Used (\d+) registers", line)])
+            spill = max([spill] + [int(v) for v in re.findall(r"(\d+) bytes spill", line)])
+            out[key] = (r, spill)
+    return out
+
+
+def tail_accepts(accepts, seed: int = 25) -> list:
+    """Accept flags only in the last 1,024 of each list (a seeded half of
+    them; ``tests/_candidate_cases.py``'s ``tail``): the walk of a cut list
+    must reach its end."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for a in accepts:
+        t = torch.zeros(a.shape, dtype=torch.bool)
+        n = min(1024, a.shape[1])
+        t[:, -n:] = torch.rand((a.shape[0], n), generator=g) < 0.5
+        out.append(t.to(a.device))
+    return out
+
+
 def refine_phase(dev, card: str, kind: str, launches: int, regs: list, feature,
                  fused_feature) -> dict:
     """[refine]: kernel refine_keypoints bitwise against its plain version
     on the card, one counted launch each, in float32 and float64: the odd
     shapes' detections (61 x 83, 96 x 130; thresholds 0 and 20; refine caps
-    24), the B=16 and B=128 steps' refine (default and fused), and at
-    B=16 without compaction (caps = k), with no accept and with every
-    accept. At the steps' inputs the kernel and the plain version in turns,
-    event and device ms, beside the bound; host us a call. Returns the
-    kernel's row at the B=16 step's inputs (float32)."""
+    24), the B=16 and B=128 steps' refine (default and fused, accepts only
+    in the last 1,024 flags of each list), and at B=16 without compaction
+    (caps = k), with no accept and with every accept; one VGA list past a
+    chunk (k = 307,195, the second frame's row 11 bytes into a 16-byte
+    word) at caps 64, one past the slot table, k / 2 and k. The plan: the
+    CTA's threads, chunks a list and chunks the walk ranks, the slot table,
+    shared bytes, and each type's registers, spill and CTAs an SM. At the
+    steps' inputs the kernel, its tail case and the plain version in turns,
+    event and device ms, beside the bound; host us a call and its parts. Returns the kernel's row at the B=16 step's
+    inputs (float32)."""
     from ethzasl_brisk_tpu_torch import _kernels, measure
     from ethzasl_brisk_tpu_torch.detect import refine, scale_space
     from ethzasl_brisk_tpu_torch.frames import bench_frames
+    from ethzasl_brisk_tpu_torch.kernels import candidates as kc
+
+    types = refine_ptxas(regs)
+    _, shared = ptxas_numbers(regs)
 
     def check(args, rdt, what) -> str:
         _kernels.reset_launches()
@@ -1335,6 +1380,27 @@ def refine_phase(dev, card: str, kind: str, launches: int, regs: list, feature,
             assert torch.equal(a, b), f"[refine] {what}: {name} differs from plain"
         return f"{what} ({int(ref.valid.sum())} valid of {ref.valid.numel()})"
 
+    def walk(accepts, caps) -> str:
+        # Each list's chunks and the chunks the walk ranks (the twin's walk
+        # on the card's rows), summed over the frames.
+        parts = []
+        for a, cap in zip(accepts, caps):
+            k = a.shape[1]
+            n = int(((refine.row_offsets(a) + k + refine.CHUNK - 1) // refine.CHUNK).max())
+            if cap >= k:
+                parts.append(f"k {k}: {n} chunk(s), no compaction")
+            else:
+                ranked = refine.chunk_walk(a, cap)[1]
+                parts.append(f"k {k}: {n} chunk(s), {int(ranked.sum())} of "
+                             f"{ranked.numel()} ranked")
+        return "; ".join(parts)
+
+    plan = (f"{refine.THREADS} threads a CTA, chunks of {refine.CHUNK} flags, a run of "
+            f"{refine.RUN} a thread; the slot table in shared memory ({refine.CHUNK} 16-bit "
+            f"entries, a chunk's); {shared} B shared a CTA; "
+            + "; ".join(f"{t}: {r} registers, {sp} B spill, "
+                        f"{ctas_an_sm(shared, r, dev, refine.THREADS)} CTAs an SM"
+                        for t, (r, sp) in sorted(types.items())))
     lines = []
     for h, w in ((61, 83), (96, 130)):
         frames = mask_frames(3, h, w).to(dev)
@@ -1344,8 +1410,32 @@ def refine_phase(dev, card: str, kind: str, launches: int, regs: list, feature,
             args = capture_refine(lambda: scale_space.detect_keypoints(frames, cfg))
             for rdt in (torch.float32, torch.float64):
                 lines.append(check(args, rdt, f"{h}x{w} thr {thr} {str(rdt)[6:]}"))
-    print(f"[refine] kernel refine_keypoints ptxas: {regs}; bitwise vs plain, one launch "
-          f"each: {'; '.join(lines)} [{kind}; {card}]", flush=True)
+    print(f"[refine] kernel refine_keypoints plan: {plan}; ptxas: {regs}; bitwise vs plain, one "
+          f"launch each: {'; '.join(lines)} [{kind}; {card}]", flush=True)
+
+    # One VGA list past a chunk: a whole-map list of random scores, cut to
+    # 307,195 so the second frame's row starts 11 bytes into a word.
+    dense = torch.randint(-(2**31) + 1, 2**31 - 1, (2, 480, 640), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(25)).to(dev)
+    vga_k = 480 * 640 - 5
+    lists, _ = kc.layer_candidates_cuda([dense], [torch.ones_like(dense, dtype=torch.bool)],
+                                        [480 * 640])
+    cands = [tuple(t[:, :vga_k].contiguous() for t in lists[0])]
+    geoms = [scale_space.layer_geometry(0)]
+    lines = []
+    for label, flags in (("tail", tail_accepts([cands[0][3]])),
+                         ("half", [cands[0][3] & (torch.rand(cands[0][3].shape, device=dev,
+                                                             generator=torch.Generator(dev)
+                                                             .manual_seed(25)) < 0.5)])):
+        for cap in (64, refine.CHUNK + 1, vga_k // 2, vga_k):
+            lines.append(check(([dense], cands, flags, [cap], geoms), torch.float32,
+                               f"{label} cap {cap} [{walk(flags, [cap])}]"))
+    lines.append(check(([dense], cands, flags, [refine.CHUNK + 1], geoms), torch.float64,
+                       f"half cap {refine.CHUNK + 1} float64"))
+    print(f"[refine] VGA list past a chunk, B=2: bitwise vs plain, one launch each: "
+          f"{'; '.join(lines)} [{kind}; {card}]", flush=True)
+    del dense, lists, cands, flags
+    torch.cuda.empty_cache()
 
     row = None
     for batch in (16, 128):
@@ -1357,6 +1447,10 @@ def refine_phase(dev, card: str, kind: str, launches: int, regs: list, feature,
         for rdt in (torch.float64, torch.float32):
             lines.append(check(args, rdt, f"default {str(rdt)[6:]}"))
         scores, cands, accepts, caps, geoms = args
+        tail = tail_accepts(accepts)
+        tail_args = (scores, cands, tail, caps, geoms)
+        for rdt in (torch.float32, torch.float64):
+            lines.append(check(tail_args, rdt, f"tail {str(rdt)[6:]}"))
         if batch == 16:
             lines.append(check((scores, cands, accepts, [c[0].shape[1] for c in cands], geoms),
                                torch.float32, "caps = k"))
@@ -1364,9 +1458,11 @@ def refine_phase(dev, card: str, kind: str, launches: int, regs: list, feature,
                 flags = [torch.full_like(a, fill) for a in accepts]
                 lines.append(check((scores, cands, flags, caps, geoms), torch.float32, label))
         runs = {"kernel": lambda: refine.refine_keypoints_cuda(*args),
+                "tail": lambda: refine.refine_keypoints_cuda(*tail_args),
                 "plain": lambda: refine.refine_keypoints_plain(*args)}
-        turns = turns_of(runs, ("kernel", "plain", "plain", "kernel"), dev,
-                         {"kernel": ("refine_kernel",)})
+        order = ("kernel", "tail", "plain")
+        turns = turns_of(runs, order + order[::-1], dev,
+                         {label: ("refine_kernel",) for label in order[:2]})
         # The bytes: the accept flags, a slot's candidate (12 B) and fields
         # (25 B: five float32, the int32 octave, the valid byte), the
         # distinct sectors of its taps, the counts.
@@ -1383,15 +1479,48 @@ def refine_phase(dev, card: str, kind: str, launches: int, regs: list, feature,
                 taps, 4, sc.numel())
             slots += src.numel()
         bnd = measure.bound_ms(nbytes, fp32_ops=REFINE_OPS_PER_SLOT * slots)
-        host = host_us(runs["kernel"], 200)
+        # The wrapper's host time and its parts, in turns (each part's mean
+        # over 200 calls, in order, in reverse, in order again): the router
+        # as the detector calls it, refine_keypoints_cuda, launch_plan, its
+        # checks and rows (layer_rows, which makes the kernel's inputs
+        # contiguous), its 8 torch.empty, the ctypes tables, the C entry on
+        # a plan made once. Each is printed as its least and its largest
+        # mean.
+        kps, _, tables, outs, _keep = refine.launch_plan(*args)
+        rows, col, _ = refine.layer_rows(*args)
+        ptrs = [t.data_ptr() for t in kps.fields()] + [0]
+
+        is_float = int(scores[0].dtype == torch.float32)
+
+        def entry():
+            for table, n in tables:
+                _kernels.launch("refine_keypoints", "refine_keypoints", dev, table, n, outs,
+                                batch, col, len(scores), is_float, 0)
+
+        parts = {"call": lambda: refine.refine_keypoints(*args),
+                 "refine_keypoints_cuda": runs["kernel"],
+                 "launch_plan": lambda: refine.launch_plan(*args),
+                 "its checks and rows": lambda: refine.layer_rows(*args),
+                 "its 8 torch.empty": lambda: [
+                     torch.empty((batch, col), dtype=torch.float32, device=dev)
+                     for _ in range(8)],
+                 "the ctypes tables": lambda: refine.launch_tables(rows, ptrs),
+                 "the C entry": entry}
+        host = {label: [] for label in parts}
+        for label in [*parts, *reversed(parts), *parts]:
+            host[label].append(host_us(parts[label], 200))
         txt = "; ".join(f"{lab} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in v)
                         for lab, v in turns.items())
         print(f"[refine] B={batch} step, caps {caps}, {slots} slots, accepted up to "
-              f"{refine.accepted_counts(accepts).max(dim=0).values.tolist()} a frame; bitwise "
-              f"vs plain: {'; '.join(lines)}; float32 event / device ms in turns: {txt}; bound "
+              f"{refine.accepted_counts(accepts).max(dim=0).values.tolist()} a frame (tail "
+              f"{refine.accepted_counts(tail).max(dim=0).values.tolist()}); walk "
+              f"[{walk(accepts, caps)}], tail [{walk(tail, caps)}]; bitwise vs plain: "
+              f"{'; '.join(lines)}; float32 event / device ms in turns: {txt}; bound "
               f"{bnd[0]:.5f} ms ({bnd[1]}, {nbytes} B, {REFINE_OPS_PER_SLOT * slots} float "
-              f"operations); host us a call (mean of 200, launches queued) {host:.1f} "
-              f"[{kind}; {card}]", flush=True)
+              f"operations); host us a call (least and largest of 3 means of 200 in turns, "
+              f"launches queued): "
+              + ", ".join(f"{lab} {min(v):.1f}-{max(v):.1f}" for lab, v in host.items())
+              + f" [{kind}; {card}]", flush=True)
         if batch == 16:
             (ev, dv) = turns["kernel"][0]
             row = dict(name="refine_keypoints", route="cuda",
@@ -1402,7 +1531,7 @@ def refine_phase(dev, card: str, kind: str, launches: int, regs: list, feature,
                        launches=launches, max_abs_err=0.0, ms=ev, device_ms=dv,
                        plain_ms=turns["plain"][0][0], bound_ms=bnd[0], bound_by=bnd[1],
                        library_ms=None)
-        del frames, args, scores, cands, accepts, runs
+        del frames, args, tail_args, scores, cands, accepts, tail, runs, tables, _keep, kps
         torch.cuda.empty_cache()
     return row
 

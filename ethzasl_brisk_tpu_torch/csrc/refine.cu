@@ -28,16 +28,36 @@
 // Bound: bytes. Each candidate's accept byte is read once, and a slot's
 // candidate (x, y, score: 12 B), its taps (9 sectors of 32 B at most,
 // shared by neighbours) and its 25 B of fields (five float32, the int32
-// octave, the valid byte); the fit's ~120 float operations a slot are far
-// below the card's rate.
+// octave, the valid byte); the fit's ~150 float operations a slot are far
+// below the card's rate. What a CTA waits on is memory round trips, so the
+// design keeps them few and puts every slot's loads in flight at once.
 //
-// Design: a CTA of 256 threads counts the accepted flags, then, where the
-// layer is cut, walks the flags in tiles of 1024, four consecutive a
-// thread, with one block scan a tile of both ranks packed in one word
-// (accepted in the low half, the rest in the high): a candidate's rank
-// gives its slot, and the walk stops once cap slots are filled. The
-// thread that owns a slot's candidate gathers its taps through the
-// read-only path and writes the slot. Without a cut, candidate j is slot j.
+// Design: a CTA of 512 threads a (layer, frame). The row of accept flags
+// is read in chunks of kChunk = 16,384 flags, a run of 32 consecutive
+// flags a thread, as 16-byte loads into registers packed to bit words (the
+// row's first byte may lie anywhere in a 16-byte word: chunks are counted
+// from the word it lies in, and the bits outside the row are masked). One
+// block scan of the runs' accepted counts ranks a chunk: an accepted
+// flag's rank among the accepted is the scan's prefix plus its bits before
+// it, a rest flag's is its position less that. Each kept flag writes its
+// position into the slot table in shared memory (the accepted kept at
+// entries 0.., the rest after them), and after one barrier thread t fits
+// entries t, t + 512, ...: the candidate, its nine taps and its fields
+// are loads in flight together, and the stores of neighbouring slots are
+// neighbouring columns.
+//   * A row of one chunk (every list of the steps) is read once: the scan's
+//     total is the accepted count.
+//   * A longer row is counted first, every chunk's 16-byte loads in flight
+//     together, each of the first kMaxChunks chunks' accepted count kept;
+//     then the walk ranks, places and fits chunk by chunk with the ranks
+//     carried, skips a chunk that keeps no slot, and stops once cap slots
+//     are placed. A chunk keeps at most kChunk entries, so the table holds
+//     any cap.
+//   * cap == k (no compaction) counts the row and fits slot j from
+//     candidate j.
+// The B=128 step's 512 CTAs run in two waves of 264 (two CTAs an SM);
+// CTAs of 256 threads would run them in one, but measured no faster there
+// and slower at B=16 (PERF.md).
 
 #include <cstdint>
 #include <cstring>
@@ -47,15 +67,24 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kLanes = 32;
-constexpr int kWarps = kThreads / kLanes;
-constexpr int kItems = 4;         // consecutive candidates a thread in the walk
+constexpr int kChunk = 16384;      // flags a chunk, and entries of the slot table
+constexpr int kWords = kChunk / (kThreads * kLanes);  // bit words of a thread's run
+constexpr int kMaxChunks = 128;    // chunks whose accepted counts the count pass keeps
 constexpr int kMaxLayers = 8;
-constexpr int kFields = 14;       // int64 fields of a layer in the host table
-constexpr int kOuts = 8;          // output pointers
+constexpr int kFields = 14;        // int64 fields of a layer in the host table
+constexpr int kOuts = 8;           // output pointers
 constexpr unsigned kAll = 0xffffffffu;
-static_assert(kThreads * kItems < (1 << 16), "a tile's ranks fit a half word");
+static_assert(kChunk == kThreads * kLanes * kWords, "a chunk is a run of whole words a thread");
+static_assert(kChunk <= 65536, "a chunk's positions fit the table's 16-bit entries");
+
+// A CTA's registers: the float32 fit at 2 CTAs of 512 an SM, 64 registers
+// a thread; the float64 one may take twice the registers.
+template <typename T>
+struct MinCtas {
+  static constexpr int value = sizeof(T) == 4 ? 2 : 1;
+};
 
 struct Layer {
   const uint32_t* scores;  // (B, h, w) int32 or float32 bits
@@ -82,6 +111,16 @@ struct Layers {
   int32_t* counts;  // (B, n_counts)
 };
 
+// A (frame, layer)'s accept row as 16-byte words: `base` is the word its
+// first flag lies in, `off` that flag's byte in it; flag i is at virtual
+// position v = off + i < end, and chunk c holds v in [c * kChunk,
+// (c + 1) * kChunk).
+struct Row {
+  const uint8_t* base;
+  int off;
+  long long end;
+};
+
 __device__ __forceinline__ int warp_inclusive(int v, int lane) {
 #pragma unroll
   for (int o = 1; o < kLanes; o <<= 1) {
@@ -91,9 +130,10 @@ __device__ __forceinline__ int warp_inclusive(int v, int lane) {
   return v;
 }
 
-// The block's exclusive prefix of v and its total (kWarps + 1 ints of
-// shared memory in `warps`).
+// The block's exclusive prefix of v and its total (kThreads / 32 + 1 ints
+// of shared memory in `warps`).
 __device__ __forceinline__ int block_exclusive(int v, int* warps, int& total) {
+  constexpr int kWarps = kThreads / kLanes;
   const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
   const int incl = warp_inclusive(v, lane);
   if (lane == kLanes - 1) warps[warp] = incl;
@@ -109,6 +149,94 @@ __device__ __forceinline__ int block_exclusive(int v, int* warps, int& total) {
   total = warps[kWarps];
   __syncthreads();
   return out;
+}
+
+// The bits below n, n clamped to [0, 32].
+__device__ __forceinline__ uint32_t bits_below(long long n) {
+  return n <= 0 ? 0u : (n >= kLanes ? kAll : (1u << n) - 1u);
+}
+
+// Bit j: byte j of w is not zero.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  return ((__vcmpne4(w, 0u) & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// A thread's run of a chunk: kWords bit words of 32 flags from virtual
+// position v0; bit j of acc[i] is flag v0 + 32 i + j accepted, of in_row[i]
+// that flag one of the row. Words holding no flag of the row are not read.
+struct Run {
+  uint32_t acc[kWords];
+  uint32_t in_row[kWords];
+
+  __device__ __forceinline__ Run(const Row& r, long long v0) {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      uint32_t bits = 0;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const long long v = v0 + 32 * i + 16 * q;
+        if (v < r.end && v + 16 > r.off) {
+          const uint4 w = __ldg(reinterpret_cast<const uint4*>(r.base + v));
+          bits |= (nonzero_bytes(w.x) | nonzero_bytes(w.y) << 4 | nonzero_bytes(w.z) << 8 |
+                   nonzero_bytes(w.w) << 12)
+                  << (16 * q);
+        }
+      }
+      in_row[i] = bits_below(r.end - v0 - 32 * i) & ~bits_below(r.off - v0 - 32 * i);
+      acc[i] = bits & in_row[i];
+    }
+  }
+
+  __device__ __forceinline__ int accepted() const {
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) n += __popc(acc[i]);
+    return n;
+  }
+
+  // The run's kept flags into the slot table, by position in the chunk
+  // (the run starts at `first`): an accepted flag of rank rank_acc <
+  // acc_slots at entry rank_acc - a0, a rest flag of rank rank_rest <
+  // rest_slots at entry ka + rank_rest - r0. The ranks of the run's first
+  // accepted and rest flags are t_acc and t_rest.
+  __device__ __forceinline__ void place(uint16_t* table, int first, int t_acc, int t_rest,
+                                        int a0, int r0, int ka, int acc_slots,
+                                        int rest_slots) const {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      for (uint32_t m = acc[i]; m != 0 && t_acc < acc_slots; m &= m - 1, ++t_acc) {
+        table[t_acc - a0] = static_cast<uint16_t>(first + 32 * i + __ffs(m) - 1);
+      }
+      for (uint32_t m = in_row[i] & ~acc[i]; m != 0 && t_rest < rest_slots; m &= m - 1, ++t_rest) {
+        table[ka + t_rest - r0] = static_cast<uint16_t>(first + 32 * i + __ffs(m) - 1);
+      }
+    }
+  }
+};
+
+// The row's accepted flags (the block's total) from every chunk's runs, its
+// loads in flight together; where `chunk_acc` is given (zeroed), each of
+// the first kMaxChunks chunks' accepted count added into it.
+__device__ __forceinline__ int count_row(const Row& r, int n_chunks, int* chunk_acc,
+                                         int* warps) {
+  const int lane = threadIdx.x % kLanes;
+  int mine = 0;
+#pragma unroll 4
+  for (int c = 0; c < n_chunks; ++c) {
+    const int a =
+        Run(r, static_cast<long long>(c) * kChunk + threadIdx.x * (kWords * kLanes))
+            .accepted();
+    mine += a;
+    if (chunk_acc != nullptr && c < kMaxChunks) {
+      int s = a;
+#pragma unroll
+      for (int o = kLanes / 2; o > 0; o >>= 1) s += __shfl_xor_sync(kAll, s, o);
+      if (lane == 0 && s) atomicAdd(&chunk_acc[c], s);
+    }
+  }
+  int total;
+  block_exclusive(mine, warps, total);
+  return total;
 }
 
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
@@ -211,12 +339,15 @@ __device__ __forceinline__ T score_of(uint32_t bits) {
   return kFloat ? static_cast<T>(__uint_as_float(bits)) : static_cast<T>(static_cast<int>(bits));
 }
 
-// Slot `slot` of frame `frame` of layer Y from its candidate i.
+// Slot `slot` of frame `frame` of layer Y from its candidate i; `valid` is
+// the candidate's accept flag, or -1 to read it.
 template <bool kFloat, typename T>
 __device__ __forceinline__ void write_slot(const Layers& L, const Layer& Y, int frame, int i,
-                                           int slot) {
+                                           int slot, int valid) {
   const size_t cand = static_cast<size_t>(frame) * Y.k + i;
-  const int x = Y.xs[cand], y = Y.ys[cand];
+  const int x = __ldg(Y.xs + cand), y = __ldg(Y.ys + cand);
+  const uint32_t top = __ldg(Y.top + cand);
+  if (valid < 0) valid = __ldg(Y.accept + cand) != 0;
   const uint32_t* sc = Y.scores + static_cast<size_t>(frame) * Y.h * Y.w;
   T s[9];
 #pragma unroll
@@ -236,15 +367,55 @@ __device__ __forceinline__ void write_slot(const Layers& L, const Layer& Y, int 
   L.y[o] = static_cast<float>(scale * ((static_cast<T>(y) + dy) + offset));
   L.size[o] = static_cast<float>(Y.scale * 12.0);
   L.angle[o] = -1.0f;
-  L.response[o] = score_of<kFloat, float>(Y.top[cand]);
+  L.response[o] = score_of<kFloat, float>(top);
   L.octave[o] = Y.octave;
-  L.valid[o] = Y.accept[cand] != 0;
+  L.valid[o] = static_cast<uint8_t>(valid);
+}
+
+// Chunk c of the walk: rank its runs (one block scan), place its kept
+// flags in the table, then fit the table's entries slot-major. a0 and f0
+// are the accepted flags and the flags of the row before the chunk, n_acc
+// the row's, or -1 where the chunk is the whole row (its scan's total is
+// then the accepted count, written to `count`). Returns the chunk's
+// accepted count.
+template <bool kFloat, typename T>
+__device__ __forceinline__ int walk_chunk(const Layers& L, const Layer& Y, int frame,
+                                          const Row& r, int c, int a0, int f0, int n_acc,
+                                          uint16_t* table, int* warps, int32_t* count) {
+  const long long chunk0 = static_cast<long long>(c) * kChunk;
+  const int first = threadIdx.x * (kWords * kLanes);
+  const long long v0 = chunk0 + first;
+  const Run run(r, v0);
+  int a_c;
+  const int excl = block_exclusive(run.accepted(), warps, a_c);
+  if (n_acc < 0) {
+    n_acc = a_c;
+    if (threadIdx.x == 0) *count = n_acc;
+  }
+  const int acc_slots = min(n_acc, Y.cap), rest_slots = Y.cap - acc_slots;
+  // The flags of the chunk before the run, and in the chunk.
+  const long long head = chunk0 > r.off ? chunk0 : r.off;
+  const long long tail = chunk0 + kChunk < r.end ? chunk0 + kChunk : r.end;
+  const int before = static_cast<int>(v0 > head ? (v0 < tail ? v0 : tail) - head : 0);
+  const int flags = static_cast<int>(tail - head);
+  const int r0 = f0 - a0;
+  const int ka = min(max(acc_slots - a0, 0), a_c);
+  const int kr = min(max(rest_slots - r0, 0), flags - a_c);
+  run.place(table, first, a0 + excl, r0 + before - excl, a0, r0, ka, acc_slots, rest_slots);
+  __syncthreads();
+  for (int e = threadIdx.x; e < ka + kr; e += kThreads) {
+    const int i = static_cast<int>(chunk0 + table[e] - r.off);
+    const bool is_acc = e < ka;
+    write_slot<kFloat, T>(L, Y, frame, i, is_acc ? a0 + e : n_acc + r0 + (e - ka), is_acc);
+  }
+  return a_c;
 }
 
 template <bool kFloat, typename T>
-__global__ void __launch_bounds__(kThreads) refine_kernel(const Layers L) {
-  __shared__ int warps[kWarps + 1];
-  __shared__ int accepted;
+__global__ void __launch_bounds__(kThreads, MinCtas<T>::value) refine_kernel(const Layers L) {
+  __shared__ uint16_t table[kChunk];
+  __shared__ int chunk_acc[kMaxChunks];
+  __shared__ int warps[kThreads / kLanes + 1];
 
   const int li = blockIdx.x / L.frames, frame = blockIdx.x - li * L.frames;
   Layer Y = L.l[0];
@@ -252,56 +423,52 @@ __global__ void __launch_bounds__(kThreads) refine_kernel(const Layers L) {
   for (int i = 1; i < kMaxLayers; ++i) {
     if (i == li) Y = L.l[i];
   }
-  const int k = Y.k;
-  const uint8_t* acc = Y.accept + static_cast<size_t>(frame) * k;
-  if (threadIdx.x == 0) accepted = 0;
-  __syncthreads();
-  int a = 0;
-  for (int i = threadIdx.x; i < k; i += kThreads) a += acc[i] != 0;
-  a = warp_inclusive(a, threadIdx.x % kLanes);
-  if (threadIdx.x % kLanes == kLanes - 1 && a) atomicAdd(&accepted, a);
-  __syncthreads();
-  const int n_acc = accepted;
-  if (threadIdx.x == 0) L.counts[static_cast<size_t>(frame) * L.n_counts + Y.count_col] = n_acc;
-
-  const int cap = Y.cap;
-  if (cap >= k) {
-    for (int i = threadIdx.x; i < k; i += kThreads) write_slot<kFloat, T>(L, Y, frame, i, i);
+  const int k = Y.k, cap = Y.cap;
+  int32_t* count = L.counts + static_cast<size_t>(frame) * L.n_counts + Y.count_col;
+  if (k == 0) {
+    if (threadIdx.x == 0) *count = 0;
     return;
   }
-  // The stable partition, accepted first, cut to cap.
-  const int acc_slots = n_acc < cap ? n_acc : cap, rest = cap - acc_slots;
-  int done_acc = 0, done_rest = 0;
-  for (int base = 0; base < k && (done_acc < acc_slots || done_rest < rest);
-       base += kThreads * kItems) {
-    const int first = base + threadIdx.x * kItems;
-    uint32_t hit_acc = 0, hit_rest = 0;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      if (first + j < k) {
-        if (acc[first + j]) {
-          hit_acc |= 1u << j;
-        } else {
-          hit_rest |= 1u << j;
-        }
+  const uint8_t* first = Y.accept + static_cast<size_t>(frame) * k;
+  Row r;
+  r.off = static_cast<int>(reinterpret_cast<uintptr_t>(first) & 15u);
+  r.base = first - r.off;
+  r.end = r.off + static_cast<long long>(k);
+  const int n_chunks = static_cast<int>((r.end + kChunk - 1) / kChunk);
+
+  if (cap >= k) {  // no compaction: slot j is candidate j
+    const int n_acc = count_row(r, n_chunks, nullptr, warps);
+    if (threadIdx.x == 0) *count = n_acc;
+    for (int j = threadIdx.x; j < k; j += kThreads) write_slot<kFloat, T>(L, Y, frame, j, j, -1);
+    return;
+  }
+  if (n_chunks == 1) {
+    walk_chunk<kFloat, T>(L, Y, frame, r, 0, 0, 0, -1, table, warps, count);
+    return;
+  }
+  // Several chunks: count them, then walk them with the ranks carried.
+  for (int i = threadIdx.x; i < kMaxChunks; i += kThreads) chunk_acc[i] = 0;
+  __syncthreads();
+  const int n_acc = count_row(r, n_chunks, chunk_acc, warps);
+  if (threadIdx.x == 0) *count = n_acc;
+  const int acc_slots = min(n_acc, cap), rest_slots = cap - acc_slots;
+  int a0 = 0, f0 = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (a0 >= acc_slots && f0 - a0 >= rest_slots) break;  // every slot placed
+    const long long chunk0 = static_cast<long long>(c) * kChunk;
+    const int flags = static_cast<int>((chunk0 + kChunk < r.end ? chunk0 + kChunk : r.end) -
+                                       (chunk0 > r.off ? chunk0 : r.off));
+    if (c < kMaxChunks) {
+      const int a_c = chunk_acc[c];
+      if (min(max(acc_slots - a0, 0), a_c) + min(max(rest_slots - (f0 - a0), 0), flags - a_c) ==
+          0) {  // the chunk keeps no slot: skip it
+        a0 += a_c;
+        f0 += flags;
+        continue;
       }
     }
-    int total;
-    const int excl =
-        block_exclusive(__popc(hit_acc) | __popc(hit_rest) << 16, warps, total);
-    int rank_acc = done_acc + (excl & 0xffff), rank_rest = done_rest + (excl >> 16);
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      if (hit_acc >> j & 1u) {
-        if (rank_acc < acc_slots) write_slot<kFloat, T>(L, Y, frame, first + j, rank_acc);
-        ++rank_acc;
-      } else if (hit_rest >> j & 1u) {
-        if (rank_rest < rest) write_slot<kFloat, T>(L, Y, frame, first + j, n_acc + rank_rest);
-        ++rank_rest;
-      }
-    }
-    done_acc += total & 0xffff;
-    done_rest += total >> 16;
+    a0 += walk_chunk<kFloat, T>(L, Y, frame, r, c, a0, f0, n_acc, table, warps, count);
+    f0 += flags;
   }
 }
 

@@ -33,6 +33,18 @@ or -inf on float scores).
   it (the radix select takes the first ties in flat order) and one masked
   in at random; bright boxes on a flat ground, every pixel in, the cap
   past the boxes into the ground; rows of three values in long runs.
+
+The refine's own case (``REFINE_ONLY``):
+
+* ``long_list``: a (2, 150, 230) layer, every pixel masked in, k = h*w =
+  34,500: each frame's list past two of the refine kernel's chunks of
+  16,384 flags, the second frame's row starting 4 bytes into a 16-byte
+  word; and a (2, 9, 13) layer of one chunk. ``refine_caps`` gives it caps
+  of 64, one past a chunk's slot table, half and the whole list.
+
+Accept kinds (``ACCEPT_KINDS``) for the refine: none, every one, a seeded
+half of the valid ones, and ``tail``: a seeded half of the last 1,024 flags
+of each list and no other (the walk of a cut list must reach its end).
 """
 import numpy as np
 
@@ -43,6 +55,10 @@ KINDS = ("all_masked_out", "no_survivor", "over_cap", "whole_map", "ties",
 # The cases the refine tests leave out: one for its size, one because no
 # Harris map holds a NaN, one whose point is the lists' tie order.
 LISTS_ONLY = ("large_map", "signed_nan", "tie_runs")
+REFINE_ONLY = ("long_list",)
+REFINE_KINDS = tuple(k for k in KINDS if k not in LISTS_ONLY) + REFINE_ONLY
+ACCEPT_KINDS = ("none", "all", "half", "tail")
+TAIL = 1024
 # Float32 bit patterns of the ``signed_nan`` maps: NaNs with the sign set
 # (under -inf in the total order), -inf, +NaN, 1.0, +0.0 and -0.0.
 NAN_BITS = (0xFFC00000, 0xFF800001, 0xFFFFFFFF, 0xFF800000, 0x7FC00000, 0x3F800000, 0, 0x80000000)
@@ -52,7 +68,11 @@ SHAPES = ((37, 45), (20, 31), (9, 13))
 def case(kind: str):
     """(scores, masks, caps): lists of (B, h, w) int32 or float32 maps,
     (B, h, w) bool masks and a cap a layer."""
-    rng = np.random.default_rng(KINDS.index(kind) + 11)
+    rng = np.random.default_rng((KINDS + REFINE_ONLY).index(kind) + 11)
+    if kind == "long_list":
+        return ([rng.integers(-1000, 1000, (2, 150, 230)).astype(np.int32),
+                 rng.integers(-1000, 1000, (2, 9, 13)).astype(np.int32)],
+                [np.ones((2, 150, 230), bool), np.ones((2, 9, 13), bool)], [150 * 230, 9 * 13])
     if kind == "large_map":
         return ([rng.integers(0, 50, (1, 180, 200)).astype(np.int32)],
                 [rng.random((1, 180, 200)) < 0.97], [180 * 200])
@@ -128,10 +148,25 @@ def case(kind: str):
 
 def accepts_for(cands_valid, kind: str, seed: int = 0):
     """Accept flags (B, k) of one layer's candidates for the refine cases:
-    none, every one, or a seeded half of the valid ones."""
+    none, every one, a seeded half of the valid ones, or (``tail``) a
+    seeded half of the last ``TAIL`` flags."""
     rng = np.random.default_rng(seed)
     if kind == "none":
         return np.zeros(cands_valid.shape, bool)
     if kind == "all":
         return np.ones(cands_valid.shape, bool)
+    if kind == "tail":
+        acc = np.zeros(cands_valid.shape, bool)
+        tail = acc[:, -TAIL:]
+        tail[:] = rng.random(tail.shape) < 0.5
+        return acc
     return cands_valid & (rng.random(cands_valid.shape) < 0.5)
+
+
+def refine_caps(kind: str, k: int, chunk: int) -> list[int]:
+    """A layer's refine caps for a case whose list holds k: k (no
+    compaction), k / 2 and 3; for ``long_list`` k, k / 2, 64 and one past
+    the refine kernel's slot table of ``chunk`` entries."""
+    if kind == "long_list":
+        return [k, k // 2, min(k, 64), min(k, chunk + 1)]
+    return [k, k // 2, min(k, 3)]

@@ -335,6 +335,9 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+KP_NAMES = ("x", "y", "size", "angle", "response", "octave", "valid")
+
+
 def _candidate_case(kind: str, dev):
     scores, masks, caps = candidate_cases.case(kind)
     return ([torch.from_numpy(s).to(dev) for s in scores],
@@ -463,13 +466,17 @@ def test_layer_candidates_cuda_rejects_bad_tables(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
-@pytest.mark.parametrize("kind", [k for k in candidate_cases.KINDS
-                                  if k not in candidate_cases.LISTS_ONLY])
+@pytest.mark.parametrize("kind", candidate_cases.REFINE_KINDS)
 def test_refine_keypoints_cuda_matches_plain(cuda, kind, dtype):
     """Kernel refine_keypoints bit for bit against the plain version on the
-    synthetic maps' candidate lists, with no accept, every accept and
-    half, caps of k (no compaction), k / 2 and 3: every KeyPoints field and
-    the accepted counts, one launch each."""
+    synthetic maps' candidate lists (``long_list``: rows past two of the
+    kernel's chunks, one of them 4 bytes into a 16-byte word), with no
+    accept, every accept, half and accepts only in the last 1,024 flags,
+    caps of k (no compaction), k / 2 and 3 (on the long list 64 and one
+    past a chunk's slot table): every KeyPoints field and the accepted
+    counts, one launch each; the kernel's torch twin on the card too; and
+    the last case again on strided inputs (``_strided``), which the wrapper
+    copies to contiguous ones."""
     from ethzasl_brisk_tpu_torch import _kernels
     from ethzasl_brisk_tpu_torch.detect import refine, scale_space
     from ethzasl_brisk_tpu_torch.kernels import candidates as kc
@@ -478,22 +485,49 @@ def test_refine_keypoints_cuda_matches_plain(cuda, kind, dtype):
     cands, _ = kc.layer_candidates_plain(scores, masks, caps)
     cands = [tuple(t.contiguous() for t in c) for c in cands]
     geoms = [scale_space.layer_geometry(i) for i in range(len(scores))]
-    for accept_kind in ("none", "all", "half"):
+    layer_caps = [candidate_cases.refine_caps(kind, c[0].shape[1], refine.CHUNK) for c in cands]
+    for accept_kind in candidate_cases.ACCEPT_KINDS:
         accepts = [torch.from_numpy(candidate_cases.accepts_for(c[3].cpu().numpy(), accept_kind,
                                                                 i)).to(cuda)
                    for i, c in enumerate(cands)]
-        for cap_of in (lambda k: k, lambda k: k // 2, lambda k: min(k, 3)):
-            rcaps = [cap_of(c[0].shape[1]) for c in cands]
+        for rcaps in zip(*layer_caps):
+            rcaps = list(rcaps)
+            ref, ref_counts = refine.refine_keypoints_plain(scores, cands, accepts, rcaps, geoms,
+                                                            dtype)
+            twin, twin_counts = refine.refine_keypoints_twin(scores, cands, accepts, rcaps, geoms,
+                                                             dtype)
+            assert torch.equal(twin_counts, ref_counts)
+            for name, t, b in zip(KP_NAMES, twin.fields(), ref.fields()):
+                assert torch.equal(_bits(t), _bits(b)), f"twin {kind} {accept_kind} {rcaps} {name}"
             _kernels.reset_launches()
             got, counts = refine.refine_keypoints_cuda(scores, cands, accepts, rcaps, geoms, dtype)
             torch.cuda.synchronize()
             assert _kernels.LAUNCHES["refine_keypoints"] == 1
-            ref, ref_counts = refine.refine_keypoints_plain(scores, cands, accepts, rcaps, geoms,
-                                                            dtype)
             assert torch.equal(counts, ref_counts)
-            for name, a, b in zip(("x", "y", "size", "angle", "response", "octave", "valid"),
-                                  got.fields(), ref.fields()):
+            for name, a, b in zip(KP_NAMES, got.fields(), ref.fields()):
                 assert torch.equal(_bits(a), _bits(b)), f"{kind} {accept_kind} {rcaps} {name}"
+    strided = ([_strided(sc) for sc in scores], [tuple(_strided(t) for t in c) for c in cands],
+               [_strided(a) for a in accepts])
+    assert not (strided[0][0].is_contiguous() or strided[1][0][0].is_contiguous()
+                or strided[2][0].is_contiguous())
+    _kernels.reset_launches()
+    got, counts = refine.refine_keypoints_cuda(*strided, rcaps, geoms, dtype)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["refine_keypoints"] == 1
+    assert torch.equal(counts, ref_counts)
+    for name, a, b in zip(KP_NAMES, got.fields(), ref.fields()):
+        assert torch.equal(_bits(a), _bits(b)), f"strided {kind} {rcaps} {name}"
+
+
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a tensor that is not contiguous: a (B, h, w) map
+    transposed twice over a transposed copy, a (B, k) list every other
+    column of one twice as wide."""
+    if t.dim() == 3:
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.zeros((t.shape[0], 2 * t.shape[1]), dtype=t.dtype, device=t.device)
+    wide[:, ::2] = t
+    return wide[:, ::2]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

@@ -16,9 +16,14 @@ candidate by the ranks of the accepted and the rest, its own nine taps,
   field and the accepted counts bitwise, x and y against JAX's eager float
   chain (as with ``eager_exact=True``) in float32 and in float64;
 * the twin against the plain version (no JAX) on the synthetic maps of
-  ``tests/_candidate_cases.py`` (int32 extremes, float scores, ties), with
-  no accept, every accept and half, caps of k (no compaction), k / 2 and
-  3, in both refine types.
+  ``tests/_candidate_cases.py`` (int32 extremes, float scores, ties, and a
+  list past two of the kernel's chunks), with no accept, every accept,
+  half and accepts only in the last 1,024 flags, caps of k (no
+  compaction), k / 2 and 3 (on the long list 64 and one past a chunk's
+  slot table), in both refine types;
+* the kernel's chunk walk (``chunk_walk``) against the stable partition
+  at every row offset in a 16-byte word, with the chunks it ranks and
+  skips.
 """
 import numpy as np
 import pytest
@@ -33,6 +38,16 @@ from ethzasl_brisk_tpu_torch.detect import scale_space as tss  # noqa: E402
 from ethzasl_brisk_tpu_torch.kernels import candidates as kc  # noqa: E402
 from tests import _candidate_cases as cases  # noqa: E402
 from tests.test_torch_masks import frames_of  # noqa: E402
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port on one thread here: tier-1 runs six workers on few cores,
+    and the long list's tensors are past torch's grain for threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 JAX_CASES = [((61, 83), 2, 0), ((96, 130), 1, 20)]
 CANDIDATE_CAP = 150
@@ -100,8 +115,8 @@ def test_refine_matches_jax(shape, octaves, thr, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("accept_kind", ["none", "all", "half"])
-@pytest.mark.parametrize("kind", [k for k in cases.KINDS if k not in cases.LISTS_ONLY])
+@pytest.mark.parametrize("accept_kind", cases.ACCEPT_KINDS)
+@pytest.mark.parametrize("kind", cases.REFINE_KINDS)
 def test_twin_matches_plain_on_synthetic_maps(kind, accept_kind, dtype):
     scores, masks, caps = cases.case(kind)
     scores = [torch.from_numpy(s) for s in scores]
@@ -109,8 +124,9 @@ def test_twin_matches_plain_on_synthetic_maps(kind, accept_kind, dtype):
     accepts = [torch.from_numpy(cases.accepts_for(c[3].numpy(), accept_kind, i))
                for i, c in enumerate(cands)]
     geoms = [tss.layer_geometry(i) for i in range(len(scores))]
-    for cap_of in (lambda k: k, lambda k: k // 2, lambda k: min(k, 3)):
-        rcaps = [cap_of(c[0].shape[1]) for c in cands]
+    layer_caps = [cases.refine_caps(kind, c[0].shape[1], rf.CHUNK) for c in cands]
+    for rcaps in zip(*layer_caps):
+        rcaps = list(rcaps)
         plain, pc = rf.refine_keypoints_plain(scores, cands, accepts, rcaps, geoms, DTYPES[dtype])
         twin, tc = rf.refine_keypoints_twin(scores, cands, accepts, rcaps, geoms, DTYPES[dtype])
         assert torch.equal(pc, tc)
@@ -122,6 +138,40 @@ def test_twin_matches_plain_on_synthetic_maps(kind, accept_kind, dtype):
         assert plain.capacity == sum(rcaps)
         if accept_kind == "none":
             assert not bool(plain.valid.any())
+    if kind == "long_list":  # the long rows span three chunks, the second frame's off a word
+        assert cands[0][0].shape[1] > 2 * rf.CHUNK
+        assert rf.row_offsets(accepts[0]).tolist()[1] == (accepts[0].data_ptr() + 4) % 16
+
+
+def _stable_partition(accept, cap):
+    return torch.sort((~accept).to(torch.uint8), dim=1, stable=True).indices[:, :cap]
+
+
+@pytest.mark.parametrize("offset", [0, 4, 15])
+@pytest.mark.parametrize("accept_kind", cases.ACCEPT_KINDS)
+def test_chunk_walk_matches_the_stable_partition(accept_kind, offset):
+    """``chunk_walk`` (the kernel's compaction) slot for slot against the
+    stable partition on rows of one chunk and of three, at a row offset of
+    0, 4 and 15 bytes in a 16-byte word, caps 3, 64, k / 2 and one past a
+    chunk's table; where the accepts lie only in the last 1,024 flags and
+    the cap is small, the walk ranks the last chunk alone (every slot takes
+    an accepted flag) and skips those before it."""
+    rng = np.random.default_rng(offset)
+    for k in (rf.CHUNK - 16, 2 * rf.CHUNK + 1700):
+        valid = rng.random((2, k)) < 0.8
+        accept = torch.from_numpy(cases.accepts_for(valid, accept_kind, offset))
+        offsets = torch.tensor([offset, (offset + 7) % 16])
+        n_chunks = -(-(int(offsets.max()) + k) // rf.CHUNK)
+        for cap in (3, 64, k // 2, min(k - 1, rf.CHUNK + 1)):
+            src, ranked = rf.chunk_walk(accept, cap, offsets)
+            assert torch.equal(src, _stable_partition(accept, cap)), (k, cap)
+            assert tuple(ranked.shape) == (2, n_chunks)
+            if n_chunks == 1:
+                assert bool(ranked.all())
+            elif accept_kind == "tail" and cap == 64:
+                assert ranked[:, -1].all() and not ranked[:, :-1].any()
+            elif accept_kind == "none" and cap <= rf.CHUNK - 16:
+                assert ranked[:, 0].all() and not ranked[:, 1:].any()
 
 
 def test_refine_keypoints_routes_cpu_to_plain_and_cuda_needs_a_card():
@@ -158,8 +208,11 @@ def test_detect_keypoints_uses_both_dispatchers():
 
 
 def test_refine_table_matches_the_kernel_source():
-    """The wrapper's tables agree with the kernel's constants: 8 layers a
-    launch, 14 int64 fields a layer, 8 output pointers."""
+    """The wrapper's tables and the twin's walk agree with the kernel's
+    constants: 8 layers a launch, 14 int64 fields a layer, 8 output
+    pointers; CTAs of 512 threads, chunks of
+    16,384 flags (a run of whole 32-bit words a thread), the first 128
+    chunks' counts kept."""
     import pathlib
     import re
 
@@ -168,6 +221,10 @@ def test_refine_table_matches_the_kernel_source():
     assert int(consts["kMaxLayers"]) == rf.MAX_LAYERS
     assert int(consts["kFields"]) == rf.FIELDS
     assert int(consts["kOuts"]) == rf.OUTS
+    assert int(consts["kThreads"]) == rf.THREADS
+    assert int(consts["kChunk"]) == rf.CHUNK == rf.THREADS * rf.RUN
+    assert rf.RUN % 32 == 0  # a run of whole words
+    assert int(consts["kMaxChunks"]) == rf.MAX_CHUNKS
     doc = src[src.index("// host_layers:"):src.index('extern "C"')]
     assert "scores, xs, ys, top,\n// accept, h, w, k, cap" in doc
     assert "outs: x, y, size,\n// angle, response, octave, valid" in doc
