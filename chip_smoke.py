@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
+    cd TREE && python3 /path/to/chip_smoke.py --time-steps   # that tree's step only
 
 Builds the hand-written CUDA kernels (K1 Harris, K2 sampler, K3 Harris +
 2-D maxima, and the port's own: ``describe_rotated`` of ``describe.cu``,
@@ -14,7 +15,10 @@ every layer of a detection in one launch, ``enforce_uniformity`` of
 ``masks.cu``; the score-ordered candidate lists of every layer in one
 launch, ``layer_candidates`` of ``candidates.cu``; the compaction, taps,
 sub-pixel fit and packing of every layer in one launch,
-``refine_keypoints`` of ``refine.cu``) from
+``refine_keypoints`` of ``refine.cu``; the batched steps' adjacent-frame
+match, XOR, popcount and the first index of the minimum over every pair in
+one launch, ``hamming_argmin`` of ``match.cu``; every derived uint8
+pyramid layer in one launch, ``pyramid_u8`` of ``pyramid.cu``) from
 ``ethzasl_brisk_tpu_torch/csrc`` and checks each against its plain torch
 version at the shapes of the path that runs it (K1 and K3 on the four
 pyramid layers in one launch, and on each alone; K2 on the unrotated
@@ -23,20 +27,25 @@ plain chain; ``describe_rotated`` in every phase that describes uint8
 frames; ``enforce_uniformity`` in every counted run that detects with a
 uniformity radius, against its blocked plain version on the card;
 ``score_masks``, ``layer_candidates`` and ``refine_keypoints`` at odd
-shapes and at the main step's layers, default and fused). Beside them it
+shapes and at the main step's layers, default and fused;
+``hamming_argmin`` on the B=16 and B=128 steps' descriptors, the AST step's
+K, v1's 16 words at 512 and 384 bits and odd cases; ``pyramid_u8`` on the
+steps' frames, the AST step's 6 layers and odd shapes). Beside them it
 builds yardsticks that the port never calls:
 the earlier two-launch describe's second kernel (a warp a keypoint, after
 K2's unrotated samples) and ``describe.cu`` with its words a ballot a
-word, each timed in turns against ``describe_rotated``.
+word, each timed in turns against ``describe_rotated``, and an empty
+kernel, whose device time is the floor under any launch's.
 Every comparison of the card with the CPU holds angles, rotation bins,
 descriptors and matches bitwise. Then it drives these paths, each with
 the launch counters set to 0 just before it and read just after:
 
 * the main path, ``FramePipeline.step`` with the benchmark configuration
-  on 16 VGA frames (K1 1 launch for the four pyramid layers,
-  ``score_masks`` 1, ``layer_candidates`` 1, ``enforce_uniformity`` 1,
-  ``refine_keypoints`` 1, ``describe_rotated`` 1, K2 and the orientation
-  kernel 0), compared with the plain CPU step;
+  on 16 VGA frames (``pyramid_u8`` 1 launch for layers 1-3, K1 1 for the
+  four pyramid layers, ``score_masks`` 1, ``layer_candidates`` 1,
+  ``enforce_uniformity`` 1, ``refine_keypoints`` 1, ``describe_rotated`` 1,
+  ``hamming_argmin`` 1 for the 15 pairs, K2 and the orientation kernel 0),
+  compared with the plain CPU step;
 * the fused path, the same step with ``fused_mask=True`` (K3 1 launch for
   the four layers, ``score_masks`` 1 on K3's masks, K1 0,
   ``describe_rotated`` 1, K2 0), bit-equal to the main path;
@@ -58,7 +67,8 @@ the launch counters set to 0 just before it and read just after:
   ``device="cpu"`` feature, and a feature built from bench.py's keywords;
 * the classic AST path (``[ast]``): ``AstFramePipeline.step`` with bench.py's
   AST configuration on 80 VGA bench frames, its capacity and describe
-  certificates first (``describe_rotated`` 1 launch, K1, K2 and K3 none);
+  certificates first (``describe_rotated``, ``pyramid_u8`` and
+  ``hamming_argmin`` 1 launch each, K1, K2 and K3 none);
   4 frames on the card
   against a ``device="cpu"`` pipeline, ``compute_scale`` of frame 0's
   keypoints and the ``exact`` cache model on frame 0, each against the CPU;
@@ -69,7 +79,8 @@ the launch counters set to 0 just before it and read just after:
   bench frames, its caps certified first; ``detect_and_compute`` on 4
   frames (the v1-rounding variant of ``describe_rotated`` 1 launch a
   frame), ``AstFramePipeline`` at batch 16 (v2 rounding, as the JAX step,
-  and a 512-bit match), ``BriskFeature(version="v1")`` on one frame (K1 1,
+  and a 512-bit match: ``hamming_argmin`` 1; v1's resamplers stay torch
+  ops, so ``pyramid_u8`` 0), ``BriskFeature(version="v1")`` on one frame (K1 1,
   ``describe_rotated`` v1 1) and with ``angle_exact=True`` (K2 v1 2), each
   against a ``device="cpu"`` twin; K2's v1 variant against its plain
   version and its bound, and the v1 step timed per stage;
@@ -132,7 +143,17 @@ the launch counters set to 0 just before it and read just after:
 Every uint8 Harris detection in these paths launches ``score_masks``
 once, beside its K1 or K3 launch (the VO loop's, the tools', the
 examples', the camera grid's and the facades' too); the 16-bit and AST
-paths launch it never. ``[masks]`` holds it bitwise against the plain
+paths launch it never. Every uint8 detection of more than one layer, AST
+but not v1 included, launches ``pyramid_u8`` once; every batched step,
+``hamming_argmin`` once (the VO front-end, the quick start's and the
+examples' other matchers keep the matmul). ``[match]`` holds the match
+kernel bitwise against its plain version (the +-1 matmul route) on the
+steps' descriptors and odd cases, prints each route's peak memory at
+B=128, and times the two in turns beside the popcount bound and the int8
+tensor-core figure; ``[pyramid]`` holds the pyramid kernel bitwise against
+the resamplers on the steps' frames, the AST step's 6 layers, odd shapes
+and unaligned and strided frames, and times the two in turns beside the
+bytes bound; ``[floor]`` times an empty kernel. ``[masks]`` holds it bitwise against the plain
 chain at 61 x 83 and 96 x 130 (noise, flat, sharp boxes; thresholds 0 and
 20) and at the B=16 and B=128 step's layers, default and fused, prints its
 staged bytes and CTAs an SM, and times the two in turns beside the bound. Every Harris detection, the
@@ -226,7 +247,7 @@ SYSTEM_KERNELS = ("harris_score_i32", "harris_score_mask", "smoothed_intensity",
                   "smoothed_intensity_v1", "describe_rotated", "describe_rotated_v1",
                   "brisk_orientation", "atan2f_elementwise", "sincosf_elementwise",
                   "walk_angles", "segment_sum", "enforce_uniformity", "score_masks",
-                  "layer_candidates", "refine_keypoints")
+                  "layer_candidates", "refine_keypoints", "hamming_argmin", "pyramid_u8")
 # The v1 engine on the bench frames. bench.py's AST threshold 70 finds no
 # v1 corner on these smoothed-noise frames (their local contrast stays under
 # 70; v2's threshold map lowers its effective threshold there), so [v1]
@@ -327,6 +348,16 @@ MASKS_OPS_PER_SURVIVOR = 6 * 7 + 10 * 11 * 2 + 9 + 4
 # compares, two divisors of 3, two boundary deltas of 6), two quadratics of
 # 14 and their compare 29, the selects 6, the un-mapping 8.
 REFINE_OPS_PER_SLOT = 55 + 18 + 32 + 29 + 6 + 8
+# An empty kernel, built beside the kernels as a yardstick the port never
+# calls: its device time is the floor under any launch's.
+EMPTY_KERNEL_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int grid, int threads, void* stream) {
+  empty_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
 # The earlier segment_sum body, the staged one (a block a segment, tiles
 # of rows staged in shared memory, a launch a sum), built beside the
 # kernels as the yardstick [vo ba] times the grouped kernel against; the
@@ -1536,11 +1567,247 @@ def refine_phase(dev, card: str, kind: str, launches: int, regs: list, feature,
     return row
 
 
+# Kernel pyramid_u8's int32 operations an output (csrc/pyramid.cu): a
+# two-thirds output 15 (20 averages of 3 a 2 x 2 block), a half output 10
+# (3 averages and the clamp).
+PYRAMID_TWOTHIRDS_OPS = 15
+PYRAMID_HALF_OPS = 10
+# Kernel hamming_argmin stages a CTA's train rows in chunks of 256 words
+# rows plus a penalty word a row (csrc/match.cu kChunk): dynamic shared bytes.
+MATCH_CHUNK = 256
+# The int8 tensor cores' dense peak (NVIDIA's data sheet, H100 SXM, 700 W),
+# for the +-1 match as an s8 product: the route a later design could take.
+INT8_TENSOR_OPS_PER_S = 1979e12
+
+
+def match_words(b: int, k: int, w: int, seed: int, dev, rule: str = "") -> tuple:
+    """(b, k, w) int32 words on the card with duplicated rows (every third
+    row repeats an earlier one of its frame; a quarter of each frame's rows
+    come from the frame before, half of those with two bits flipped), and a
+    valid mask (~75 %) with ``rule``'s slots cleared: "no valid train"
+    (frame 0 all invalid), "invalid queries" (every second slot of frames
+    1 on)."""
+    g = torch.Generator().manual_seed(seed)
+    words = torch.randint(-2**31, 2**31, (b, k, w), generator=g, dtype=torch.int64)
+    words = words.to(torch.int32)
+    for r in range(3, k, 3):
+        words[:, r] = words[:, int(torch.randint(0, r, (1,), generator=g))]
+    if k > 2:
+        for f in range(1, b):
+            rows = torch.randint(0, k, (max(1, k // 4),), generator=g)
+            words[f, rows] = words[f - 1, torch.randint(0, k, rows.shape, generator=g)]
+            words[f, rows[: rows.numel() // 2], 0] ^= 0b1001
+    valid = torch.rand((b, k), generator=g) < 0.75
+    if rule == "no valid train":
+        valid[0] = False
+    elif rule == "invalid queries":
+        valid[1:, ::2] = False
+    return words.to(dev), valid.to(dev)
+
+
+def match_work(desc: torch.Tensor, n_bits: int) -> tuple[int, int]:
+    """(bytes, popcounts) of one adjacent match: the words it counts and the
+    valid flags read once, best index and distance written once; a
+    popcount a word of every (query, train) pair."""
+    b, k, _ = desc.shape
+    nw = n_bits // 32
+    return b * k * (4 * nw + 1) + 8 * max(b - 1, 0) * k, max(b - 1, 0) * k * k * nw
+
+
+def match_phase(dev, card: str, kind: str, launches: int, regs: list, pipe, step16) -> dict:
+    """[match]: kernel hamming_argmin bitwise against its plain version (the
+    +-1 matmul route) on the card, one counted launch a call (none at B=1):
+    the steps' descriptors at B=16 and B=128, the AST step's K (1,520
+    slots, more than one staged chunk), v1's 16 words at 512 and 384 bits,
+    three words (the generic body), and the odd cases (ties, a train frame
+    with no valid slot, invalid queries, K = 1, K = 130, B = 1); the peak
+    memory of each route at B=128; the kernel and the plain route in turns,
+    event and device ms, beside the popcount and byte bounds and the int8
+    tensor-core figure. Returns the kernel's row at the B=16 step."""
+    from ethzasl_brisk_tpu_torch import _kernels, measure
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+    from ethzasl_brisk_tpu_torch.match.matcher import (
+        match_adjacent_cuda,
+        match_adjacent_plain,
+        unpack_bits_pm1,
+    )
+
+    def check(desc, valid, n_bits, what):
+        _kernels.reset_launches()
+        got = match_adjacent_cuda(desc, valid, n_bits)
+        torch.cuda.synchronize()
+        n = _kernels.LAUNCHES["hamming_argmin"]
+        assert n == (1 if desc.shape[0] > 1 else 0), (what, _kernels.LAUNCHES)
+        ref = match_adjacent_plain(desc, valid, n_bits)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r.to(torch.int32)), f"[match] {what} differs from plain"
+        return n
+
+    desc16, valid16 = step16
+    kps128, desc128 = pipe.step(torch.from_numpy(bench_frames(128)).to(dev))[:2]
+    steps = {16: (desc16, valid16), 128: (desc128, kps128.valid)}
+    cases = [("B=16 step", desc16, valid16, 384), ("B=128 step", desc128, kps128.valid, 384)]
+    for seed, (what, b, k, w, n_bits, rule) in enumerate((
+            ("ties", 4, 40, 12, 384, ""), ("no valid train", 3, 45, 12, 384, "no valid train"),
+            ("invalid queries", 3, 64, 12, 384, "invalid queries"), ("K=1", 4, 1, 12, 384, ""),
+            ("K=130", 3, 130, 12, 384, ""), ("B=1", 1, 33, 12, 384, ""),
+            ("AST K=1520", 16, 1520, 12, 384, ""), ("v1 512 bits", 16, 1520, 16, 512, ""),
+            ("v1 384 bits", 16, 1520, 16, 384, ""), ("3 words", 3, 200, 12, 96, ""))):
+        cases.append((what, *match_words(b, k, w, 100 + seed, dev, rule), n_bits))
+    checked = [f"{what} {tuple(d.shape)} {n_bits} bits (launches {check(d, v, n_bits, what)})"
+               for what, d, v, n_bits in cases]
+    print(f"[match] hamming_argmin bitwise vs plain: {'; '.join(checked)} [{card}]", flush=True)
+
+    # Peak memory of each route at B=128 over what its inputs hold.
+    peaks = {}
+    for label, fn in (("kernel", match_adjacent_cuda), ("plain", match_adjacent_plain)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(desc128, kps128.valid)
+        torch.cuda.synchronize()
+        peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        del out
+
+    rows = {}
+    for b, (d, v) in steps.items():
+        nbytes, popc = match_work(d, 384)
+        q, t = unpack_bits_pm1(d[1:], 384), unpack_bits_pm1(d[:-1], 384)
+        row = own_kernel_row(
+            "hamming_argmin", "ethzasl_brisk_tpu_torch/csrc/match.cu",
+            "none: XLA work, ethzasl_brisk_tpu/parallel/frames.py:256-265 (the Harris step's "
+            "match_pair) and :194-208 (_match_adjacent), through match/matcher.py:31-47's +-1 "
+            "bf16 matmul",
+            launches, lambda: match_adjacent_cuda(d, v),
+            lambda cpu=False: match_adjacent_plain(d.cpu(), v.cpu()) if cpu
+            else match_adjacent_plain(d, v),
+            lambda: torch.matmul(q, t.transpose(-1, -2)), ("hamming_argmin_kernel",),
+            nbytes=nbytes, popc_ops=popc)
+        turns = turns_of({"kernel": lambda: match_adjacent_cuda(d, v),
+                          "plain": lambda: match_adjacent_plain(d, v)},
+                         ("kernel", "plain", "plain", "kernel"), dev,
+                         {"kernel": ("hamming_argmin_kernel",)})
+        int8_ms = 1e3 * 2 * (b - 1) * d.shape[1] ** 2 * 384 / INT8_TENSOR_OPS_PER_S
+        print(f"[match] B={b} step, K = {d.shape[1]}, {popc:.4g} popcounts, {nbytes} bytes: "
+              f"{row_text(row)}; library: torch.matmul of the unpacked +-1 operands; in turns "
+              f"(event / device ms): {turns_text(turns)}; the same work as an int8 tensor-core "
+              f"product: {int8_ms:.5f} ms [{kind}; {card}]", flush=True)
+        rows[b] = row
+    nw = 12
+    shared = MATCH_CHUNK * (nw + 1) * 4
+    regs_n = ptxas_numbers(regs)[0]
+    print(f"[match] plan: CTAs of 128 queries, {shared} B of dynamic shared memory at 12 words "
+          f"({ctas_an_sm(shared, regs_n, dev, 128)} CTAs an SM); ptxas: {regs}; peak memory over "
+          f"the inputs at B=128: kernel {peaks['kernel']:.2f} MiB, plain {peaks['plain']:.2f} "
+          f"MiB [{kind}; {card}]", flush=True)
+    return rows[16]
+
+
+def pyramid_bytes_ops(frames: torch.Tensor, n_layers: int) -> tuple[int, int]:
+    """(bytes, int32 operations) of kernel pyramid_u8 on ``frames``: the
+    frames read once, every derived layer written once; 15 operations a
+    two-thirds output, 10 a half output."""
+    from ethzasl_brisk_tpu_torch.kernels.downsample import layer_sizes
+
+    *lead, h, w = frames.shape
+    b = frames.numel() // max(h * w, 1)
+    sizes = [b * a * c for a, c in layer_sizes(h, w, n_layers)]
+    ops = PYRAMID_TWOTHIRDS_OPS * sum(sizes[1:2]) + PYRAMID_HALF_OPS * sum(sizes[2:])
+    return sum(sizes), ops
+
+
+def pyramid_phase(dev, card: str, kind: str, launches: int, regs: list) -> dict:
+    """[pyramid]: kernel pyramid_u8 bitwise against its plain version (the
+    torch resamplers a layer after the other) on the card, one counted
+    launch a call: the B=16 and B=128 steps' frames (4 layers), the AST
+    step's 6 layers, the odd shapes (61 x 83, 96 x 130, 3 x 3, 2 x 5,
+    1 x 7) at 2, 4 and 6 layers, frames off 16-byte alignment (the byte
+    loads), strided frames and one (H, W) frame; the kernel and the plain
+    chain in turns, event and device ms, beside the bound. Returns the
+    kernel's row at the B=16 step."""
+    import numpy as np
+
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+    from ethzasl_brisk_tpu_torch.kernels.downsample import pyramid_u8_cuda, pyramid_u8_plain
+
+    def check(frames, n_layers, what):
+        _kernels.reset_launches()
+        got = pyramid_u8_cuda(frames, n_layers)
+        torch.cuda.synchronize()
+        ref = pyramid_u8_plain(frames, n_layers)
+        n = _kernels.LAUNCHES["pyramid_u8"]
+        assert n == (1 if any(r.numel() for r in ref[1:]) else 0), (what, _kernels.LAUNCHES)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert g.shape == r.shape and torch.equal(g, r), f"[pyramid] {what} layer {i}"
+        return n
+
+    f16 = torch.from_numpy(bench_frames(16)).to(dev)
+    f128 = torch.from_numpy(bench_frames(128)).to(dev)
+    big = torch.from_numpy(bench_frames(3)).to(dev)
+    cases = [("B=16 step", f16, 4), ("B=128 step", f128, 4), ("AST B=16", f16, 6),
+             ("off 16-byte alignment", big.view(-1)[1 : 1 + 2 * 479 * 640].view(2, 479, 640), 4),
+             ("strided", big[:, 1::2, 3:], 6), ("one frame", big[1], 4)]
+    rng = np.random.default_rng(26)
+    for h, w in ((61, 83), (96, 130), (3, 3), (2, 5), (1, 7)):
+        frames = torch.from_numpy(rng.integers(0, 256, (3, h, w), dtype=np.uint8)).to(dev)
+        frames[1] = 255
+        cases += [(f"{h}x{w}", frames, n) for n in (2, 4, 6)]
+    checked = [f"{what} {tuple(f.shape)} {n} layers (launches {check(f, n, what)})"
+               for what, f, n in cases]
+    print(f"[pyramid] pyramid_u8 bitwise vs plain: {'; '.join(checked)} [{card}]", flush=True)
+
+    rows = {}
+    for b, frames in ((16, f16), (128, f128)):
+        nbytes, ops = pyramid_bytes_ops(frames, 4)
+        row = own_kernel_row(
+            "pyramid_u8", "ethzasl_brisk_tpu_torch/csrc/pyramid.cu",
+            "none: XLA work, ethzasl_brisk_tpu/kernels/downsample.py:19-66 (halfsample8, "
+            "twothirdsample8) in detect/scale_space.py:84-100's layer order",
+            launches, lambda: pyramid_u8_cuda(frames, 4),
+            lambda cpu=False: pyramid_u8_plain(frames.cpu() if cpu else frames, 4),
+            None, ("pyramid_u8_kernel",), nbytes=nbytes, int32_ops=ops)
+        turns = turns_of({"kernel": lambda: pyramid_u8_cuda(frames, 4),
+                          "plain": lambda: pyramid_u8_plain(frames, 4)},
+                         ("kernel", "plain", "plain", "kernel"), dev,
+                         {"kernel": ("pyramid_u8_kernel",)})
+        print(f"[pyramid] B={b} step's 4 layers, {nbytes} bytes, {ops} int32 operations: "
+              f"{row_text(row)}; in turns (event / device ms): {turns_text(turns)} "
+              f"[{kind}; {card}]", flush=True)
+        rows[b] = row
+    regs_n, shared = ptxas_numbers(regs)
+    print(f"[pyramid] plan: CTAs of 256 threads a 48 x 96 tile, {shared} B of static shared "
+          f"memory ({ctas_an_sm(shared, regs_n, dev, 256)} CTAs an SM); ptxas: {regs} "
+          f"[{kind}; {card}]", flush=True)
+    return rows[16]
+
+
+def empty_floor(lib, dev) -> dict:
+    """The device time (ms) of an empty kernel (``EMPTY_KERNEL_CU``) at a
+    CTA of 32 threads and at 80 CTAs of 128 (the B=16 step's 10,240 slots
+    a thread): the floor under any launch's device time."""
+    import ctypes
+
+    from ethzasl_brisk_tpu_torch import measure
+
+    lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+
+    def run(grid, threads):
+        assert lib.empty_launch(grid, threads, torch.cuda.current_stream(dev).cuda_stream) == 0
+
+    return {f"{g} x {t}": measure.device_time(lambda g=g, t=t: run(g, t), dev,
+                                              ("empty_kernel",), per_call=1)
+            for g, t in ((1, 32), (80, 128))}
+
+
+
 def build_yardsticks() -> dict:
     """The yardsticks the port never calls, each built into its own library
     with the kernels' flags and ``csrc/`` on the include path, all ``nvcc``
     runs at once: the staged segment_sum body, the two-launch describe's
-    warp kernel and ``describe.cu`` with its words a ballot a word.
+    warp kernel, ``describe.cu`` with its words a ballot a word and an
+    empty kernel.
     Returns {name: (loaded library, ptxas lines)}."""
     import ctypes
     import hashlib
@@ -1550,7 +1817,8 @@ def build_yardsticks() -> dict:
     describe_cu = (_kernels._CSRC / "describe.cu").read_text()
     specs = {"staged_segment_sum": (STAGED_SEGMENT_SUM_CU, ()),
              "warp_describe": (WARP_DESCRIBE_CU, ()),
-             "describe_words_ballot": (describe_cu, ("-DDESCRIBE_WORDS_BALLOT",))}
+             "describe_words_ballot": (describe_cu, ("-DDESCRIBE_WORDS_BALLOT",)),
+             "empty_kernel": (EMPTY_KERNEL_CU, ())}
     headers = "".join(h.read_text() for h in sorted(_kernels._CSRC.glob("*.cuh")))
     _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     outs, cmds = {}, []
@@ -1762,6 +2030,8 @@ def quick_start(dev: torch.device) -> dict:
     assert launches["layer_candidates"] == launches["refine_keypoints"] == 2, launches
     assert launches["describe_rotated"] == 2, launches
     assert launches["smoothed_intensity"] == launches["brisk_orientation"] == 0, launches
+    # One layer: no pyramid; radius_match_best keeps the matmul.
+    assert launches["pyramid_u8"] == launches["hamming_argmin"] == 0, launches
 
     ref, ref_match = run(BriskFeature(**QUICK_CONFIG, max_candidates=cap, device="cpu"), imgs)
     gap, n_valid = 0, []
@@ -1915,6 +2185,7 @@ def facade_phase(dev: torch.device, card: str) -> dict:
     # angle_exact: the host's double atan2, no orientation kernel, and both
     # samplings on K2 (describe_rotated takes the float32 chain only).
     assert launches["brisk_orientation"] == launches["describe_rotated"] == 0, launches
+    assert launches["pyramid_u8"] == launches["hamming_argmin"] == 0, launches
     ref = BriskFeature(**kw, device="cpu").compute(
         frame, KeyPoints.from_numpy(x, y, size, angle, capacity=1024, device="cpu"))
     n_given = assert_same_image_outputs(got, ref, "[facade] from_numpy")
@@ -1927,6 +2198,7 @@ def facade_phase(dev: torch.device, card: str) -> dict:
     assert launches64["enforce_uniformity"] == 1, launches64
     assert launches64["layer_candidates"] == launches64["refine_keypoints"] == 1, launches64
     assert launches64["smoothed_intensity"] == 2, launches64
+    assert launches64["pyramid_u8"] == 1 and launches64["hamming_argmin"] == 0, launches64
     ref = BriskFeature(**parity, device="cpu").detect_and_compute(frame)
     n64 = assert_same_image_outputs(got, ref, "[facade] float64")
     assert n64 > 0
@@ -2027,7 +2299,7 @@ def ast_phase(dev: torch.device, card: str, kind: str, yard: dict) -> None:
     kps, desc, midx, mdist, diag = pipe.step(frames, with_diagnostics=True)
     torch.cuda.synchronize()
     launches = {k: _kernels.LAUNCHES[k] for k in SYSTEM_KERNELS}
-    assert launches == launches_of(describe_rotated=1), launches
+    assert launches == launches_of(describe_rotated=1, pyramid_u8=1, hamming_argmin=1), launches
     b, k = kps.valid.shape
     n_desc = int(diag["describable"])
     assert bool(diag["detect"].ok.all()), diag["detect"]
@@ -2186,7 +2458,8 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     # v1_rounding), a 512-bit match with sentinel 513.
     pipe = AstFramePipeline(det, **AST_PIPELINE)
     step, launches_step = counted(lambda: pipe.step(frames, with_diagnostics=True))
-    assert launches_step == launches_of(describe_rotated=1), launches_step
+    # The v1 resamplers stay torch ops: no pyramid_u8.
+    assert launches_step == launches_of(describe_rotated=1, hamming_argmin=1), launches_step
     kps, desc, midx, mdist, diag = step
     assert desc.shape[-1] == 16 and bool(diag["detect"].ok.all())
     assert int(diag["describable"]) <= AST_PIPELINE["describe_capacity"] * V1_BATCH
@@ -2201,7 +2474,7 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     hg, launches_h = counted(lambda: feat.detect_and_compute(host[0]))
     assert launches_h == launches_of(harris_score_i32=1, describe_rotated_v1=1,
                                      enforce_uniformity=1, score_masks=1, layer_candidates=1,
-                                     refine_keypoints=1), launches_h
+                                     refine_keypoints=1, pyramid_u8=1), launches_h
     n_h = assert_same_image_outputs(
         hg, BriskFeature(**BENCH_CONFIG, version="v1", device="cpu").detect_and_compute(host[0]),
         "[v1] BriskFeature")
@@ -2211,7 +2484,7 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
     he, launches_e = counted(lambda: BriskFeature(**exact).detect_and_compute(host[0]))
     assert launches_e == launches_of(harris_score_i32=1, smoothed_intensity_v1=2,
                                      enforce_uniformity=1, score_masks=1, layer_candidates=1,
-                                     refine_keypoints=1), launches_e
+                                     refine_keypoints=1, pyramid_u8=1), launches_e
     n_e = assert_same_image_outputs(
         he, BriskFeature(**exact, device="cpu").detect_and_compute(host[0]),
         "[v1] BriskFeature, angle_exact")
@@ -2291,7 +2564,7 @@ def v1_phase(dev: torch.device, card: str, kind: str) -> dict:
 def own_kernel_row(name: str, source: str, replaces: str, launches: int, run, plain, library,
                    kernel_names: tuple, nbytes: float, fp32_ops: float = 0.0,
                    fp64_ops: float = 0.0, chain_ms: float | None = None,
-                   int32_ops: float = 0.0) -> dict:
+                   int32_ops: float = 0.0, popc_ops: float = 0.0) -> dict:
     """A kernels-line row for one of the port's own kernels (no TPU
     counterpart): ``run()`` on the card against ``plain()`` on the CPU,
     bit for bit (sequences of tensors, NaN equal to NaN), then the kernel,
@@ -2319,7 +2592,8 @@ def own_kernel_row(name: str, source: str, replaces: str, launches: int, run, pl
         else:
             assert bool(eq.all()), f"{name} differs from its plain version"
             err = max(err, float((g.double() - r.double()).abs().max()) if g.numel() else 0.0)
-    bnd = measure.bound_ms(nbytes, int32_ops=int32_ops, fp32_ops=fp32_ops, fp64_ops=fp64_ops)
+    bnd = measure.bound_ms(nbytes, int32_ops=int32_ops, fp32_ops=fp32_ops, fp64_ops=fp64_ops,
+                           popc_ops=popc_ops)
     dev = got[0].device
     row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                max_abs_err=err, ms=measure.cuda_time(run),
@@ -2432,7 +2706,7 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
     }
     expect = launches_of(harris_score_i32=1, describe_rotated=1, walk_angles=1,
                          enforce_uniformity=1, score_masks=1, layer_candidates=1,
-                         refine_keypoints=1)
+                         refine_keypoints=1, pyramid_u8=1)
     walk, old_chain = camera_aware.walk_angles, camera_aware.walk_angles_plain
     walk_calls, atan2_calls, sincos_calls, grid_launches = [], [], [], {}
 
@@ -2505,7 +2779,7 @@ def camera_phase(dev: torch.device, card: str, kind: str) -> list:
     got, launches = counted(lambda: single.detect_and_compute(host))
     assert launches == launches_of(harris_score_i32=1, describe_rotated=1,
                                    enforce_uniformity=1, score_masks=1, layer_candidates=1,
-                                   refine_keypoints=1), launches
+                                   refine_keypoints=1, pyramid_u8=1), launches
     ref = CameraAwareFeature(cams["radtan"], feature_cpu).detect_and_compute(host)
     assert torch.equal(got[2].cpu(), ref[2]), "[camera] single view warp"
     n = assert_same_image_outputs(got[:2], ref[:2], "[camera] single view")
@@ -2714,12 +2988,13 @@ def vo_phase(dev: torch.device, card: str, kind: str, yard: dict) -> dict:
         undo()
         frontend.VoFrontend.process_frame = process
     assert got["capacity_ok"] and ref["capacity_ok"]
-    # K1, score_masks, layer_candidates and refine_keypoints once a frame
-    # and once for the frame-0 certificate, describe_rotated once a frame,
-    # the segment sums once a Gauss-Newton step, 12 a BA solve.
+    # K1, score_masks, layer_candidates, refine_keypoints and pyramid_u8
+    # once a frame and once for the frame-0 certificate, describe_rotated
+    # once a frame, the segment sums once a Gauss-Newton step, 12 a BA
+    # solve; the front-end's matcher keeps the matmul (no hamming_argmin).
     expect = launches_of(harris_score_i32=VO_FRAMES + 1, score_masks=VO_FRAMES + 1,
                          layer_candidates=VO_FRAMES + 1, refine_keypoints=VO_FRAMES + 1,
-                         describe_rotated=VO_FRAMES,
+                         pyramid_u8=VO_FRAMES + 1, describe_rotated=VO_FRAMES,
                          segment_sum=SEGMENT_SUMS_PER_SOLVE * len(windows))
     assert launches == expect, launches
     assert len(card_frames) == len(cpu_frames) == VO_FRAMES
@@ -3057,7 +3332,8 @@ def ckpt_phase(dev: torch.device, card: str, kind: str) -> None:
     frames_run = CKPT_FRAMES - resumed_at
     expect = launches_of(harris_score_i32=frames_run + 1, score_masks=frames_run + 1,
                          layer_candidates=frames_run + 1, refine_keypoints=frames_run + 1,
-                         describe_rotated=frames_run, segment_sum=launches["segment_sum"])
+                         pyramid_u8=frames_run + 1, describe_rotated=frames_run,
+                         segment_sum=launches["segment_sum"])
     assert launches == expect, (launches, expect)
     assert launches["segment_sum"] % SEGMENT_SUMS_PER_SOLVE == 0, launches
     poses = got.pop("poses")
@@ -3154,13 +3430,15 @@ def dist_phase(dev: torch.device, card: str, kind: str, feature, pipe, frames16)
             assert launches["enforce_uniformity"] == launches["score_masks"] == 1, launches
             assert launches["layer_candidates"] == launches["refine_keypoints"] == 1, launches
             assert launches["smoothed_intensity"] == 0, launches
+            assert launches["pyramid_u8"] == launches["hamming_argmin"] == 1, launches
             assert_same_step(got[:4], (kps, desc, midx, mdist), "[dist] step over the mesh")
             assert bool(got[4]["detect"].ok.all())
             ast_det = BriskFeatureDetector(**AST_DETECTOR, device=dev)
             ast_plain = AstFramePipeline(ast_det, dev, **AST_PIPELINE).step(frames16[:4])
             ast_got, ast_launches = counted(lambda: AstFramePipeline(
                 ast_det, dev, mesh=mesh, **AST_PIPELINE).step(frames16[:4]))
-            assert ast_launches == launches_of(describe_rotated=1), ast_launches
+            assert ast_launches == launches_of(describe_rotated=1, pyramid_u8=1,
+                                               hamming_argmin=1), ast_launches
             assert_same_step(ast_got, ast_plain, "[dist] AST step over the mesh")
             step_ms = measure.cuda_time(lambda: sharded.step(frames16))
             plain_ms = measure.cuda_time(lambda: pipe.step(frames16))
@@ -3269,7 +3547,8 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
         finally:
             frontend.VoFrontend.process_frame = process
         assert launches == launches_of(harris_score_i32=n, score_masks=n, layer_candidates=n,
-                                       refine_keypoints=n, describe_rotated=n), launches
+                                       refine_keypoints=n, describe_rotated=n, pyramid_u8=n), \
+            launches
         assert len(card_frames) == len(cpu_frames) == n
         for i, (g, c) in enumerate(zip(card_frames, cpu_frames)):
             assert_same_image_outputs(g, c, f"[vo tools] {label} frame {i}")
@@ -3334,7 +3613,7 @@ def vo_tools_phase(dev: torch.device, card: str, kind: str) -> None:
         assert eval_launches == launches_of(
             harris_score_i32=VO_TOOLS_CLI_FRAMES, score_masks=VO_TOOLS_CLI_FRAMES,
             layer_candidates=VO_TOOLS_CLI_FRAMES, refine_keypoints=VO_TOOLS_CLI_FRAMES,
-            describe_rotated=VO_TOOLS_CLI_FRAMES), eval_launches
+            describe_rotated=VO_TOOLS_CLI_FRAMES, pyramid_u8=VO_TOOLS_CLI_FRAMES), eval_launches
     print(f"[vo tools] python -m ethzasl_brisk_tpu_torch.vo.synthetic {' '.join(argv[:3])} on "
           f"the card: {lines[-1]}; vo.gen_sequence {VO_TOOLS_CLI_FRAMES} frames through "
           f"vo.sequence_eval on the card: {evals[0]}; {evals[1]}; launches {eval_launches} "
@@ -3376,6 +3655,10 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
     assert launches["layer_candidates"] == launches["refine_keypoints"] == n_batches + 1, \
         launches
     assert launches["describe_rotated"] == n_batches, launches
+    # pyramid_u8 with every detection (the certificate's too), hamming_argmin
+    # once a batch's step.
+    assert launches["pyramid_u8"] == n_batches + 1, launches
+    assert launches["hamming_argmin"] == n_batches, launches
     assert launches["smoothed_intensity"] == launches["enforce_uniformity"] == 0, launches
     card_batches = [ln for ln in card_lines if ln.startswith("batch ")]
     assert card_batches == [ln for ln in cpu_lines if ln.startswith("batch ")], \
@@ -3389,14 +3672,46 @@ def examples_phase(dev: torch.device, card: str, kind: str) -> None:
     demo, demo_launches = counted(lambda: run(lambda: cameras_demo.main(["--device", dev.type])))
     assert (demo_launches["harris_score_i32"] == demo_launches["describe_rotated"]
             == demo_launches["score_masks"] == demo_launches["layer_candidates"]
-            == demo_launches["refine_keypoints"] == 1), demo_launches
+            == demo_launches["refine_keypoints"] == demo_launches["pyramid_u8"] == 1), \
+        demo_launches
+    assert demo_launches["hamming_argmin"] == 0, demo_launches
     assert demo_launches["smoothed_intensity"] == demo_launches["enforce_uniformity"] == 0, \
         demo_launches
     print(f"[examples] cameras_demo on the card: {demo}; launches {demo_launches} "
           f"[{kind}; {card}]", flush=True)
 
 
+def time_steps() -> int:
+    """``python3 chip_smoke.py --time-steps``, run from the root of a tree of
+    the port: that tree's package (built from its own sources) times the
+    default step, ``BENCH_CONFIG`` on bench frames, at B=16 and B=128 by
+    ``timed_steps``, and prints one JSON line of the medians, minima,
+    stage medians and peak memory. Two trees run from their own roots in
+    turns (A, B, B, A) compare on one card."""
+    sys.path.insert(0, os.getcwd())
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from ethzasl_brisk_tpu_torch import BriskFeature, FramePipeline, measure
+    from ethzasl_brisk_tpu_torch.frames import bench_frames
+
+    dev = torch.device("cuda", 0)
+    pipe = FramePipeline(BriskFeature(**BENCH_CONFIG))
+    steps = {}
+    for batch in (16, 128):
+        frames = torch.from_numpy(bench_frames(batch)).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        med, low, stages = timed_steps(pipe, frames, STAGES + ("match",))
+        steps[batch] = dict(median_ms=med, min_ms=low, stages=stages,
+                            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(json.dumps({"tree": os.getcwd(), "card": measure.card_line(dev), "steps": steps}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--time-steps"]:
+        return time_steps()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
@@ -3438,20 +3753,24 @@ def main() -> int:
     lib_path = _kernels.build()
     _kernels.library()
     builder.join()
-    assert set(yard) == {"staged_segment_sum", "warp_describe", "describe_words_ballot"}, yard
+    assert set(yard) == {"staged_segment_sum", "warp_describe", "describe_words_ballot",
+                         "empty_kernel"}, yard
     log = lib_path.with_suffix(".log")
     regs = ptxas_lines(log.read_text() if log.exists() else "", "describe_rotated_kernel")
     uniformity_regs = ptxas_lines(log.read_text() if log.exists() else "", "uniformity_kernel")
     masks_regs = ptxas_lines(log.read_text() if log.exists() else "", "score_masks_kernel")
     candidates_regs = ptxas_lines(log.read_text() if log.exists() else "", "candidates_kernel")
     refine_regs = ptxas_lines(log.read_text() if log.exists() else "", "refine_kernel")
+    match_regs = ptxas_lines(log.read_text() if log.exists() else "", "hamming_argmin_kernel")
+    pyramid_regs = ptxas_lines(log.read_text() if log.exists() else "", "pyramid_u8_kernel")
     uniformity_kernel = install_uniformity_check()
     print(f"[build] {lib_path.name} and {len(yard)} yardsticks in "
           f"{time.perf_counter() - t0:.2f} s; describe_rotated's ptxas: {regs}; the words a "
           f"ballot a word: {yard['describe_words_ballot'][1]}; the warp kernel: "
           f"{yard['warp_describe'][1]}; enforce_uniformity's: {uniformity_regs}; score_masks': "
           f"{masks_regs}; layer_candidates': "
-          f"{candidates_regs}; refine_keypoints': {refine_regs}", flush=True)
+          f"{candidates_regs}; refine_keypoints': {refine_regs}; hamming_argmin's: {match_regs}; "
+          f"pyramid_u8's: {pyramid_regs}", flush=True)
 
     frames16 = torch.from_numpy(bench_frames(16)).to(dev)
     # The entry points run on the card by default.
@@ -3529,6 +3848,7 @@ def main() -> int:
     assert launches["score_masks"] == 1, launches  # the four layers
     assert launches["layer_candidates"] == launches["refine_keypoints"] == 1, launches
     assert launches["smoothed_intensity"] == launches["brisk_orientation"] == 0, launches
+    assert launches["pyramid_u8"] == launches["hamming_argmin"] == 1, launches
     b, k = kps.valid.shape
     print(
         f"[main path] counts per layer, max over frames: candidates "
@@ -3570,6 +3890,7 @@ def main() -> int:
     assert fused_launches["harris_score_i32"] == 0, fused_launches
     assert fused_launches["describe_rotated"] == 1, fused_launches
     assert fused_launches["smoothed_intensity"] == 0, fused_launches
+    assert fused_launches["pyramid_u8"] == fused_launches["hamming_argmin"] == 1, fused_launches
     assert_same_step(fused_out, (kps, desc, midx, mdist), "fused vs default step")
     print(f"[fused path] step B={b}: launches {fused_launches}; keypoints, descriptors "
           f"and matches bitwise equal to the default step", flush=True)
@@ -3673,6 +3994,12 @@ def main() -> int:
     print(f"[orientation] B=16 step's {n_kp} keypoint slots: bitwise vs plain; "
           f"{row_text(orientation_row)}; library: torch.atan2; launches: [u16]'s "
           f"{u16_launches['brisk_orientation']} [{kind}; {card}]", flush=True)
+    # The floor under walk_angles', sincosf_elementwise's and
+    # brisk_orientation's device times: an empty launch's.
+    floor = empty_floor(yard["empty_kernel"][0], dev)
+    print("[floor] an empty kernel's device ms: " + ", ".join(
+        f"{shape} threads {ms:.5f}" for shape, ms in floor.items()) + f" [{kind}; {card}]",
+        flush=True)
 
     # ---- describe_rotated at the main path's B=16 shapes.
     rot_bytes, rot_int, rot_fp = describe_rotated_work(rot16)
@@ -3708,6 +4035,16 @@ def main() -> int:
                               feature, fused_feature)
     print(f"[refine] B=16 step: {row_text(refine_row)}; launches: the main path's "
           f"{launches['refine_keypoints']} [{kind}; {card}]", flush=True)
+
+    # ---- hamming_argmin and pyramid_u8 against their plain versions, in
+    # turns, at the step's shapes.
+    match_row = match_phase(dev, card, kind, launches["hamming_argmin"], match_regs, pipe,
+                            (desc, kps.valid))
+    print(f"[match] B=16 step: {row_text(match_row)}; launches: the main path's "
+          f"{launches['hamming_argmin']} [{kind}; {card}]", flush=True)
+    pyramid_row = pyramid_phase(dev, card, kind, launches["pyramid_u8"], pyramid_regs)
+    print(f"[pyramid] B=16 step: {row_text(pyramid_row)}; launches: the main path's "
+          f"{launches['pyramid_u8']} [{kind}; {card}]", flush=True)
 
     # ---- Timing.
     stage_names = ["pyramid", "harris", "masks", "candidates", "uniformity", "refine",
@@ -3816,7 +4153,8 @@ def main() -> int:
              fused_launches["harris_score_mask"], k3_err, "k3"),
         )
     ] + [v1_row, describe_row, orientation_row] + camera_rows + [
-        segment_row, uniformity_row, masks_row, candidates_row, refine_row] + probe_rows
+        segment_row, uniformity_row, masks_row, candidates_row, refine_row, match_row,
+        pyramid_row] + probe_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[wall] {time.perf_counter() - t_start:.1f} s from start to the kernels line", flush=True)
     print(f"[card] {card}", flush=True)

@@ -63,6 +63,11 @@ LAUNCHES = {
     # sub-pixel fit, packing), each every layer of a detection in one
     # launch (csrc/candidates.cu, csrc/refine.cu).
     "layer_candidates": 0, "refine_keypoints": 0,
+    # The batched step's adjacent-frame match (XOR, popcount and the first
+    # index of the minimum, every pair in one launch; csrc/match.cu) and
+    # every derived uint8 pyramid layer of a call in one launch
+    # (csrc/pyramid.cu).
+    "hamming_argmin": 0, "pyramid_u8": 0,
     # The latency probes behind segment_sum's and enforce_uniformity's chain
     # bounds (measure.add_latency_cycles, measure.round_latency_cycles).
     "add_latency": 0, "round_latency": 0,
@@ -257,6 +262,16 @@ def library() -> ctypes.CDLL:
                 ci, ci, ci, ci, vp,  # columns, counts' columns, is_float, is_double, stream
             ]
             lib.brisk_refine_keypoints.restype = ci
+            lib.brisk_hamming_argmin.argtypes = [
+                vp, vp, vp, vp,            # desc, valid, best, dist
+                ci, ci, ci, ci, vp,        # B, K, W, n_bits, stream
+            ]
+            lib.brisk_hamming_argmin.restype = ci
+            lib.brisk_pyramid_u8.argtypes = [
+                vp, ctypes.POINTER(ctypes.c_int64), ci,  # frames, layer table, layer count
+                ci, ci, ci, vp,                          # B, H, W, stream
+            ]
+            lib.brisk_pyramid_u8.restype = ci
             lib.brisk_round_latency.argtypes = [ci, vp, vp, vp]  # rounds, cycles, sink, stream
             lib.brisk_round_latency.restype = ci
             lib.brisk_error_string.argtypes = [ci]

@@ -47,9 +47,8 @@ from ethzasl_brisk_tpu_torch.detect.ast_layer import AstLayerMaps, _shift, build
 from ethzasl_brisk_tpu_torch.detect.scale_space import Mark, _no_mark
 from ethzasl_brisk_tpu_torch.kernels.agast import agast5_8_score_map
 from ethzasl_brisk_tpu_torch.kernels.downsample import (
-    halfsample8,
     halfsample8_v1,
-    twothirdsample8,
+    pyramid_u8,
     twothirdsample8_v1,
 )
 
@@ -110,9 +109,11 @@ def pyramid_images(imgs: torch.Tensor, octaves: int, v1: bool = False) -> list[t
     its two-thirds sample, then half samples of the layer two below. The v1
     engine has the same geometry (brisk-v1.cc:577-593) with its own
     resamplers, whose rounding differs on every derived layer."""
-    half, twothirds = (halfsample8_v1, twothirdsample8_v1) if v1 else (halfsample8,
-                                                                       twothirdsample8)
     n_layers = max(2 * octaves, 1)
+    if not v1:
+        # On the card kernel pyramid_u8, every layer in one launch.
+        return pyramid_u8(imgs, n_layers)
+    half, twothirds = halfsample8_v1, twothirdsample8_v1
     out = [imgs]
     if n_layers > 1:
         out.append(twothirds(imgs))

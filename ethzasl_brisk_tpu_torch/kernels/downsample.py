@@ -8,10 +8,34 @@ Inputs are cast to int32 first because torch uint8 arithmetic wraps. Works
 on ``(..., H, W)`` uint8 or uint16 tensors. ``halfsample8_v1`` and
 ``twothirdsample8_v1`` are the v1 engine's own uint8 resamplers, with
 their own rounding (see their section below).
+
+``pyramid_u8`` builds every derived layer of a uint8 scale-space pyramid
+(layer 1 the two-thirds sample of the frames, layer i >= 2 the half sample
+of layer i - 2): kernel ``pyramid_u8`` of ``csrc/pyramid.cu``, one launch
+for every layer, on CUDA tensors (or it raises); ``pyramid_u8_plain``, the
+resamplers above one layer after the other, on CPU tensors;
+``pyramid_u8_twin`` the kernel's tiles in torch (the frames zero-padded to
+whole tiles, each tile resampled on its own, each layer cropped to its
+floored size), held against the plain version on the CPU. The uint16 and
+v1 resamplers stay torch ops.
 """
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
+
+from ethzasl_brisk_tpu_torch import _kernels
+
+# csrc/pyramid.cu: a CTA takes a PYRAMID_TILE (rows, columns) tile of the
+# frame, whose sides are multiples of 3 * 2^4, so every layer up to
+# MAX_PYRAMID_LAYERS is whole blocks of its source's tile. The layers of a
+# call share one output buffer, each starting at a multiple of LAYER_ALIGN
+# bytes.
+PYRAMID_TILE = (48, 96)
+MAX_PYRAMID_LAYERS = 10
+LAYER_ALIGN = 256
 
 
 def _avg_round_up(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -155,3 +179,107 @@ def halfsample8_v1(img: torch.Tensor) -> torch.Tensor:
         cols.append(((a_row[..., c + kk] + a_row[..., c + kk + 1]
                       + b_row[..., c + kk] + b_row[..., c + kk + 1]) // 4)[..., None])
     return (torch.cat(cols, dim=-1) & 0xFF).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Every derived uint8 layer in one launch (kernel pyramid_u8).
+# ---------------------------------------------------------------------------
+
+def layer_sizes(h: int, w: int, n_layers: int) -> list[tuple[int, int]]:
+    """Each layer's floored (rows, columns): the frame's, two thirds of it,
+    then half of the layer two below."""
+    sizes = [(h, w)]
+    for i in range(1, n_layers):
+        if i == 1:
+            sizes.append((2 * (h // 3), 2 * (w // 3)))
+        else:
+            sizes.append((sizes[i - 2][0] // 2, sizes[i - 2][1] // 2))
+    return sizes
+
+
+def pyramid_u8_plain(imgs: torch.Tensor, n_layers: int) -> list[torch.Tensor]:
+    """Plain version: [imgs, twothirdsample8(imgs), halfsample8(imgs),
+    halfsample8(layer 1), ...], one resampler call a layer."""
+    layers = [imgs]
+    for i in range(1, n_layers):
+        layers.append(twothirdsample8(imgs) if i == 1 else halfsample8(layers[i - 2]))
+    return layers
+
+
+def _frames_of(imgs: torch.Tensor, n_layers: int, what: str):
+    if imgs.dtype != torch.uint8 or imgs.dim() < 2:
+        raise ValueError(f"{what}: expected uint8 (..., H, W) frames, got {imgs.dtype} "
+                         f"{tuple(imgs.shape)}")
+    if n_layers > MAX_PYRAMID_LAYERS:
+        raise ValueError(f"{what}: {n_layers} layers, at most {MAX_PYRAMID_LAYERS}")
+    *lead, h, w = imgs.shape
+    return imgs.reshape(math.prod(lead), h, w), tuple(lead), h, w
+
+
+def layer_buffer(lead: tuple, sizes: list, device) -> list[torch.Tensor]:
+    """The derived layers' outputs as views of one uint8 buffer, each
+    (*lead, h, w) contiguous and starting at a multiple of LAYER_ALIGN."""
+    b = math.prod(lead)
+    offsets, total = [], 0
+    for h, w in sizes[1:]:
+        offsets.append(total)
+        total += -(-b * h * w // LAYER_ALIGN) * LAYER_ALIGN
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    return [buf[o : o + b * h * w].view(*lead, h, w) for o, (h, w) in zip(offsets, sizes[1:])]
+
+
+def pyramid_u8_twin(imgs: torch.Tensor, n_layers: int) -> list[torch.Tensor]:
+    """The kernel's algorithm in torch: the frames zero-padded to whole
+    ``PYRAMID_TILE`` tiles, every tile resampled on its own (layer 1 from
+    the frame's tile, layer i from layer i - 2's tile), each layer's tiles
+    put side by side and cropped to the layer's floored size, into the
+    kernel's one output buffer."""
+    frames, lead, h, w = _frames_of(imgs, n_layers, "pyramid_u8_twin")
+    if n_layers <= 1:
+        return [imgs]
+    b = frames.shape[0]
+    (th, tw), tiles = PYRAMID_TILE, layer_sizes(*PYRAMID_TILE, n_layers)
+    ny, nx = -(-h // th), -(-w // tw)
+    canvas = torch.zeros((b, ny * th, nx * tw), dtype=torch.int32, device=imgs.device)
+    canvas[:, :h, :w] = frames
+    tiled = [canvas.view(b, ny, th, nx, tw).permute(0, 1, 3, 2, 4)]  # (b, ny, nx, th, tw)
+    for i in range(1, n_layers):
+        tiled.append(_twothirdsample(tiled[0]) & 0xFF if i == 1
+                     else torch.clamp(_halfsample(tiled[i - 2]), max=255))
+        assert tuple(tiled[i].shape[-2:]) == tiles[i], (i, tuple(tiled[i].shape))
+    sizes = layer_sizes(h, w, n_layers)
+    outs = layer_buffer(lead, sizes, imgs.device)
+    for i, out in enumerate(outs, start=1):
+        a, c = tiles[i]
+        whole = tiled[i].permute(0, 1, 3, 2, 4).reshape(b, ny * a, nx * c)
+        out.copy_(whole[:, : sizes[i][0], : sizes[i][1]].reshape(out.shape))
+    return [imgs, *outs]
+
+
+def pyramid_u8_cuda(imgs: torch.Tensor, n_layers: int) -> list[torch.Tensor]:
+    """Kernel ``pyramid_u8``: every derived layer of uint8 (..., H, W)
+    frames on the card in one launch, none for one layer or no output
+    pixel. Layer 0 is ``imgs`` itself; strided frames are copied once."""
+    frames, lead, h, w = _frames_of(imgs, n_layers, "pyramid_u8_cuda")
+    if imgs.device.type != "cuda":
+        raise ValueError(f"pyramid_u8_cuda needs a CUDA tensor, got {imgs.device}")
+    if n_layers <= 1:
+        return [imgs]
+    sizes = layer_sizes(h, w, n_layers)
+    outs = layer_buffer(lead, sizes, imgs.device)
+    if any(o.numel() for o in outs):
+        frames = frames.contiguous()
+        table = (ctypes.c_int64 * (3 * len(outs)))(
+            *(v for o, (a, c) in zip(outs, sizes[1:]) for v in (o.data_ptr(), a, c)))
+        _kernels.launch("pyramid_u8", "pyramid_u8", imgs.device, frames.data_ptr(), table,
+                        n_layers, frames.shape[0], h, w)
+    return [imgs, *outs]
+
+
+def pyramid_u8(imgs: torch.Tensor, n_layers: int) -> list[torch.Tensor]:
+    """The uint8 pyramid's layers [imgs, layer 1, ..., layer n-1]: kernel
+    ``pyramid_u8`` (one launch) for CUDA tensors, ``pyramid_u8_plain`` for
+    CPU tensors."""
+    if imgs.device.type == "cpu":
+        return pyramid_u8_plain(imgs, n_layers)
+    return pyramid_u8_cuda(imgs, n_layers)

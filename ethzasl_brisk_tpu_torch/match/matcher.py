@@ -8,8 +8,12 @@ As in the JAX package, each 384-bit descriptor is unpacked to a +-1 vector
 and ``hamming(q, t) = (n_bits - q . t) / 2``: one float32 matrix product,
 exact because every partial sum is an integer of magnitude <= 384 (and +-1
 inputs are exact in TF32 too). ``hamming_distance_matrix_popcnt`` is the
-XOR + popcount form, kept for verification. A fused XOR + popcount + argmin
-kernel is later work.
+XOR + popcount form, kept for verification. The batched steps' match,
+``match_adjacent``, is kernel ``hamming_argmin`` (``csrc/match.cu``) on the
+card: XOR, popcount and the first index of the minimum, every pair of
+frames in one launch, with no (K, K) matrix; ``match_adjacent_plain``, the
+matmul route, is its plain version and serves CPU tensors. The other
+matchers keep the matmul.
 
 Descriptors are int32 words (the JAX package's uint32 words as bit
 patterns). Ties: ``jax.lax.top_k`` sends them to the lower index, so the
@@ -22,6 +26,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ethzasl_brisk_tpu_torch import _kernels
+
+MAX_MATCH_WORDS = 32  # csrc/match.cu's kMaxWords: n_bits up to 1024
 
 
 def unpack_bits_pm1(desc: torch.Tensor, n_bits: int) -> torch.Tensor:
@@ -255,13 +263,9 @@ def radius_match_collection(query, collection: DescriptorCollection, radius: int
     return (*_collection_indices(dist, gidx, img_idx, local_idx, n_bits), dist, counts)
 
 
-def match_adjacent(desc: torch.Tensor, valid: torch.Tensor, n_bits: int = 384):
-    """Match each frame's descriptors against the previous frame's.
-
-    desc: (B, K, W) words, valid: (B, K). Returns (best index, distance),
-    each (B-1, K) int32; invalid train slots and invalid queries get the
-    sentinel distance n_bits + 1, and ties go to the lowest index.
-    """
+def match_adjacent_plain(desc: torch.Tensor, valid: torch.Tensor, n_bits: int = 384):
+    """Plain version of ``match_adjacent``: the +-1 matmul distances over
+    every (query, train) pair, ``torch.where``, ``argmin`` and ``gather``."""
     sentinel = n_bits + 1
     d = hamming_distance_matrix(desc[1:], desc[:-1], n_bits)
     d = torch.where(valid[:-1, None, :], d, torch.full_like(d, sentinel))
@@ -269,3 +273,50 @@ def match_adjacent(desc: torch.Tensor, valid: torch.Tensor, n_bits: int = 384):
     bd = torch.gather(d, 2, best[..., None])[..., 0]
     bd = torch.where(valid[1:], bd, torch.full_like(bd, sentinel))
     return best.to(torch.int32), bd
+
+
+def _check_match_args(desc: torch.Tensor, valid: torch.Tensor, n_bits: int) -> int:
+    if desc.dim() != 3 or desc.dtype != torch.int32:
+        raise ValueError(f"match_adjacent: expected (B, K, W) int32 words, got {desc.dtype} "
+                         f"{tuple(desc.shape)}")
+    if valid.dtype != torch.bool or tuple(valid.shape) != tuple(desc.shape[:2]):
+        raise ValueError(f"match_adjacent: expected a bool valid of {tuple(desc.shape[:2])}, "
+                         f"got {valid.dtype} {tuple(valid.shape)}")
+    if valid.device != desc.device:
+        raise ValueError(f"match_adjacent: desc on {desc.device}, valid on {valid.device}")
+    n_bits = int(n_bits)
+    if n_bits < 0 or n_bits % 32 or n_bits // 32 > min(desc.shape[2], MAX_MATCH_WORDS):
+        raise ValueError(f"match_adjacent: n_bits {n_bits} must be a multiple of 32 of at most "
+                         f"{min(desc.shape[2], MAX_MATCH_WORDS)} words")
+    return n_bits
+
+
+def match_adjacent_cuda(desc: torch.Tensor, valid: torch.Tensor, n_bits: int = 384):
+    """Kernel ``hamming_argmin``: every adjacent pair of a batch in one
+    launch (none for B < 2 or K = 0). ``desc``: (B, K, W) int32 words and
+    ``valid``: (B, K) bool on one card; ``n_bits`` a multiple of 32, at
+    most W and 32 words."""
+    n_bits = _check_match_args(desc, valid, n_bits)
+    if desc.device.type != "cuda":
+        raise ValueError(f"match_adjacent_cuda needs CUDA tensors, got {desc.device}")
+    b, k, w = desc.shape
+    out = torch.empty((2, max(b - 1, 0), k), dtype=torch.int32, device=desc.device)
+    if b >= 2 and k > 0:
+        desc, valid = desc.contiguous(), valid.contiguous()
+        _kernels.launch("hamming_argmin", "hamming_argmin", desc.device, desc.data_ptr(),
+                        valid.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), b, k, w, n_bits)
+    return out[0], out[1]
+
+
+def match_adjacent(desc: torch.Tensor, valid: torch.Tensor, n_bits: int = 384):
+    """Match each frame's descriptors against the previous frame's.
+
+    desc: (B, K, W) words, valid: (B, K). Returns (best index, distance),
+    each (B-1, K) int32; invalid train slots and invalid queries get the
+    sentinel distance n_bits + 1, ties go to the lowest index, and an
+    invalid query keeps its real best index. Kernel ``hamming_argmin`` (one
+    launch) for CUDA tensors, ``match_adjacent_plain`` for CPU tensors.
+    """
+    if desc.device.type == "cpu":
+        return match_adjacent_plain(desc, valid, n_bits)
+    return match_adjacent_cuda(desc, valid, n_bits)

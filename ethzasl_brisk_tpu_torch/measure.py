@@ -15,7 +15,9 @@ cores, which is 132 SMs x 128 lanes x 2 (a fused multiply-add) x 1.98 GHz,
 and 34 TFLOP/s of float64 outside them.
 The data sheet gives no int32 rate; the Hopper white paper gives 64 int32
 lanes per SM, so at the same clock and counting a multiply-add as two
-operations, 33.5 Tops/s. Where a gather's traffic depends on its indices,
+operations, 33.5 Tops/s; and 16 32-bit population counts a clock an SM
+(the CUDA C++ programming guide's throughput table, compute capability
+9.0), 4.18 T a second. Where a gather's traffic depends on its indices,
 ``distinct_sector_bytes`` counts the 32-byte sectors the indices touch, the
 least the card can read. Where the work is a serial chain of dependent
 adds, as an ordered segment sum is, no rate helps: ``chain_bound_ms`` is
@@ -35,6 +37,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 FP64_OPS_PER_S = 34e12
 INT32_OPS_PER_S = 132 * 64 * 2 * 1.98e9
+POPC_OPS_PER_S = 132 * 16 * 1.98e9
 SECTOR = 32  # bytes: the unit in which the card moves device memory
 L2_BYTES = 50 * 2**20  # H100's L2 cache
 TRACE_ATTEMPTS = 10  # the profiler now and then drops whole traces, or most of one, in a row
@@ -266,11 +269,11 @@ def device_busy_ms(fn) -> float:
 
 
 def bound_ms(nbytes: float, int32_ops: float = 0.0, fp32_ops: float = 0.0,
-             fp64_ops: float = 0.0) -> tuple[float, str]:
+             fp64_ops: float = 0.0, popc_ops: float = 0.0) -> tuple[float, str]:
     """(least time in ms, "bytes" or "operations"): what bounds the work."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = (int32_ops / INT32_OPS_PER_S + fp32_ops / FP32_OPS_PER_S
-             + fp64_ops / FP64_OPS_PER_S)
+             + fp64_ops / FP64_OPS_PER_S + popc_ops / POPC_OPS_PER_S)
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 

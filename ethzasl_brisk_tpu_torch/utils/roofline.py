@@ -11,12 +11,12 @@ Two parts:
   keeps the data-sheet peaks; these are the card's own.
 
 * :func:`stage_model` is static shape math for the stages' algorithmic
-  work, as in the JAX package: FLOP counts exact for the match's
-  matmul, order-of-magnitude op counts for the stencil stages, byte
-  counts the MINIMUM traffic (inputs read once, outputs written once).
-  Sort-bound stages (top_k) get bytes only. Every row but ``describe``
-  and ``uniformity`` equals the JAX row for the same shapes. The JAX
-  ``uniformity`` row models the TPU's blocked pairwise suppression; the
+  work, as in the JAX package: exact operation counts for the match,
+  order-of-magnitude op counts for the stencil stages, byte counts the
+  MINIMUM traffic (inputs read once, outputs written once). Sort-bound
+  stages (top_k) get bytes only. Every row but ``describe``,
+  ``uniformity``, ``match`` and ``pyramid`` equals the JAX row for the
+  same shapes. The JAX ``uniformity`` row models the TPU's blocked pairwise suppression; the
   port's counts the reference's own work, which kernel
   ``enforce_uniformity`` (``csrc/uniformity.cu``) does on its grid route:
   per candidate its x, y, score and flag read once and its mask byte
@@ -33,6 +33,15 @@ Two parts:
   branch, 4 bytes each), the keypoint's inputs (x, y, frame row), each
   point's pattern inputs and output (6 words), and the box branch's 149
   operations a point (119 int32, 30 float32), with kind ``"bw"``.
+  Two rows model the port's kernels where the JAX package has another
+  algorithm or no row: ``match`` counts kernel ``hamming_argmin``'s work
+  (``csrc/match.cu``), a popcount a word of every (query, train) pair of
+  the (B-1) adjacent pairs, against one read of the descriptors and valid
+  flags and one write of the best index and distance, kind ``"int"``
+  (the JAX row is the +-1 matmul's FLOPs); ``pyramid`` (no JAX row) counts
+  kernel ``pyramid_u8``'s (``csrc/pyramid.cu``): the frames read once, the
+  derived layers written once, ~15 int32 operations a two-thirds output
+  and ~10 a half output, kind ``"bw"``.
 
 :func:`report` combines measured stage times with the model.
 """
@@ -43,6 +52,7 @@ import time
 import torch
 
 from ethzasl_brisk_tpu_torch.core.device import resolve_device
+from ethzasl_brisk_tpu_torch.kernels.downsample import layer_sizes
 
 # K2 per (slot, point), counted from csrc/sampler.cu (chip_smoke.py's
 # K2_TAPS and K2_OPS_BOX): the box branch's integral taps and operations.
@@ -57,6 +67,11 @@ K2_WORDS_PER_SLOT = 3    # key x, key y, frame row
 UNIFORMITY_BYTES_PER_CANDIDATE = 14
 UNIFORMITY_PAINT_FP32_OPS = 2 * 31 * 31
 UNIFORMITY_PAINT_INT32_OPS = 2 * 31 * 31
+# Kernel pyramid_u8's int32 operations an output pixel: a two-thirds output
+# (20 averages of 3 operations a 2 x 2 block) and a half output (3 averages
+# and the clamp).
+PYRAMID_TWOTHIRDS_OPS = 15
+PYRAMID_HALF_OPS = 10
 
 
 def _timed_ms(fn, device: torch.device, reps: int, iters: int = 4) -> float:
@@ -139,11 +154,21 @@ def stage_model(
 ) -> dict:
     """Static per-stage (gflops, gbytes, kind) for the Harris step at the
     given shapes. kind: 'mxu' (flops meaningful), 'bw' (bandwidth-bound),
+    'int' (integer-operation-bound: gflops counts the match's popcounts),
     'sort' (comparison-bound: flops not meaningful, bytes one read of the
     sorted operands, an upper bound on useful-traffic utilization)."""
     px = _pyramid_pixels(h, w, n_layers) * batch
 
     stages = {}
+    # Pyramid: kernel pyramid_u8, the frames read once and the derived
+    # layers written once (module docstring).
+    derived = [ph * pw * batch for ph, pw in layer_sizes(h, w, n_layers)[1:]]
+    stages["pyramid"] = dict(
+        gflops=1e-9 * (PYRAMID_TWOTHIRDS_OPS * sum(derived[:1])
+                       + PYRAMID_HALF_OPS * sum(derived[1:])),
+        gbytes=1e-9 * (h * w * batch + sum(derived)),
+        kind="bw",
+    )
     # Harris scores: Scharr dx/dy + 3 products + 3x3 Gauss x3 + det -
     # trace^2/16, ~60 integer ops/px; min bytes: u8 in + i32 score out.
     stages["scores"] = dict(gflops=60e-9 * px, gbytes=5e-9 * px, kind="bw")
@@ -178,13 +203,14 @@ def stage_model(
         gbytes=4e-9 * words * 2 * slots,
         kind="bw",
     )
-    # Match: (B-1) pairs of K x K Hamming distances as a +-1 matmul over
-    # desc_words*32 bits.
-    n_bits = desc_words * 32
+    # Match: kernel hamming_argmin, a popcount a word of the (B-1) pairs'
+    # K x K (query, train) pairs; the descriptors and valid flags read once,
+    # the best index and distance written once (module docstring).
+    pairs = max(batch - 1, 0)
     stages["match"] = dict(
-        gflops=2e-9 * (batch - 1) * kk * kk * n_bits,
-        gbytes=2e-9 * (batch - 1) * kk * n_bits / 8 * 2,
-        kind="mxu",
+        gflops=1e-9 * pairs * kk * kk * desc_words,
+        gbytes=1e-9 * (batch * kk * (4 * desc_words + 1) + pairs * kk * 8),
+        kind="int",
     )
     return stages
 

@@ -32,6 +32,8 @@ from ethzasl_brisk_tpu_torch.kernels.harris import (
 )
 from tests import _candidate_cases as candidate_cases
 from tests import _mask_cases as mask_cases
+from tests import _match_cases as match_cases
+from tests import _pyramid_cases as pyramid_cases
 from tests._uniformity_cases import CASES as UNIFORMITY_CASES, case as uniformity_case
 
 pytestmark = pytest.mark.gpu
@@ -577,14 +579,18 @@ def test_step_launches_both_kernels(cuda):
     assert _kernels.LAUNCHES["brisk_orientation"] == 0
     assert _kernels.LAUNCHES["enforce_uniformity"] == 1  # one launch for the 4 layers
     assert _kernels.LAUNCHES["layer_candidates"] == _kernels.LAUNCHES["refine_keypoints"] == 1
+    assert _kernels.LAUNCHES["pyramid_u8"] == 1  # layers 1-3
+    assert _kernels.LAUNCHES["hamming_argmin"] == 1  # both pairs
     ref = FramePipeline(BriskFeature(**STEP_CONFIG, device="cpu"), device="cpu").step(frames)
     assert torch.equal(got[0].valid.cpu(), ref[0].valid)
     assert torch.equal(got[0].response.cpu(), ref[0].response)
+    for i, what in ((1, "descriptors"), (2, "match index"), (3, "match distance")):
+        assert torch.equal(got[i].cpu(), ref[i]), what
 
 
 def test_fused_step_launches_k3_and_equals_default(cuda):
     """fused_mask=True: K3 once for the four layers, K1 never,
-    describe_rotated once and K2 never;
+    describe_rotated, pyramid_u8 and hamming_argmin once and K2 never;
     every output bit-equal to the default step on the card."""
     from ethzasl_brisk_tpu_torch import FramePipeline, _kernels
 
@@ -600,6 +606,7 @@ def test_fused_step_launches_k3_and_equals_default(cuda):
     assert _kernels.LAUNCHES["describe_rotated"] == 1
     assert _kernels.LAUNCHES["enforce_uniformity"] == 1
     assert _kernels.LAUNCHES["layer_candidates"] == _kernels.LAUNCHES["refine_keypoints"] == 1
+    assert _kernels.LAUNCHES["pyramid_u8"] == _kernels.LAUNCHES["hamming_argmin"] == 1
     for a, b in zip(default[0].fields(), fused[0].fields()):
         assert torch.equal(a, b)
     for a, b in zip(default[1:], fused[1:]):
@@ -1145,9 +1152,9 @@ def _assert_ast_outputs(got, ref):
 
 @pytest.mark.parametrize("model", ["emulated", "exact"])
 def test_ast_step_on_card_matches_cpu(cuda, model):
-    """The AST step on the card: describe_rotated once, K1, K2 and K3
-    never; its outputs
-    against the same step on the CPU."""
+    """The AST step on the card: describe_rotated, pyramid_u8 and
+    hamming_argmin once, K1, K2 and K3 never; its outputs against the same
+    step on the CPU."""
     from ethzasl_brisk_tpu_torch import AstFramePipeline, BriskFeatureDetector, _kernels
 
     frames = torch.from_numpy(bench_frames(3, 160, 212, seed=5))
@@ -1162,6 +1169,7 @@ def test_ast_step_on_card_matches_cpu(cuda, model):
     assert _kernels.LAUNCHES["harris_score_i32"] == _kernels.LAUNCHES["harris_score_mask"] == 0
     assert _kernels.LAUNCHES["score_masks"] == 0
     assert _kernels.LAUNCHES["layer_candidates"] == _kernels.LAUNCHES["refine_keypoints"] == 0
+    assert _kernels.LAUNCHES["pyramid_u8"] == _kernels.LAUNCHES["hamming_argmin"] == 1
     ref = AstFramePipeline(BriskFeatureDetector(**cfg, device="cpu"), device="cpu",
                            describe_capacity=200).step(frames)
     assert int(ref[0].valid.sum()) > 100
@@ -1969,3 +1977,79 @@ def test_uniformity_launch_staging_follows_the_sm_count(cuda):
         (got,) = enforce_uniformity_cuda(problems, radius=radius, shapes=[(rows, cols)])
         assert torch.equal(got.cpu(), enforce_uniformity_plain(*args, radius=radius,
                                                                max_num_kpt=40)), want
+
+
+def _match_on_card(cuda, words, valid, n_bits):
+    """Kernel hamming_argmin against its plain version on the same words,
+    bit for bit, and its launches (one a call, none for B < 2)."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.match.matcher import match_adjacent, match_adjacent_plain
+
+    d = torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
+    v = torch.from_numpy(valid)
+    _kernels.reset_launches()
+    got = match_adjacent(d.to(cuda), v.to(cuda), n_bits=n_bits)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["hamming_argmin"] == (1 if words.shape[0] > 1 else 0)
+    ref = match_adjacent_plain(d, v, n_bits=n_bits)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and g.device.type == "cuda"
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("n_bits", ["384", "all"])
+@pytest.mark.parametrize("name", match_cases.CASES)
+def test_hamming_argmin_cuda_matches_plain(cuda, name, n_bits):
+    """Ties, a train frame with no valid slot, invalid queries keeping their
+    argmin, 16 words at 384 and 512 bits, K = 1 and K not a multiple of
+    the CTA's 128 queries, B = 1 and 2."""
+    words, valid = match_cases.case(name)
+    _match_on_card(cuda, words, valid, 384 if n_bits == "384" else words.shape[2] * 32)
+
+
+@pytest.mark.parametrize("b,k,w,n_bits", [(16, 896, 12, 384), (5, 1520, 12, 384),
+                                          (4, 300, 16, 512), (3, 257, 16, 384),
+                                          (3, 200, 12, 96), (3, 129, 40, 1024)],
+                         ids=["step", "ast", "v1", "v1_384", "3_words", "32_of_40_words"])
+def test_hamming_argmin_cuda_at_step_shapes(cuda, b, k, w, n_bits):
+    """The step's 896 slots, the AST step's 1,520 (more than one staged
+    chunk), v1's 16 words, and the generic body (3 and 32 words)."""
+    words, valid = match_cases.step_case(b, k, w, seed=b * k + w)
+    _match_on_card(cuda, words, valid, n_bits)
+
+
+@pytest.mark.parametrize("n_layers", [1, *pyramid_cases.LAYERS, 10])
+@pytest.mark.parametrize("shape", pyramid_cases.SHAPES, ids=pyramid_cases.IDS)
+def test_pyramid_u8_cuda_matches_plain(cuda, shape, n_layers):
+    """Every derived layer bitwise the plain resamplers', one launch a call
+    (none for one layer or no output pixel)."""
+    from ethzasl_brisk_tpu_torch import _kernels
+    from ethzasl_brisk_tpu_torch.kernels.downsample import pyramid_u8, pyramid_u8_plain
+
+    frames = torch.from_numpy(pyramid_cases.frames(*shape))
+    _kernels.reset_launches()
+    got = pyramid_u8(frames.to(cuda), n_layers)
+    torch.cuda.synchronize()
+    ref = pyramid_u8_plain(frames, n_layers)
+    assert len(got) == len(ref) == n_layers
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.is_contiguous() and g.device.type == "cuda"
+        assert torch.equal(g.cpu(), r), f"layer {i}"
+    any_out = any(r.numel() for r in ref[1:])
+    assert _kernels.LAUNCHES["pyramid_u8"] == (1 if any_out else 0)
+
+
+@pytest.mark.parametrize("view", ["offset", "strided", "one_frame"])
+def test_pyramid_u8_cuda_on_views(cuda, view):
+    """Frames at an address that is not 16-byte aligned (the byte loads),
+    strided frames (copied once) and one (H, W) frame."""
+    from ethzasl_brisk_tpu_torch.kernels.downsample import pyramid_u8, pyramid_u8_plain
+
+    base = torch.from_numpy(pyramid_cases.frames(3, 480, 640)).to(cuda)
+    frames = {"offset": base.view(-1)[1 : 1 + 2 * 479 * 640].view(2, 479, 640),
+              "strided": base[:, 1::2, 3:],
+              "one_frame": base[1]}[view]
+    got = pyramid_u8(frames, 6)
+    ref = pyramid_u8_plain(frames.cpu(), 6)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g.cpu(), r), f"layer {i}"

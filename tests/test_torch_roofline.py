@@ -1,11 +1,14 @@
 """Port parity: ``utils/roofline.py`` against the JAX package's.
 
-``stage_model`` is static shape math: every row but ``describe`` and
-``uniformity`` equals the JAX row exactly on three shape sets (bench.py's
-VGA step at B=16, a B=128 step with the certified caps, a small single
-frame). The port's ``describe`` row counts kernel K2's work and its
-``uniformity`` row the reference's paint of each accept (the module docstring);
-each is checked against that count. ``report`` equals JAX's on the same inputs.
+``stage_model`` is static shape math: every row but ``describe``,
+``uniformity``, ``match`` and ``pyramid`` equals the JAX row exactly on three
+shape sets (bench.py's VGA step at B=16, a B=128 step with the certified
+caps, a small single frame). The port's ``describe`` row counts kernel K2's
+work, its ``uniformity`` row the reference's paint of each accept, its
+``match`` row kernel ``hamming_argmin``'s popcounts and bytes, and its
+``pyramid`` row (the JAX model has none) kernel ``pyramid_u8``'s bytes and
+operations (the module docstring); each is checked against that count.
+``report`` equals JAX's on the same inputs.
 ``measure_peaks`` runs on the card only (chip_smoke.py ``[utils]``): here
 it is checked that it refuses a card it cannot have.
 """
@@ -30,10 +33,27 @@ SHAPES = [
 @pytest.mark.parametrize("shape", SHAPES, ids=["vga16", "vga128", "small"])
 def test_stage_model_equals_jax_but_describe(shape):
     got, want = tr.stage_model(**shape), jr.stage_model(**shape)
-    assert got.keys() == want.keys()
+    # The rows modelled on the port's kernels: the match (JAX's is the +-1
+    # matmul) and the pyramid (no JAX row).
+    on_kernels = ("match", "pyramid")
+    assert got.keys() == want.keys() | {"pyramid"}
     for name in want:
-        if name not in ("describe", "uniformity"):
+        if name not in ("describe", "uniformity", *on_kernels):
             assert got[name] == want[name], name
+    b, h, w, kk = shape["batch"], shape["h"], shape["w"], shape["max_keypoints"]
+    words = shape.get("desc_words", 12)
+    m = got["match"]
+    assert m["kind"] == "int"
+    assert m["gflops"] == pytest.approx(1e-9 * (b - 1) * kk * kk * words)
+    assert m["gbytes"] == pytest.approx(1e-9 * (b * kk * (4 * words + 1) + (b - 1) * kk * 8))
+    dims = [(h, w), (2 * (h // 3), 2 * (w // 3))]
+    for i in range(2, shape["n_layers"]):
+        dims.append((dims[i - 2][0] // 2, dims[i - 2][1] // 2))
+    derived = [b * ph * pw for ph, pw in dims[1 : shape["n_layers"]]]
+    p = got["pyramid"]
+    assert p["kind"] == "bw"
+    assert p["gbytes"] == pytest.approx(1e-9 * (b * h * w + sum(derived)))
+    assert p["gflops"] == pytest.approx(1e-9 * (15 * derived[0] + 10 * sum(derived[1:])))
     k, problems = shape["max_candidates"], shape["n_layers"] * shape["batch"]
     u = got["uniformity"]
     assert u["kind"] == "bw"
